@@ -1,0 +1,158 @@
+"""U-Net building blocks as ``nn.Module``s (eval forward).
+
+Port of ``unet_image_segmentation_tpu/models/layers.py``. Parameters keep
+the Keras layouts and names of the JAX package, so the
+:mod:`..weights` bridge only renames:
+
+* ``SeparableConv``: ``depthwise_kernel (k,k,C,1)``, ``pointwise_kernel
+  (1,1,C,F)``, ``bias (F,)``
+* ``Conv``: ``kernel (k,k,C,F)``, ``bias (F,)``
+* ``BatchNorm``: parameters ``scale``, ``bias``; buffers ``mean``, ``var``
+  (Keras epsilon 1e-3)
+* ``TransposeUp``: ``kernel (2,2,F,C)``, ``bias (F,)``
+
+Initialisation is glorot-uniform with fan_avg over the Keras-shaped kernel
+(the JAX package's ``variance_scaling(1.0, "fan_avg", "uniform")``), drawn
+from an explicit ``torch.Generator``. Modules are built on the CPU; move
+them with ``.to(device)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from unet_image_segmentation_tpu_torch.ops import conv as conv_ops
+from unet_image_segmentation_tpu_torch.ops.fused_sepconv import fused_sepconv_bn_relu
+
+
+def glorot_uniform(shape: Sequence[int], generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Keras glorot_uniform on a Keras-shaped kernel (fans from the last two axes)."""
+    receptive = math.prod(shape[:-2])
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape).uniform_(-limit, limit, generator=generator)
+
+
+class SeparableConv(nn.Module):
+    """Depthwise (k x k) then pointwise (1x1) conv; Keras SeparableConv2D."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 use_bias: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = kernel_size
+        self.depthwise_kernel = nn.Parameter(glorot_uniform((k, k, in_features, 1), generator))
+        self.pointwise_kernel = nn.Parameter(
+            glorot_uniform((1, 1, in_features, features), generator)
+        )
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x2 is not None:
+            return conv_ops.separable_conv2d_pair(
+                x, x2, self.depthwise_kernel, self.pointwise_kernel, self.bias
+            )
+        return conv_ops.separable_conv2d(x, self.depthwise_kernel, self.pointwise_kernel, self.bias)
+
+
+class Conv(nn.Module):
+    """Plain Conv2D with a Keras-shaped kernel (kh, kw, C, F)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 use_bias: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = kernel_size
+        self.kernel = nn.Parameter(glorot_uniform((k, k, in_features, features), generator))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel.shape[0] == 1:
+            return conv_ops.pointwise_conv2d(x, self.kernel, self.bias)
+        return conv_ops.conv2d(x, self.kernel, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """Keras BatchNormalization in inference mode (epsilon 1e-3).
+
+    Stock ``nn.BatchNorm2d`` (epsilon 1e-5, NCHW) is not this layer.
+    """
+
+    eps = 1e-3
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_ops.batch_norm_inference(
+            x, self.mean, self.var, self.scale, self.bias, self.eps
+        )
+
+
+class ConvBlock(nn.Module):
+    """[Separable]Conv -> BN -> ReLU (reference conv_block), eval forward.
+
+    ``use_pallas=True`` runs a 3x3 separable block as one fused kernel with
+    BN folded in (K8, :func:`..ops.fused_sepconv.fused_sepconv_bn_relu`).
+    """
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 use_batch_norm: bool = True, conv_type: str = "separable",
+                 use_pallas: bool = False, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if conv_type not in ("separable", "full"):
+            raise ValueError(f"conv_type must be 'separable'|'full', got {conv_type!r}")
+        self.conv_type = conv_type
+        self.kernel_size = kernel_size
+        self.use_pallas = use_pallas
+        conv_cls = SeparableConv if conv_type == "separable" else Conv
+        conv = conv_cls(in_features, features, kernel_size, use_bias=not use_batch_norm,
+                        generator=generator)
+        if conv_type == "separable":
+            self.sepconv = conv
+        else:
+            self.conv = conv
+        self.bn = BatchNorm(features) if use_batch_norm else None
+
+    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.use_pallas and self.conv_type == "separable" and self.kernel_size == 3:
+            if x2 is not None:
+                x = torch.cat([x, x2], dim=-1)
+            sep, bn = self.sepconv, self.bn
+            if bn is None:
+                return fused_sepconv_bn_relu(
+                    x, sep.depthwise_kernel, sep.pointwise_kernel, bias=sep.bias
+                )
+            return fused_sepconv_bn_relu(
+                x, sep.depthwise_kernel, sep.pointwise_kernel,
+                bn_scale=bn.scale, bn_offset=bn.bias, bn_mean=bn.mean, bn_var=bn.var,
+                eps=bn.eps,
+            )
+        if self.conv_type == "separable":
+            x = self.sepconv(x, x2)
+        else:
+            if x2 is not None:
+                x = torch.cat([x, x2], dim=-1)
+            x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return torch.relu(x)
+
+
+class TransposeUp(nn.Module):
+    """Conv2DTranspose(features, k=2, s=2, 'same') as matmul + pixel shuffle."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(glorot_uniform((2, 2, features, in_features), generator))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_ops.conv_transpose_2x2(x, self.kernel, self.bias)

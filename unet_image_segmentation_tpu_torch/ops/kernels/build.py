@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/kernels/`` at the repository root, named by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the cached library. Nothing is built at import time,
+and nothing is built on a machine without CUDA.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the entry points (all return int = cudaError_t)
+SIGNATURES = {
+    # x, dw, pw, scale, shift, out, B, H, W, C, F, relu, dtype, stream
+    "unet_sepconv_block": [_P] * 6 + [_I] * 7 + [_P],
+    # x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out,
+    # pooled, B, H, W, Cx, Cx2, F1, F2, dtype, stream
+    "unet_sepconv_pair": [_P] * 12 + [_I] * 8 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of the nvcc run, None if cached
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found on PATH or at {path}")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    return BUILD_DIR / f"libunet_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the CUDA kernels need a CUDA device; none is available"
+        )
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu, _ = _sources()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.unet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.unet_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a C entry point reported a CUDA error for its launch."""
+    if status != 0:
+        msg = _lib.unet_cuda_error_string(status).decode() if _lib else ""
+        raise RuntimeError(f"{name}: CUDA error {status} at launch: {msg}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,115 @@
+"""The serving forward: one fused block-pair kernel (K7) per stage.
+
+Port of ``unet_image_segmentation_tpu/serving.py``'s chained graph
+(``_chained_forward``), without its TPU layout machinery (lane packing,
+``pair_pack``, column strips). Reading a standard U-Net variable tree, it
+runs
+
+* each encoder stage as one K7 call with ``pool=True``, which returns the
+  skip and the pooled input of the next stage;
+* the bottleneck as one K7 call;
+* each decoder stage as a plain 2x2 transpose-up, then one K7 call with
+  ``x2=skip``, so the ``[up | skip]`` concat is never stored;
+* the head as a plain 1x1 conv in the compute dtype, then sigmoid or
+  softmax in fp32.
+
+Weights are cast, BN-folded and moved to the device once, when the forward
+is built. On a CUDA device the pair calls launch the kernel; on the CPU
+they run its plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Union
+
+import numpy as np
+import torch
+
+from unet_image_segmentation_tpu_torch.ops import conv as conv_ops
+from unet_image_segmentation_tpu_torch.ops.fused_sepconv import (
+    BlockWeights,
+    prepare_block,
+    sepconv_pair,
+)
+
+
+def _tensor(value: Any, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(value), dtype=torch.float32, device=device)
+
+
+def _block(params: Dict, stats: Dict, name: str, dtype, device) -> BlockWeights:
+    p = params[name]
+    block = {
+        "depthwise_kernel": _tensor(p["sepconv"]["depthwise_kernel"], device),
+        "pointwise_kernel": _tensor(p["sepconv"]["pointwise_kernel"], device),
+    }
+    if "bias" in p["sepconv"]:
+        block["bias"] = _tensor(p["sepconv"]["bias"], device)
+    if "bn" in p:
+        block.update(
+            scale=_tensor(p["bn"]["scale"], device),
+            offset=_tensor(p["bn"]["bias"], device),
+            mean=_tensor(stats[name]["bn"]["mean"], device),
+            var=_tensor(stats[name]["bn"]["var"], device),
+        )
+    return prepare_block(block, dtype, device=device)
+
+
+def build_serving_forward(
+    variables: Dict[str, Any],
+    num_classes: int = 1,
+    depth: int = 4,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Serving forward over a separable-conv U-Net variable tree.
+
+    ``variables`` is the Flax-layout tree (``params`` and, with BatchNorm,
+    ``batch_stats``), as numpy arrays or CPU tensors. The returned function maps
+    (B, H, W, C) images on ``device`` to fp32 probabilities
+    (B, H, W, num_classes).
+    """
+    device = torch.device(device)
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    if "sepconv" not in params["enc1_block1"]:
+        raise ValueError("the serving graph needs a separable-conv model")
+
+    def pair(prefix: str):
+        return (
+            _block(params, stats, f"{prefix}_block1", compute_dtype, device),
+            _block(params, stats, f"{prefix}_block2", compute_dtype, device),
+        )
+
+    enc = [pair(f"enc{s}") for s in range(1, depth + 1)]
+    bneck = pair("bneck")
+    dec = {}
+    for s in range(depth, 0, -1):
+        up = params[f"dec{s}_upsample"]
+        dec[s] = (
+            _tensor(up["kernel"], device).to(compute_dtype),
+            _tensor(up["bias"], device).to(compute_dtype),
+            pair(f"dec{s}"),
+        )
+    head = params["output_mask"]
+    head_k = _tensor(head["kernel"], device).to(compute_dtype)
+    head_b = _tensor(head["bias"], device).to(compute_dtype)
+
+    @torch.no_grad()
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        x = x.to(device=device, dtype=compute_dtype).contiguous()
+        skips = []
+        for w1, w2 in enc:
+            skip, x = sepconv_pair(x, w1, w2, pool=True)
+            skips.append(skip)
+        x = sepconv_pair(x, *bneck)
+        for s in range(depth, 0, -1):
+            k, b, (w1, w2) = dec[s]
+            up = conv_ops.conv_transpose_2x2(x, k, b)
+            x = sepconv_pair(up, w1, w2, x2=skips[s - 1])
+        logits = conv_ops.pointwise_conv2d(x, head_k, head_b).float()
+        if num_classes == 1:
+            return torch.sigmoid(logits)
+        return torch.softmax(logits, dim=-1)
+
+    return forward

@@ -1,0 +1,68 @@
+"""Inference checkpoints of the port (the inference part of
+``unet_image_segmentation_tpu/train/checkpoint.py``).
+
+A port checkpoint is a directory holding ``model.pt`` (``torch.save`` of the
+``state_dict``) and ``model.json`` (the model kwargs). A reference Keras
+``.h5`` loads through the JAX package's numpy-only ``load_keras_h5`` and the
+:mod:`..weights` bridge. Orbax directories written by the JAX package are
+not read here: convert them with the bridge from a JAX environment.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from unet_image_segmentation_tpu_torch.weights import state_dict_from_flax
+
+WEIGHTS_FILE = "model.pt"
+KWARGS_FILE = "model.json"
+
+
+def save_inference_variables(
+    path: str,
+    state_dict: Dict[str, torch.Tensor],
+    model_kwargs: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Write ``path/model.pt`` and ``path/model.json``."""
+    os.makedirs(path, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+               os.path.join(path, WEIGHTS_FILE))
+    with open(os.path.join(path, KWARGS_FILE), "w") as f:
+        json.dump(model_kwargs or {}, f, indent=2)
+
+
+def load_inference_variables(
+    path: str,
+) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Any]]]:
+    """Load ``(state_dict, model kwargs)`` from a port checkpoint directory
+    (or its parent holding ``best/``) or a Keras ``.h5``/``.keras`` file."""
+    path = os.path.abspath(path)
+    if path.endswith((".h5", ".keras")):
+        from unet_image_segmentation_tpu.utils.keras_import import load_keras_h5
+
+        variables, kwargs = load_keras_h5(path)
+        return state_dict_from_flax(variables), kwargs
+    if os.path.isdir(os.path.join(path, "best")):
+        path = os.path.join(path, "best")
+    weights = os.path.join(path, WEIGHTS_FILE)
+    if not os.path.exists(weights):
+        raise FileNotFoundError(
+            f"{path} holds no {WEIGHTS_FILE}. If it is an Orbax checkpoint of "
+            "the JAX package, convert it from a JAX environment: restore it "
+            "there, pass the variables through "
+            "unet_image_segmentation_tpu_torch.weights.state_dict_from_flax and "
+            "write the result with save_inference_variables."
+        )
+    state_dict = torch.load(weights, map_location="cpu", weights_only=True)
+    kwargs = None
+    kw_path = os.path.join(path, KWARGS_FILE)
+    if os.path.exists(kw_path):
+        with open(kw_path) as f:
+            kwargs = json.load(f)
+        if "filters" in kwargs:
+            kwargs["filters"] = tuple(kwargs["filters"])
+    return state_dict, kwargs
