@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port's serving path on one GPU.
+"""Smoke test of the PyTorch/CUDA port's serving and training paths on one GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -20,8 +20,20 @@ exit code and no result line:
    against a ``Predictor`` with kernels off on the same card; the module
    path with ``use_pallas=True`` (K8 in every ConvBlock) likewise; the
    launch counters of that run; images/s at batch 32, kernels on and off;
-6. each kernel's time at batch 32 beside its plain version's, summed over
-   the path's shapes, then the kernels' JSON line and the result line.
+6. K7 and K8 times at batch 32 beside their plain versions', summed over
+   the path's shapes;
+7. K1-K4 (the training chain's link forward and backward and the encoder
+   boundary's pool and its backward) against their plain versions at
+   every shape of a train step, batch 2, fp32 and bf16; K4 on inputs with
+   exact ties;
+8. the training path at full width (``configs/tpu_train_256_bf16.json`` with
+   ``fused_head`` off, batch 32, seeded weights, in-memory scenes): 3 train
+   steps with the kernels against 3 of the composed path in fp32 and bf16
+   (loss per step, step-1 gradients, BatchNorm running stats after step 3),
+   18/18/4/4 K1-K4 launches per step, train images/s and peak memory, then
+   ``fit`` for one epoch whose ``best/`` checkpoint a ``Predictor`` serves;
+9. K1-K4 times at batch 32 beside their plain versions', then the six
+   kernels' JSON line and the result line.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN), so the
 plain versions compute in full fp32 like the kernels. Relative errors are
@@ -34,6 +46,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPORT = os.path.join(ROOT, "build", "chip_smoke.json")  # all numbers of the run
@@ -56,6 +70,51 @@ PROB_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
 MASK_MIN_AGREE = {"float32": 0.999, "bfloat16": 0.98}
 PAIR_LAUNCHES_PER_FORWARD = 9
 BLOCK_LAUNCHES_PER_FORWARD = 18
+# K1-K4 vs plain, relative to max|plain|. Elementwise outputs (y, dx, z,
+# pooled, dzt) take the K7/K8 bars. Reductions over B*H*W pixels (Σy, Σy²,
+# ddw, dpw, S, T; 131K pixels per channel at batch 2 and 256 px, 2M at
+# batch 32) are summed in another order than the plain version's, and a
+# sum with cancellation drifts by ~sqrt(n) fp32 roundings, so fp32 gets 5e-4.
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_SUM_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+TRAIN_CONFIG = "configs/tpu_train_256_bf16.json"   # run with fused_head off
+TRAIN_STEPS = 3
+TRAIN_REPS = 5           # timing repetitions of K1-K4 and their plain versions
+STEP_LAUNCHES = {"chain_fwd": 18, "chain_bwd": 18, "tail_pool": 4, "tail_pool_bwd": 4}
+# Kernels-on train steps vs the composed path on the same card, relative.
+# fp32: both compute in fp32 with sums in other orders (2M pixels a channel
+# at the 256 px stages). The step-1 gradients pass nine BatchNorm backwards
+# whose mean and variance terms cancel most of the gradient: at the
+# bottleneck max|g| is ~1e-5 of the head's, so fp32 roundings show there as
+# relative errors of ~1e-2 (H100 run: median 1.7e-4 over the 82 tensors,
+# worst 1.5e-2 at bneck_block1.bn.bias, cosine >= 0.99999). The bar holds
+# each tensor to 5e-2 and a cosine of 0.9999. bf16: the composed path rounds
+# to bf16 after every op (conv, BN, ReLU and their gradients), the chain
+# only where the Pallas kernels round, so the two bf16 answers differ by
+# more than bf16 noise (H100 run: up to 0.24 at the bottleneck); each is
+# held against the fp32 composed gradients, and the kernels' error per
+# tensor may not exceed 1.5x the composed bf16 path's own error plus 0.01.
+TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_GRAD_COS = 0.9999
+BF16_GRAD_FACTOR = 1.5
+BF16_GRAD_SLACK = 1e-2
+# BatchNorm running stats after step 3: by then the two runs' weights differ
+# where AdamW turned the sign noise of near-zero gradients into opposite
+# +-lr steps, and the batch moments of steps 2 and 3 move with them (H100
+# run: 5.5e-3 in fp32 at enc4_block1.bn.mean), so fp32 is held to 2e-2.
+# bf16 is held like the bf16 gradients, against the fp32 composed run.
+TRAIN_STATS_TOL = 2e-2
+# kernel name -> (CUDA source under ops/kernels/csrc/, TPU kernel it replaces
+# under unet_image_segmentation_tpu/ops/pallas/)
+KERNELS = {
+    "sepconv_pair": ("sepconv_pair.cu", "fused_sepconv.py:903"),
+    "sepconv_block": ("sepconv_block.cu", "fused_sepconv.py:300"),
+    "chain_fwd": ("chain_fwd.cu", "fused_train.py:93"),
+    "chain_bwd": ("chain_bwd.cu", "fused_train.py:1422"),
+    "tail_pool": ("tail_pool.cu", "fused_train.py:468"),
+    "tail_pool_bwd": ("tail_pool.cu", "fused_train.py:1068"),
+}
 
 
 def stage_shapes():
@@ -82,6 +141,299 @@ def block_shapes():
     return out
 
 
+def chain_links():
+    """(name, C, F, H, in_aff, drop, mask_combine) of the 18 chain links of
+    one train step at 256 px, in the modes the chains run them: the input
+    affine on every second link, dropout on the first link of dec4..dec2,
+    and the output mask folded into K2 where the chain's boundary is not
+    the pool (bneck and decoder second links)."""
+    links, c, h = [], 3, IMAGE
+    for s, f in enumerate(FILTERS, 1):
+        links += [(f"enc{s}.1", c, f, h, False, False, False),
+                  (f"enc{s}.2", f, f, h, True, False, False)]
+        c, h = f, h // 2
+    links += [("bneck.1", c, 2 * c, h, False, False, False),
+              ("bneck.2", 2 * c, 2 * c, h, True, False, True)]
+    for s in range(len(FILTERS), 0, -1):
+        f = FILTERS[s - 1]
+        h *= 2
+        links += [(f"dec{s}.1", 2 * f, f, h, False, s > 1, False),
+                  (f"dec{s}.2", f, f, h, True, False, True)]
+    return links
+
+
+def pool_shapes():
+    """(name, F, H) of the 4 encoder boundaries at 256 px."""
+    return [(f"enc{s}", f, IMAGE >> (s - 1)) for s, f in enumerate(FILTERS, 1)]
+
+
+def link_case(torch, rnd, dev, dtype, batch, c, f, h, in_aff, drop, ft):
+    """Seeded inputs of one link for K1 and K2 (y is the plain K1 output,
+    so K2's masks see realistic values)."""
+    x = rnd(batch, h, h, c).to(dev, dtype)
+    dw = rnd(3, 3, c, scale=(6 / (9 * c + 9)) ** 0.5).to(dev, dtype)
+    pw = rnd(c, f, scale=(6 / (c + f)) ** 0.5).to(dev, dtype)
+    aff2 = aff4 = None
+    if in_aff:
+        aff4 = torch.stack([1 + 0.5 * rnd(c), 0.1 * rnd(c), 0.1 * rnd(c),
+                            1 + 0.5 * rnd(c).abs()]).to(dev).contiguous()
+        aff2 = aff4[:2].contiguous()
+    d = ft.Dropout(-123456789, 0.2) if drop else None
+    y = ft.chain_fwd_reference(x, dw, pw, aff2, d)[0]
+    g = rnd(batch, h, h, f).to(dev, dtype)
+    comb = torch.stack([1 + 0.5 * rnd(f), 0.01 * rnd(f), 0.01 * rnd(f), 0.1 * rnd(f),
+                        1 + 0.5 * rnd(f), 0.1 * rnd(f)]).to(dev).contiguous()
+    return dict(x=x, dw=dw, pw=pw, aff2=aff2, aff4=aff4, drop=d, y=y, g=g, comb=comb)
+
+
+def pool_case(torch, rnd, dev, dtype, batch, f, h):
+    """Seeded inputs of one boundary. y takes 9 levels only, so after the
+    ReLU many 2x2 windows hold exact ties (K4's first-max rule)."""
+    y = (torch.randint(-4, 5, (batch, h, h, f), generator=rnd.gen) * 0.25).to(dev, dtype)
+    aff4 = torch.stack([1 + 0.5 * rnd(f).abs(), 0.1 * rnd(f), 0.1 * rnd(f),
+                        1 + 0.5 * rnd(f).abs()]).to(dev).contiguous()
+    gs = rnd(batch, h, h, f).to(dev, dtype)
+    gp = rnd(batch, h // 2, h // 2, f).to(dev, dtype)
+    return dict(y=y, aff4=aff4, gs=gs, gp=gp)
+
+
+def check_train_kernels(torch, ft, rnd, dev, dtypes, judge_tols):
+    """Phase 7: K1-K4 against their plain versions at every path shape."""
+
+    def judge(name, label, dname, pairs, sums=False):
+        judge_tols(name, label, dname, pairs, TRAIN_SUM_TOL if sums else TRAIN_TOL)
+
+    print(f"K1-K4 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
+    for dname, dtype in dtypes.items():
+        for name, c, f, h, in_aff, drop, mc in chain_links():
+            k = link_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h, in_aff, drop, ft)
+            got = ft.chain_fwd(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
+            want = ft.chain_fwd_reference(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
+            torch.cuda.synchronize()
+            mode = ("affine " if in_aff else "") + ("dropout " if drop else "") + \
+                ("mask " if mc else "")
+            label = f"{name} {c}->{f}@{h} {mode or 'plain '}".rstrip()
+            judge("chain_fwd", label + " y", dname, [(got[0], want[0])])
+            judge("chain_fwd", label + " sums", dname, [(got[1], want[1]), (got[2], want[2])],
+                  sums=True)
+            args = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
+            got = ft.chain_bwd(*args)
+            want = ft.chain_bwd_reference(*args)
+            torch.cuda.synchronize()
+            judge("chain_bwd", label + " dx", dname, [(got[0], want[0])])
+            pairs = [(got[1], want[1]), (got[2], want[2])]
+            if in_aff:
+                pairs.append((got[3], want[3]))
+            judge("chain_bwd", label + " ddw/dpw/st", dname, pairs, sums=True)
+        for name, f, h in pool_shapes():
+            k = pool_case(torch, rnd, dev, dtype, BATCH_CHECK, f, h)
+            a, b = k["aff4"][0], k["aff4"][1]
+            got, want = ft.tail_pool(k["y"], a, b), ft.tail_pool_reference(k["y"], a, b)
+            torch.cuda.synchronize()
+            judge("tail_pool", f"{name} F={f}@{h}", dname, list(zip(got, want)))
+            args = (k["y"], k["gs"], k["gp"], k["aff4"])
+            got, want = ft.tail_pool_bwd(*args), ft.tail_pool_bwd_reference(*args)
+            torch.cuda.synchronize()
+            zc = ft.tail_pool_reference(k["y"], a, b)[0].float()
+            win = zc.reshape(BATCH_CHECK, h // 2, 2, h // 2, 2, f)
+            ties = ((win == win.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4)) > 1)
+            ties = ties.float().mean().item()
+            judge("tail_pool_bwd", f"{name} F={f}@{h} (windows with a tied max {ties:.2f}) dzt",
+                  dname,
+                  [(got[0], want[0])])
+            judge("tail_pool_bwd", f"{name} F={f}@{h} S/T", dname, [(got[1], want[1])],
+                  sums=True)
+
+
+class MemoryDataset:
+    """In-memory stand-in for the loaders: ``len`` and ``batches``."""
+
+    def __init__(self, images, masks):
+        self.images, self.masks = images, masks
+
+    def __len__(self):
+        return len(self.images)
+
+    def batches(self, batch_size, epoch=0, steps=None, num_workers=0):
+        n = len(self) // batch_size if steps is None else min(len(self) // batch_size, steps)
+        for b in range(n):
+            sl = slice(b * batch_size, (b + 1) * batch_size)
+            yield self.images[sl], self.masks[sl]
+
+
+def rel_max(got, want):
+    """max|got - want| / max|want| of two tensors, in fp32."""
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def train_path(torch, dev, smi, report, launches):
+    """Phase 8: the training step at full width, kernels on against the
+    composed path on the same card, then ``fit`` and a ``Predictor`` request."""
+    from unet_image_segmentation_tpu_torch.inference import Predictor
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet
+    from unet_image_segmentation_tpu_torch.ops import fused_train as ft
+    from unet_image_segmentation_tpu_torch.train.checkpoint import load_inference_variables
+    from unet_image_segmentation_tpu_torch.train.loop import fit
+    from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        base = json.load(f)
+    base["model"]["fused_head"] = "off"
+    images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
+    x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
+    m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
+    print(f"training path: {TRAIN_CONFIG} with fused_head off: U-Net {base['model']['filters']}"
+          f" at {IMAGE}, batch {base['train']['batch_size']}, dropout "
+          f"{base['model']['dropout_rate']}, {base['train']['loss']} loss, AdamW lr "
+          f"{base['train']['learning_rate']} wd {base['train']['weight_decay']}; seeded "
+          f"weights and dropout seeds; kernels on vs the composed path, {TRAIN_STEPS} steps each")
+    report["train"] = {}
+    for dname in ("float32", "bfloat16"):
+        runs = {}
+        for use_pallas in (True, False):
+            d = json.loads(json.dumps(base))
+            d["model"].update(compute_dtype=dname, use_pallas=use_pallas)
+            cfg = Config.from_dict(d)
+            model = build_unet(cfg.model, generator=torch.Generator().manual_seed(SEED)).to(dev)
+            state = create_train_state(cfg, model=model)
+            step = make_train_step(model, cfg.train.loss)
+            losses, grads = [], None
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(TRAIN_STEPS):
+                if use_pallas:
+                    ft.reset_launch_counts()
+                loss = float(step(state, x, m)["loss"])
+                torch.cuda.synchronize()
+                if use_pallas:
+                    counts = dict(ft.LAUNCHES)
+                    print(f"  {dname} kernels-on step {i + 1} launches {counts}")
+                    if counts != STEP_LAUNCHES:
+                        raise AssertionError(f"expected {STEP_LAUNCHES} per step, got {counts}")
+                    for name, n in counts.items():
+                        launches[name] = launches.get(name, 0) + n
+                losses.append(loss)
+                if i == 0:
+                    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            runs[use_pallas] = dict(
+                state=state, step=step, losses=losses, grads=grads,
+                stats={n: b.detach().clone() for n, b in model.named_buffers()},
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+            )
+        on, off = runs[True], runs[False]
+        for i, (lo, lf) in enumerate(zip(on["losses"], off["losses"])):
+            rel = abs(lo - lf) / abs(lf)
+            ok = np.isfinite(lo) and rel <= TRAIN_LOSS_TOL[dname]
+            print(f"  {dname} step {i + 1} loss: kernels {lo:.6f} composed {lf:.6f} rel "
+                  f"{rel:.2e} (tol {TRAIN_LOSS_TOL[dname]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{dname} step {i + 1}: loss disagrees")
+        g_rel = {n: rel_max(on["grads"][n], g) for n, g in off["grads"].items()}
+        g_cos = {n: torch.nn.functional.cosine_similarity(
+            on["grads"][n].double().flatten(), g.double().flatten(), dim=0).item()
+            for n, g in off["grads"].items()}
+        worst, worst_cos = max(g_rel, key=g_rel.get), min(g_cos, key=g_cos.get)
+        print(f"  {dname} step 1 gradients, {len(g_rel)} tensors, kernels vs composed: "
+              f"max rel err {g_rel[worst]:.2e} at {worst}, median "
+              f"{float(np.median(list(g_rel.values()))):.2e}; min cosine "
+              f"{g_cos[worst_cos]:.8f} at {worst_cos}")
+        if dname == "float32":
+            ref = off["grads"]
+            ok = all(np.isfinite(v) for v in g_rel.values()) and \
+                g_rel[worst] <= TRAIN_GRAD_TOL and g_cos[worst_cos] >= TRAIN_GRAD_COS
+            print(f"    held: max rel err <= {TRAIN_GRAD_TOL:g} and cosine >= "
+                  f"{TRAIN_GRAD_COS} per tensor {'ok' if ok else 'FAIL'}")
+        else:
+            # bf16 against the fp32 composed gradients: the kernels' error no
+            # worse than the composed bf16 path's own, per tensor
+            err_on = {n: rel_max(on["grads"][n], g) for n, g in ref.items()}
+            err_off = {n: rel_max(off["grads"][n], g) for n, g in ref.items()}
+            excess = {n: err_on[n] - BF16_GRAD_FACTOR * err_off[n] for n in ref}
+            w = max(excess, key=excess.get)
+            ok = all(np.isfinite(v) for v in err_on.values()) and \
+                excess[w] <= BF16_GRAD_SLACK
+            print(f"    held against the fp32 composed gradients: kernels bf16 max rel err "
+                  f"{max(err_on.values()):.2e}, composed bf16 {max(err_off.values()):.2e}; "
+                  f"per tensor kernels <= {BF16_GRAD_FACTOR:g} x composed + "
+                  f"{BF16_GRAD_SLACK:g} (worst {w}: {err_on[w]:.2e} vs {err_off[w]:.2e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{dname}: step-1 gradients disagree")
+        s_rel = {n: rel_max(on["stats"][n], b) for n, b in off["stats"].items()}
+        worst_s = max(s_rel, key=s_rel.get)
+        print(f"  {dname} BatchNorm running stats after step {TRAIN_STEPS}, {len(s_rel)} "
+              f"buffers, kernels vs composed: max rel err {s_rel[worst_s]:.2e} at {worst_s}")
+        if dname == "float32":
+            ref_stats = off["stats"]
+            ok = s_rel[worst_s] <= TRAIN_STATS_TOL
+            print(f"    held: max rel err <= {TRAIN_STATS_TOL:g} {'ok' if ok else 'FAIL'}")
+        else:
+            err_on = {n: rel_max(on["stats"][n], b) for n, b in ref_stats.items()}
+            err_off = {n: rel_max(off["stats"][n], b) for n, b in ref_stats.items()}
+            excess = {n: err_on[n] - BF16_GRAD_FACTOR * err_off[n] for n in ref_stats}
+            w = max(excess, key=excess.get)
+            ok = excess[w] <= BF16_GRAD_SLACK
+            print(f"    held against the fp32 composed run: kernels bf16 max rel err "
+                  f"{max(err_on.values()):.2e}, composed bf16 {max(err_off.values()):.2e}; "
+                  f"per buffer kernels <= {BF16_GRAD_FACTOR:g} x composed + "
+                  f"{BF16_GRAD_SLACK:g} (worst {w}: {err_on[w]:.2e} vs {err_off[w]:.2e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{dname}: BatchNorm running stats disagree")
+        rates = {}
+        for label in ("on", "off", "on", "off"):
+            run = runs[label == "on"]
+            rates.setdefault(label, []).append(
+                train_images_per_second(run["step"], run["state"], x, m, torch))
+        print(f"  {dname} train images/s at batch {BATCH_SERVE}: " + ", ".join(
+            f"kernels {k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) +
+            f"; peak memory kernels on {on['peak_gb']:.2f} GiB, composed {off['peak_gb']:.2f} "
+            f"GiB [{smi}]")
+        report["train"][dname] = dict(
+            losses_on=on["losses"], losses_off=off["losses"], grad_rel=g_rel, stats_rel=s_rel,
+            images_per_s=rates, peak_gib={"on": on["peak_gb"], "off": off["peak_gb"]})
+        del runs, on, off
+
+    d = json.loads(json.dumps(base))
+    with tempfile.TemporaryDirectory() as tmp:
+        d["train"].update(epochs=1, model_out=os.path.join(tmp, "model"),
+                          log_dir=os.path.join(tmp, "logs"))
+        cfg = Config.from_dict(d)
+        n_train = 2 * BATCH_SERVE
+        t0 = time.perf_counter()
+        res = fit(cfg, MemoryDataset(images[:n_train], masks[:n_train]),
+                  MemoryDataset(images[n_train:], masks[n_train:]), device=dev)
+        print(f"  fit: 1 epoch, {n_train // BATCH_SERVE} steps + 1 validation batch in "
+              f"{time.perf_counter() - t0:.1f} s, best {cfg.train.monitor} {res.best_score:.4f}")
+        saved, _ = load_inference_variables(cfg.train.model_out)
+        trained = res.state.model.state_dict()
+        if saved.keys() != trained.keys() or not all(
+                torch.equal(saved[k], trained[k].cpu()) for k in saved):
+            raise AssertionError("best/ does not hold the trained weights and statistics")
+        pred = Predictor(cfg.train.model_out, (IMAGE, IMAGE), compute_dtype="bfloat16",
+                         use_pallas=True, device=dev)
+        out = pred.predict(images[:1])
+        if out.shape != (1, IMAGE, IMAGE, 1) or not np.isfinite(out).all() or \
+                out.min() < 0 or out.max() > 1:
+            raise AssertionError(f"Predictor on the fit checkpoint: bad output {out.shape}")
+        print(f"  Predictor(use_pallas=True) on {cfg.train.model_out}/best answered a request: "
+              f"probabilities in [{out.min():.3f}, {out.max():.3f}], foreground "
+              f"{(out > 0.5).mean():.3f}")
+        report["train"]["fit_best"] = res.best_score
+
+
+def train_images_per_second(step, state, x, m, torch, reps=3):
+    """Host-clock rate of full train steps (forward, backward, AdamW)."""
+    step(state, x, m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(state, x, m)
+    torch.cuda.synchronize()
+    return reps * x.shape[0] / (time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -93,6 +445,7 @@ def main() -> int:
     from unet_image_segmentation_tpu_torch.models.layers import BatchNorm
     from unet_image_segmentation_tpu_torch.models.unet import UNet, recalibrate_batch_norm
     from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+    from unet_image_segmentation_tpu_torch.ops import fused_train as ft
     from unet_image_segmentation_tpu_torch.ops.kernels import build
     from unet_image_segmentation_tpu_torch.train.checkpoint import save_inference_variables
 
@@ -121,6 +474,8 @@ def main() -> int:
     def rnd(*shape, scale=1.0):
         return (torch.rand(*shape, generator=gen) * 2 - 1) * scale
 
+    rnd.gen = gen
+
     def weights(c, f, dtype):
         blk = {
             "depthwise_kernel": rnd(3, 3, c, 1, scale=(6 / (9 * c + 9)) ** 0.5),
@@ -134,15 +489,15 @@ def main() -> int:
         err = (got.float() - want.float()).abs().max().item()
         return err, err / max(want.float().abs().max().item(), 1e-30)
 
-    worst_abs = {"sepconv_block": 0.0, "sepconv_pair": 0.0}
+    worst_abs = {name: 0.0 for name in KERNELS}
 
-    def judge(name, label, dtype_name, pairs):
+    def judge(name, label, dtype_name, pairs, tols=KERNEL_TOL):
         for got, want in pairs:
             if got.shape != want.shape or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{name} {label} {dtype_name}: bad output {tuple(got.shape)}")
             err, rel = rel_err(got, want)
             worst_abs[name] = max(worst_abs[name], err)
-            tol = KERNEL_TOL[dtype_name]
+            tol = tols[dtype_name]
             print(f"  {name} {label} {dtype_name}: max_abs_err {err:.3e} rel {rel:.3e} "
                   f"(tol {tol:g}) {'ok' if rel <= tol else 'FAIL'}")
             if not rel <= tol:
@@ -222,7 +577,6 @@ def main() -> int:
             f"expected {want_pair} K7 and {want_block} K8 launches, got {launches}")
     print(f"  K7 launches per Predictor forward: {launches['sepconv_pair'] // forwards}")
 
-    import numpy as np
 
     for dname in dtypes:
         cases = [(n, on[dname], n) for n in REQUESTS] + [("module", None, BATCH_CHECK)]
@@ -284,17 +638,68 @@ def main() -> int:
               f"{tot['sepconv_pair'][1]:.3f}, K8 {tot['sepconv_block'][0]:.3f} / "
               f"{tot['sepconv_block'][1]:.3f}")
 
+    # ---- 7. K1-K4 vs plain ------------------------------------------------
+    check_train_kernels(torch, ft, rnd, dev, dtypes, judge)
+
+    # ---- 8. the training path at full width ----------------------------------
+    train_path(torch, dev, smi, report, launches)
+
+    # ---- 9. K1-K4 timings -------------------------------------------------------
+    print(f"K1-K4 timings, batch {BATCH_SERVE}, ms (kernel / plain) [{smi}]:")
+    report["train_kernels"] = {}
+    for dname, dtype in dtypes.items():
+        tot = {name: [0.0, 0.0] for name in ("chain_fwd", "chain_bwd", "tail_pool",
+                                              "tail_pool_bwd")}
+        for name, c, f, h, in_aff, drop, mc in chain_links():
+            k = link_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h, in_aff, drop, ft)
+            fwd = (k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
+            bwd = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
+            times = {
+                "chain_fwd": (time_ms(lambda: ft.chain_fwd(*fwd), torch, TRAIN_REPS),
+                              time_ms(lambda: ft.chain_fwd_reference(*fwd), torch, TRAIN_REPS)),
+                "chain_bwd": (time_ms(lambda: ft.chain_bwd(*bwd), torch, TRAIN_REPS),
+                              time_ms(lambda: ft.chain_bwd_reference(*bwd), torch, TRAIN_REPS)),
+            }
+            del k, fwd, bwd
+            for kname, (t_k, t_p) in times.items():
+                tot[kname][0] += t_k
+                tot[kname][1] += t_p
+            print(f"  {name} {c}->{f}@{h} {dtype_label(dname)}: "
+                  f"K1 {times['chain_fwd'][0]:.3f} / {times['chain_fwd'][1]:.3f}, "
+                  f"K2 {times['chain_bwd'][0]:.3f} / {times['chain_bwd'][1]:.3f}")
+            report["train_kernels"][f"{name} {dname}"] = times
+        for name, f, h in pool_shapes():
+            k = pool_case(torch, rnd, dev, dtype, BATCH_SERVE, f, h)
+            a, b = k["aff4"][0], k["aff4"][1]
+            bwd = (k["y"], k["gs"], k["gp"], k["aff4"])
+            times = {
+                "tail_pool": (time_ms(lambda: ft.tail_pool(k["y"], a, b), torch, TRAIN_REPS),
+                              time_ms(lambda: ft.tail_pool_reference(k["y"], a, b), torch,
+                                      TRAIN_REPS)),
+                "tail_pool_bwd": (time_ms(lambda: ft.tail_pool_bwd(*bwd), torch, TRAIN_REPS),
+                                  time_ms(lambda: ft.tail_pool_bwd_reference(*bwd), torch,
+                                          TRAIN_REPS)),
+            }
+            del k, bwd
+            for kname, (t_k, t_p) in times.items():
+                tot[kname][0] += t_k
+                tot[kname][1] += t_p
+            print(f"  {name} boundary F={f}@{h} {dtype_label(dname)}: "
+                  f"K3 {times['tail_pool'][0]:.3f} / {times['tail_pool'][1]:.3f}, "
+                  f"K4 {times['tail_pool_bwd'][0]:.3f} / {times['tail_pool_bwd'][1]:.3f}")
+            report["train_kernels"][f"{name} boundary {dname}"] = times
+        totals[dname].update(tot)
+        print(f"  {dname} totals over the path: " + ", ".join(
+            f"{kname} {t[0]:.3f} / {t[1]:.3f}" for kname, t in tot.items()))
+
     kernels = []
-    for name, src, line in (
-        ("sepconv_pair", "sepconv_pair.cu", 903),
-        ("sepconv_block", "sepconv_block.cu", 300),
-    ):
+    for name, (src, replaces) in KERNELS.items():
         t_k, t_p = totals["bfloat16"][name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"unet_image_segmentation_tpu_torch/ops/kernels/csrc/{src}",
-            "replaces": f"unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py:{line}",
+            "replaces": f"unet_image_segmentation_tpu/ops/pallas/{replaces}",
             "launches": launches[name],
             "max_abs_err": worst_abs[name],
             "ms": t_k,
@@ -304,7 +709,10 @@ def main() -> int:
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1)
-    print("ms / plain_ms: bf16, batch 32, summed over the path's 9 pair and 18 block shapes")
+    print("ms / plain_ms: bf16, batch 32, summed over the path's shapes (9 pair and 18 "
+          "block shapes; 18 chain links; 4 encoder boundaries); launches: K7/K8 over phase "
+          f"5's forwards, K1-K4 over phase 8's {TRAIN_STEPS} kernels-on steps in each dtype")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -339,14 +747,14 @@ def images_per_second(predictor, batch, torch, reps=5):
     return reps * len(batch) / (time.perf_counter() - t0)
 
 
-def synthetic_scenes(n, size, seed):
+def synthetic_scenes(n, size, seed, with_masks=False):
     """Document-like scenes in numpy: a bright quadrilateral on a textured
-    background, float32 in [0, 1], (n, size, size, 3)."""
-    import numpy as np
-
+    background, float32 in [0, 1], (n, size, size, 3); with ``with_masks``
+    also the quadrilateral's 0/1 mask (n, size, size, 1)."""
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
     out = np.empty((n, size, size, 3), np.float32)
+    masks = np.empty((n, size, size, 1), np.float32)
     for i in range(n):
         bg = rng.uniform(0.0, 0.4, 3) + 0.1 * rng.standard_normal((size, size, 1))
         cy, cx = rng.uniform(0.3, 0.7, 2) * size
@@ -358,7 +766,8 @@ def synthetic_scenes(n, size, seed):
         img = np.broadcast_to(bg, (size, size, 3)).copy()
         img[inside] = rng.uniform(0.6, 1.0, 3)
         out[i] = np.clip(img, 0.0, 1.0)
-    return out
+        masks[i, ..., 0] = inside
+    return (out, masks) if with_masks else out
 
 
 if __name__ == "__main__":

@@ -20,8 +20,10 @@ def _port_modules():
 
 def test_port_modules_import_no_jax():
     modules = _port_modules()
-    assert "unet_image_segmentation_tpu_torch.ops.fused_sepconv" in modules
-    assert "unet_image_segmentation_tpu_torch.cli.inference" in modules
+    for name in ("ops.fused_sepconv", "cli.inference", "ops.fused_train", "ops.hash_dropout",
+                 "ops.losses", "ops.metrics", "ops.fused_head", "train.state", "train.steps",
+                 "train.callbacks", "train.loop", "cli.train"):
+        assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

@@ -5,17 +5,22 @@ package is held against. Public functions keep its NHWC layout and its
 Keras-layout parameter shapes, so one set of weights drives both
 (:mod:`.weights` bridges the two trees).
 
-* :mod:`.ops` — plain torch convolution ops and the hand-written CUDA
-  kernels of the serving path (:mod:`.ops.fused_sepconv`).
-* :mod:`.models` — the U-Net as ``nn.Module``s (eval forward).
+* :mod:`.ops` — plain torch convolution ops, losses, metrics, hash
+  dropout, and the hand-written CUDA kernels of the serving path
+  (:mod:`.ops.fused_sepconv`) and of the training chains
+  (:mod:`.ops.fused_train`).
+* :mod:`.models` — the U-Net as ``nn.Module``s (eval and train forward).
 * :mod:`.serving` — the serving graph: one fused block-pair kernel per
   encoder stage, bottleneck and decoder stage.
 * :mod:`.inference` / :mod:`.cli.inference` — ``Predictor`` and the
   single-image pipeline.
+* :mod:`.train` / :mod:`.cli.train` — train state, steps, checkpoints,
+  callbacks and ``fit``.
 
-The framework-free parts of the JAX package (``config``,
-``utils.image``, ``utils.keras_import``) are imported from it, not copied;
-importing them loads no JAX.
+The framework-free parts of the JAX package (``config``, ``data.loader``,
+``data.autopack``, ``utils.image``, ``utils.keras_import``,
+``utils.tb_writer`` and the train CLI's argument parser) are imported from
+it, not copied; importing them loads no JAX.
 """
 
 __version__ = "0.1.0"

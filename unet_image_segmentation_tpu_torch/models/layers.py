@@ -1,4 +1,4 @@
-"""U-Net building blocks as ``nn.Module``s (eval forward).
+"""U-Net building blocks as ``nn.Module``s (eval and train forward).
 
 Port of ``unet_image_segmentation_tpu/models/layers.py``. Parameters keep
 the Keras layouts and names of the JAX package, so the
@@ -8,7 +8,7 @@ the Keras layouts and names of the JAX package, so the
   (1,1,C,F)``, ``bias (F,)``
 * ``Conv``: ``kernel (k,k,C,F)``, ``bias (F,)``
 * ``BatchNorm``: parameters ``scale``, ``bias``; buffers ``mean``, ``var``
-  (Keras epsilon 1e-3)
+  (Keras epsilon 1e-3, momentum 0.99)
 * ``TransposeUp``: ``kernel (2,2,F,C)``, ``bias (F,)``
 
 Initialisation is glorot-uniform with fan_avg over the Keras-shaped kernel
@@ -75,12 +75,18 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Keras BatchNormalization in inference mode (epsilon 1e-3).
+    """Keras BatchNormalization (epsilon 1e-3, momentum 0.99), as the JAX
+    package's flax ``nn.BatchNorm`` computes it.
 
-    Stock ``nn.BatchNorm2d`` (epsilon 1e-5, NCHW) is not this layer.
+    Training: batch moments in fp32 over the compute-dtype input (mean of
+    x and of x², variance ``max(E[x²] - mean², 0)``, biased), normalize with
+    them, cast back to the input dtype, and move the running statistics
+    toward them. Stock ``nn.BatchNorm2d`` (epsilon 1e-5, momentum 0.1,
+    unbiased running variance, NCHW) is not this layer.
     """
 
     eps = 1e-3
+    momentum = 0.99
 
     def __init__(self, features: int):
         super().__init__()
@@ -89,17 +95,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_ops.batch_norm_inference(
-            x, self.mean, self.var, self.scale, self.bias, self.eps
-        )
+    @torch.no_grad()
+    def update_stats(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:
+        """``running = momentum * running + (1 - momentum) * batch`` (biased var)."""
+        self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * batch_mean)
+        self.var.copy_(self.momentum * self.var + (1 - self.momentum) * batch_var)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return conv_ops.batch_norm_inference(
+                x, self.mean, self.var, self.scale, self.bias, self.eps
+            )
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = ((xf * xf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+        self.update_stats(mean, var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):
-    """[Separable]Conv -> BN -> ReLU (reference conv_block), eval forward.
+    """[Separable]Conv -> BN -> ReLU (reference conv_block).
 
-    ``use_pallas=True`` runs a 3x3 separable block as one fused kernel with
-    BN folded in (K8, :func:`..ops.fused_sepconv.fused_sepconv_bn_relu`).
+    ``use_pallas=True`` runs a 3x3 separable block's eval forward as one
+    fused kernel with BN folded in (K8,
+    :func:`..ops.fused_sepconv.fused_sepconv_bn_relu`). In training the U-Net
+    runs such blocks in pairs through the fused chains
+    (:mod:`..ops.fused_train`), reading their raw parameters from
+    :meth:`chain_params`; the JAX package's per-block fused training
+    kernels (K9, K10) are not ported.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
@@ -120,8 +144,24 @@ class ConvBlock(nn.Module):
             self.conv = conv
         self.bn = BatchNorm(features) if use_batch_norm else None
 
-    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.use_pallas and self.conv_type == "separable" and self.kernel_size == 3:
+    def chain_params(self):
+        """``(depthwise (3,3,C,1), pointwise (1,1,C,F), bn scale, bn offset)``
+        for the fused training chain (the JAX ``params_only`` call)."""
+        if self.conv_type != "separable" or self.bn is None:
+            raise ValueError("the fused training chain needs separable blocks with BatchNorm")
+        sep = self.sepconv
+        return sep.depthwise_kernel, sep.pointwise_kernel, self.bn.scale, self.bn.bias
+
+    def forward(
+        self, x: torch.Tensor, x2: Optional[torch.Tensor] = None, train: bool = False
+    ) -> torch.Tensor:
+        fused = self.use_pallas and self.conv_type == "separable" and self.kernel_size == 3
+        if fused and train:
+            raise NotImplementedError(
+                "per-block fused training (TPU kernels K9/K10, ROADMAP queue 2) is not "
+                "ported; train separable BatchNorm models through the U-Net's chains"
+            )
+        if fused:
             if x2 is not None:
                 x = torch.cat([x, x2], dim=-1)
             sep, bn = self.sepconv, self.bn
@@ -141,7 +181,7 @@ class ConvBlock(nn.Module):
                 x = torch.cat([x, x2], dim=-1)
             x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, train)
         return torch.relu(x)
 
 

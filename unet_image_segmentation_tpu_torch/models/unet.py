@@ -1,21 +1,29 @@
-"""The U-Net as an ``nn.Module``, eval forward only.
+"""The U-Net as an ``nn.Module``, eval and train forward.
 
-Port of ``unet_image_segmentation_tpu/models/unet.py`` with ``train=False``:
+Port of ``unet_image_segmentation_tpu/models/unet.py``:
 
 * encoder: per stage two ConvBlocks, skip saved, 2x2 max pool;
-* bottleneck: two ConvBlocks at twice the last width (dropout is inactive
-  in eval mode, so no dropout module is declared);
+* bottleneck: two ConvBlocks at twice the last width, then dropout (train);
 * decoder: per stage a 2x2 transpose-up, then block 1 over ``[up | skip]``
-  without storing the concat (separable blocks factor it into two
-  half-convs) and block 2;
+  and block 2; dropout on the concat of every stage but the last (train);
+  in eval the concat is never stored (separable blocks factor it into two
+  half-convs);
 * head: 1x1 conv in the compute dtype, then sigmoid (one class) or softmax
-  in fp32.
+  in fp32; with ``head_targets`` the forward returns the head-sums dict
+  (:mod:`..ops.fused_head`) instead of probabilities.
+
+Training with ``use_pallas`` on a separable BatchNorm model runs each
+stage's block pair as one fused chain (:mod:`..ops.fused_train`, kernels
+K1-K4): ``fused_chain_train_pool`` per encoder stage, ``fused_chain_train``
+for the bottleneck and the decoder stages with their dropout fused into the
+first link, and the composed decoder feed (transpose-up, concat). Without
+``use_pallas`` the composed modules run under autograd. Dropout is always
+the position hash of :mod:`..ops.hash_dropout`, with explicit per-site
+seeds (site 0 after the bottleneck, site ``s`` on decoder stage ``s``).
 
 Submodule names follow the JAX package (``enc{s}_block{n}``,
 ``bneck_block{n}``, ``dec{s}_upsample``, ``dec{s}_block{n}``,
 ``output_mask``), so ``state_dict`` keys are the Flax paths joined by dots.
-The training-mode branches (batch statistics, dropout, the fused training
-chains) come with the training slice.
 """
 
 from __future__ import annotations
@@ -33,6 +41,15 @@ from unet_image_segmentation_tpu_torch.models.layers import (
     TransposeUp,
 )
 from unet_image_segmentation_tpu_torch.ops.conv import max_pool_2x2
+from unet_image_segmentation_tpu_torch.ops.fused_head import (
+    head_sums_reference,
+    head_sums_reference_mc,
+)
+from unet_image_segmentation_tpu_torch.ops.fused_train import (
+    fused_chain_train,
+    fused_chain_train_pool,
+)
+from unet_image_segmentation_tpu_torch.ops.hash_dropout import hash_dropout
 
 
 class UNet(nn.Module):
@@ -46,14 +63,21 @@ class UNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
         in_channels: int = 3,
+        fused_head: str = "auto",
         generator: Optional[torch.Generator] = None,
         device: Union[str, torch.device, None] = None,
     ):
         super().__init__()
         self.num_classes = num_classes
         self.filters = tuple(filters)
-        self.dropout_rate = dropout_rate  # eval forward: inactive
+        self.dropout_rate = dropout_rate
         self.dtype = dtype
+        self.use_pallas = use_pallas
+        self.use_batch_norm = use_batch_norm
+        self.conv_type = conv_type
+        if fused_head not in ("auto", "all", "off"):
+            raise ValueError(f"fused_head must be 'auto'|'all'|'off', got {fused_head!r}")
+        self.fused_head = fused_head
 
         def block(cin: int, feat: int) -> ConvBlock:
             return ConvBlock(cin, feat, use_batch_norm=use_batch_norm, conv_type=conv_type,
@@ -80,29 +104,95 @@ class UNet(nn.Module):
         if device is not None:
             self.to(device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) -> probabilities (B, H, W, num_classes), fp32."""
+    def forward(
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        head_targets: Optional[torch.Tensor] = None,
+        dropout_seeds: Optional[Sequence[int]] = None,
+    ):
+        """(B, H, W, C) -> probabilities (B, H, W, num_classes), fp32, or with
+        ``head_targets`` the head-sums dict.
+
+        ``train=True`` normalizes with batch moments and updates the
+        BatchNorm running statistics; with ``dropout_rate > 0`` it needs
+        ``dropout_seeds``, int32 seeds indexed by dropout site (0 for the
+        bottleneck, ``s`` for decoder stage ``s``).
+        """
         if x.dim() != 4:
             raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
         depth = len(self.filters)
         h, w = x.shape[1], x.shape[2]
         if h % (2**depth) or w % (2**depth):
             raise ValueError(f"spatial dims {h}x{w} must be divisible by {2**depth}")
+        use_chain = (
+            train and self.use_pallas and self.use_batch_norm and self.conv_type == "separable"
+        )
+        drop = train and self.dropout_rate > 0.0
+        if drop and dropout_seeds is None:
+            raise ValueError("a training forward with dropout needs dropout_seeds")
+        if use_chain and head_targets is not None and (
+            self.fused_head == "all" or (self.fused_head == "auto" and self.num_classes == 1)
+        ):
+            raise NotImplementedError(
+                f"fused_head={self.fused_head!r} needs the fused head kernel (TPU kernel K5, "
+                "ROADMAP queue 2 'K5', port slice 3), which is not ported yet; set "
+                "fused_head='off' to train with the composed head"
+            )
+
+        def pair(prefix: str):
+            return getattr(self, f"{prefix}_block1"), getattr(self, f"{prefix}_block2")
+
+        def chain_blocks(b1: ConvBlock, b2: ConvBlock):
+            return [b1.chain_params(), b2.chain_params()]
+
+        def update_bn(stats, b1: ConvBlock, b2: ConvBlock) -> None:
+            for (mean, var), blk in zip(stats, (b1, b2)):
+                blk.bn.update_stats(mean, var)
+
+        def run_pair(x, prefix, drop_site=None):
+            b1, b2 = pair(prefix)
+            rate = self.dropout_rate if drop_site is not None else 0.0
+            seed = dropout_seeds[drop_site] if drop_site is not None else None
+            if use_chain:
+                z, stats = fused_chain_train(x, chain_blocks(b1, b2), drop_rate=rate,
+                                             drop_seed=seed)
+                update_bn(stats, b1, b2)
+                return z
+            if rate > 0.0:
+                x = hash_dropout(x, seed, rate)
+            return b2(b1(x, train=train), train=train)
+
         x = x.to(self.dtype)
         skips = []
         for stage in range(1, depth + 1):
-            x = getattr(self, f"enc{stage}_block2")(getattr(self, f"enc{stage}_block1")(x))
-            skips.append(x)
-            x = max_pool_2x2(x)
-        x = self.bneck_block2(self.bneck_block1(x))
+            if use_chain:
+                b1, b2 = pair(f"enc{stage}")
+                skip, x, stats = fused_chain_train_pool(x, chain_blocks(b1, b2))
+                update_bn(stats, b1, b2)
+            else:
+                skip = run_pair(x, f"enc{stage}")
+                x = max_pool_2x2(skip)
+            skips.append(skip)
+        x = run_pair(x, "bneck")
+        if drop:
+            x = hash_dropout(x, dropout_seeds[0], self.dropout_rate)
         for stage in range(depth, 0, -1):
-            x = getattr(self, f"dec{stage}_upsample")(x)
-            x = getattr(self, f"dec{stage}_block1")(x, skips[stage - 1])
-            x = getattr(self, f"dec{stage}_block2")(x)
+            up = getattr(self, f"dec{stage}_upsample")(x)
+            b1, b2 = pair(f"dec{stage}")
+            if train:
+                # training stores the concat: one dropout mask spans both halves
+                cat = torch.cat([up, skips[stage - 1]], dim=-1)
+                x = run_pair(cat, f"dec{stage}", stage if drop and stage > 1 else None)
+            else:
+                x = b2(b1(up, skips[stage - 1]))
         logits = self.output_mask(x).float()
-        if self.num_classes == 1:
-            return torch.sigmoid(logits)
-        return torch.softmax(logits, dim=-1)
+        preds = torch.sigmoid(logits) if self.num_classes == 1 else torch.softmax(logits, dim=-1)
+        if head_targets is not None:
+            if self.num_classes == 1:
+                return head_sums_reference(preds, head_targets)
+            return head_sums_reference_mc(preds, head_targets, self.num_classes)
+        return preds
 
 
 def build_unet(
@@ -120,6 +210,7 @@ def build_unet(
         dtype=getattr(torch, cfg.compute_dtype),
         use_pallas=cfg.use_pallas,
         in_channels=cfg.image_channels,
+        fused_head=getattr(cfg, "fused_head", "auto"),
         generator=generator,
         device=device,
     )

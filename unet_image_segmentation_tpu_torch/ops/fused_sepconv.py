@@ -31,7 +31,6 @@ from unet_image_segmentation_tpu_torch.ops.kernels import build
 
 LAUNCHES: Dict[str, int] = {"sepconv_block": 0, "sepconv_pair": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH = 65535  # gridDim.z
 
 
@@ -142,7 +141,7 @@ def sepconv_pair_reference(
 def _check_cuda_input(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in build.DTYPE_CODE:
         raise TypeError(f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous NHWC tensor, got {tuple(x.shape)}")
@@ -183,7 +182,7 @@ def sepconv_block(
     status = lib.unet_sepconv_block(
         x.data_ptr(), w.dw.data_ptr(), w.pw.data_ptr(), w.scale.data_ptr(),
         w.shift.data_ptr(), out.data_ptr(), b, h, wd, c, f, int(relu),
-        _DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "sepconv_block")
     LAUNCHES["sepconv_block"] += 1
@@ -229,7 +228,7 @@ def sepconv_pair(
         w1.dw.data_ptr(), w1.pw.data_ptr(), w1.scale.data_ptr(), w1.shift.data_ptr(),
         w2.dw.data_ptr(), w2.pw.data_ptr(), w2.scale.data_ptr(), w2.shift.data_ptr(),
         out.data_ptr(), pooled.data_ptr() if pooled is not None else None,
-        b, h, wd, cx, cx2, f1, f2, _DTYPE_CODE[x.dtype],
+        b, h, wd, cx, cx2, f1, f2, build.DTYPE_CODE[x.dtype],
         build.stream_handle(x.device),
     )
     build.check(status, "sepconv_pair")

@@ -1,0 +1,629 @@
+"""The training chains: [sepconv -> BatchNorm(batch stats) -> ReLU] x N.
+
+Port of ``unet_image_segmentation_tpu/ops/pallas/fused_train.py`` without
+its TPU layout machinery (lane packing, narrow-input padding, halos). Four
+hand-written CUDA kernels carry a chain, each beside its plain PyTorch
+version (``*_reference``):
+
+* :func:`chain_fwd` (K1, ``kernels/csrc/chain_fwd.cu``): one forward link,
+  optional hash dropout or the previous link's BN affine + ReLU on the
+  input, the sepconv, and the link's Σy and Σy² (TPU kernel
+  ``_fwd_train_kernel``);
+* :func:`chain_bwd` (K2, ``kernels/csrc/chain_bwd.cu``): one backward link,
+  the link's BN backward folded into per-channel constants, the sepconv
+  backward, and the previous link's BN reductions S and T
+  (``_bwd_train_kernel``);
+* :func:`tail_pool` (K3, ``kernels/csrc/tail_pool.cu``): the encoder
+  boundary, skip ``z = relu(a*y+b)`` and its 2x2 max pool
+  (``_tail_pool_kernel*``);
+* :func:`tail_pool_bwd` (K4, same file): its backward, first-max pool
+  routing, ReLU mask, S and T (``_tail_pool_bwd_kernel*``).
+
+:func:`fused_chain_train` and :func:`fused_chain_train_pool` run a chain
+through one ``torch.autograd.Function`` (the counterpart of the JAX
+``_chain_core`` custom VJP). The forward saves only the chain input and the
+raw link outputs ``ys``; normalized activations and ReLU masks are
+recomputed in the backward. Each wrapper runs its plain version on a CPU
+tensor and its kernel on a CUDA tensor (or raises), so the CPU tests drive
+the same orchestration the card runs. :data:`LAUNCHES` counts wrapper
+calls that launched a kernel, and only those.
+
+Rounding points follow the Pallas kernels (bf16 compute dtype T):
+K1 rounds the dropped input and the transformed input ``relu(a*x+b)`` to
+T, the depthwise sum to T before the pointwise, and y to T before its
+Σy/Σy²; K2 rounds ``gy`` to T and the recomputed depthwise ``m`` to T
+before ``dpw``, keeps the recomputed input z and ``dm`` in fp32, and
+writes ``dx`` in T; K3 rounds z to T and pools the rounded values; K4
+takes the pooled cotangent in T and writes dzt in T. Every sum is fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from unet_image_segmentation_tpu_torch.ops import hash_dropout as hd
+from unet_image_segmentation_tpu_torch.ops.kernels import build
+
+LAUNCHES: Dict[str, int] = {"chain_fwd": 0, "chain_bwd": 0, "tail_pool": 0, "tail_pool_bwd": 0}
+
+_MAX_BATCH = 65535  # gridDim.z of K1 and K2
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class Dropout(NamedTuple):
+    """Hash dropout of a chain's input: per-site int32 seed and rate."""
+
+    seed: int
+    rate: float
+
+    @property
+    def thresh(self) -> int:
+        return hd.keep_threshold(self.rate)
+
+    @property
+    def scale(self) -> float:
+        return hd.inv_keep(self.rate)
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path and the kernels' oracle)
+# --------------------------------------------------------------------------
+
+
+def _depthwise(z: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """fp32 3x3 'same' depthwise of NHWC ``z`` with taps (3,3,C)."""
+    c = z.shape[-1]
+    taps = dw.float().permute(2, 0, 1).unsqueeze(1)  # (C, 1, 3, 3)
+    out = F.conv2d(z.float().permute(0, 3, 1, 2), taps, padding=1, groups=c)
+    return out.permute(0, 2, 3, 1)
+
+
+def _relu_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (x.float() * a + b).clamp_min(0.0)
+
+
+def chain_fwd_reference(
+    x: torch.Tensor,
+    dw: torch.Tensor,
+    pw: torch.Tensor,
+    in_aff: Optional[torch.Tensor] = None,
+    drop: Optional[Dropout] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K1: ``(y, Σy, Σy²)``.
+
+    z = dropout(x) (rounded to x.dtype) or relu(a*x+b) (rounded) or x;
+    'same' zero padding applies to z; the depthwise sum is rounded to
+    x.dtype, the pointwise accumulates in fp32, y is rounded, and the sums
+    are taken over the rounded y in fp32.
+    """
+    z = x
+    if drop is not None:
+        z = hd.apply_keep(x, hd.keep_mask(x.shape, drop.seed, drop.thresh, x.device), drop.scale)
+    if in_aff is not None:
+        z = _relu_affine(x, in_aff[0], in_aff[1]).to(x.dtype)
+    d = _depthwise(z, dw).to(x.dtype)
+    y = torch.matmul(d.float(), pw.float()).to(x.dtype).contiguous()
+    yf = y.float()
+    return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+
+
+def chain_bwd_reference(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    y: torch.Tensor,
+    in_aff: Optional[torch.Tensor],
+    comb: torch.Tensor,
+    dw: torch.Tensor,
+    pw: torch.Tensor,
+    mask_combine: bool,
+    drop: Optional[Dropout] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain K2: ``(dx, ddw (3,3,C), dpw (C,F), st (2,C) or None)``.
+
+    ``comb`` rows: A, B, C, mean_out, a_out, b_out. ``in_aff`` rows
+    (links after the first): in_a, in_b, in_mean, in_rstd.
+    gy = A*(g [* (a_out*y+b_out > 0)]) + B + (y-mean_out)*C, rounded;
+    z is recomputed in fp32; dm = gy.pw^T in fp32; dz is the correlation
+    of dm with the flipped taps; m = depthwise(z) rounded; dpw = m^T.gy.
+    """
+    dt = x.dtype
+    yf, gf = y.float(), g.float()
+    if mask_combine:
+        gf = torch.where(yf * comb[4] + comb[5] > 0, gf, torch.zeros_like(gf))
+    gy = (gf * comb[0] + comb[1] + (yf - comb[3]) * comb[2]).to(dt)
+    keep = None
+    if in_aff is not None:
+        z = _relu_affine(x, in_aff[0], in_aff[1])
+    elif drop is not None:
+        keep = hd.keep_mask(x.shape, drop.seed, drop.thresh, x.device)
+        z = torch.where(keep, x.float() * drop.scale, torch.zeros_like(x, dtype=torch.float32))
+    else:
+        z = x.float()
+    dm = torch.matmul(gy.float(), pw.float().t())
+    c = x.shape[-1]
+    flipped = dw.float().flip(0, 1).permute(2, 0, 1).unsqueeze(1)
+    dz = F.conv2d(dm.permute(0, 3, 1, 2), flipped, padding=1, groups=c).permute(0, 2, 3, 1)
+    st = None
+    if in_aff is not None:
+        xf = x.float()
+        dzt = torch.where(xf * in_aff[0] + in_aff[1] > 0, dz, torch.zeros_like(dz))
+        xhat = (xf - in_aff[2]) * in_aff[3]
+        st = torch.stack([dzt.sum(dim=(0, 1, 2)), (dzt * xhat).sum(dim=(0, 1, 2))])
+        dx = dzt.to(dt)
+    elif keep is not None:
+        dx = torch.where(keep, dz * drop.scale, torch.zeros_like(dz)).to(dt)
+    else:
+        dx = dz.to(dt)
+    h, w = x.shape[1], x.shape[2]
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1))
+    ddw = torch.stack([
+        torch.stack([(zp[:, i:i + h, j:j + w] * dm).sum(dim=(0, 1, 2)) for j in range(3)])
+        for i in range(3)
+    ])
+    m = _depthwise(z, dw).to(dt)
+    dpw = torch.matmul(m.reshape(-1, c).float().t(), gy.reshape(-1, gy.shape[-1]).float())
+    return dx.contiguous(), ddw, dpw, st
+
+
+def tail_pool_reference(
+    y: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K3: skip ``z = relu(a*y+b)`` rounded, and the 2x2 max of it."""
+    z = _relu_affine(y, a, b).to(y.dtype)
+    bsz, h, w, f = z.shape
+    pooled = z.reshape(bsz, h // 2, 2, w // 2, 2, f).amax(dim=(2, 4))
+    return z.contiguous(), pooled.contiguous()
+
+
+def _first_max_masks(zc: torch.Tensor):
+    """Window cells (00, 01, 10, 11) of (B,H/2,2,W/2,2,F) and, per cell,
+    whether it is the first maximum in row-major order."""
+    a00, a01 = zc[:, :, 0, :, 0], zc[:, :, 0, :, 1]
+    a10, a11 = zc[:, :, 1, :, 0], zc[:, :, 1, :, 1]
+    m00 = (a00 >= a01) & (a00 >= a10) & (a00 >= a11)
+    m01 = (a01 > a00) & (a01 >= a10) & (a01 >= a11)
+    m10 = (a10 > a00) & (a10 > a01) & (a10 >= a11)
+    m11 = (a11 > a00) & (a11 > a01) & (a11 > a10)
+    return m00, m01, m10, m11
+
+
+def tail_pool_bwd_reference(
+    y: torch.Tensor, gs: torch.Tensor, gp: torch.Tensor, aff4: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K4: ``(dzt, st (2,F))``. ``aff4`` rows: a, b, mean, rstd.
+
+    The pooled cotangent (in y.dtype) goes to the first maximum of each
+    window, compared on the rounded z; the skip cotangent is added; the ReLU
+    mask is ``a*y+b > 0``; S = Σdzt and T = Σdzt*(y-mean)*rstd from the fp32
+    dzt, which is returned rounded to y.dtype.
+    """
+    bsz, h, w, f = y.shape
+    yf = y.float()
+    wlin = yf * aff4[0] + aff4[1]
+    zc = wlin.clamp_min(0.0).to(y.dtype).float().reshape(bsz, h // 2, 2, w // 2, 2, f)
+    gpf = gp.float()
+    zero = torch.zeros_like(gpf)
+    m00, m01, m10, m11 = _first_max_masks(zc)
+    top = torch.stack([torch.where(m00, gpf, zero), torch.where(m01, gpf, zero)], dim=3)
+    bot = torch.stack([torch.where(m10, gpf, zero), torch.where(m11, gpf, zero)], dim=3)
+    g_pool = torch.stack([top, bot], dim=2).reshape(bsz, h, w, f)
+    gz = gs.float() + g_pool
+    dzt = torch.where(wlin > 0, gz, torch.zeros_like(gz))
+    yhat = (yf - aff4[2]) * aff4[3]
+    st = torch.stack([dzt.sum(dim=(0, 1, 2)), (dzt * yhat).sum(dim=(0, 1, 2))])
+    return dzt.to(y.dtype).contiguous(), st
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _check_act(t: torch.Tensor, name: str, shape=None, dtype=None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {t.device}")
+    if t.dtype not in build.DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32, bfloat16)")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 4 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous NHWC tensor, got {tuple(t.shape)}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _check_small(t: Optional[torch.Tensor], name: str, shape, dtype, device) -> None:
+    if t is None:
+        return
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
+        raise ValueError(
+            f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+            f"expected {tuple(shape)} {dtype} on {device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _drop_args(drop: Optional[Dropout]):
+    """(seed as a signed 32-bit int, threshold, scale) for the C entry points."""
+    if drop is None:
+        return 0, 0, 1.0
+    seed = int(drop.seed) & 0xFFFFFFFF
+    return seed - (1 << 32) if seed >= 1 << 31 else seed, drop.thresh, drop.scale
+
+
+def chain_fwd(
+    x: torch.Tensor,
+    dw: torch.Tensor,
+    pw: torch.Tensor,
+    in_aff: Optional[torch.Tensor] = None,
+    drop: Optional[Dropout] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 on a CUDA tensor, its plain version on a CPU tensor.
+
+    ``dw`` (3,3,C) and ``pw`` (C,F) in x.dtype; ``in_aff`` (2,C) fp32 rows
+    a, b; ``drop`` and ``in_aff`` are exclusive (dropout fuses on a chain's
+    first link only). Returns ``(y (B,H,W,F), Σy (F,), Σy² (F,))``.
+    """
+    if drop is not None and in_aff is not None:
+        raise ValueError("chain_fwd: dropout and the input affine are exclusive")
+    if x.device.type == "cpu":
+        return chain_fwd_reference(x, dw, pw, in_aff, drop)
+    _check_act(x, "chain_fwd x")
+    b, h, w, c = x.shape
+    f = pw.shape[-1]
+    if not 0 < b <= _MAX_BATCH:
+        raise ValueError(f"chain_fwd: batch {b} outside 1..{_MAX_BATCH}")
+    _check_small(dw, "chain_fwd dw", (3, 3, c), x.dtype, x.device)
+    _check_small(pw, "chain_fwd pw", (c, f), x.dtype, x.device)
+    _check_small(in_aff, "chain_fwd in_aff", (2, c), torch.float32, x.device)
+    lib = build.load_library()
+    y = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
+    sums = torch.empty((2, f), dtype=torch.float32, device=x.device)
+    work = torch.empty(lib.unet_chain_fwd_workspace(b, h, w, c, f),
+                       dtype=torch.float32, device=x.device)
+    seed, thresh, scale = _drop_args(drop)
+    status = lib.unet_chain_fwd(
+        x.data_ptr(), dw.data_ptr(), pw.data_ptr(), _ptr(in_aff), y.data_ptr(),
+        work.data_ptr(), sums.data_ptr(), b, h, w, c, f, seed, thresh, scale,
+        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+    )
+    build.check(status, "chain_fwd")
+    LAUNCHES["chain_fwd"] += 1
+    return y, sums[0], sums[1]
+
+
+def chain_bwd(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    y: torch.Tensor,
+    in_aff: Optional[torch.Tensor],
+    comb: torch.Tensor,
+    dw: torch.Tensor,
+    pw: torch.Tensor,
+    mask_combine: bool,
+    drop: Optional[Dropout] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K2 on a CUDA tensor, its plain version on a CPU tensor.
+
+    ``x`` (B,H,W,C) the link's input in its pre-affine form, ``g`` and
+    ``y`` (B,H,W,F) the raw cotangent and the link's raw output, all in
+    one dtype; ``in_aff`` (4,C) and ``comb`` (6,F) fp32. Returns
+    ``(dx, ddw (3,3,C), dpw (C,F), st (2,C) or None)``, the grads fp32.
+    """
+    if drop is not None and in_aff is not None:
+        raise ValueError("chain_bwd: dropout and the input affine are exclusive")
+    if x.device.type == "cpu":
+        return chain_bwd_reference(x, g, y, in_aff, comb, dw, pw, mask_combine, drop)
+    _check_act(x, "chain_bwd x")
+    b, h, w, c = x.shape
+    f = pw.shape[-1]
+    if not 0 < b <= _MAX_BATCH:
+        raise ValueError(f"chain_bwd: batch {b} outside 1..{_MAX_BATCH}")
+    _check_act(g, "chain_bwd g", (b, h, w, f), x.dtype)
+    _check_act(y, "chain_bwd y", (b, h, w, f), x.dtype)
+    _check_small(dw, "chain_bwd dw", (3, 3, c), x.dtype, x.device)
+    _check_small(pw, "chain_bwd pw", (c, f), x.dtype, x.device)
+    _check_small(in_aff, "chain_bwd in_aff", (4, c), torch.float32, x.device)
+    _check_small(comb, "chain_bwd comb", (6, f), torch.float32, x.device)
+    lib = build.load_library()
+    dx = torch.empty_like(x)
+    m = torch.empty_like(x)                                   # depthwise(z), rounded
+    gy = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
+    sums = torch.empty((11, c), dtype=torch.float32, device=x.device)  # ddw (9), S, T
+    dpw = torch.empty((c, f), dtype=torch.float32, device=x.device)
+    work = torch.empty(lib.unet_chain_bwd_workspace(b, h, w, c, f),
+                       dtype=torch.float32, device=x.device)
+    seed, thresh, scale = _drop_args(drop)
+    pwt = pw.t().contiguous()  # (F, C): the kernel stages pw^T chunks row by row
+    status = lib.unet_chain_bwd(
+        x.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(in_aff), comb.data_ptr(),
+        dw.data_ptr(), pwt.data_ptr(), dx.data_ptr(), m.data_ptr(), gy.data_ptr(),
+        work.data_ptr(), sums.data_ptr(), dpw.data_ptr(), b, h, w, c, f,
+        int(mask_combine), seed, thresh, scale, build.DTYPE_CODE[x.dtype],
+        build.stream_handle(x.device),
+    )
+    build.check(status, "chain_bwd")
+    LAUNCHES["chain_bwd"] += 1
+    st = sums[9:11] if in_aff is not None else None
+    return dx, sums[:9].reshape(3, 3, c), dpw, st
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel loads 16-byte vectors; data is not 16-byte aligned")
+
+
+def _check_pool_shape(y: torch.Tensor, name: str) -> None:
+    _check_act(y, name)
+    _check_aligned(y, name)
+    b, h, w, f = y.shape
+    vec = 16 // y.element_size()
+    if h % 2 or w % 2:
+        raise ValueError(f"{name}: pool needs even H and W, got {h}x{w}")
+    if f % vec or f // vec > 256:
+        raise ValueError(f"{name}: F={f} must be a multiple of {vec} and at most {256 * vec}")
+
+
+def tail_pool(
+    y: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on a CUDA tensor, its plain version on a CPU tensor: ``(z, pooled)``."""
+    if y.device.type == "cpu":
+        return tail_pool_reference(y, a, b)
+    _check_pool_shape(y, "tail_pool y")
+    bsz, h, w, f = y.shape
+    aff = torch.stack([a, b]).float().contiguous()
+    _check_small(aff, "tail_pool aff", (2, f), torch.float32, y.device)
+    lib = build.load_library()
+    z = torch.empty_like(y)
+    pooled = torch.empty((bsz, h // 2, w // 2, f), dtype=y.dtype, device=y.device)
+    status = lib.unet_tail_pool(
+        y.data_ptr(), aff.data_ptr(), z.data_ptr(), pooled.data_ptr(), bsz, h, w, f,
+        build.DTYPE_CODE[y.dtype], build.stream_handle(y.device),
+    )
+    build.check(status, "tail_pool")
+    LAUNCHES["tail_pool"] += 1
+    return z, pooled
+
+
+def tail_pool_bwd(
+    y: torch.Tensor, gs: torch.Tensor, gp: torch.Tensor, aff4: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on a CUDA tensor, its plain version on a CPU tensor: ``(dzt, st (2,F))``."""
+    if y.device.type == "cpu":
+        return tail_pool_bwd_reference(y, gs, gp, aff4)
+    _check_pool_shape(y, "tail_pool_bwd y")
+    bsz, h, w, f = y.shape
+    _check_act(gs, "tail_pool_bwd gs", y.shape, y.dtype)
+    _check_act(gp, "tail_pool_bwd gp", (bsz, h // 2, w // 2, f), y.dtype)
+    _check_aligned(gs, "tail_pool_bwd gs")
+    _check_aligned(gp, "tail_pool_bwd gp")
+    _check_small(aff4, "tail_pool_bwd aff4", (4, f), torch.float32, y.device)
+    lib = build.load_library()
+    dzt = torch.empty_like(y)
+    st = torch.empty((2, f), dtype=torch.float32, device=y.device)
+    code = build.DTYPE_CODE[y.dtype]
+    work = torch.empty(lib.unet_tail_pool_bwd_workspace(bsz, h, w, f, code),
+                       dtype=torch.float32, device=y.device)
+    status = lib.unet_tail_pool_bwd(
+        y.data_ptr(), gs.data_ptr(), gp.data_ptr(), aff4.data_ptr(), dzt.data_ptr(),
+        work.data_ptr(), st.data_ptr(), bsz, h, w, f, code, build.stream_handle(y.device),
+    )
+    build.check(status, "tail_pool_bwd")
+    LAUNCHES["tail_pool_bwd"] += 1
+    return dzt, st
+
+
+# --------------------------------------------------------------------------
+# Chain orchestration (autograd Function) and its composed reference
+# --------------------------------------------------------------------------
+
+
+def affine_from_stats(gamma, beta, mean, var, eps):
+    """BatchNorm with batch moments as ``y * a + b`` (fp32)."""
+    a = (gamma * torch.rsqrt(var + eps)).float()
+    return a, (beta - mean * a).float()
+
+
+def _boundary_bwd_plain(y, g_z, a_out, b_out, mean, r):
+    """Reductions of the masked output gradient at a chain's non-pool exit
+    (plain elementwise, as the JAX package computes it outside any kernel)."""
+    yf = y.float()
+    dzt = torch.where(yf * a_out + b_out > 0, g_z.float(), torch.zeros_like(yf))
+    return dzt.sum(dim=(0, 1, 2)), (dzt * ((yf - mean) * r)).sum(dim=(0, 1, 2))
+
+
+class _Chain(torch.autograd.Function):
+    """``z_in -> [link]*N -> boundary`` with the fused backward.
+
+    Inputs after the static ones: per block ``(dw (3,3,C), pw (C,F)`` in
+    the compute dtype, ``gamma, beta)`` in fp32. Outputs ``z`` (and
+    ``pooled`` with ``pool``), then mean and var per block; the moments
+    feed the running statistics and carry no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, z_in, eps: float, drop: Optional[Dropout], pool: bool, *flat):
+        blocks = [flat[i:i + 4] for i in range(0, len(flat), 4)]
+        n = z_in.shape[0] * z_in.shape[1] * z_in.shape[2]
+        x, in_aff, ys, stats = z_in, None, [], []
+        for k, (dw, pw, gamma, beta) in enumerate(blocks):
+            y, s, q = chain_fwd(x, dw, pw, in_aff, drop if k == 0 else None)
+            mean = s / n
+            var = q / n - mean * mean
+            a, b = affine_from_stats(gamma, beta, mean, var, eps)
+            in_aff = torch.stack([a, b])
+            ys.append(y)
+            stats += [mean, var]
+            x = y
+        a, b = in_aff[0], in_aff[1]
+        if pool:
+            outs = tail_pool(ys[-1], a, b)
+        else:
+            outs = (_relu_affine(ys[-1], a, b).to(z_in.dtype),)
+        ctx.save_for_backward(z_in, *ys, *flat, *stats)
+        ctx.n_blocks, ctx.eps, ctx.drop, ctx.pool, ctx.n = len(blocks), eps, drop, pool, n
+        ctx.mark_non_differentiable(*stats)
+        return (*outs, *stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        nb, eps, drop, n = ctx.n_blocks, ctx.eps, ctx.drop, ctx.n
+        saved = ctx.saved_tensors
+        z_first, ys = saved[0], saved[1:1 + nb]
+        flat = saved[1 + nb:1 + 5 * nb]
+        st_saved = saved[1 + 5 * nb:]
+        blocks = [flat[i:i + 4] for i in range(0, len(flat), 4)]
+        stats = [(st_saved[2 * k], st_saved[2 * k + 1]) for k in range(nb)]
+        dt = z_first.dtype
+
+        def bn(k):
+            gamma, beta = blocks[k][2], blocks[k][3]
+            mean, var = stats[k]
+            r = torch.rsqrt(var + eps)
+            a = (gamma * r).float()
+            return mean, r, a, (beta - mean * a).float()
+
+        mean, r, a_out, b_out = bn(nb - 1)
+        g_z = grads[0].to(dt).contiguous()
+        if ctx.pool:
+            g_pool = grads[1].to(dt).contiguous()
+            aff4 = torch.stack([a_out, b_out, mean.float(), r.float()]).contiguous()
+            g_raw, st = tail_pool_bwd(ys[-1], g_z, g_pool, aff4)
+            S, T = st[0], st[1]
+            masked = True
+        else:
+            S, T = _boundary_bwd_plain(ys[-1], g_z, a_out, b_out, mean, r)
+            g_raw, masked = g_z, False
+
+        grads_out: List[Optional[torch.Tensor]] = [None] * (4 * nb)
+        dz_in = None
+        for k in range(nb - 1, -1, -1):
+            dw, pw, gamma, beta = blocks[k]
+            mean, r, a_out, b_out = bn(k)
+            comb = torch.stack([
+                a_out,
+                -(a_out * S) / n,
+                -(a_out * r * T) / n,
+                mean.float(),
+                a_out,
+                b_out,
+            ]).float().contiguous()
+            if k > 0:
+                pm, pr, pa, pb = bn(k - 1)
+                in_aff = torch.stack([pa, pb, pm.float(), pr.float()]).contiguous()
+                x_in = ys[k - 1]
+            else:
+                in_aff, x_in = None, z_first
+            dx, ddw, dpw, st = chain_bwd(
+                x_in, g_raw.contiguous(), ys[k], in_aff, comb, dw, pw,
+                mask_combine=not masked, drop=drop if k == 0 else None,
+            )
+            grads_out[4 * k:4 * k + 4] = [
+                ddw.to(dw.dtype), dpw.to(pw.dtype), T.to(gamma.dtype), S.to(beta.dtype),
+            ]
+            if k > 0:
+                S, T = st[0], st[1]
+                g_raw, masked = dx, True
+            else:
+                dz_in = dx
+        return (dz_in, None, None, None, *grads_out)
+
+
+def _prep_blocks(dtype: torch.dtype, c: int, blocks) -> List[torch.Tensor]:
+    """Flat ``[dw (3,3,C), pw (C,F), gamma, beta] * N``; kernels in ``dtype``."""
+    flat = []
+    for dw, pw, gamma, beta in blocks:
+        f = pw.shape[-1]
+        flat += [
+            dw.reshape(3, 3, c).to(dtype).contiguous(),
+            pw.reshape(c, f).to(dtype).contiguous(),
+            gamma,
+            beta,
+        ]
+        c = f
+    return flat
+
+
+def _stat_pairs(flat_stats) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    return tuple((flat_stats[i], flat_stats[i + 1]) for i in range(0, len(flat_stats), 2))
+
+
+def fused_chain_train(
+    z_in: torch.Tensor,
+    blocks: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]],
+    eps: float = 1e-3,
+    drop_rate: float = 0.0,
+    drop_seed: Optional[int] = None,
+):
+    """Train-mode ConvBlock chain ``z_in -> [sepconv -> BN -> ReLU] x N``.
+
+    ``blocks``: per block ``(depthwise (3,3,C[,1]), pointwise ([1,1,]C,F),
+    bn_scale (F,), bn_offset (F,))``. With ``drop_rate > 0`` the chain's
+    input gets hash dropout with ``drop_seed``, fused into the first link.
+    Returns ``(z_out, ((batch_mean, batch_var), ...))``.
+    """
+    flat = _prep_blocks(z_in.dtype, z_in.shape[-1], blocks)
+    drop = None
+    if drop_rate > 0.0:
+        if drop_seed is None:
+            raise ValueError("fused_chain_train: drop_rate > 0 needs a drop_seed")
+        drop = Dropout(int(drop_seed), float(drop_rate))
+    out = _Chain.apply(z_in.contiguous(), eps, drop, False, *flat)
+    return out[0], _stat_pairs(out[1:])
+
+
+def fused_chain_train_pool(
+    z_in: torch.Tensor,
+    blocks: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]],
+    eps: float = 1e-3,
+):
+    """Encoder chain with the 2x2 max pool fused into its boundary.
+
+    Returns ``(z, pooled, stats)``: the stage activation (the skip), its
+    2x2 max pool (the next stage's input) and the per-block moments.
+    """
+    flat = _prep_blocks(z_in.dtype, z_in.shape[-1], blocks)
+    out = _Chain.apply(z_in.contiguous(), eps, None, True, *flat)
+    return out[0], out[1], _stat_pairs(out[2:])
+
+
+def chain_reference(
+    z_in: torch.Tensor,
+    blocks,
+    eps: float = 1e-3,
+    drop_rate: float = 0.0,
+    drop_seed: Optional[int] = None,
+):
+    """Composed autograd chain with the same semantics as :func:`fused_chain_train`:
+    per block sepconv -> moments of the rounded output -> normalize -> ReLU."""
+    z = z_in
+    if drop_rate > 0.0:
+        z = hd.hash_dropout(z, drop_seed, drop_rate)
+    n = z.shape[0] * z.shape[1] * z.shape[2]
+    stats = []
+    c = z.shape[-1]
+    for dw, pw, gamma, beta in blocks:
+        f = pw.shape[-1]
+        d = _depthwise(z, dw.reshape(3, 3, c).to(z.dtype)).to(z.dtype)
+        y = torch.matmul(d.float(), pw.reshape(c, f).to(z.dtype).float()).to(z.dtype)
+        yf = y.float()
+        mean = yf.sum(dim=(0, 1, 2)) / n
+        var = (yf * yf).sum(dim=(0, 1, 2)) / n - mean * mean
+        stats.append((mean, var))
+        a, b = affine_from_stats(gamma, beta, mean, var, eps)
+        z = (yf * a + b).clamp_min(0.0).to(z_in.dtype)
+        c = f
+    return z, stats

@@ -31,7 +31,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# the dtype argument of every entry point
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (all return int = cudaError_t)
 SIGNATURES = {
     # x, dw, pw, scale, shift, out, B, H, W, C, F, relu, dtype, stream
@@ -39,6 +42,22 @@ SIGNATURES = {
     # x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out,
     # pooled, B, H, W, Cx, Cx2, F1, F2, dtype, stream
     "unet_sepconv_pair": [_P] * 12 + [_I] * 8 + [_P],
+    # x, dw, pw, in_aff, y, work, sums, B, H, W, C, F, seed, thresh,
+    # drop_scale, dtype, stream
+    "unet_chain_fwd": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    # x, g, y, in_aff, comb, dw, pwt, dx, m, gy, work, sums, dpw, B, H, W, C,
+    # F, mask_combine, seed, thresh, drop_scale, dtype, stream
+    "unet_chain_bwd": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
+    # y, aff, z, pooled, B, H, W, F, dtype, stream
+    "unet_tail_pool": [_P] * 4 + [_I] * 5 + [_P],
+    # y, gs, gp, aff4, dzt, work, st, B, H, W, F, dtype, stream
+    "unet_tail_pool_bwd": [_P] * 7 + [_I] * 5 + [_P],
+}
+# Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, F, dtype
+WORKSPACE_SIGNATURES = {
+    "unet_chain_fwd_workspace": [_I] * 5,
+    "unet_chain_bwd_workspace": [_I] * 5,
+    "unet_tail_pool_bwd_workspace": [_I] * 5,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -98,6 +117,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in WORKSPACE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.unet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.unet_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,0 +1,293 @@
+"""The training loop: the reference's ``model.fit`` on one device.
+
+Port of ``unet_image_segmentation_tpu/train/loop.py`` without its mesh,
+``shard_map`` and spatial branches (they come with the ``parallel/``
+slice). Per epoch: prefetched host batches (the JAX package's loaders,
+``Prefetcher`` and auto-pack, reused) -> device -> train step -> metric sums
+kept on the device and fetched once per epoch -> validation -> callbacks
+(best checkpoint, early stop, LR plateau, TensorBoard) -> ``meta.json`` for
+``--resume``.
+
+Metric names mirror Keras logs: ``loss``, ``dice_coef``, ``mean_io_u``
+(Keras int-cast semantics), ``mean_io_u_thresh`` (> 0.5), and ``val_*``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from unet_image_segmentation_tpu.config import Config
+from unet_image_segmentation_tpu.data.loader import Prefetcher, make_loaders
+from unet_image_segmentation_tpu_torch.models.unet import build_unet
+from unet_image_segmentation_tpu_torch.ops.metrics import mean_iou_from_cm, per_class_iou_from_cm
+from unet_image_segmentation_tpu_torch.train import checkpoint as ckpt_lib
+from unet_image_segmentation_tpu_torch.train.callbacks import (
+    BestCheckpoint,
+    CallbackList,
+    EarlyStopping,
+    ReduceLROnPlateau,
+    TensorBoardLogger,
+)
+from unet_image_segmentation_tpu_torch.train.state import TrainState, create_train_state
+from unet_image_segmentation_tpu_torch.train.steps import make_eval_step, make_train_step
+
+
+@dataclass
+class FitResult:
+    state: TrainState
+    history: Dict[str, List[float]] = field(default_factory=dict)
+    best_score: float = float("nan")
+    best_epoch: int = -1
+    stopped_epoch: int = -1
+    epochs_run: int = 0
+
+
+class _EpochMetrics:
+    """Per-step metric sums kept on the device; one fetch in :meth:`result`."""
+
+    def __init__(self) -> None:
+        self._sums: Optional[Dict[str, torch.Tensor]] = None
+        self.n = 0
+
+    def update(self, metrics: Dict[str, torch.Tensor]) -> None:
+        if self._sums is None:
+            self._sums = {k: v.detach().clone() for k, v in metrics.items()}
+        else:
+            for k, v in metrics.items():
+                self._sums[k] += v.detach()
+        self.n += 1
+
+    def result(self, prefix: str = "") -> Dict[str, float]:
+        if self._sums is None:
+            return {}
+        sums = {k: v.cpu() for k, v in self._sums.items()}  # the epoch's sync point
+        out = {prefix + k: float(v) / max(self.n, 1) for k, v in sums.items()
+               if not k.startswith("cm_")}
+        if "cm_raw" in sums:
+            out[prefix + "mean_io_u"] = float(mean_iou_from_cm(sums["cm_raw"]))
+        if "cm_thresh" in sums:
+            cm = sums["cm_thresh"]
+            out[prefix + "mean_io_u_thresh"] = float(mean_iou_from_cm(cm))
+            if cm.shape[0] > 2:
+                for i, v in enumerate(per_class_iou_from_cm(cm)):
+                    out[prefix + f"iou_class_{i}"] = float(v)
+        if prefix + "dice" in out:
+            out[prefix + "dice_coef"] = out.pop(prefix + "dice")
+        return out
+
+
+class StepTimer:
+    """Per-step wall time, averaged over windows of ``sync_every`` steps; the
+    device is synchronized once per window, not once per step."""
+
+    def __init__(self, device: torch.device, sync_every: int = 32):
+        self.device = device
+        self.sync_every = max(1, sync_every)
+        self.times: List[float] = []
+        self._n = 0
+        self._t0 = time.perf_counter()
+
+    def lap(self) -> None:
+        self._n += 1
+        if self._n % self.sync_every == 0:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.times.append((time.perf_counter() - self._t0) / self.sync_every)
+            self._t0 = time.perf_counter()
+
+    def summary(self) -> Dict[str, float]:
+        if self._n == 0:
+            return {}
+        out = {"steps": float(self._n)}
+        if self.times:
+            ts = self.times[1:] if len(self.times) > 2 else self.times  # drop warm-up
+            out.update(mean_ms=float(np.mean(ts)) * 1e3, p50_ms=float(np.median(ts)) * 1e3,
+                       max_ms=max(ts) * 1e3)
+        return out
+
+
+def _model_config(cfg: Config, verbose: bool):
+    mcfg = cfg.model
+    if mcfg.use_pallas and not (mcfg.conv_type == "separable" and mcfg.use_batch_norm):
+        print(
+            "WARNING: the fused training chains need conv_type='separable' and "
+            f"use_batch_norm=True; this configuration (conv_type={mcfg.conv_type!r}, "
+            f"use_batch_norm={mcfg.use_batch_norm}) trains on the composed path."
+        )
+        mcfg = dataclasses.replace(mcfg, use_pallas=False)
+    if verbose and (cfg.mesh.spatial_axis != 1 or cfg.mesh.data_axis not in (-1, 1)):
+        print("Note: the port trains on one device; the mesh settings are not used.")
+    return mcfg
+
+
+def fit(
+    cfg: Config,
+    train_ds=None,
+    val_ds=None,
+    state: Optional[TrainState] = None,
+    callbacks: Optional[List[Any]] = None,
+    device: Union[str, torch.device] = "cuda",
+    verbose: bool = True,
+) -> FitResult:
+    """Train for ``cfg.train.epochs`` on ``device``; the datasets default to
+    the directory contract under ``cfg.data.root``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    tcfg = cfg.train
+    if train_ds is None or val_ds is None:
+        train_ds, val_ds = make_loaders(cfg)
+    if cfg.data.auto_pack:
+        from unet_image_segmentation_tpu.data.autopack import maybe_autopack
+
+        train_ds = maybe_autopack(train_ds, pack_dir=cfg.data.pack_dir,
+                                  fallback_dir=tcfg.model_out, verbose=verbose)
+        val_ds = maybe_autopack(val_ds, pack_dir=cfg.data.pack_dir,
+                                fallback_dir=tcfg.model_out, verbose=verbose)
+    mcfg = _model_config(cfg, verbose)
+    if state is None:
+        model = build_unet(mcfg, device=device,
+                           generator=torch.Generator().manual_seed(tcfg.seed))
+        state = create_train_state(cfg, model=model)
+    else:
+        state.model.to(device)
+    model = state.model
+
+    model_kwargs = dict(
+        num_classes=cfg.model.num_classes,
+        filters=list(cfg.model.filters),
+        dropout_rate=cfg.model.dropout_rate,
+        use_batch_norm=cfg.model.use_batch_norm,
+        conv_type=cfg.model.conv_type,
+        image_height=cfg.model.image_height,
+        image_width=cfg.model.image_width,
+        image_channels=cfg.model.image_channels,
+    )
+    if callbacks is None:
+        callbacks = [
+            BestCheckpoint(tcfg.model_out, monitor=tcfg.monitor, mode=tcfg.monitor_mode,
+                           model_kwargs=model_kwargs, verbose=verbose),
+            EarlyStopping(monitor=tcfg.monitor, mode=tcfg.monitor_mode,
+                          patience=tcfg.early_stop_patience,
+                          restore_best_weights=tcfg.restore_best_weights, verbose=verbose),
+            ReduceLROnPlateau(monitor=tcfg.monitor, mode=tcfg.monitor_mode,
+                              factor=tcfg.reduce_lr_factor, patience=tcfg.reduce_lr_patience,
+                              min_lr=tcfg.min_lr, verbose=verbose),
+            TensorBoardLogger(os.path.join(tcfg.log_dir, time.strftime("%Y%m%d_%H%M%S")),
+                              histogram_freq=tcfg.histogram_freq),
+        ]
+    cb_list = CallbackList(callbacks)
+
+    start_epoch = 0
+    if tcfg.resume:
+        meta = ckpt_lib.read_meta(tcfg.model_out)
+        last = os.path.join(os.path.abspath(tcfg.model_out), "last")
+        if meta is not None and os.path.isdir(last):
+            ckpt_lib.restore_state(last, state)
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            cb_list.load_state_dict(meta.get("callbacks", {}))
+            if "learning_rate" in meta:
+                state.set_learning_rate(float(meta["learning_rate"]))
+            if verbose:
+                print(f"Resumed from {last} at epoch {start_epoch}")
+
+    train_step = make_train_step(model, tcfg.loss)
+    eval_step = make_eval_step(model, tcfg.loss)
+
+    def put(batch):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+                     for x in batch)
+
+    steps_per_epoch = max(1, len(train_ds) // tcfg.batch_size)
+    val_steps = max(1, len(val_ds) // tcfg.batch_size)
+    history: Dict[str, List[float]] = {}
+    result = FitResult(state=state, history=history)
+
+    # SIGTERM: finish the epoch with 'last' and meta.json on disk, then stop
+    stop_requested = {"flag": False}
+    old_handlers = {}
+    if threading.current_thread() is threading.main_thread():
+        def _request_stop(signum, frame):
+            print(f"\nSignal {signum} received: finishing epoch, checkpointing to "
+                  f"{tcfg.model_out}/last, then stopping.")
+            stop_requested["flag"] = True
+
+        old_handlers[signal.SIGTERM] = signal.signal(signal.SIGTERM, _request_stop)
+
+    out_dir = os.path.abspath(tcfg.model_out)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json(indent=2))
+
+    try:
+        for epoch in range(start_epoch, tcfg.epochs):
+            t0 = time.perf_counter()
+            acc = _EpochMetrics()
+            timer = StepTimer(device)
+            batches = Prefetcher(
+                train_ds.batches(tcfg.batch_size, epoch=epoch, steps=steps_per_epoch,
+                                 num_workers=cfg.data.num_workers),
+                depth=cfg.data.prefetch,
+            )
+            for images, masks in batches:
+                images, masks = put((images, masks))
+                acc.update(train_step(state, images, masks))
+                timer.lap()
+            logs = acc.result()
+            logs.update({f"step_{k}": v for k, v in timer.summary().items()})
+
+            vacc = _EpochMetrics()
+            vbatches = Prefetcher(
+                val_ds.batches(tcfg.batch_size, epoch=0, steps=val_steps,
+                               num_workers=cfg.data.num_workers),
+                depth=cfg.data.prefetch,
+            )
+            for images, masks in vbatches:
+                images, masks = put((images, masks))
+                vacc.update(eval_step(state, images, masks))
+            logs.update(vacc.result(prefix="val_"))
+            logs["epoch_time_sec"] = time.perf_counter() - t0
+
+            state = cb_list.on_epoch_end(epoch, logs, state)
+            for k, v in logs.items():
+                history.setdefault(k, []).append(float(v))
+            if verbose:
+                msg = " - ".join(
+                    f"{k}: {v:.4f}" for k, v in logs.items()
+                    if k in ("loss", "dice_coef", "mean_io_u", "val_loss", "val_dice_coef",
+                             "val_mean_io_u", "val_mean_io_u_thresh")
+                )
+                print(f"Epoch {epoch + 1}/{tcfg.epochs} [{logs['epoch_time_sec']:.1f}s] {msg}")
+
+            ckpt_lib.write_meta(out_dir, {
+                "epoch": epoch,
+                "monitor": tcfg.monitor,
+                "mode": tcfg.monitor_mode,
+                "callbacks": cb_list.state_dict(),
+                "learning_rate": state.learning_rate,
+                "config": cfg.to_dict(),
+            })
+            result.epochs_run = epoch + 1
+            if cb_list.should_stop or stop_requested["flag"]:
+                result.stopped_epoch = epoch
+                break
+    finally:
+        for sig, handler in old_handlers.items():
+            signal.signal(sig, handler)
+    for cb in cb_list.callbacks:
+        if isinstance(cb, BestCheckpoint):
+            result.best_score = cb.best
+            result.best_epoch = cb.best_epoch
+        if isinstance(cb, EarlyStopping) and cb.stopped_epoch >= 0:
+            result.stopped_epoch = cb.stopped_epoch
+    result.state = state
+    return result
