@@ -22,18 +22,25 @@ exit code and no result line:
    launch counters of that run; images/s at batch 32, kernels on and off;
 6. K7 and K8 times at batch 32 beside their plain versions', summed over
    the path's shapes;
-7. K1-K4 (the training chain's link forward and backward and the encoder
-   boundary's pool and its backward) against their plain versions at
-   every shape of a train step, batch 2, fp32 and bf16; K4 on inputs with
-   exact ties;
-8. the training path at full width (``configs/tpu_train_256_bf16.json`` with
-   ``fused_head`` off, batch 32, seeded weights, in-memory scenes): 3 train
-   steps with the kernels against 3 of the composed path in fp32 and bf16
-   (loss per step, step-1 gradients, BatchNorm running stats after step 3),
-   18/18/4/4 K1-K4 launches per step, train images/s and peak memory, then
-   ``fit`` for one epoch whose ``best/`` checkpoint a ``Predictor`` serves;
-9. K1-K4 times at batch 32 beside their plain versions', then the six
-   kernels' JSON line and the result line.
+7. K1-K6 against their plain versions at every shape of a train step,
+   batch 2, fp32 and bf16: K1-K4 (the training chain's link forward and
+   backward, the encoder boundary's pool and its backward; K4 on inputs
+   with exact ties), K6 (the decoder feed, forward and backward) at the four
+   decoder stages and at one feed of other widths (the bf16 FMA kernels),
+   K5 (the fused head, forward and backward) at dec1 on inputs where the
+   ReLU's argument is exactly 0 on some pixels;
+8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
+   it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
+   3 train steps with the kernels against 3 of the composed path in fp32
+   and bf16 (loss per step, step-1 gradients, BatchNorm running stats after
+   step 3), the K1-K6 launches of every kernels-on step, train images/s and
+   peak memory; one bf16 kernels-on step with ``fused_head`` off (the same
+   launches but K5's); then ``fit`` for one epoch whose ``best/`` checkpoint
+   a ``Predictor`` serves;
+9. K1-K6 at batch 32, whose launch plans differ from batch 2's: each output
+   held against its plain version under phase 7's bars, then both timed;
+   then the ten kernels' JSON line (with each kernel's bound) and the
+   result line.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN), so the
 plain versions compute in full fp32 like the kernels. Relative errors are
@@ -77,10 +84,13 @@ BLOCK_LAUNCHES_PER_FORWARD = 18
 # sum with cancellation drifts by ~sqrt(n) fp32 roundings, so fp32 gets 5e-4.
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_SUM_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
-TRAIN_CONFIG = "configs/tpu_train_256_bf16.json"   # run with fused_head off
+TRAIN_CONFIG = "configs/tpu_train_256_bf16.json"   # run as it is
 TRAIN_STEPS = 3
-TRAIN_REPS = 5           # timing repetitions of K1-K4 and their plain versions
-STEP_LAUNCHES = {"chain_fwd": 18, "chain_bwd": 18, "tail_pool": 4, "tail_pool_bwd": 4}
+TRAIN_REPS = 5           # timing repetitions of K1-K6 and their plain versions
+STEP_LAUNCHES = {"chain_fwd": 18, "chain_bwd": 18, "tail_pool": 4, "tail_pool_bwd": 4,
+                 "upconcat": 4, "upconcat_bwd": 4, "head_fwd": 1, "head_bwd": 1}
+# the same step with fused_head off: K5 does not run
+STEP_LAUNCHES_HEAD_OFF = {**STEP_LAUNCHES, "head_fwd": 0, "head_bwd": 0}
 # Kernels-on train steps vs the composed path on the same card, relative.
 # fp32: both compute in fp32 with sums in other orders (2M pixels a channel
 # at the 256 px stages). The step-1 gradients pass nine BatchNorm backwards
@@ -114,7 +124,15 @@ KERNELS = {
     "chain_bwd": ("chain_bwd.cu", "fused_train.py:1422"),
     "tail_pool": ("tail_pool.cu", "fused_train.py:468"),
     "tail_pool_bwd": ("tail_pool.cu", "fused_train.py:1068"),
+    "upconcat": ("upconcat.cu", "fused_upconcat.py:153"),
+    "upconcat_bwd": ("upconcat.cu", "fused_upconcat.py:203"),
+    "head_fwd": ("head.cu", "fused_head.py:119"),
+    "head_bwd": ("head.cu", "fused_head.py:433"),
 }
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): memory
+# bytes/s, and operations/s by type (bf16 tensor cores; fp32 outside them).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def stage_shapes():
@@ -167,6 +185,110 @@ def pool_shapes():
     return [(f"enc{s}", f, IMAGE >> (s - 1)) for s, f in enumerate(FILTERS, 1)]
 
 
+def upconcat_shapes():
+    """(name, C, F, H) of the 4 decoder feeds at 256 px: x (B,H,H,C) ->
+    cat (B,2H,2H,2F)."""
+    out, c, h = [], 2 * FILTERS[-1], IMAGE >> len(FILTERS)
+    for s in range(len(FILTERS), 0, -1):
+        f = FILTERS[s - 1]
+        out.append((f"dec{s}", c, f, h))
+        c, h = f, 2 * h
+    return out
+
+
+# a feed at widths off the tensor-core path (C % 64, F % 16 nonzero), so
+# the bf16 FMA kernels that other widths take are checked too
+FEED_FMA_SHAPE = ("fma widths", 48, 8, 16)
+
+
+def upconcat_case(torch, rnd, dev, dtype, batch, c, f, h):
+    """Seeded inputs of one decoder feed for K6 (kernel at the glorot scale)."""
+    return dict(x=rnd(batch, h, h, c).to(dev, dtype),
+                kernel=rnd(2, 2, f, c, scale=(6 / (4 * (c + f))) ** 0.5).to(dev),
+                bias=0.1 * rnd(f).to(dev), skip=rnd(batch, 2 * h, 2 * h, f).to(dev, dtype),
+                g=rnd(batch, 2 * h, 2 * h, 2 * f).to(dev, dtype))
+
+
+def head_case(torch, rnd, dev, dtype, batch):
+    """Seeded inputs of K5 at dec1 (F = FILTERS[0] at 256 px). y and the
+    affine sit on a grid of quarters (a in {1, 1.5, 2}), so a*y+b is exactly
+    0 on some pixels and the ReLU mask's edge is tested."""
+    f, g = FILTERS[0], rnd.gen
+    y = (torch.randint(-8, 9, (batch, IMAGE, IMAGE, f), generator=g) * 0.25).to(dev, dtype)
+    aff4 = torch.stack([1 + 0.5 * torch.randint(0, 3, (f,), generator=g),
+                        0.25 * torch.randint(-2, 3, (f,), generator=g),
+                        0.1 * rnd(f), 1 + 0.5 * rnd(f).abs()]).float().to(dev).contiguous()
+    w = (0.1 * rnd(f)).to(dtype).float().to(dev)
+    hb = (0.1 * rnd(1)).to(dtype).float().to(dev)
+    t = (torch.rand(batch, IMAGE, IMAGE, generator=g) > 0.5).to(torch.uint8).to(dev)
+    gsc = rnd(batch, 2).to(dev).contiguous()
+    return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=w, hb=hb, t=t, gsc=gsc)
+
+
+def bounds_ms(name, shape, dname):
+    """The least time, in ms, the card could take for one call of kernel
+    ``name`` at ``shape`` in ``dname``: the larger of the bytes it must move
+    (each input read once, each output written once) over the memory rate
+    and its operations (2 per multiply-add) over the peak for the type.
+    Returns (ms, "bytes" or "operations")."""
+    e = 4 if dname == "float32" else 2
+    if name == "sepconv_pair":
+        _, cx, cx2, f1, f2, h, mode = shape
+        c, px = cx + cx2, BATCH_SERVE * h * h
+        out = px * f2 * (1.25 if mode == "pool" else 1.0)
+        nbytes = e * (px * c + out + 9 * c + c * f1 + 9 * f1 + f1 * f2)
+        ops = 2 * px * (9 * c + c * f1 + 9 * f1 + f1 * f2)
+    elif name == "sepconv_block":
+        c, f, h = shape
+        px = BATCH_SERVE * h * h
+        nbytes, ops = e * (px * (c + f) + 9 * c + c * f), 2 * px * (9 * c + c * f)
+    elif name in ("chain_fwd", "chain_bwd"):
+        _, c, f, h, _, _, _ = shape
+        px = BATCH_SERVE * h * h
+        if name == "chain_fwd":   # x -> y, Σy, Σy²
+            nbytes = e * (px * (c + f) + 9 * c + c * f) + 4 * 2 * f
+            ops = 2 * px * (9 * c + c * f)
+        else:                     # x, g, y -> dx, ddw, dpw, S, T
+            nbytes = e * (px * (c + 2 * f + c) + 9 * c + c * f) + 4 * (11 * c + c * f)
+            ops = 2 * px * (2 * c * f + 27 * c)   # dm, dpw; dz, ddw, m
+    elif name in ("tail_pool", "tail_pool_bwd"):
+        _, f, h = shape
+        px = BATCH_SERVE * h * h
+        nbytes = e * px * f * (2.25 if name == "tail_pool" else 3.25)
+        ops = px * f * (3 if name == "tail_pool" else 8)
+    elif name in ("upconcat", "upconcat_bwd"):
+        _, c, f, h = shape
+        px = BATCH_SERVE * h * h
+        gemm = 2 * px * c * 4 * f
+        if name == "upconcat":    # x, skip, W -> cat
+            nbytes, ops = e * (px * c + 4 * px * f + 4 * c * f + 8 * px * f), gemm
+        else:                     # x, g, W -> dx, d_skip, d_kernel, d_bias
+            nbytes = e * (2 * px * c + 8 * px * f + 4 * px * f + 4 * c * f) + 4 * 4 * c * f
+            ops = 2 * gemm
+    else:                         # head_fwd, head_bwd at dec1
+        f, px = FILTERS[0], BATCH_SERVE * IMAGE * IMAGE
+        if name == "head_fwd":    # y, targets -> 9 sums a sample
+            nbytes, ops = e * px * f + px, px * (6 * f + 20)
+        else:                     # y, targets -> dzt, S, T, dw, db
+            nbytes, ops = 2 * e * px * f + px, px * (14 * f + 24)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_shapes():
+    """Kernel name -> the shapes of its calls on the path, as bounds_ms takes them."""
+    stages, links = stage_shapes(), chain_links()
+    return {
+        "sepconv_pair": stages,
+        "sepconv_block": [(cx + cx2, f1, h) for _, cx, cx2, f1, _, h, _ in stages] +
+                         [(f1, f2, h) for _, _, _, f1, f2, h, _ in stages],
+        "chain_fwd": links, "chain_bwd": links,
+        "tail_pool": pool_shapes(), "tail_pool_bwd": pool_shapes(),
+        "upconcat": upconcat_shapes(), "upconcat_bwd": upconcat_shapes(),
+        "head_fwd": [None], "head_bwd": [None],
+    }
+
+
 def link_case(torch, rnd, dev, dtype, batch, c, f, h, in_aff, drop, ft):
     """Seeded inputs of one link for K1 and K2 (y is the plain K1 output,
     so K2's masks see realistic values)."""
@@ -197,52 +319,84 @@ def pool_case(torch, rnd, dev, dtype, batch, f, h):
     return dict(y=y, aff4=aff4, gs=gs, gp=gp)
 
 
-def check_train_kernels(torch, ft, rnd, dev, dtypes, judge_tols):
-    """Phase 7: K1-K4 against their plain versions at every path shape."""
+def judge_feed(fu, tjudge, k, label, dname):
+    """K6 forward and backward on one decoder feed's inputs, against plain."""
+    fwd, bwd = (k["x"], k["kernel"], k["bias"], k["skip"]), (k["x"], k["kernel"], k["g"])
+    tjudge("upconcat", label + " cat", dname, [(fu.upconcat(*fwd), fu.upconcat_reference(*fwd))])
+    got, want = fu.upconcat_bwd(*bwd), fu.upconcat_bwd_reference(*bwd)
+    tjudge("upconcat_bwd", label + " dx/d_skip", dname, [(got[0], want[0]), (got[3], want[3])])
+    tjudge("upconcat_bwd", label + " d_kernel/d_bias", dname,
+           [(got[1], want[1]), (got[2], want[2])], sums=True)
 
-    def judge(name, label, dname, pairs, sums=False):
-        judge_tols(name, label, dname, pairs, TRAIN_SUM_TOL if sums else TRAIN_TOL)
+
+def judge_head(fh, tjudge, k, label, dname):
+    """K5 forward and backward on dec1's inputs, against plain."""
+    fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
+    bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
+    tjudge("head_fwd", label + " sums", dname,
+           [(fh.head_fwd_sums(*fwd), fh.head_fwd_sums_reference(*fwd))], sums=True)
+    got, want = fh.head_bwd(*bwd), fh.head_bwd_reference(*bwd)
+    tjudge("head_bwd", label + " dzt", dname, [(got[0], want[0])])
+    tjudge("head_bwd", label + " S/T/dw/db", dname, list(zip(got[1:], want[1:])), sums=True)
+
+
+def judge_link(ft, tjudge, k, label, dname, in_aff, mc):
+    """K1 and K2 on one chain link's inputs, against plain."""
+    got = ft.chain_fwd(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
+    want = ft.chain_fwd_reference(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
+    tjudge("chain_fwd", label + " y", dname, [(got[0], want[0])])
+    tjudge("chain_fwd", label + " sums", dname, [(got[1], want[1]), (got[2], want[2])],
+           sums=True)
+    args = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
+    got, want = ft.chain_bwd(*args), ft.chain_bwd_reference(*args)
+    tjudge("chain_bwd", label + " dx", dname, [(got[0], want[0])])
+    pairs = [(got[1], want[1]), (got[2], want[2])]
+    if in_aff:
+        pairs.append((got[3], want[3]))
+    tjudge("chain_bwd", label + " ddw/dpw/st", dname, pairs, sums=True)
+
+
+def judge_pool(ft, tjudge, k, label, dname):
+    """K3 and K4 on one encoder boundary's inputs, against plain."""
+    a, b = k["aff4"][0], k["aff4"][1]
+    tjudge("tail_pool", label, dname,
+           list(zip(ft.tail_pool(k["y"], a, b), ft.tail_pool_reference(k["y"], a, b))))
+    args = (k["y"], k["gs"], k["gp"], k["aff4"])
+    got, want = ft.tail_pool_bwd(*args), ft.tail_pool_bwd_reference(*args)
+    tjudge("tail_pool_bwd", label + " dzt", dname, [(got[0], want[0])])
+    tjudge("tail_pool_bwd", label + " S/T", dname, [(got[1], want[1])], sums=True)
+
+
+def link_label(name, c, f, h, in_aff, drop, mc):
+    mode = ("affine " if in_aff else "") + ("dropout " if drop else "") + ("mask " if mc else "")
+    return f"{name} {c}->{f}@{h} {mode or 'plain '}".rstrip()
+
+
+def check_train_kernels(torch, ft, fu, fh, rnd, dev, dtypes, tjudge):
+    """Phase 7: K1-K6 against their plain versions at every path shape."""
+    print(f"K5/K6 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
+    for dname, dtype in dtypes.items():
+        for name, c, f, h in upconcat_shapes() + [FEED_FMA_SHAPE]:
+            k = upconcat_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h)
+            judge_feed(fu, tjudge, k, f"{name} {c}@{h}->{2 * f}@{2 * h}", dname)
+        k = head_case(torch, rnd, dev, dtype, BATCH_CHECK)
+        zeros = ((k["y"].float() * k["aff4"][0] + k["aff4"][1]) == 0).float().mean().item()
+        judge_head(fh, tjudge, k, f"dec1 F={FILTERS[0]}@{IMAGE} (a*y+b exactly 0 on "
+                   f"{zeros:.3f} of the values)", dname)
 
     print(f"K1-K4 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
         for name, c, f, h, in_aff, drop, mc in chain_links():
             k = link_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h, in_aff, drop, ft)
-            got = ft.chain_fwd(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
-            want = ft.chain_fwd_reference(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
-            torch.cuda.synchronize()
-            mode = ("affine " if in_aff else "") + ("dropout " if drop else "") + \
-                ("mask " if mc else "")
-            label = f"{name} {c}->{f}@{h} {mode or 'plain '}".rstrip()
-            judge("chain_fwd", label + " y", dname, [(got[0], want[0])])
-            judge("chain_fwd", label + " sums", dname, [(got[1], want[1]), (got[2], want[2])],
-                  sums=True)
-            args = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
-            got = ft.chain_bwd(*args)
-            want = ft.chain_bwd_reference(*args)
-            torch.cuda.synchronize()
-            judge("chain_bwd", label + " dx", dname, [(got[0], want[0])])
-            pairs = [(got[1], want[1]), (got[2], want[2])]
-            if in_aff:
-                pairs.append((got[3], want[3]))
-            judge("chain_bwd", label + " ddw/dpw/st", dname, pairs, sums=True)
+            judge_link(ft, tjudge, k, link_label(name, c, f, h, in_aff, drop, mc), dname,
+                       in_aff, mc)
         for name, f, h in pool_shapes():
             k = pool_case(torch, rnd, dev, dtype, BATCH_CHECK, f, h)
-            a, b = k["aff4"][0], k["aff4"][1]
-            got, want = ft.tail_pool(k["y"], a, b), ft.tail_pool_reference(k["y"], a, b)
-            torch.cuda.synchronize()
-            judge("tail_pool", f"{name} F={f}@{h}", dname, list(zip(got, want)))
-            args = (k["y"], k["gs"], k["gp"], k["aff4"])
-            got, want = ft.tail_pool_bwd(*args), ft.tail_pool_bwd_reference(*args)
-            torch.cuda.synchronize()
-            zc = ft.tail_pool_reference(k["y"], a, b)[0].float()
+            zc = ft.tail_pool_reference(k["y"], k["aff4"][0], k["aff4"][1])[0].float()
             win = zc.reshape(BATCH_CHECK, h // 2, 2, h // 2, 2, f)
             ties = ((win == win.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4)) > 1)
-            ties = ties.float().mean().item()
-            judge("tail_pool_bwd", f"{name} F={f}@{h} (windows with a tied max {ties:.2f}) dzt",
-                  dname,
-                  [(got[0], want[0])])
-            judge("tail_pool_bwd", f"{name} F={f}@{h} S/T", dname, [(got[1], want[1])],
-                  sums=True)
+            judge_pool(ft, tjudge, k, f"{name} F={f}@{h} (windows with a tied max "
+                       f"{ties.float().mean().item():.2f})", dname)
 
 
 class MemoryDataset:
@@ -272,7 +426,6 @@ def train_path(torch, dev, smi, report, launches):
     composed path on the same card, then ``fit`` and a ``Predictor`` request."""
     from unet_image_segmentation_tpu_torch.inference import Predictor
     from unet_image_segmentation_tpu_torch.models.unet import build_unet
-    from unet_image_segmentation_tpu_torch.ops import fused_train as ft
     from unet_image_segmentation_tpu_torch.train.checkpoint import load_inference_variables
     from unet_image_segmentation_tpu_torch.train.loop import fit
     from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
@@ -280,11 +433,11 @@ def train_path(torch, dev, smi, report, launches):
 
     with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
         base = json.load(f)
-    base["model"]["fused_head"] = "off"
     images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
     x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
     m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
-    print(f"training path: {TRAIN_CONFIG} with fused_head off: U-Net {base['model']['filters']}"
+    print(f"training path: {TRAIN_CONFIG} as it is (fused_head "
+          f"{base['model'].get('fused_head', 'auto')}): U-Net {base['model']['filters']}"
           f" at {IMAGE}, batch {base['train']['batch_size']}, dropout "
           f"{base['model']['dropout_rate']}, {base['train']['loss']} loss, AdamW lr "
           f"{base['train']['learning_rate']} wd {base['train']['weight_decay']}; seeded "
@@ -296,18 +449,19 @@ def train_path(torch, dev, smi, report, launches):
             d = json.loads(json.dumps(base))
             d["model"].update(compute_dtype=dname, use_pallas=use_pallas)
             cfg = Config.from_dict(d)
-            model = build_unet(cfg.model, generator=torch.Generator().manual_seed(SEED)).to(dev)
-            state = create_train_state(cfg, model=model)
+            model = build_unet(cfg.model, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+            state = create_train_state(cfg, model=model, device=dev)
             step = make_train_step(model, cfg.train.loss)
             losses, grads = [], None
             torch.cuda.reset_peak_memory_stats()
             for i in range(TRAIN_STEPS):
                 if use_pallas:
-                    ft.reset_launch_counts()
+                    reset_train_counts()
                 loss = float(step(state, x, m)["loss"])
                 torch.cuda.synchronize()
                 if use_pallas:
-                    counts = dict(ft.LAUNCHES)
+                    counts = train_counts()
                     print(f"  {dname} kernels-on step {i + 1} launches {counts}")
                     if counts != STEP_LAUNCHES:
                         raise AssertionError(f"expected {STEP_LAUNCHES} per step, got {counts}")
@@ -390,10 +544,33 @@ def train_path(torch, dev, smi, report, launches):
             f"kernels {k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) +
             f"; peak memory kernels on {on['peak_gb']:.2f} GiB, composed {off['peak_gb']:.2f} "
             f"GiB [{smi}]")
+        prof = profile_step(torch, on["step"], on["state"], x, m)
+        print(f"  {dname} kernels-on step under torch.profiler: {prof['wall_ms']:.1f} ms a step, "
+              f"device busy {prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}); "
+              "device ms a step: " + ", ".join(f"{k} {v:.2f}" for k, v in prof["groups"].items()))
+        print("    largest PyTorch kernels, ms a step: " + "; ".join(
+            f"{name[:60]} {t:.2f}" for name, t in prof["glue_top"]))
         report["train"][dname] = dict(
             losses_on=on["losses"], losses_off=off["losses"], grad_rel=g_rel, stats_rel=s_rel,
-            images_per_s=rates, peak_gib={"on": on["peak_gb"], "off": off["peak_gb"]})
+            images_per_s=rates, peak_gib={"on": on["peak_gb"], "off": off["peak_gb"]},
+            profile=prof)
         del runs, on, off
+
+    # PR 2's path: the same config with the composed head, kernels on
+    d = json.loads(json.dumps(base))
+    d["model"].update(fused_head="off", use_pallas=True)
+    cfg = Config.from_dict(d)
+    model = build_unet(cfg.model, device=dev, generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(cfg, model=model, device=dev)
+    reset_train_counts()
+    loss = float(make_train_step(model, cfg.train.loss)(state, x, m)["loss"])
+    torch.cuda.synchronize()
+    counts = train_counts()
+    print(f"  {cfg.model.compute_dtype} kernels-on step with fused_head off: loss {loss:.6f}, "
+          f"launches {counts}")
+    if counts != STEP_LAUNCHES_HEAD_OFF or not np.isfinite(loss):
+        raise AssertionError(f"fused_head off: expected {STEP_LAUNCHES_HEAD_OFF}, got {counts}")
+    del model, state
 
     d = json.loads(json.dumps(base))
     with tempfile.TemporaryDirectory() as tmp:
@@ -423,6 +600,63 @@ def train_path(torch, dev, smi, report, launches):
         report["train"]["fit_best"] = res.best_score
 
 
+# share by which the profiler's device time may exceed the host's wall time
+PROFILE_JITTER = 0.02
+# substrings of the port's kernel names -> the table's labels (first match wins)
+KERNEL_GROUPS = (("chain_fwd", "K1"), ("chain_bwd", "K2"), ("tail_pool_bwd", "K4"),
+                 ("tail_pool", "K3"), ("upconcat", "K6"), ("head_", "K5"),
+                 ("colsum", "fixed-order sums"))
+
+
+def profile_step(torch, step, state, x, m, reps=2):
+    """Device time of ``reps`` train steps by kernel group, from
+    ``torch.profiler``: the wall time a step under the profiler, the device
+    busy time (the sum of the kernels' times; the step's kernels run on one
+    stream), the idle share, and the largest PyTorch kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, x, m)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(state, x, m)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    groups, glue = {}, {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0) / 1e3 / reps
+        if t <= 0:
+            continue
+        label = next((lab for key, lab in KERNEL_GROUPS if key in ev.key), "PyTorch")
+        groups[label] = groups.get(label, 0.0) + t
+        if label == "PyTorch":
+            glue[ev.key] = glue.get(ev.key, 0.0) + t
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise AssertionError("torch.profiler traced no device time")
+    # one stream: busy cannot exceed the wall time beyond the two clocks' jitter
+    if busy > wall * (1 + PROFILE_JITTER):
+        raise AssertionError(f"device busy {busy:.2f} ms exceeds the wall time {wall:.2f} ms")
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "glue_top": sorted(glue.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def reset_train_counts():
+    from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
+
+    for mod in (fused_train, fused_upconcat, fused_head):
+        mod.reset_launch_counts()
+
+
+def train_counts():
+    """The K1-K6 launch counters, merged."""
+    from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
+
+    return {**fused_train.LAUNCHES, **fused_upconcat.LAUNCHES, **fused_head.LAUNCHES}
+
+
 def train_images_per_second(step, state, x, m, torch, reps=3):
     """Host-clock rate of full train steps (forward, backward, AdamW)."""
     step(state, x, m)
@@ -444,8 +678,10 @@ def main() -> int:
     from unet_image_segmentation_tpu_torch.inference import Predictor
     from unet_image_segmentation_tpu_torch.models.layers import BatchNorm
     from unet_image_segmentation_tpu_torch.models.unet import UNet, recalibrate_batch_norm
+    from unet_image_segmentation_tpu_torch.ops import fused_head as fh
     from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
     from unet_image_segmentation_tpu_torch.ops import fused_train as ft
+    from unet_image_segmentation_tpu_torch.ops import fused_upconcat as fu
     from unet_image_segmentation_tpu_torch.ops.kernels import build
     from unet_image_segmentation_tpu_torch.train.checkpoint import save_inference_variables
 
@@ -638,63 +874,99 @@ def main() -> int:
               f"{tot['sepconv_pair'][1]:.3f}, K8 {tot['sepconv_block'][0]:.3f} / "
               f"{tot['sepconv_block'][1]:.3f}")
 
-    # ---- 7. K1-K4 vs plain ------------------------------------------------
-    check_train_kernels(torch, ft, rnd, dev, dtypes, judge)
+    def tjudge(name, label, dname, pairs, sums=False):
+        judge(name, label, dname, pairs, TRAIN_SUM_TOL if sums else TRAIN_TOL)
+
+    # ---- 7. K1-K6 vs plain ------------------------------------------------
+    check_train_kernels(torch, ft, fu, fh, rnd, dev, dtypes, tjudge)
 
     # ---- 8. the training path at full width ----------------------------------
     train_path(torch, dev, smi, report, launches)
 
-    # ---- 9. K1-K4 timings -------------------------------------------------------
-    print(f"K1-K4 timings, batch {BATCH_SERVE}, ms (kernel / plain) [{smi}]:")
+    # ---- 9. K1-K6 at batch 32: against plain, then timed ---------------------
+    # Each kernel's launch plan depends on the batch (blocks per sample,
+    # split-K counts, pixel ranges), so the outputs at the path's batch are
+    # held against the plain versions too, then both are timed.
+    print(f"K1-K6 at batch {BATCH_SERVE} vs plain, TF32 off, then ms (kernel / plain) [{smi}]:")
     report["train_kernels"] = {}
+
+    def timed(fns):
+        return {kname: (time_ms(fk, torch, TRAIN_REPS), time_ms(fp, torch, TRAIN_REPS))
+                for kname, (fk, fp) in fns.items()}
+
     for dname, dtype in dtypes.items():
         tot = {name: [0.0, 0.0] for name in ("chain_fwd", "chain_bwd", "tail_pool",
-                                              "tail_pool_bwd")}
+                                              "tail_pool_bwd", "upconcat", "upconcat_bwd",
+                                              "head_fwd", "head_bwd")}
+        cases = []
         for name, c, f, h, in_aff, drop, mc in chain_links():
             k = link_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h, in_aff, drop, ft)
+            label = link_label(name, c, f, h, in_aff, drop, mc)
+            judge_link(ft, tjudge, k, label, dname, in_aff, mc)
             fwd = (k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
             bwd = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
-            times = {
-                "chain_fwd": (time_ms(lambda: ft.chain_fwd(*fwd), torch, TRAIN_REPS),
-                              time_ms(lambda: ft.chain_fwd_reference(*fwd), torch, TRAIN_REPS)),
-                "chain_bwd": (time_ms(lambda: ft.chain_bwd(*bwd), torch, TRAIN_REPS),
-                              time_ms(lambda: ft.chain_bwd_reference(*bwd), torch, TRAIN_REPS)),
-            }
+            cases.append((label, "K1", "K2", timed({
+                "chain_fwd": (lambda: ft.chain_fwd(*fwd), lambda: ft.chain_fwd_reference(*fwd)),
+                "chain_bwd": (lambda: ft.chain_bwd(*bwd), lambda: ft.chain_bwd_reference(*bwd)),
+            })))
             del k, fwd, bwd
-            for kname, (t_k, t_p) in times.items():
-                tot[kname][0] += t_k
-                tot[kname][1] += t_p
-            print(f"  {name} {c}->{f}@{h} {dtype_label(dname)}: "
-                  f"K1 {times['chain_fwd'][0]:.3f} / {times['chain_fwd'][1]:.3f}, "
-                  f"K2 {times['chain_bwd'][0]:.3f} / {times['chain_bwd'][1]:.3f}")
-            report["train_kernels"][f"{name} {dname}"] = times
         for name, f, h in pool_shapes():
             k = pool_case(torch, rnd, dev, dtype, BATCH_SERVE, f, h)
+            label = f"{name} boundary F={f}@{h}"
+            judge_pool(ft, tjudge, k, label, dname)
             a, b = k["aff4"][0], k["aff4"][1]
             bwd = (k["y"], k["gs"], k["gp"], k["aff4"])
-            times = {
-                "tail_pool": (time_ms(lambda: ft.tail_pool(k["y"], a, b), torch, TRAIN_REPS),
-                              time_ms(lambda: ft.tail_pool_reference(k["y"], a, b), torch,
-                                      TRAIN_REPS)),
-                "tail_pool_bwd": (time_ms(lambda: ft.tail_pool_bwd(*bwd), torch, TRAIN_REPS),
-                                  time_ms(lambda: ft.tail_pool_bwd_reference(*bwd), torch,
-                                          TRAIN_REPS)),
-            }
+            cases.append((label, "K3", "K4", timed({
+                "tail_pool": (lambda: ft.tail_pool(k["y"], a, b),
+                              lambda: ft.tail_pool_reference(k["y"], a, b)),
+                "tail_pool_bwd": (lambda: ft.tail_pool_bwd(*bwd),
+                                  lambda: ft.tail_pool_bwd_reference(*bwd)),
+            })))
             del k, bwd
+        for name, c, f, h in upconcat_shapes():
+            k = upconcat_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h)
+            label = f"{name} feed {c}@{h}->{2 * f}@{2 * h}"
+            judge_feed(fu, tjudge, k, label, dname)
+            fwd, bwd = (k["x"], k["kernel"], k["bias"], k["skip"]), (k["x"], k["kernel"], k["g"])
+            cases.append((label, "K6", "K6 bwd", timed({
+                "upconcat": (lambda: fu.upconcat(*fwd), lambda: fu.upconcat_reference(*fwd)),
+                "upconcat_bwd": (lambda: fu.upconcat_bwd(*bwd),
+                                 lambda: fu.upconcat_bwd_reference(*bwd)),
+            })))
+            del k, fwd, bwd
+        k = head_case(torch, rnd, dev, dtype, BATCH_SERVE)
+        label = f"dec1 head F={FILTERS[0]}@{IMAGE}"
+        judge_head(fh, tjudge, k, label, dname)
+        fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
+        bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
+        cases.append((label, "K5", "K5 bwd", timed({
+            "head_fwd": (lambda: fh.head_fwd_sums(*fwd), lambda: fh.head_fwd_sums_reference(*fwd)),
+            "head_bwd": (lambda: fh.head_bwd(*bwd), lambda: fh.head_bwd_reference(*bwd)),
+        })))
+        del k, fwd, bwd
+        for label, k1, k2, times in cases:
             for kname, (t_k, t_p) in times.items():
                 tot[kname][0] += t_k
                 tot[kname][1] += t_p
-            print(f"  {name} boundary F={f}@{h} {dtype_label(dname)}: "
-                  f"K3 {times['tail_pool'][0]:.3f} / {times['tail_pool'][1]:.3f}, "
-                  f"K4 {times['tail_pool_bwd'][0]:.3f} / {times['tail_pool_bwd'][1]:.3f}")
-            report["train_kernels"][f"{name} boundary {dname}"] = times
+            t1, t2 = times.values()
+            print(f"  {label} {dtype_label(dname)}: {k1} {t1[0]:.3f} / {t1[1]:.3f}, "
+                  f"{k2} {t2[0]:.3f} / {t2[1]:.3f}")
+            report["train_kernels"][f"{label} {dname}"] = times
         totals[dname].update(tot)
         print(f"  {dname} totals over the path: " + ", ".join(
             f"{kname} {t[0]:.3f} / {t[1]:.3f}" for kname, t in tot.items()))
 
-    kernels = []
+    kernels, report["bounds"] = [], {}
     for name, (src, replaces) in KERNELS.items():
         t_k, t_p = totals["bfloat16"][name]
+        bound = {}
+        for dname in dtypes:
+            parts = [bounds_ms(name, shape, dname) for shape in kernel_shapes()[name]]
+            by = {lim: sum(t for t, b in parts if b == lim) for lim in ("bytes", "operations")}
+            bound[dname] = (sum(t for t, _ in parts), max(by, key=by.get))
+            report["bounds"][f"{name} {dname}"] = {
+                "ms": totals[dname][name][0], "plain_ms": totals[dname][name][1],
+                "bound_ms": bound[dname][0], "bound_by": bound[dname][1]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -704,14 +976,24 @@ def main() -> int:
             "max_abs_err": worst_abs[name],
             "ms": t_k,
             "plain_ms": t_p,
+            "bound_ms": bound["bfloat16"][0],
+            "bound_by": bound["bfloat16"][1],
+            # no single PyTorch call computes any of these kernels' whole
+            # function (each fuses a conv or GEMM with BatchNorm, ReLU, a
+            # pool, a concat or reductions)
+            "library_ms": None,
         })
+        print(f"  {name}: bound bf16 {bound['bfloat16'][0]:.3f} ms ({bound['bfloat16'][1]}), "
+              f"fp32 {bound['float32'][0]:.3f} ms ({bound['float32'][1]}); measured bf16 "
+              f"{t_k:.3f}, fp32 {totals['float32'][name][0]:.3f}")
     report["kernels"] = kernels
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1)
-    print("ms / plain_ms: bf16, batch 32, summed over the path's shapes (9 pair and 18 "
-          "block shapes; 18 chain links; 4 encoder boundaries); launches: K7/K8 over phase "
-          f"5's forwards, K1-K4 over phase 8's {TRAIN_STEPS} kernels-on steps in each dtype")
+    print("ms / plain_ms / bound_ms: bf16, batch 32, summed over the path's shapes (9 pair and "
+          "18 block shapes; 18 chain links; 4 encoder boundaries; 4 decoder feeds; the head); "
+          f"launches: K7/K8 over phase 5's forwards, K1-K6 over phase 8's {TRAIN_STEPS} "
+          "kernels-on steps in each dtype")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,15 @@
-"""The port imports torch and never jax or flax."""
+"""The port imports torch and never jax, flax or the JAX package; its own
+copies of the JAX package's framework-free modules behave like the
+originals."""
 
+import glob
 import os
 import pkgutil
 import subprocess
 import sys
+
+import numpy as np
+import pytest
 
 import unet_image_segmentation_tpu_torch
 
@@ -21,14 +27,17 @@ def _port_modules():
 def test_port_modules_import_no_jax():
     modules = _port_modules()
     for name in ("ops.fused_sepconv", "cli.inference", "ops.fused_train", "ops.hash_dropout",
-                 "ops.losses", "ops.metrics", "ops.fused_head", "train.state", "train.steps",
-                 "train.callbacks", "train.loop", "cli.train"):
+                 "ops.losses", "ops.metrics", "ops.fused_head", "ops.fused_upconcat",
+                 "train.state", "train.steps", "train.callbacks", "train.loop", "cli.train",
+                 "config", "utils.image", "utils.keras_import", "utils.tb_writer",
+                 "data.loader", "data.packed", "data.autopack"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'unet_image_segmentation_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -48,3 +57,62 @@ def test_chip_smoke_imports_no_jax_cv2_or_h5py():
     for banned in ("import jax", "import flax", "import cv2", "import h5py",
                    "unet_image_segmentation_tpu.", "from unet_image_segmentation_tpu "):
         assert banned not in src, banned
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(ROOT, "configs", "*.json"))),
+                         ids=os.path.basename)
+def test_config_copy_reads_every_config_alike(path):
+    from unet_image_segmentation_tpu.config import Config as JaxConfig
+    from unet_image_segmentation_tpu_torch.config import Config
+
+    with open(path) as f:
+        text = f.read()
+    mine, theirs = Config.from_json(text), JaxConfig.from_json(text)
+    assert mine.to_dict() == theirs.to_dict()
+    assert Config.from_dict(theirs.to_dict()).to_dict() == theirs.to_dict()
+    over = dict(model__fused_head="off", train__batch_size=3, data__prefetch=2)
+    assert mine.override(**over).to_dict() == theirs.override(**over).to_dict()
+
+
+@pytest.mark.parametrize("mask_mode", ["binary", "class_id"])
+def test_loader_copy_yields_the_same_batches(tmp_path, mask_mode):
+    pytest.importorskip("cv2")
+    from unet_image_segmentation_tpu.config import Config as JaxConfig
+    from unet_image_segmentation_tpu.data import loader as jax_loader
+    from unet_image_segmentation_tpu.data.synthetic import (
+        write_synthetic_dataset,
+        write_synthetic_multiclass_dataset,
+    )
+    from unet_image_segmentation_tpu_torch.config import Config
+    from unet_image_segmentation_tpu_torch.data import loader
+
+    write = write_synthetic_dataset if mask_mode == "binary" else \
+        write_synthetic_multiclass_dataset
+    root = write(str(tmp_path / "ds"), n_train=6, n_val=3, image_size=(24, 24))
+    over = dict(data__root=root, data__mask_mode=mask_mode, model__image_height=16,
+                model__image_width=16, train__seed=7)
+    pairs = zip(loader.make_loaders(Config().override(**over)),
+                jax_loader.make_loaders(JaxConfig().override(**over)))
+    for mine, theirs in pairs:
+        assert len(mine) == len(theirs)
+        for epoch in (0, 1):
+            got = list(mine.batches(2, epoch=epoch, num_workers=1))
+            want = list(theirs.batches(2, epoch=epoch, num_workers=1))
+            assert len(got) == len(want) > 0
+            for (gi, gm), (wi, wm) in zip(got, want):
+                np.testing.assert_array_equal(gi, wi)
+                np.testing.assert_array_equal(gm, wm)
+
+
+def test_train_cli_copy_parses_like_the_jax_cli():
+    from unet_image_segmentation_tpu.cli import train as jax_cli
+    from unet_image_segmentation_tpu_torch.cli import train as cli
+
+    flags = ["--epochs", "1", "--batch-size", "2", "--image-size", "32", "--data-root", "ds",
+             "--model-out", "m", "--log-dir", "l", "--set", "model__filters=[8,16]", "--pallas",
+             "--bf16", "--loss", "iou", "--mesh", "1,1", "--seed", "3"]
+    args = cli.parse_args(flags + ["--device", "cpu"])
+    assert args.device == "cpu" and cli.parse_args(flags).device == "cuda"
+    mine = cli.config_from_args(args).to_dict()
+    assert mine == jax_cli.config_from_args(jax_cli.parse_args(flags)).to_dict()
+    assert tuple(mine["model"]["filters"]) == (8, 16) and mine["model"]["use_pallas"] is True

@@ -16,11 +16,11 @@ import torch
 cv2 = pytest.importorskip("cv2")
 h5py = pytest.importorskip("h5py")
 
-from unet_image_segmentation_tpu.config import ModelConfig
 from unet_image_segmentation_tpu.data.synthetic import render_sample
 from unet_image_segmentation_tpu.inference import Predictor as JaxPredictor
 from unet_image_segmentation_tpu.inference import run_inference as jax_run_inference
 from unet_image_segmentation_tpu_torch.cli.inference import main as infer_main
+from unet_image_segmentation_tpu_torch.config import ModelConfig
 from unet_image_segmentation_tpu_torch.inference import Predictor, run_inference
 from unet_image_segmentation_tpu_torch.models.unet import build_unet, recalibrate_batch_norm
 from unet_image_segmentation_tpu_torch.train.checkpoint import save_inference_variables
@@ -69,7 +69,7 @@ def model_files(request, tmp_path_factory):
     num_classes = request.param
     d = tmp_path_factory.mktemp(f"torch_inf{num_classes}")
     cfg = ModelConfig(image_height=HW, image_width=HW, filters=(8, 16), num_classes=num_classes)
-    model = build_unet(cfg)
+    model = build_unet(cfg, device="cpu")
     rng = np.random.RandomState(num_classes)
     sd = {}
     for key, value in model.state_dict().items():

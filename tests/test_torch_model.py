@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from unet_image_segmentation_tpu.config import ModelConfig
+from unet_image_segmentation_tpu_torch.config import ModelConfig as TorchModelConfig
 from unet_image_segmentation_tpu.models.unet import build_unet as build_unet_jax
 from unet_image_segmentation_tpu.serving import build_serving_forward_chained
 from unet_image_segmentation_tpu_torch.models.unet import build_unet, recalibrate_batch_norm
@@ -49,7 +50,8 @@ def _setup(hw, seed=0, **kw):
     """(cfg, JAX model, flax variables, port model, input) with shared weights."""
     cfg = ModelConfig(image_height=hw, image_width=hw, dropout_rate=0.0, **kw)
     jmodel = build_unet_jax(cfg)
-    tmodel = build_unet(cfg)
+    tcfg = TorchModelConfig(image_height=hw, image_width=hw, dropout_rate=0.0, **kw)
+    tmodel = build_unet(tcfg, device="cpu")
     tmodel.load_state_dict(numpy_weights(tmodel, seed))
     x = np.random.RandomState(seed + 7).rand(2, hw, hw, 3).astype(np.float32)
     if cfg.use_batch_norm:

@@ -2,9 +2,11 @@
 
 Both packages get the same numpy weights (through the bridge), inputs and
 dropout seeds: the JAX seeds are recorded by wrapping ``seed_from_rng``
-during an eager ``apply`` and handed to the port. On the CPU the port's
-fused chains run their kernels' plain versions; the JAX chains run their
-Pallas kernels in interpret mode. fp32 throughout.
+during an eager ``apply`` and handed to the port. Each package gets its own
+``Config``, the port's converted from the JAX one through ``to_dict``. On
+the CPU the port's fused chains, decoder feed and head run their kernels'
+plain versions; the JAX ones run their Pallas kernels in interpret mode.
+fp32 throughout.
 """
 
 import json
@@ -21,10 +23,13 @@ from test_torch_model import numpy_weights
 from unet_image_segmentation_tpu.config import Config
 from unet_image_segmentation_tpu.models.unet import build_unet as build_unet_jax
 from unet_image_segmentation_tpu.ops import hash_dropout as jhd
+from unet_image_segmentation_tpu.ops.pallas import fused_head as jfh
 from unet_image_segmentation_tpu.train.state import create_train_state as create_state_jax
 from unet_image_segmentation_tpu.train.steps import make_train_step as make_step_jax
+from unet_image_segmentation_tpu_torch.config import Config as TorchConfig
 from unet_image_segmentation_tpu_torch.inference import Predictor
 from unet_image_segmentation_tpu_torch.models.unet import build_unet
+from unet_image_segmentation_tpu_torch.ops import fused_head as tfh
 from unet_image_segmentation_tpu_torch.train import checkpoint as ckpt
 from unet_image_segmentation_tpu_torch.train.state import create_train_state, load_optax_adam_state
 from unet_image_segmentation_tpu_torch.train.steps import make_predict_fn, make_train_step
@@ -42,8 +47,13 @@ def _cfg(**model):
                              train__batch_size=2)
 
 
+def _port_cfg(cfg):
+    """The port's own Config holding the same settings as a JAX Config."""
+    return TorchConfig.from_dict(cfg.to_dict())
+
+
 def _setup(cfg, seed=0):
-    tmodel = build_unet(cfg.model)
+    tmodel = build_unet(_port_cfg(cfg).model, device="cpu")
     sd = numpy_weights(tmodel, seed)
     tmodel.load_state_dict(sd)
     variables = jax.tree_util.tree_map(jnp.asarray, flax_from_state_dict(sd))
@@ -138,16 +148,33 @@ def _port_params(tmodel):
     return {k: v.numpy() for k, v in sd.items()}
 
 
-def test_three_train_steps_track_jax():
-    """make_train_step with the fused chains (use_pallas, fused_head 'off',
-    no dropout: the jitted JAX step derives its seeds inside) from the same
-    weights and batches: loss per step within 1e-4 relative, then weights
-    and BatchNorm statistics after step 3 (:func:`_param_bar`)."""
-    cfg = _cfg(use_pallas=True, dropout_rate=0.0)
+def _spy(monkeypatch, module, name):
+    """Count the calls of ``module.name``."""
+    calls = []
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("fused_head", ["off", "auto"])
+def test_three_train_steps_track_jax(fused_head, monkeypatch):
+    """make_train_step with the fused chains (use_pallas, no dropout: the
+    jitted JAX step derives its seeds inside), the fused decoder feed and,
+    with ``fused_head='auto'``, the fused head in both packages, from the
+    same weights and batches: loss per step within 1e-4 relative, then
+    weights and BatchNorm statistics after step 3 (:func:`_param_bar`)."""
+    cfg = _cfg(use_pallas=True, dropout_rate=0.0, fused_head=fused_head)
     tmodel, variables = _setup(cfg, seed=1)
     jmodel, jstate = _jax_state(cfg, variables)
+    jcalls = _spy(monkeypatch, jfh, "head_fwd_sums")
+    tcalls = _spy(monkeypatch, tfh, "head_fwd_sums")
     jstep = make_step_jax(jmodel, "dice", donate=False)
-    state = create_train_state(cfg, model=tmodel)
+    state = create_train_state(_port_cfg(cfg), model=tmodel, device="cpu")
     step = make_train_step(tmodel, "dice")
     for i in range(3):
         x, m = _batch(10 + i)
@@ -157,6 +184,8 @@ def test_three_train_steps_track_jax():
         np.testing.assert_allclose(float(met["dice"]), float(jmet["dice"]), rtol=1e-4)
         np.testing.assert_array_equal(met["cm_thresh"].numpy(), np.asarray(jmet["cm_thresh"]))
     assert state.step == 3
+    # the head kernel ran in both packages exactly when it should
+    assert (len(jcalls) > 0) == (len(tcalls) == 3) == (fused_head == "auto")
     want = state_dict_from_flax(_tree_np({"params": jstate.params,
                                           "batch_stats": jstate.batch_stats}))
     _param_bar(_port_params(tmodel), {k: v.numpy() for k, v in want.items()},
@@ -174,10 +203,10 @@ def test_resume_from_optax_state_tracks_jax():
     x, m = _batch(20)
     jstate, _ = jstep(jstate, jnp.asarray(x), jnp.asarray(m))
 
-    tmodel = build_unet(cfg.model)
+    tmodel = build_unet(_port_cfg(cfg).model, device="cpu")
     tmodel.load_state_dict(state_dict_from_flax(_tree_np(
         {"params": jstate.params, "batch_stats": jstate.batch_stats})))
-    state = create_train_state(cfg, model=tmodel)
+    state = create_train_state(_port_cfg(cfg), model=tmodel, device="cpu")
     (adam,) = [s for s in jax.tree_util.tree_leaves(
         jstate.opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
         if isinstance(s, optax.ScaleByAdamState)]
@@ -194,26 +223,53 @@ def test_resume_from_optax_state_tracks_jax():
                cfg.train.learning_rate, 2)
 
 
-def test_fused_head_needs_kernel_k5():
-    cfg = _cfg(use_pallas=True, dropout_rate=0.0, fused_head="auto")
-    tmodel = build_unet(cfg.model)
+def test_fused_head_all_multiclass_needs_k11():
+    """'all' with a softmax head needs the multiclass head kernel (K11),
+    which is not ported; 'auto' keeps the composed multiclass sums."""
+    cfg = _port_cfg(_cfg(use_pallas=True, dropout_rate=0.0, fused_head="all", num_classes=3))
+    tmodel = build_unet(cfg.model, device="cpu")
+    x, _ = _batch(4)
+    ids = torch.from_numpy(np.random.RandomState(4).randint(0, 3, (2, HW, HW, 1))).float()
+    with pytest.raises(NotImplementedError, match="K11"):
+        tmodel(torch.from_numpy(x), train=True, head_targets=ids)
+    tmodel.fused_head = "auto"
+    sums = tmodel(torch.from_numpy(x), train=True, head_targets=ids)
+    assert set(sums) == {"i", "p", "t", "cce", "cm"}
+
+
+def test_fused_head_auto_sums_equal_composed(monkeypatch):
+    """The port's 'auto' (K5's plain version) and 'off' (the composed head)
+    give the same sums, fp32, rtol 1e-5, and the same gradients."""
+    cfg = _port_cfg(_cfg(use_pallas=True, dropout_rate=0.0, fused_head="auto"))
     x, m = _batch(4)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tmodel(torch.from_numpy(x), train=True, head_targets=torch.from_numpy(m))
-    # the composed head returns the sums contract
-    tmodel.fused_head = "off"
-    sums = tmodel(torch.from_numpy(x), train=True, head_targets=torch.from_numpy(m))
-    assert set(sums) == {"i", "p", "t", "it", "pt", "tt", "ir", "pr", "tr"}
+    out = {}
+    for mode in ("auto", "off"):
+        tmodel = build_unet(cfg.model, device="cpu", generator=torch.Generator().manual_seed(6))
+        tmodel.fused_head = mode
+        calls = _spy(monkeypatch, tfh, "head_fwd_sums")
+        sums = tmodel(torch.from_numpy(x), train=True, head_targets=torch.from_numpy(m))
+        assert len(calls) == (mode == "auto")
+        assert set(sums) == set(tfh.SUM_KEYS)
+        (sums["i"].sum() - 0.5 * sums["p"].sum()).backward()
+        out[mode] = sums, {k: p.grad for k, p in tmodel.named_parameters()}
+    (s_on, g_on), (s_off, g_off) = out["auto"], out["off"]
+    for k in tfh.SUM_KEYS:
+        np.testing.assert_allclose(s_on[k].detach().numpy(), s_off[k].detach().numpy(),
+                                   rtol=1e-5, err_msg=k)
+    assert s_on["p"].min() > 0 and s_on["t"].min() > 0
+    for k, g in g_off.items():
+        _grads_bar(g_on[k].numpy(), g.numpy())
 
 
 def test_save_restore_state_roundtrip(tmp_path):
     cfg = _cfg(use_pallas=True, dropout_rate=0.2)
-    state = create_train_state(cfg)
+    state = create_train_state(_port_cfg(cfg), device="cpu")
     step = make_train_step(state.model, "dice")
     x, m = _batch(5)
     step(state, torch.from_numpy(x), torch.from_numpy(m))
     ckpt.save_state(str(tmp_path / "last"), state, meta={"epoch": 0})
-    other = create_train_state(_cfg(use_pallas=True, dropout_rate=0.2).override(train__seed=9))
+    other = create_train_state(
+        _port_cfg(_cfg(use_pallas=True, dropout_rate=0.2).override(train__seed=9)), device="cpu")
     ckpt.restore_state(str(tmp_path / "last"), other)
     assert other.step == 1 and ckpt.read_meta(str(tmp_path))["epoch"] == 0
     for (k, a), b in zip(state.model.state_dict().items(), other.model.state_dict().values()):
@@ -229,10 +285,10 @@ def test_fit_one_epoch_writes_best_that_predictor_serves(tmp_path):
 
     root = write_synthetic_dataset(str(tmp_path / "ds"), n_train=8, n_val=4,
                                    image_size=(HW, HW))
-    cfg = _cfg(use_pallas=True).override(
+    cfg = _port_cfg(_cfg(use_pallas=True).override(
         train__epochs=1, train__batch_size=4, data__root=root,
         train__model_out=str(tmp_path / "model"), train__log_dir=str(tmp_path / "logs"),
-        data__num_workers=1)
+        data__num_workers=1))
     res = fit(cfg, device="cpu", verbose=False)
     assert res.epochs_run == 1 and res.best_epoch == 0
     assert np.isfinite(res.history["loss"][0])
@@ -258,8 +314,7 @@ def test_cli_train_main_cpu_returns_zero(tmp_path):
     rc = cli.main([
         "--epochs", "1", "--batch-size", "2", "--image-size", str(HW), "--data-root", root,
         "--model-out", str(tmp_path / "model"), "--log-dir", str(tmp_path / "logs"),
-        "--set", "model__filters=[8,16]", "--pallas", "--set", "model__fused_head=off",
-        "--device", "cpu",
+        "--set", "model__filters=[8,16]", "--pallas", "--device", "cpu",
     ])
     assert rc == 0
     with open(tmp_path / "model" / "best" / "model.json") as f:

@@ -8,6 +8,7 @@ import torch
 from unet_image_segmentation_tpu.config import ModelConfig
 from unet_image_segmentation_tpu.models.unet import build_unet as build_unet_jax
 from unet_image_segmentation_tpu.models.unet import init_unet
+from unet_image_segmentation_tpu_torch.config import ModelConfig as TorchModelConfig
 from unet_image_segmentation_tpu_torch.models.unet import build_unet
 from unet_image_segmentation_tpu_torch.train.checkpoint import (
     load_inference_variables,
@@ -60,9 +61,10 @@ def test_bridge_round_trip_is_exact(kw):
 def test_bridge_keys_match_port_module(kw):
     """The bridged state_dict loads strictly into the port's UNet, and a
     fresh port init has the same keys and shapes as a fresh Flax init."""
-    cfg, variables = _flax_variables(kw)
+    _, variables = _flax_variables(kw)
     sd = state_dict_from_flax(variables)
-    model = build_unet(cfg, generator=torch.Generator().manual_seed(0))
+    cfg = TorchModelConfig(image_height=16, image_width=16, dropout_rate=0.0, **kw)
+    model = build_unet(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     own = model.state_dict()
     assert {k: tuple(v.shape) for k, v in own.items()} == {
         k: tuple(v.shape) for k, v in sd.items()
@@ -90,9 +92,9 @@ def test_non_port_directory_points_at_the_bridge(tmp_path):
 
 
 def test_glorot_init_bounds_and_seed():
-    cfg = ModelConfig(filters=(8, 16))
-    a = build_unet(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
-    b = build_unet(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
+    cfg = TorchModelConfig(filters=(8, 16))
+    a = build_unet(cfg, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
+    b = build_unet(cfg, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
     for k in a:
         assert torch.equal(a[k], b[k]), k
     dw = a["enc2_block1.sepconv.depthwise_kernel"]  # (3,3,8,1): fans 72, 9

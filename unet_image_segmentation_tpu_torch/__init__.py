@@ -17,10 +17,12 @@ Keras-layout parameter shapes, so one set of weights drives both
 * :mod:`.train` / :mod:`.cli.train` — train state, steps, checkpoints,
   callbacks and ``fit``.
 
-The framework-free parts of the JAX package (``config``, ``data.loader``,
-``data.autopack``, ``utils.image``, ``utils.keras_import``,
-``utils.tb_writer`` and the train CLI's argument parser) are imported from
-it, not copied; importing them loads no JAX.
+The port imports nothing of the JAX package. What it needs of the JAX
+package's framework-free modules it keeps as its own copies with the same
+relative paths (:mod:`.config`, :mod:`.data.loader`, :mod:`.data.packed`,
+:mod:`.data.autopack`, :mod:`.utils.image`, :mod:`.utils.keras_import`,
+:mod:`.utils.tb_writer`) and its own train CLI parser; only the tests
+import both packages.
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,14 @@
 """Single-image and batched inference.
 
-Port of ``unet_image_segmentation_tpu/inference.py`` (the JAX module imports
-jax at module level, so its host code is re-implemented here):
+Port of ``unet_image_segmentation_tpu/inference.py``, its host code
+re-implemented here:
 
 * preprocess: BGR image -> float32/255 -> bilinear resize to the model size
   (normalize, then resize);
 * forward: the serving graph of fused kernels (``use_pallas=True``) or the
   module path;
 * postprocess: bilinear-resize the probabilities to the original size, then
-  threshold; bbox or quad-warp crop through the JAX package's numpy-only
-  ``utils.image``.
+  threshold; bbox or quad-warp crop through :mod:`.utils.image`.
 
 ``Predictor`` uses the device it is given and nothing else: with
 ``use_pallas=True`` it builds the kernel graph or raises.
@@ -23,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from unet_image_segmentation_tpu.utils.image import (
+from unet_image_segmentation_tpu_torch.utils.image import (
     binarize_mask,
     extract_object_from_mask,
     largest_contour_bbox,

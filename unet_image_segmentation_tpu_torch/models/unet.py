@@ -16,8 +16,13 @@ Training with ``use_pallas`` on a separable BatchNorm model runs each
 stage's block pair as one fused chain (:mod:`..ops.fused_train`, kernels
 K1-K4): ``fused_chain_train_pool`` per encoder stage, ``fused_chain_train``
 for the bottleneck and the decoder stages with their dropout fused into the
-first link, and the composed decoder feed (transpose-up, concat). Without
-``use_pallas`` the composed modules run under autograd. Dropout is always
+first link. Every decoder stage's input ``[up | skip]`` comes from the
+fused decoder feed (:mod:`..ops.fused_upconcat`, K6). With ``head_targets``
+and ``fused_head`` 'all', or 'auto' with one class, the last decoder stage,
+the sigmoid head and the sums run as :func:`..ops.fused_head.fused_head_train`
+(K5); the softmax head's fused kernel (K11) is not ported, so 'auto' keeps
+the composed sums there and 'all' raises. Without ``use_pallas`` the
+composed modules run under autograd. Dropout is always
 the position hash of :mod:`..ops.hash_dropout`, with explicit per-site
 seeds (site 0 after the bottleneck, site ``s`` on decoder stage ``s``).
 
@@ -33,7 +38,7 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
-from unet_image_segmentation_tpu.config import ModelConfig
+from unet_image_segmentation_tpu_torch.config import ModelConfig
 from unet_image_segmentation_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
@@ -42,6 +47,8 @@ from unet_image_segmentation_tpu_torch.models.layers import (
 )
 from unet_image_segmentation_tpu_torch.ops.conv import max_pool_2x2
 from unet_image_segmentation_tpu_torch.ops.fused_head import (
+    fused_head_train,
+    head_supported,
     head_sums_reference,
     head_sums_reference_mc,
 )
@@ -49,6 +56,7 @@ from unet_image_segmentation_tpu_torch.ops.fused_train import (
     fused_chain_train,
     fused_chain_train_pool,
 )
+from unet_image_segmentation_tpu_torch.ops.fused_upconcat import fused_upconcat
 from unet_image_segmentation_tpu_torch.ops.hash_dropout import hash_dropout
 
 
@@ -131,14 +139,18 @@ class UNet(nn.Module):
         drop = train and self.dropout_rate > 0.0
         if drop and dropout_seeds is None:
             raise ValueError("a training forward with dropout needs dropout_seeds")
-        if use_chain and head_targets is not None and (
+        fuse_head = use_chain and head_targets is not None and (
             self.fused_head == "all" or (self.fused_head == "auto" and self.num_classes == 1)
-        ):
+        )
+        if fuse_head and self.num_classes > 1:
             raise NotImplementedError(
-                f"fused_head={self.fused_head!r} needs the fused head kernel (TPU kernel K5, "
-                "ROADMAP queue 2 'K5', port slice 3), which is not ported yet; set "
-                "fused_head='off' to train with the composed head"
+                "fused_head='all' with a softmax head needs the multiclass head kernel "
+                "(TPU kernel K11, ROADMAP queue 2), which is not ported yet; use 'auto' "
+                "or 'off' for the composed sums"
             )
+        # as the JAX package's fused_head_feasible: a width K5 cannot take
+        # keeps the composed head
+        fuse_head = fuse_head and head_supported(self.filters[0], self.dtype)
 
         def pair(prefix: str):
             return getattr(self, f"{prefix}_block1"), getattr(self, f"{prefix}_block2")
@@ -178,14 +190,23 @@ class UNet(nn.Module):
         if drop:
             x = hash_dropout(x, dropout_seeds[0], self.dropout_rate)
         for stage in range(depth, 0, -1):
-            up = getattr(self, f"dec{stage}_upsample")(x)
+            upsample = getattr(self, f"dec{stage}_upsample")
             b1, b2 = pair(f"dec{stage}")
-            if train:
+            if use_chain:
+                cat = fused_upconcat(x, upsample.kernel, upsample.bias, skips[stage - 1])
+            elif train:
                 # training stores the concat: one dropout mask spans both halves
-                cat = torch.cat([up, skips[stage - 1]], dim=-1)
-                x = run_pair(cat, f"dec{stage}", stage if drop and stage > 1 else None)
+                cat = torch.cat([upsample(x), skips[stage - 1]], dim=-1)
             else:
-                x = b2(b1(up, skips[stage - 1]))
+                x = b2(b1(upsample(x), skips[stage - 1]))
+                continue
+            if stage == 1 and fuse_head:
+                out = self.output_mask
+                sums, stats = fused_head_train(cat, chain_blocks(b1, b2), out.kernel, out.bias,
+                                               head_targets)
+                update_bn(stats, b1, b2)
+                return sums
+            x = run_pair(cat, f"dec{stage}", stage if drop and stage > 1 else None)
         logits = self.output_mask(x).float()
         preds = torch.sigmoid(logits) if self.num_classes == 1 else torch.softmax(logits, dim=-1)
         if head_targets is not None:
@@ -195,12 +216,23 @@ class UNet(nn.Module):
         return preds
 
 
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``torch.device(device)``; raises when it names CUDA and no CUDA
+    device is available (an entry point never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but no CUDA device is available")
+    return device
+
+
 def build_unet(
     cfg: ModelConfig,
-    device: Union[str, torch.device, None] = None,
+    device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
 ) -> UNet:
-    """Construct a :class:`UNet` from a :class:`ModelConfig`."""
+    """Construct a :class:`UNet` from a :class:`ModelConfig` on ``device``
+    (the card unless the caller asks for another device)."""
+    device = resolve_device(device)
     return UNet(
         num_classes=cfg.num_classes,
         filters=tuple(cfg.filters),

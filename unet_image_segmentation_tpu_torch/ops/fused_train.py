@@ -445,6 +445,88 @@ def _boundary_bwd_plain(y, g_z, a_out, b_out, mean, r):
     return dzt.sum(dim=(0, 1, 2)), (dzt * ((yf - mean) * r)).sum(dim=(0, 1, 2))
 
 
+def _unflatten(flat) -> List[Tuple[torch.Tensor, ...]]:
+    return [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)]
+
+
+def _bn_terms(block, stats, eps: float):
+    """``(mean, rstd, a, b)`` of one block's batch-moment BatchNorm."""
+    gamma, beta = block[2], block[3]
+    mean, var = stats
+    r = torch.rsqrt(var + eps)
+    a = (gamma * r).float()
+    return mean, r, a, (beta - mean * a).float()
+
+
+def _chain_links_fwd(z_in: torch.Tensor, flat, eps: float, drop: Optional[Dropout]):
+    """The links of a chain, K1 once per block: ``(ys, stats, (a, b))``.
+
+    ``ys`` are the raw link outputs, ``stats`` the flat per-block batch
+    mean and var, and ``(a, b)`` the last block's BatchNorm affine, which
+    the chain's exit applies (JAX ``_chain_fwd_impl``).
+    """
+    n = z_in.shape[0] * z_in.shape[1] * z_in.shape[2]
+    x, in_aff, ys, stats = z_in, None, [], []
+    for k, (dw, pw, gamma, beta) in enumerate(_unflatten(flat)):
+        y, s, q = chain_fwd(x, dw, pw, in_aff, drop if k == 0 else None)
+        mean = s / n
+        var = q / n - mean * mean
+        a, b = affine_from_stats(gamma, beta, mean, var, eps)
+        in_aff = torch.stack([a, b])
+        ys.append(y)
+        stats += [mean, var]
+        x = y
+    return ys, stats, (in_aff[0], in_aff[1])
+
+
+def _chain_links_bwd(z_first, ys, flat, stats, eps: float, drop: Optional[Dropout],
+                     g_raw, S, T, masked: bool):
+    """The links' backward, K2 once per block, last block first (JAX
+    ``_chain_bwd_links``): ``(dz_in, grads)``.
+
+    ``g_raw`` is the cotangent of the last raw link output, already masked
+    by the exit's ReLU when ``masked`` (else K2 folds the mask in), and
+    ``S``, ``T`` the exit's BatchNorm reductions. ``grads`` are per block
+    ``ddw, dpw, dgamma, dbeta`` in the parameters' dtypes.
+    """
+    blocks = _unflatten(flat)
+    nb = len(blocks)
+    pairs = [(stats[2 * k], stats[2 * k + 1]) for k in range(nb)]
+    n = z_first.shape[0] * z_first.shape[1] * z_first.shape[2]
+    grads: List[Optional[torch.Tensor]] = [None] * (4 * nb)
+    dz_in = None
+    for k in range(nb - 1, -1, -1):
+        dw, pw, gamma, beta = blocks[k]
+        mean, r, a_out, b_out = _bn_terms(blocks[k], pairs[k], eps)
+        comb = torch.stack([
+            a_out,
+            -(a_out * S) / n,
+            -(a_out * r * T) / n,
+            mean.float(),
+            a_out,
+            b_out,
+        ]).float().contiguous()
+        if k > 0:
+            pm, pr, pa, pb = _bn_terms(blocks[k - 1], pairs[k - 1], eps)
+            in_aff = torch.stack([pa, pb, pm.float(), pr.float()]).contiguous()
+            x_in = ys[k - 1]
+        else:
+            in_aff, x_in = None, z_first
+        dx, ddw, dpw, st = chain_bwd(
+            x_in, g_raw.contiguous(), ys[k], in_aff, comb, dw, pw,
+            mask_combine=not masked, drop=drop if k == 0 else None,
+        )
+        grads[4 * k:4 * k + 4] = [
+            ddw.to(dw.dtype), dpw.to(pw.dtype), T.to(gamma.dtype), S.to(beta.dtype),
+        ]
+        if k > 0:
+            S, T = st[0], st[1]
+            g_raw, masked = dx, True
+        else:
+            dz_in = dx
+    return dz_in, grads
+
+
 class _Chain(torch.autograd.Function):
     """``z_in -> [link]*N -> boundary`` with the fused backward.
 
@@ -456,89 +538,35 @@ class _Chain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z_in, eps: float, drop: Optional[Dropout], pool: bool, *flat):
-        blocks = [flat[i:i + 4] for i in range(0, len(flat), 4)]
-        n = z_in.shape[0] * z_in.shape[1] * z_in.shape[2]
-        x, in_aff, ys, stats = z_in, None, [], []
-        for k, (dw, pw, gamma, beta) in enumerate(blocks):
-            y, s, q = chain_fwd(x, dw, pw, in_aff, drop if k == 0 else None)
-            mean = s / n
-            var = q / n - mean * mean
-            a, b = affine_from_stats(gamma, beta, mean, var, eps)
-            in_aff = torch.stack([a, b])
-            ys.append(y)
-            stats += [mean, var]
-            x = y
-        a, b = in_aff[0], in_aff[1]
+        ys, stats, (a, b) = _chain_links_fwd(z_in, flat, eps, drop)
         if pool:
             outs = tail_pool(ys[-1], a, b)
         else:
             outs = (_relu_affine(ys[-1], a, b).to(z_in.dtype),)
         ctx.save_for_backward(z_in, *ys, *flat, *stats)
-        ctx.n_blocks, ctx.eps, ctx.drop, ctx.pool, ctx.n = len(blocks), eps, drop, pool, n
+        ctx.n_blocks, ctx.eps, ctx.drop, ctx.pool = len(flat) // 4, eps, drop, pool
         ctx.mark_non_differentiable(*stats)
         return (*outs, *stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        nb, eps, drop, n = ctx.n_blocks, ctx.eps, ctx.drop, ctx.n
+        nb, eps = ctx.n_blocks, ctx.eps
         saved = ctx.saved_tensors
         z_first, ys = saved[0], saved[1:1 + nb]
         flat = saved[1 + nb:1 + 5 * nb]
-        st_saved = saved[1 + 5 * nb:]
-        blocks = [flat[i:i + 4] for i in range(0, len(flat), 4)]
-        stats = [(st_saved[2 * k], st_saved[2 * k + 1]) for k in range(nb)]
-        dt = z_first.dtype
-
-        def bn(k):
-            gamma, beta = blocks[k][2], blocks[k][3]
-            mean, var = stats[k]
-            r = torch.rsqrt(var + eps)
-            a = (gamma * r).float()
-            return mean, r, a, (beta - mean * a).float()
-
-        mean, r, a_out, b_out = bn(nb - 1)
-        g_z = grads[0].to(dt).contiguous()
+        stats = saved[1 + 5 * nb:]
+        mean, r, a_out, b_out = _bn_terms(flat[-4:], stats[-2:], eps)
+        g_z = grads[0].to(z_first.dtype).contiguous()
         if ctx.pool:
-            g_pool = grads[1].to(dt).contiguous()
+            g_pool = grads[1].to(z_first.dtype).contiguous()
             aff4 = torch.stack([a_out, b_out, mean.float(), r.float()]).contiguous()
             g_raw, st = tail_pool_bwd(ys[-1], g_z, g_pool, aff4)
-            S, T = st[0], st[1]
-            masked = True
+            S, T, masked = st[0], st[1], True
         else:
             S, T = _boundary_bwd_plain(ys[-1], g_z, a_out, b_out, mean, r)
             g_raw, masked = g_z, False
-
-        grads_out: List[Optional[torch.Tensor]] = [None] * (4 * nb)
-        dz_in = None
-        for k in range(nb - 1, -1, -1):
-            dw, pw, gamma, beta = blocks[k]
-            mean, r, a_out, b_out = bn(k)
-            comb = torch.stack([
-                a_out,
-                -(a_out * S) / n,
-                -(a_out * r * T) / n,
-                mean.float(),
-                a_out,
-                b_out,
-            ]).float().contiguous()
-            if k > 0:
-                pm, pr, pa, pb = bn(k - 1)
-                in_aff = torch.stack([pa, pb, pm.float(), pr.float()]).contiguous()
-                x_in = ys[k - 1]
-            else:
-                in_aff, x_in = None, z_first
-            dx, ddw, dpw, st = chain_bwd(
-                x_in, g_raw.contiguous(), ys[k], in_aff, comb, dw, pw,
-                mask_combine=not masked, drop=drop if k == 0 else None,
-            )
-            grads_out[4 * k:4 * k + 4] = [
-                ddw.to(dw.dtype), dpw.to(pw.dtype), T.to(gamma.dtype), S.to(beta.dtype),
-            ]
-            if k > 0:
-                S, T = st[0], st[1]
-                g_raw, masked = dx, True
-            else:
-                dz_in = dx
+        dz_in, grads_out = _chain_links_bwd(z_first, ys, flat, stats, eps, ctx.drop,
+                                            g_raw, S, T, masked)
         return (dz_in, None, None, None, *grads_out)
 
 

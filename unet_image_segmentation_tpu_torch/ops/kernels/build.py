@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root, named by a
 hash of the sources and flags, so a changed source rebuilds and an
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 # the dtype argument of every entry point
@@ -52,12 +53,23 @@ SIGNATURES = {
     "unet_tail_pool": [_P] * 4 + [_I] * 5 + [_P],
     # y, gs, gp, aff4, dzt, work, st, B, H, W, F, dtype, stream
     "unet_tail_pool_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # x, wt, bias, skip, cat, B, H, W, C, F, dtype, stream
+    "unet_upconcat": [_P] * 5 + [_I] * 6 + [_P],
+    # x, wmat, g, dx, d_skip, work, dwb, B, H, W, C, F, dtype, stream
+    "unet_upconcat_bwd": [_P] * 7 + [_I] * 6 + [_P],
+    # y, tgt, aff, w, hb, work, sums, B, HW, F, dtype, stream
+    "unet_head_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, dtype, stream
+    "unet_head_bwd": [_P] * 9 + [_I] * 4 + [_P],
 }
-# Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, F, dtype
+# Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, F,
+# dtype / B, HW, F, dtype, which
 WORKSPACE_SIGNATURES = {
     "unet_chain_fwd_workspace": [_I] * 5,
     "unet_chain_bwd_workspace": [_I] * 5,
     "unet_tail_pool_bwd_workspace": [_I] * 5,
+    "unet_upconcat_bwd_workspace": [_I] * 5,
+    "unet_head_workspace": [_I] * 5,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -77,6 +89,11 @@ def _nvcc() -> str:
 
 def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _raise_on_failure(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{log}")
 
 
 def library_path() -> Path:
@@ -101,17 +118,25 @@ def load_library() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cu, _ = _sources()
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        compiles = [
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(cu, objs)
+        ]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(compiles, procs, logs):
+            _raise_on_failure(cmd, proc.returncode, log)
+        link = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _raise_on_failure(link, proc.returncode, proc.stdout)
         build_seconds = time.perf_counter() - t0
         os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -188,7 +188,7 @@ class ReduceLROnPlateau(Callback):
 
 class TensorBoardLogger(Callback):
     def __init__(self, log_dir: str, histogram_freq: int = 1):
-        from unet_image_segmentation_tpu.utils.tb_writer import SummaryWriter
+        from unet_image_segmentation_tpu_torch.utils.tb_writer import SummaryWriter
 
         self.writer = SummaryWriter(log_dir)
         self.histogram_freq = histogram_freq

@@ -9,8 +9,8 @@ Layout under a training run's ``model_out`` directory:
   statistics, AdamW state, step, dropout-seed generator);
 * ``meta.json``: epoch, monitor, callback bookkeeping, learning rate, config.
 
-A reference Keras ``.h5`` loads through the JAX package's numpy-only
-``load_keras_h5`` and the :mod:`..weights` bridge. Orbax directories
+A reference Keras ``.h5`` loads through :func:`..utils.keras_import.load_keras_h5`
+and the :mod:`..weights` bridge. Orbax directories
 written by the JAX package are not read here: convert them with the bridge
 from a JAX environment.
 """
@@ -51,7 +51,7 @@ def load_inference_variables(
     (or its parent holding ``best/``) or a Keras ``.h5``/``.keras`` file."""
     path = os.path.abspath(path)
     if path.endswith((".h5", ".keras")):
-        from unet_image_segmentation_tpu.utils.keras_import import load_keras_h5
+        from unet_image_segmentation_tpu_torch.utils.keras_import import load_keras_h5
 
         variables, kwargs = load_keras_h5(path)
         return state_dict_from_flax(variables), kwargs

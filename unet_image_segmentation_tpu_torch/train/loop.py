@@ -2,8 +2,8 @@
 
 Port of ``unet_image_segmentation_tpu/train/loop.py`` without its mesh,
 ``shard_map`` and spatial branches (they come with the ``parallel/``
-slice). Per epoch: prefetched host batches (the JAX package's loaders,
-``Prefetcher`` and auto-pack, reused) -> device -> train step -> metric sums
+slice). Per epoch: prefetched host batches (:mod:`..data.loader`'s loaders and
+``Prefetcher``, :mod:`..data.autopack`) -> device -> train step -> metric sums
 kept on the device and fetched once per epoch -> validation -> callbacks
 (best checkpoint, early stop, LR plateau, TensorBoard) -> ``meta.json`` for
 ``--resume``.
@@ -25,9 +25,9 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from unet_image_segmentation_tpu.config import Config
-from unet_image_segmentation_tpu.data.loader import Prefetcher, make_loaders
-from unet_image_segmentation_tpu_torch.models.unet import build_unet
+from unet_image_segmentation_tpu_torch.config import Config
+from unet_image_segmentation_tpu_torch.data.loader import Prefetcher, make_loaders
+from unet_image_segmentation_tpu_torch.models.unet import build_unet, resolve_device
 from unet_image_segmentation_tpu_torch.ops.metrics import mean_iou_from_cm, per_class_iou_from_cm
 from unet_image_segmentation_tpu_torch.train import checkpoint as ckpt_lib
 from unet_image_segmentation_tpu_torch.train.callbacks import (
@@ -140,14 +140,12 @@ def fit(
 ) -> FitResult:
     """Train for ``cfg.train.epochs`` on ``device``; the datasets default to
     the directory contract under ``cfg.data.root``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    device = resolve_device(device)
     tcfg = cfg.train
     if train_ds is None or val_ds is None:
         train_ds, val_ds = make_loaders(cfg)
     if cfg.data.auto_pack:
-        from unet_image_segmentation_tpu.data.autopack import maybe_autopack
+        from unet_image_segmentation_tpu_torch.data.autopack import maybe_autopack
 
         train_ds = maybe_autopack(train_ds, pack_dir=cfg.data.pack_dir,
                                   fallback_dir=tcfg.model_out, verbose=verbose)
@@ -157,7 +155,7 @@ def fit(
     if state is None:
         model = build_unet(mcfg, device=device,
                            generator=torch.Generator().manual_seed(tcfg.seed))
-        state = create_train_state(cfg, model=model)
+        state = create_train_state(cfg, model=model, device=device)
     else:
         state.model.to(device)
     model = state.model

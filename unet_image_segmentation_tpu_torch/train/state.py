@@ -17,8 +17,8 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from unet_image_segmentation_tpu.config import Config
-from unet_image_segmentation_tpu_torch.models.unet import UNet, build_unet
+from unet_image_segmentation_tpu_torch.config import Config
+from unet_image_segmentation_tpu_torch.models.unet import UNet, build_unet, resolve_device
 from unet_image_segmentation_tpu_torch.weights import state_dict_from_flax
 
 
@@ -58,13 +58,16 @@ def make_optimizer(model: torch.nn.Module, learning_rate: float,
 def create_train_state(
     cfg: Config,
     model: Optional[UNet] = None,
-    device: Union[str, torch.device, None] = None,
+    device: Union[str, torch.device] = "cuda",
 ) -> TrainState:
-    """Seeded weights (``train.seed``), AdamW, and the dropout-seed generator."""
+    """Seeded weights (``train.seed``), AdamW, and the dropout-seed generator,
+    on ``device`` (the card unless the caller asks for another device); a
+    given ``model`` is moved there."""
+    device = resolve_device(device)
     if model is None:
         model = build_unet(cfg.model, device=device,
                            generator=torch.Generator().manual_seed(cfg.train.seed))
-    elif device is not None:
+    else:
         model.to(device)
     optimizer = make_optimizer(model, cfg.train.learning_rate, cfg.train.weight_decay)
     return TrainState(model, optimizer, torch.Generator().manual_seed(cfg.train.seed))
