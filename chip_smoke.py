@@ -22,13 +22,17 @@ exit code and no result line:
    launch counters of that run; images/s at batch 32, kernels on and off;
 6. K7 and K8 times at batch 32 beside their plain versions', summed over
    the path's shapes;
-7. K1-K6 against their plain versions at every shape of a train step,
-   batch 2, fp32 and bf16: K1-K4 (the training chain's link forward and
-   backward, the encoder boundary's pool and its backward; K4 on inputs
+7. K1-K6, K9-K11 against their plain versions at every shape of their
+   paths, batch 2, fp32 and bf16: K1-K4 (the training chain's link forward
+   and backward, the encoder boundary's pool and its backward; K4 on inputs
    with exact ties), K6 (the decoder feed, forward and backward) at the four
    decoder stages and at one feed of other widths (the bf16 FMA kernels),
    K5 (the fused head, forward and backward) at dec1 on inputs where the
-   ReLU's argument is exactly 0 on some pixels;
+   ReLU's argument is exactly 0 on some pixels, K11 (the softmax head) at
+   dec1 of the 512 px model with 3 classes and at another width with 4, on
+   such inputs and with two classes' logits tied everywhere (the confusion
+   matrix must match exactly), K9/K10 (per-block training) at the 18 block
+   shapes of the 256 px model;
 8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
    3 train steps with the kernels against 3 of the composed path in fp32
@@ -37,16 +41,30 @@ exit code and no result line:
    peak memory; one bf16 kernels-on step with ``fused_head`` off (the same
    launches but K5's); then ``fit`` for one epoch whose ``best/`` checkpoint
    a ``Predictor`` serves;
-9. K1-K6 at batch 32, whose launch plans differ from batch 2's: each output
-   held against its plain version under phase 7's bars, then both timed;
-   then the ten kernels' JSON line (with each kernel's bound) and the
-   result line.
+9. K1-K6, K9, K10 at batch 32 and K11 at batch 8 of 512 px (the paths'
+   batches), whose launch plans differ from batch 2's: each output held
+   against its plain version under phase 7's bars, then both timed;
+10. multiclass training at full width (``configs/multiclass_512.json`` with
+   ``fused_head`` all: 3 classes, 512 px, batch 8, cce, numpy class-id
+   scenes): 3 steps with the kernels against 3 of the composed path in fp32
+   and bf16 under phase 8's bars, 18/18/4/4 K1-K4, 4/4 K6 and 1/1 K11
+   launches a step, images/s, peak memory and a profiled step; then the
+   config's own 'auto' (K11 off, the composed sums) for one step, and its
+   images/s against 'all' in turns (the A/B that decides the default);
+11. per-block training at full width: each of the 18 ConvBlocks of the
+   256 px model at batch 32 with BatchNorm and ``use_pallas`` (one K9 and
+   one K10 launch a block) against the composed block (output, every
+   gradient, running statistics), then one train step of the 256 px U-Net
+   without BatchNorm (18 K8 launches) against its composed step; then the
+   fourteen kernels' JSON line (with each kernel's bound) and the result
+   line.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN), so the
 plain versions compute in full fp32 like the kernels. Relative errors are
 ``max|kernel - plain| / max|plain|``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -88,9 +106,15 @@ TRAIN_CONFIG = "configs/tpu_train_256_bf16.json"   # run as it is
 TRAIN_STEPS = 3
 TRAIN_REPS = 5           # timing repetitions of K1-K6 and their plain versions
 STEP_LAUNCHES = {"chain_fwd": 18, "chain_bwd": 18, "tail_pool": 4, "tail_pool_bwd": 4,
-                 "upconcat": 4, "upconcat_bwd": 4, "head_fwd": 1, "head_bwd": 1}
+                 "upconcat": 4, "upconcat_bwd": 4, "head_fwd": 1, "head_bwd": 1,
+                 "head_fwd_mc": 0, "head_bwd_mc": 0}
 # the same step with fused_head off: K5 does not run
 STEP_LAUNCHES_HEAD_OFF = {**STEP_LAUNCHES, "head_fwd": 0, "head_bwd": 0}
+# the multiclass config: K11 with fused_head all; nothing of the head with auto
+MC_CONFIG = "configs/multiclass_512.json"
+MC_IMAGE, MC_BATCH = 512, 8
+MC_STEP_LAUNCHES = {**STEP_LAUNCHES_HEAD_OFF, "head_fwd_mc": 1, "head_bwd_mc": 1}
+MC_HEAD_CASES = ((MC_IMAGE, FILTERS[0], 3), (IMAGE, 32, 4))   # (px, F, classes) in phase 7
 # Kernels-on train steps vs the composed path on the same card, relative.
 # fp32: both compute in fp32 with sums in other orders (2M pixels a channel
 # at the 256 px stages). The step-1 gradients pass nine BatchNorm backwards
@@ -115,7 +139,20 @@ BF16_GRAD_SLACK = 1e-2
 # run: 5.5e-3 in fp32 at enc4_block1.bn.mean), so fp32 is held to 2e-2.
 # bf16 is held like the bf16 gradients, against the fp32 composed run.
 TRAIN_STATS_TOL = 2e-2
-# kernel name -> (CUDA source under ops/kernels/csrc/, TPU kernel it replaces
+# Phase 11, one ConvBlock with BatchNorm, kernels (K9/K10) vs the composed
+# block on the same card: fp32 output held like an elementwise kernel output,
+# its gradients and the running statistics (sums over 2M pixels, each
+# through one BatchNorm backward) like the kernels' sums. bf16 is held
+# against the fp32 composed block like phase 8's bf16 gradients, but beside
+# the same per-block path run with K9/K10's plain versions: that path rounds
+# the output cotangent to bf16 twice, as the JAX VJP does (gy alone, then
+# gy + gs + 2 y gq), and after BatchNorm's cancellation the first block's
+# depthwise gradient carries ~4x the composed bf16 block's error (H100 run:
+# 0.18 against 0.048 at enc1.1), so the composed bf16 block is no bar for it.
+BLOCK_OUT_TOL = 1e-4
+BLOCK_GRAD_TOL = 5e-4
+BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 1, "sepconv_bwd": 1}
+BN_OFF_K8_LAUNCHES = 18# kernel name -> (CUDA source under ops/kernels/csrc/, TPU kernel it replaces
 # under unet_image_segmentation_tpu/ops/pallas/)
 KERNELS = {
     "sepconv_pair": ("sepconv_pair.cu", "fused_sepconv.py:903"),
@@ -128,6 +165,10 @@ KERNELS = {
     "upconcat_bwd": ("upconcat.cu", "fused_upconcat.py:203"),
     "head_fwd": ("head.cu", "fused_head.py:119"),
     "head_bwd": ("head.cu", "fused_head.py:433"),
+    "head_fwd_mc": ("head.cu", "fused_head.py:303"),
+    "head_bwd_mc": ("head.cu", "fused_head.py:635"),
+    "sepconv_stats": ("chain_fwd.cu", "fused_sepconv.py:631"),
+    "sepconv_bwd": ("chain_bwd.cu", "fused_sepconv_bwd.py:40"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): memory
 # bytes/s, and operations/s by type (bf16 tensor cores; fp32 outside them).
@@ -225,6 +266,33 @@ def head_case(torch, rnd, dev, dtype, batch):
     return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=w, hb=hb, t=t, gsc=gsc)
 
 
+def head_mc_case(torch, rnd, dev, dtype, batch, px, f, nc):
+    """Seeded inputs of K11: y and the affine on quarters as in head_case,
+    class-id targets, and head weights whose classes 0 and 1 share a column
+    and a bias, so their logits tie on every pixel (the first wins)."""
+    g = rnd.gen
+    y = (torch.randint(-8, 9, (batch, px, px, f), generator=g) * 0.25).to(dev, dtype)
+    aff4 = torch.stack([1 + 0.5 * torch.randint(0, 3, (f,), generator=g),
+                        0.25 * torch.randint(-2, 3, (f,), generator=g),
+                        0.1 * rnd(f), 1 + 0.5 * rnd(f).abs()]).float().to(dev).contiguous()
+    w = (0.1 * rnd(f, nc)).to(dtype).float()
+    w[:, 1] = w[:, 0]
+    hb = (0.1 * rnd(nc)).to(dtype).float()
+    hb[1] = hb[0]
+    t = torch.randint(0, nc, (batch, px, px), generator=g).to(torch.uint8).to(dev)
+    gsc = rnd(batch, 2 * nc + 1).to(dev).contiguous()
+    return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=w.to(dev).contiguous(),
+                hb=hb.to(dev).contiguous(), t=t, gsc=gsc)
+
+
+def block_case(torch, rnd, dev, dtype, batch, c, f, h):
+    """Seeded inputs of one per-block training sepconv for K9 and K10."""
+    return dict(x=rnd(batch, h, h, c).to(dev, dtype),
+                dw=rnd(3, 3, c, scale=(6 / (9 * c + 9)) ** 0.5).to(dev, dtype),
+                pw=rnd(c, f, scale=(6 / (c + f)) ** 0.5).to(dev, dtype),
+                g=rnd(batch, h, h, f).to(dev, dtype))
+
+
 def bounds_ms(name, shape, dname):
     """The least time, in ms, the card could take for one call of kernel
     ``name`` at ``shape`` in ``dname``: the larger of the bytes it must move
@@ -265,6 +333,22 @@ def bounds_ms(name, shape, dname):
         else:                     # x, g, W -> dx, d_skip, d_kernel, d_bias
             nbytes = e * (2 * px * c + 8 * px * f + 4 * px * f + 4 * c * f) + 4 * 4 * c * f
             ops = 2 * gemm
+    elif name in ("sepconv_stats", "sepconv_bwd"):
+        _, c, f, h = shape[:4]
+        px = BATCH_SERVE * h * h
+        if name == "sepconv_stats":   # x -> y, Σy, Σy²
+            nbytes = e * (px * (c + f) + 9 * c + c * f) + 4 * 2 * f
+            ops = 2 * px * (9 * c + c * f)
+        else:                     # x, g -> dx, ddw, dpw, dbias
+            nbytes = e * (px * (2 * c + f) + 9 * c + c * f) + 4 * (9 * c + c * f + f)
+            ops = 2 * px * (2 * c * f + 27 * c) + px * f   # dm, dpw; dz, ddw, m; dbias
+    elif name in ("head_fwd_mc", "head_bwd_mc"):  # at dec1 of the 512 px model
+        f, nc, px = FILTERS[0], 3, MC_BATCH * MC_IMAGE * MC_IMAGE
+        if name == "head_fwd_mc":  # y, targets -> 3nc+1+nc^2 sums a sample
+            nbytes, ops = e * px * f + px, px * ((3 + 2 * nc) * f + 12 * nc + 20)
+        else:                     # y, targets -> dzt, S, T, dw, db
+            nbytes = 2 * e * px * f + px
+            ops = px * ((7 + 6 * nc) * f + 30 * nc)
     else:                         # head_fwd, head_bwd at dec1
         f, px = FILTERS[0], BATCH_SERVE * IMAGE * IMAGE
         if name == "head_fwd":    # y, targets -> 9 sums a sample
@@ -286,6 +370,8 @@ def kernel_shapes():
         "tail_pool": pool_shapes(), "tail_pool_bwd": pool_shapes(),
         "upconcat": upconcat_shapes(), "upconcat_bwd": upconcat_shapes(),
         "head_fwd": [None], "head_bwd": [None],
+        "head_fwd_mc": [None], "head_bwd_mc": [None],
+        "sepconv_stats": links, "sepconv_bwd": links,
     }
 
 
@@ -340,6 +426,37 @@ def judge_head(fh, tjudge, k, label, dname):
     tjudge("head_bwd", label + " S/T/dw/db", dname, list(zip(got[1:], want[1:])), sums=True)
 
 
+def judge_head_mc(torch, fh, tjudge, k, label, dname):
+    """K11 forward and backward against plain; the confusion matrix exactly."""
+    fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
+    bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
+    got, want = fh.head_fwd_sums_mc(*fwd), fh.head_fwd_sums_mc_reference(*fwd)
+    tjudge("head_fwd_mc", label + " sums", dname, [(got, want)], sums=True)
+    nc = k["w"].shape[1]
+    cm, cm_want = got[:, 3 * nc + 1:], want[:, 3 * nc + 1:]
+    same = torch.equal(cm, cm_want)
+    print(f"  head_fwd_mc {label} {dname}: confusion matrix {'exact' if same else 'DIFFERS'} "
+          f"({int(cm.sum().item())} pixels, {int(cm.reshape(-1, nc, nc)[:, :, 1].sum().item())} "
+          "predicted as the tied second class)")
+    if not same:
+        raise AssertionError(f"head_fwd_mc {label} {dname}: confusion matrix differs")
+    got, want = fh.head_bwd_mc(*bwd), fh.head_bwd_mc_reference(*bwd)
+    tjudge("head_bwd_mc", label + " dzt", dname, [(got[0], want[0])])
+    tjudge("head_bwd_mc", label + " S/T/dw/db", dname, list(zip(got[1:], want[1:])), sums=True)
+
+
+def judge_block(fs, tjudge, k, label, dname):
+    """K9 and K10 on one block's inputs, against plain."""
+    fwd, bwd = (k["x"], k["dw"], k["pw"]), (k["x"], k["g"], k["dw"], k["pw"])
+    got, want = fs.sepconv_stats(*fwd), fs.sepconv_stats_reference(*fwd)
+    tjudge("sepconv_stats", label + " y", dname, [(got[0], want[0])])
+    tjudge("sepconv_stats", label + " sums", dname, list(zip(got[1:], want[1:])), sums=True)
+    got, want = fs.sepconv_bwd(*bwd), fs.sepconv_bwd_reference(*bwd)
+    tjudge("sepconv_bwd", label + " dx", dname, [(got[0], want[0])])
+    tjudge("sepconv_bwd", label + " ddw/dpw/dbias", dname, list(zip(got[1:], want[1:])),
+           sums=True)
+
+
 def judge_link(ft, tjudge, k, label, dname, in_aff, mc):
     """K1 and K2 on one chain link's inputs, against plain."""
     got = ft.chain_fwd(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
@@ -372,9 +489,9 @@ def link_label(name, c, f, h, in_aff, drop, mc):
     return f"{name} {c}->{f}@{h} {mode or 'plain '}".rstrip()
 
 
-def check_train_kernels(torch, ft, fu, fh, rnd, dev, dtypes, tjudge):
-    """Phase 7: K1-K6 against their plain versions at every path shape."""
-    print(f"K5/K6 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
+def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
+    """Phase 7: K1-K6 and K9-K11 against their plain versions at every path shape."""
+    print(f"K5/K6/K11 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
         for name, c, f, h in upconcat_shapes() + [FEED_FMA_SHAPE]:
             k = upconcat_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h)
@@ -383,6 +500,18 @@ def check_train_kernels(torch, ft, fu, fh, rnd, dev, dtypes, tjudge):
         zeros = ((k["y"].float() * k["aff4"][0] + k["aff4"][1]) == 0).float().mean().item()
         judge_head(fh, tjudge, k, f"dec1 F={FILTERS[0]}@{IMAGE} (a*y+b exactly 0 on "
                    f"{zeros:.3f} of the values)", dname)
+        for px, f, nc in MC_HEAD_CASES:
+            k = head_mc_case(torch, rnd, dev, dtype, BATCH_CHECK, px, f, nc)
+            zeros = ((k["y"].float() * k["aff4"][0] + k["aff4"][1]) == 0).float().mean().item()
+            judge_head_mc(torch, fh, tjudge, k, f"softmax head {nc} classes F={f}@{px} (a*y+b "
+                          f"exactly 0 on {zeros:.3f} of the values)", dname)
+        del k
+
+    print(f"K9/K10 per-block training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
+    for dname, dtype in dtypes.items():
+        for name, c, f, h, *_ in chain_links():
+            k = block_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h)
+            judge_block(fs, tjudge, k, f"block {name} {c}->{f}@{h}", dname)
 
     print(f"K1-K4 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
@@ -415,34 +544,34 @@ class MemoryDataset:
             yield self.images[sl], self.masks[sl]
 
 
+def cosine(a, b):
+    """Cosine of two tensors in fp64, with no floor on the norms (the
+    gradients of a deep BatchNorm-free U-Net are tiny); 1 if both are 0."""
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0.0 or nb == 0.0:
+        return 1.0 if na == nb else 0.0
+    return (a @ b).item() / (na * nb)
+
+
 def rel_max(got, want):
     """max|got - want| / max|want| of two tensors, in fp32."""
     return ((got.float() - want.float()).abs().max() /
             want.float().abs().max().clamp_min(1e-30)).item()
 
 
-def train_path(torch, dev, smi, report, launches):
-    """Phase 8: the training step at full width, kernels on against the
-    composed path on the same card, then ``fit`` and a ``Predictor`` request."""
-    from unet_image_segmentation_tpu_torch.inference import Predictor
+def train_ab(torch, dev, smi, base, x, m, launches, expect, variant=None):
+    """3 train steps of config dict ``base`` with the kernels against 3 of
+    the composed path, in fp32 and bf16, under phase 8's bars; ``expect``
+    the launches of every kernels-on step, added into ``launches``; images/s
+    in turns, peak memory and a profiled kernels-on step. With ``variant``
+    (label, model overrides, launches) also :func:`variant_ab`. Returns the
+    numbers by dtype."""
     from unet_image_segmentation_tpu_torch.models.unet import build_unet
-    from unet_image_segmentation_tpu_torch.train.checkpoint import load_inference_variables
-    from unet_image_segmentation_tpu_torch.train.loop import fit
     from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
     from unet_image_segmentation_tpu_torch.train.steps import make_train_step
 
-    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
-        base = json.load(f)
-    images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
-    x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
-    m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
-    print(f"training path: {TRAIN_CONFIG} as it is (fused_head "
-          f"{base['model'].get('fused_head', 'auto')}): U-Net {base['model']['filters']}"
-          f" at {IMAGE}, batch {base['train']['batch_size']}, dropout "
-          f"{base['model']['dropout_rate']}, {base['train']['loss']} loss, AdamW lr "
-          f"{base['train']['learning_rate']} wd {base['train']['weight_decay']}; seeded "
-          f"weights and dropout seeds; kernels on vs the composed path, {TRAIN_STEPS} steps each")
-    report["train"] = {}
+    out = {}
     for dname in ("float32", "bfloat16"):
         runs = {}
         for use_pallas in (True, False):
@@ -463,8 +592,8 @@ def train_path(torch, dev, smi, report, launches):
                 if use_pallas:
                     counts = train_counts()
                     print(f"  {dname} kernels-on step {i + 1} launches {counts}")
-                    if counts != STEP_LAUNCHES:
-                        raise AssertionError(f"expected {STEP_LAUNCHES} per step, got {counts}")
+                    if counts != expect:
+                        raise AssertionError(f"expected {expect} per step, got {counts}")
                     for name, n in counts.items():
                         launches[name] = launches.get(name, 0) + n
                 losses.append(loss)
@@ -540,21 +669,83 @@ def train_path(torch, dev, smi, report, launches):
             run = runs[label == "on"]
             rates.setdefault(label, []).append(
                 train_images_per_second(run["step"], run["state"], x, m, torch))
-        print(f"  {dname} train images/s at batch {BATCH_SERVE}: " + ", ".join(
+        print(f"  {dname} train images/s at batch {x.shape[0]}: " + ", ".join(
             f"kernels {k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) +
             f"; peak memory kernels on {on['peak_gb']:.2f} GiB, composed {off['peak_gb']:.2f} "
             f"GiB [{smi}]")
+        if variant is not None:
+            out[dname] = {"variant": variant_ab(torch, dev, smi, base, x, m, dname, on, variant,
+                                                launches)}
         prof = profile_step(torch, on["step"], on["state"], x, m)
         print(f"  {dname} kernels-on step under torch.profiler: {prof['wall_ms']:.1f} ms a step, "
               f"device busy {prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}); "
               "device ms a step: " + ", ".join(f"{k} {v:.2f}" for k, v in prof["groups"].items()))
         print("    largest PyTorch kernels, ms a step: " + "; ".join(
             f"{name[:60]} {t:.2f}" for name, t in prof["glue_top"]))
-        report["train"][dname] = dict(
+        out.setdefault(dname, {}).update(
             losses_on=on["losses"], losses_off=off["losses"], grad_rel=g_rel, stats_rel=s_rel,
             images_per_s=rates, peak_gib={"on": on["peak_gb"], "off": off["peak_gb"]},
             profile=prof)
         del runs, on, off
+    return out
+
+
+def variant_ab(torch, dev, smi, base, x, m, dname, on, variant, launches):
+    """One kernels-on step of ``base`` with the model overrides of
+    ``variant`` = (label, overrides, launches), its launches checked, then
+    its train images/s against the kernels-on run ``on`` in turns."""
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet
+    from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    label, overrides, expect = variant
+    d = json.loads(json.dumps(base))
+    d["model"].update(compute_dtype=dname, use_pallas=True, **overrides)
+    cfg = Config.from_dict(d)
+    model = build_unet(cfg.model, device=dev, generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(cfg, model=model, device=dev)
+    step = make_train_step(model, cfg.train.loss)
+    reset_train_counts()
+    loss = float(step(state, x, m)["loss"])
+    torch.cuda.synchronize()
+    counts = train_counts()
+    print(f"  {dname} kernels-on step with {label}: loss {loss:.6f} (kernels-on step 1 "
+          f"{on['losses'][0]:.6f}), launches {counts}")
+    if counts != expect or not np.isfinite(loss):
+        raise AssertionError(f"{label}: expected {expect}, got {counts}")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    rates = {}
+    for which in ("on", label, "on", label):
+        run = (on["step"], on["state"]) if which == "on" else (step, state)
+        rates.setdefault(which, []).append(train_images_per_second(*run, x, m, torch))
+    print(f"  {dname} A/B train images/s at batch {x.shape[0]}: " + ", ".join(
+        f"{k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) + f" [{smi}]")
+    return {"loss_step1": loss, "images_per_s": rates}
+
+
+def train_path(torch, dev, smi, report, launches):
+    """Phase 8: the training step at full width, kernels on against the
+    composed path on the same card, then ``fit`` and a ``Predictor`` request."""
+    from unet_image_segmentation_tpu_torch.inference import Predictor
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet
+    from unet_image_segmentation_tpu_torch.train.checkpoint import load_inference_variables
+    from unet_image_segmentation_tpu_torch.train.loop import fit
+    from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        base = json.load(f)
+    images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
+    x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
+    m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
+    print(f"training path: {TRAIN_CONFIG} as it is (fused_head "
+          f"{base['model'].get('fused_head', 'auto')}): U-Net {base['model']['filters']}"
+          f" at {IMAGE}, batch {base['train']['batch_size']}, dropout "
+          f"{base['model']['dropout_rate']}, {base['train']['loss']} loss, AdamW lr "
+          f"{base['train']['learning_rate']} wd {base['train']['weight_decay']}; seeded "
+          f"weights and dropout seeds; kernels on vs the composed path, {TRAIN_STEPS} steps each")
+    report["train"] = train_ab(torch, dev, smi, base, x, m, launches, STEP_LAUNCHES)
 
     # PR 2's path: the same config with the composed head, kernels on
     d = json.loads(json.dumps(base))
@@ -600,10 +791,171 @@ def train_path(torch, dev, smi, report, launches):
         report["train"]["fit_best"] = res.best_score
 
 
+def multiclass_path(torch, dev, smi, report, launches):
+    """Phase 10: multiclass training at full width through K11."""
+    with open(os.path.join(ROOT, MC_CONFIG)) as f:
+        base = json.load(f)
+    config_head = base["model"].get("fused_head", "auto")
+    base["model"]["fused_head"] = "all"
+    images, ids = multiclass_scenes(MC_BATCH, MC_IMAGE, SEED + 3)
+    x, m = torch.from_numpy(images).to(dev), torch.from_numpy(ids).to(dev)
+    share = [float((ids == c).mean()) for c in range(base["model"]["num_classes"])]
+    print(f"multiclass training path: {MC_CONFIG} with fused_head all (the config's own: "
+          f"{config_head}): U-Net {base['model']['filters']} at {MC_IMAGE}, "
+          f"{base['model']['num_classes']} classes (pixel shares "
+          f"{', '.join(f'{v:.3f}' for v in share)}), batch {base['train']['batch_size']}, "
+          f"dropout {base['model']['dropout_rate']}, {base['train']['loss']} loss; kernels on vs "
+          f"the composed path, {TRAIN_STEPS} steps each; then {config_head} vs all")
+    if x.shape[0] != base["train"]["batch_size"]:
+        raise AssertionError("the scenes must fill one batch of the config")
+    report["multiclass"] = train_ab(
+        torch, dev, smi, base, x, m, launches, MC_STEP_LAUNCHES,
+        variant=(f"fused_head {config_head}", {"fused_head": config_head},
+                 STEP_LAUNCHES_HEAD_OFF))
+
+
+@contextlib.contextmanager
+def plain_per_block(fs):
+    """The per-block training path with K9/K10's plain versions in place of
+    the kernels, on the card (the bf16 yardstick of phase 11)."""
+    saved = fs.sepconv_stats, fs.sepconv_bwd
+    fs.sepconv_stats, fs.sepconv_bwd = fs.sepconv_stats_reference, fs.sepconv_bwd_reference
+    try:
+        yield
+    finally:
+        fs.sepconv_stats, fs.sepconv_bwd = saved
+
+
+def block_train_path(torch, dev, smi, report, launches, dtypes):
+    """Phase 11: per-block training (K9/K10) of the 18 ConvBlocks at batch
+    32 against the composed block, and a BatchNorm-free U-Net train step
+    (K8 forward, composed backward) against its composed step."""
+    from unet_image_segmentation_tpu_torch.models.layers import ConvBlock
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet
+    from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+    from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    print(f"per-block training: the 18 ConvBlocks of the {IMAGE} px U-Net with BatchNorm and "
+          f"use_pallas at batch {BATCH_SERVE}, kernels (K9/K10) vs the composed block; fp32 "
+          f"held to {BLOCK_OUT_TOL:g} (output) and {BLOCK_GRAD_TOL:g} (gradients, running "
+          f"statistics); bf16 against the fp32 composed block, kernels <= {BF16_GRAD_FACTOR:g} "
+          f"x the plain per-block path + {BF16_GRAD_SLACK:g} per tensor")
+    report["block_train"] = {}
+    gen = torch.Generator().manual_seed(SEED + 5)
+    for name, c, f, h, *_ in chain_links():
+        x = torch.rand(BATCH_SERVE, h, h, c, generator=gen) * 2 - 1
+        g = torch.rand(BATCH_SERVE, h, h, f, generator=gen) * 2 - 1
+        seed = int(torch.randint(0, 2**31, (1,), generator=gen))
+        res = {}
+        for dname, path in (("float32", "kernels"), ("float32", "composed"),
+                            ("bfloat16", "kernels"), ("bfloat16", "plain"),
+                            ("bfloat16", "composed")):
+            blk = ConvBlock(c, f, use_pallas=path != "composed",
+                            generator=torch.Generator().manual_seed(seed)).to(dev)
+            xi = x.to(dev, dtypes[dname]).detach().requires_grad_()
+            fs.reset_launch_counts()
+            with plain_per_block(fs) if path == "plain" else contextlib.nullcontext():
+                out = blk(xi, train=True)
+                (out.float() * g.to(dev)).sum().backward()
+            torch.cuda.synchronize()
+            counts = dict(fs.LAUNCHES)
+            if counts != (BLOCK_LAUNCHES if path == "kernels" else dict.fromkeys(counts, 0)):
+                raise AssertionError(f"block {name} {dname} {path}: launches {counts}")
+            if path == "kernels":
+                for kname, n in counts.items():
+                    launches[kname] = launches.get(kname, 0) + n
+            res[(dname, path)] = dict(
+                out=out.detach(), dx=xi.grad,
+                **{n: p.grad for n, p in blk.named_parameters()},
+                **{n: b.detach() for n, b in blk.named_buffers()})
+        ref = res[("float32", "composed")]
+        err = {key: {k: rel_max(v, ref[k]) for k, v in res[key].items()}
+               for key in res if key != ("float32", "composed")}
+        err32, on16 = err[("float32", "kernels")], err[("bfloat16", "kernels")]
+        plain16, comp16 = err[("bfloat16", "plain")], err[("bfloat16", "composed")]
+        excess = {k: on16[k] - BF16_GRAD_FACTOR * plain16[k] for k in ref}
+        worst32 = max((k for k in err32 if k != "out"), key=err32.get)
+        w16 = max(excess, key=excess.get)
+        ok = err32["out"] <= BLOCK_OUT_TOL and err32[worst32] <= BLOCK_GRAD_TOL and \
+            excess[w16] <= BF16_GRAD_SLACK and all(np.isfinite(v) for v in on16.values())
+        print(f"  {name} {c}->{f}@{h}: fp32 out {err32['out']:.2e}, worst other "
+              f"{err32[worst32]:.2e} ({worst32}); bf16 vs fp32 composed, max over tensors: "
+              f"kernels {max(on16.values()):.2e}, plain per-block {max(plain16.values()):.2e}, "
+              f"composed {max(comp16.values()):.2e}; worst excess at {w16}: kernels "
+              f"{on16[w16]:.2e} vs plain {plain16[w16]:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"block {name}: kernels disagree with the plain/composed block")
+        report["block_train"][name] = {"fp32": err32, "bf16_kernels": on16,
+                                       "bf16_plain": plain16, "bf16_composed": comp16}
+        del res, ref
+
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        base = json.load(f)
+    images, masks = synthetic_scenes(BATCH_SERVE, IMAGE, SEED + 6, with_masks=True)
+    x, m = torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
+    print(f"BatchNorm-free U-Net: {TRAIN_CONFIG} with use_batch_norm off (dropout "
+          f"{base['model']['dropout_rate']}, the same seeds), one step kernels on (K8 forward, "
+          "the composed backward) vs the composed step")
+    report["bn_off"] = {}
+    ref_grads = None
+    for dname in dtypes:
+        runs = {}
+        for use_pallas in (True, False):
+            d = json.loads(json.dumps(base))
+            d["model"].update(compute_dtype=dname, use_pallas=use_pallas, use_batch_norm=False)
+            cfg = Config.from_dict(d)
+            model = build_unet(cfg.model, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+            state = create_train_state(cfg, model=model, device=dev)
+            step = make_train_step(model, cfg.train.loss)
+            fs.reset_launch_counts()
+            loss = float(step(state, x, m)["loss"])
+            torch.cuda.synchronize()
+            k8 = fs.LAUNCHES["sepconv_block"]
+            if k8 != (BN_OFF_K8_LAUNCHES if use_pallas else 0) or not np.isfinite(loss):
+                raise AssertionError(f"BatchNorm-free step: {k8} K8 launches, loss {loss}")
+            runs[use_pallas] = dict(loss=loss, step=step, state=state, grads={
+                n: p.grad.detach().clone() for n, p in model.named_parameters()})
+        on, off = runs[True], runs[False]
+        rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+        if dname == "float32":
+            ref_grads = off["grads"]
+        err_on = {n: rel_max(on["grads"][n], g) for n, g in ref_grads.items()}
+        err_off = {n: rel_max(off["grads"][n], g) for n, g in ref_grads.items()}
+        cos = min(cosine(on["grads"][n], g) for n, g in ref_grads.items())
+        if dname == "float32":
+            ok = max(err_on.values()) <= TRAIN_GRAD_TOL and cos >= TRAIN_GRAD_COS
+            held = f"max rel err <= {TRAIN_GRAD_TOL:g} and cosine >= {TRAIN_GRAD_COS}"
+        else:
+            excess = {n: err_on[n] - BF16_GRAD_FACTOR * err_off[n] for n in ref_grads}
+            ok = max(excess.values()) <= BF16_GRAD_SLACK
+            held = (f"against the fp32 composed gradients, kernels <= {BF16_GRAD_FACTOR:g} x "
+                    f"composed bf16 ({max(err_off.values()):.2e}) + {BF16_GRAD_SLACK:g}")
+        ok = ok and rel <= TRAIN_LOSS_TOL[dname]
+        rates = {}
+        for label in ("on", "off", "on", "off"):
+            run = runs[label == "on"]
+            rates.setdefault(label, []).append(
+                train_images_per_second(run["step"], run["state"], x, m, torch))
+        print(f"  {dname}: {BN_OFF_K8_LAUNCHES} K8 launches; loss kernels {on['loss']:.6f} "
+              f"composed {off['loss']:.6f} rel {rel:.2e}; gradients max rel err "
+              f"{max(err_on.values()):.2e}, min cosine {cos:.8f}, held {held} "
+              f"{'ok' if ok else 'FAIL'}; train images/s " + ", ".join(
+                  f"kernels {k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) +
+              f" [{smi}]")
+        if not ok:
+            raise AssertionError(f"BatchNorm-free step {dname}: kernels disagree with composed")
+        report["bn_off"][dname] = {"loss_rel": rel, "grad_rel": err_on, "images_per_s": rates}
+        del runs, on, off
+
+
 # share by which the profiler's device time may exceed the host's wall time
 PROFILE_JITTER = 0.02
 # substrings of the port's kernel names -> the table's labels (first match wins)
-KERNEL_GROUPS = (("chain_fwd", "K1"), ("chain_bwd", "K2"), ("tail_pool_bwd", "K4"),
+KERNEL_GROUPS = (("sepconv_stats", "K9"), ("sepconv_bwd", "K10"), ("head_fwd_mc", "K11"),
+                 ("head_bwd_mc", "K11"), ("chain_fwd", "K1"), ("chain_bwd", "K2"),
+                 ("tail_pool_bwd", "K4"),
                  ("tail_pool", "K3"), ("upconcat", "K6"), ("head_", "K5"),
                  ("colsum", "fixed-order sums"))
 
@@ -877,8 +1229,8 @@ def main() -> int:
     def tjudge(name, label, dname, pairs, sums=False):
         judge(name, label, dname, pairs, TRAIN_SUM_TOL if sums else TRAIN_TOL)
 
-    # ---- 7. K1-K6 vs plain ------------------------------------------------
-    check_train_kernels(torch, ft, fu, fh, rnd, dev, dtypes, tjudge)
+    # ---- 7. K1-K6, K9-K11 vs plain ---------------------------------------
+    check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge)
 
     # ---- 8. the training path at full width ----------------------------------
     train_path(torch, dev, smi, report, launches)
@@ -887,7 +1239,8 @@ def main() -> int:
     # Each kernel's launch plan depends on the batch (blocks per sample,
     # split-K counts, pixel ranges), so the outputs at the path's batch are
     # held against the plain versions too, then both are timed.
-    print(f"K1-K6 at batch {BATCH_SERVE} vs plain, TF32 off, then ms (kernel / plain) [{smi}]:")
+    print(f"K1-K6, K9, K10 at batch {BATCH_SERVE} and K11 at batch {MC_BATCH} of {MC_IMAGE} px "
+          f"vs plain, TF32 off, then ms (kernel / plain) [{smi}]:")
     report["train_kernels"] = {}
 
     def timed(fns):
@@ -897,7 +1250,8 @@ def main() -> int:
     for dname, dtype in dtypes.items():
         tot = {name: [0.0, 0.0] for name in ("chain_fwd", "chain_bwd", "tail_pool",
                                               "tail_pool_bwd", "upconcat", "upconcat_bwd",
-                                              "head_fwd", "head_bwd")}
+                                              "head_fwd", "head_bwd", "sepconv_stats",
+                                              "sepconv_bwd", "head_fwd_mc", "head_bwd_mc")}
         cases = []
         for name, c, f, h, in_aff, drop, mc in chain_links():
             k = link_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h, in_aff, drop, ft)
@@ -944,6 +1298,29 @@ def main() -> int:
             "head_bwd": (lambda: fh.head_bwd(*bwd), lambda: fh.head_bwd_reference(*bwd)),
         })))
         del k, fwd, bwd
+        for name, c, f, h, *_ in chain_links():
+            k = block_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h)
+            label = f"block {name} {c}->{f}@{h}"
+            judge_block(fs, tjudge, k, label, dname)
+            fwd, bwd = (k["x"], k["dw"], k["pw"]), (k["x"], k["g"], k["dw"], k["pw"])
+            cases.append((label, "K9", "K10", timed({
+                "sepconv_stats": (lambda: fs.sepconv_stats(*fwd),
+                                  lambda: fs.sepconv_stats_reference(*fwd)),
+                "sepconv_bwd": (lambda: fs.sepconv_bwd(*bwd),
+                                lambda: fs.sepconv_bwd_reference(*bwd)),
+            })))
+            del k, fwd, bwd
+        k = head_mc_case(torch, rnd, dev, dtype, MC_BATCH, MC_IMAGE, FILTERS[0], 3)
+        label = f"dec1 softmax head 3 classes F={FILTERS[0]}@{MC_IMAGE} batch {MC_BATCH}"
+        judge_head_mc(torch, fh, tjudge, k, label, dname)
+        fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
+        bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
+        cases.append((label, "K11", "K11 bwd", timed({
+            "head_fwd_mc": (lambda: fh.head_fwd_sums_mc(*fwd),
+                            lambda: fh.head_fwd_sums_mc_reference(*fwd)),
+            "head_bwd_mc": (lambda: fh.head_bwd_mc(*bwd), lambda: fh.head_bwd_mc_reference(*bwd)),
+        })))
+        del k, fwd, bwd
         for label, k1, k2, times in cases:
             for kname, (t_k, t_p) in times.items():
                 tot[kname][0] += t_k
@@ -955,6 +1332,12 @@ def main() -> int:
         totals[dname].update(tot)
         print(f"  {dname} totals over the path: " + ", ".join(
             f"{kname} {t[0]:.3f} / {t[1]:.3f}" for kname, t in tot.items()))
+
+    # ---- 10. multiclass training through K11 ---------------------------------
+    multiclass_path(torch, dev, smi, report, launches)
+
+    # ---- 11. per-block training through K9/K10, BatchNorm-free U-Net ---------
+    block_train_path(torch, dev, smi, report, launches, dtypes)
 
     kernels, report["bounds"] = [], {}
     for name, (src, replaces) in KERNELS.items():
@@ -990,10 +1373,12 @@ def main() -> int:
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1)
-    print("ms / plain_ms / bound_ms: bf16, batch 32, summed over the path's shapes (9 pair and "
-          "18 block shapes; 18 chain links; 4 encoder boundaries; 4 decoder feeds; the head); "
-          f"launches: K7/K8 over phase 5's forwards, K1-K6 over phase 8's {TRAIN_STEPS} "
-          "kernels-on steps in each dtype")
+    print("ms / plain_ms / bound_ms: bf16, batch 32 (K11: batch 8 of 512 px), summed over the "
+          "path's shapes (9 pair and 18 block shapes; 18 chain links; 4 encoder boundaries; 4 "
+          "decoder feeds; the head; 18 per-block sepconvs); launches: K7/K8 over phase 5's "
+          f"forwards, K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
+          "A/B step) in each dtype, K11 over phase 10's, K9/K10 over phase 11's 18 blocks in each "
+          "dtype")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1027,6 +1412,22 @@ def images_per_second(predictor, batch, torch, reps=5):
         predictor.predict(batch)
     torch.cuda.synchronize()
     return reps * len(batch) / (time.perf_counter() - t0)
+
+
+def multiclass_scenes(n, size, seed):
+    """Scenes for the 3-class model: synthetic_scenes' document quad as
+    class 1 and a dark disc, a "seal", as class 2 drawn over it; float32
+    images (n, size, size, 3) and class ids (n, size, size, 1)."""
+    images, ids = synthetic_scenes(n, size, seed, with_masks=True)
+    rng = np.random.RandomState(seed + 1)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    for i in range(n):
+        cy, cx = rng.uniform(0.3, 0.7, 2) * size
+        r = rng.uniform(0.05, 0.1) * size
+        disc = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        images[i][disc] = rng.uniform(0.05, 0.35, 3)
+        ids[i, disc, 0] = 2.0
+    return images, ids
 
 
 def synthetic_scenes(n, size, seed, with_masks=False):

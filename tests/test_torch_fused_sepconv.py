@@ -147,7 +147,12 @@ def test_cpu_path_launches_nothing():
     x = torch.from_numpy(_x(rng, 3))
     tfs.fused_sepconv_pair(x, b1, b2, pool=True)
     tfs.fused_sepconv_bn_relu(x, b1["depthwise_kernel"], b1["pointwise_kernel"])
-    assert tfs.LAUNCHES == {"sepconv_block": 0, "sepconv_pair": 0}
+    xg = x.clone().requires_grad_()
+    y, s, q = tfs.sepconv_apply_stats(xg, b1["depthwise_kernel"], b1["pointwise_kernel"])
+    (y.sum() + s.sum() + q.sum() + tfs.sepconv_apply(xg, b2["depthwise_kernel"][:, :, :3],
+                                                     b1["pointwise_kernel"]).sum()).backward()
+    assert tfs.LAUNCHES == {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 0,
+                            "sepconv_bwd": 0}
 
 
 def test_kernel_build_refuses_without_cuda(monkeypatch):

@@ -223,18 +223,38 @@ def test_resume_from_optax_state_tracks_jax():
                cfg.train.learning_rate, 2)
 
 
-def test_fused_head_all_multiclass_needs_k11():
-    """'all' with a softmax head needs the multiclass head kernel (K11),
-    which is not ported; 'auto' keeps the composed multiclass sums."""
-    cfg = _port_cfg(_cfg(use_pallas=True, dropout_rate=0.0, fused_head="all", num_classes=3))
-    tmodel = build_unet(cfg.model, device="cpu")
-    x, _ = _batch(4)
-    ids = torch.from_numpy(np.random.RandomState(4).randint(0, 3, (2, HW, HW, 1))).float()
-    with pytest.raises(NotImplementedError, match="K11"):
-        tmodel(torch.from_numpy(x), train=True, head_targets=ids)
+def test_fused_head_all_multiclass_needs_k11(monkeypatch):
+    """'all' with a softmax head runs the multiclass head kernel K11 in both
+    packages: three cce train steps of a 3-class model from the same
+    weights and class-id batches track JAX (loss and dice 1e-4, the
+    confusion matrix exact, then weights and BatchNorm statistics,
+    :func:`_param_bar`). 'auto' keeps the composed multiclass sums."""
+    cfg = _cfg(use_pallas=True, dropout_rate=0.0, fused_head="all", num_classes=3)
+    tmodel, variables = _setup(cfg, seed=3)
+    jmodel, jstate = _jax_state(cfg, variables)
+    jcalls = _spy(monkeypatch, jfh, "head_fwd_sums_mc")
+    tcalls = _spy(monkeypatch, tfh, "head_fwd_sums_mc")
+    jstep = make_step_jax(jmodel, "cce", donate=False)
+    state = create_train_state(_port_cfg(cfg), model=tmodel, device="cpu")
+    step = make_train_step(tmodel, "cce")
+    for i in range(3):
+        x, _ = _batch(30 + i)
+        m = np.random.RandomState(40 + i).randint(0, 3, (2, HW, HW, 1)).astype(np.float32)
+        jstate, jmet = jstep(jstate, jnp.asarray(x), jnp.asarray(m))
+        met = step(state, torch.from_numpy(x), torch.from_numpy(m))
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(float(met["dice"]), float(jmet["dice"]), rtol=1e-4)
+        np.testing.assert_array_equal(met["cm_thresh"].numpy(), np.asarray(jmet["cm_thresh"]))
+    assert len(jcalls) > 0 and len(tcalls) == 3
+    want = state_dict_from_flax(_tree_np({"params": jstate.params,
+                                          "batch_stats": jstate.batch_stats}))
+    _param_bar(_port_params(tmodel), {k: v.numpy() for k, v in want.items()},
+               cfg.train.learning_rate, 3)
+
     tmodel.fused_head = "auto"
-    sums = tmodel(torch.from_numpy(x), train=True, head_targets=ids)
-    assert set(sums) == {"i", "p", "t", "cce", "cm"}
+    ids = torch.from_numpy(np.random.RandomState(4).randint(0, 3, (2, HW, HW, 1))).float()
+    sums = tmodel(torch.from_numpy(_batch(4)[0]), train=True, head_targets=ids)
+    assert set(sums) == set(tfh.MC_KEYS) and len(tcalls) == 3
 
 
 def test_fused_head_auto_sums_equal_composed(monkeypatch):

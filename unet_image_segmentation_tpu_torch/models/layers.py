@@ -26,7 +26,10 @@ import torch
 from torch import nn
 
 from unet_image_segmentation_tpu_torch.ops import conv as conv_ops
-from unet_image_segmentation_tpu_torch.ops.fused_sepconv import fused_sepconv_bn_relu
+from unet_image_segmentation_tpu_torch.ops.fused_sepconv import (
+    fused_sepconv_bn_relu,
+    sepconv_apply_stats,
+)
 
 
 def glorot_uniform(shape: Sequence[int], generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -117,13 +120,22 @@ class BatchNorm(nn.Module):
 class ConvBlock(nn.Module):
     """[Separable]Conv -> BN -> ReLU (reference conv_block).
 
-    ``use_pallas=True`` runs a 3x3 separable block's eval forward as one
-    fused kernel with BN folded in (K8,
-    :func:`..ops.fused_sepconv.fused_sepconv_bn_relu`). In training the U-Net
-    runs such blocks in pairs through the fused chains
-    (:mod:`..ops.fused_train`), reading their raw parameters from
-    :meth:`chain_params`; the JAX package's per-block fused training
-    kernels (K9, K10) are not ported.
+    ``use_pallas=True`` runs a 3x3 separable block through the fused
+    kernels of :mod:`..ops.fused_sepconv`, as the JAX ``ConvBlock._fused_call``
+    does:
+
+    * eval: one kernel with BN folded in (K8, :func:`fused_sepconv_bn_relu`);
+    * training with BN: the sepconv and its batch sums in one kernel (K9,
+      :func:`sepconv_apply_stats`, backward K10), then the batch moments
+      (variance ``E[y²] - mean²``, not clamped), the running statistics'
+      update and ``relu((y - mean) * rsqrt(var + eps) * scale + offset)``;
+    * without BN, training or eval: K8 with the conv bias and ReLU, whose
+      gradient is the composed block's.
+
+    The U-Net's own training forward runs BN blocks in pairs through the
+    fused chains (:mod:`..ops.fused_train`), reading their raw parameters
+    from :meth:`chain_params`; the per-block path serves a ``ConvBlock``
+    trained on its own.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
@@ -156,11 +168,6 @@ class ConvBlock(nn.Module):
         self, x: torch.Tensor, x2: Optional[torch.Tensor] = None, train: bool = False
     ) -> torch.Tensor:
         fused = self.use_pallas and self.conv_type == "separable" and self.kernel_size == 3
-        if fused and train:
-            raise NotImplementedError(
-                "per-block fused training (TPU kernels K9/K10, ROADMAP queue 2) is not "
-                "ported; train separable BatchNorm models through the U-Net's chains"
-            )
         if fused:
             if x2 is not None:
                 x = torch.cat([x, x2], dim=-1)
@@ -169,11 +176,19 @@ class ConvBlock(nn.Module):
                 return fused_sepconv_bn_relu(
                     x, sep.depthwise_kernel, sep.pointwise_kernel, bias=sep.bias
                 )
-            return fused_sepconv_bn_relu(
-                x, sep.depthwise_kernel, sep.pointwise_kernel,
-                bn_scale=bn.scale, bn_offset=bn.bias, bn_mean=bn.mean, bn_var=bn.var,
-                eps=bn.eps,
-            )
+            if not train:
+                return fused_sepconv_bn_relu(
+                    x, sep.depthwise_kernel, sep.pointwise_kernel,
+                    bn_scale=bn.scale, bn_offset=bn.bias, bn_mean=bn.mean, bn_var=bn.var,
+                    eps=bn.eps,
+                )
+            y, s, q = sepconv_apply_stats(x, sep.depthwise_kernel, sep.pointwise_kernel)
+            n = y.shape[0] * y.shape[1] * y.shape[2]
+            mean = s / n
+            var = q / n - mean * mean
+            bn.update_stats(mean, var)
+            out = (y.float() - mean) * (torch.rsqrt(var + bn.eps) * bn.scale) + bn.bias
+            return torch.relu(out).to(x.dtype)
         if self.conv_type == "separable":
             x = self.sepconv(x, x2)
         else:

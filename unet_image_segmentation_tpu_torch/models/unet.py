@@ -19,10 +19,13 @@ for the bottleneck and the decoder stages with their dropout fused into the
 first link. Every decoder stage's input ``[up | skip]`` comes from the
 fused decoder feed (:mod:`..ops.fused_upconcat`, K6). With ``head_targets``
 and ``fused_head`` 'all', or 'auto' with one class, the last decoder stage,
-the sigmoid head and the sums run as :func:`..ops.fused_head.fused_head_train`
-(K5); the softmax head's fused kernel (K11) is not ported, so 'auto' keeps
-the composed sums there and 'all' raises. Without ``use_pallas`` the
-composed modules run under autograd. Dropout is always
+the head and the sums run as :func:`..ops.fused_head.fused_head_train`: the
+sigmoid head through K5, the softmax head of 2..4 classes through K11.
+'auto' keeps the composed sums for a softmax head, as in the JAX package,
+and so does 'all' for more than 4 classes or a width the kernels do not
+take. Without BatchNorm a ``use_pallas`` model trains block by block: each
+ConvBlock runs K8 forward with the composed backward. Without
+``use_pallas`` the composed modules run under autograd. Dropout is always
 the position hash of :mod:`..ops.hash_dropout`, with explicit per-site
 seeds (site 0 after the bottleneck, site ``s`` on decoder stage ``s``).
 
@@ -47,8 +50,8 @@ from unet_image_segmentation_tpu_torch.models.layers import (
 )
 from unet_image_segmentation_tpu_torch.ops.conv import max_pool_2x2
 from unet_image_segmentation_tpu_torch.ops.fused_head import (
+    fused_head_feasible,
     fused_head_train,
-    head_supported,
     head_sums_reference,
     head_sums_reference_mc,
 )
@@ -139,18 +142,12 @@ class UNet(nn.Module):
         drop = train and self.dropout_rate > 0.0
         if drop and dropout_seeds is None:
             raise ValueError("a training forward with dropout needs dropout_seeds")
+        # as the JAX package: 'auto' fuses the sigmoid head only, and a head
+        # no kernel takes (over 4 classes, a width K5/K11 cannot read) keeps
+        # the composed sums
         fuse_head = use_chain and head_targets is not None and (
             self.fused_head == "all" or (self.fused_head == "auto" and self.num_classes == 1)
-        )
-        if fuse_head and self.num_classes > 1:
-            raise NotImplementedError(
-                "fused_head='all' with a softmax head needs the multiclass head kernel "
-                "(TPU kernel K11, ROADMAP queue 2), which is not ported yet; use 'auto' "
-                "or 'off' for the composed sums"
-            )
-        # as the JAX package's fused_head_feasible: a width K5 cannot take
-        # keeps the composed head
-        fuse_head = fuse_head and head_supported(self.filters[0], self.dtype)
+        ) and fused_head_feasible(self.filters[0], self.dtype, self.num_classes)
 
         def pair(prefix: str):
             return getattr(self, f"{prefix}_block1"), getattr(self, f"{prefix}_block2")

@@ -1,6 +1,9 @@
-"""The serving path's fused separable-conv kernels, K8 (one block) and K7 (a pair).
+"""The fused separable-conv kernels: K8 (one block), K7 (a pair), and the
+per-block training kernels K9 (forward with the BatchNorm sums) and K10
+(backward).
 
-Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py``:
+Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
+``fused_sepconv_bwd.py``:
 
 * :func:`fused_sepconv_bn_relu` (K8, TPU kernel ``_sepconv_kernel_db``):
   ``relu?((dw3x3(x) -> dtype) . pw * scale + shift)`` in one pass, BN folded
@@ -10,13 +13,30 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py``:
   optionally with the 2x2 max pool of the output (``pool=True``) and a
   two-stream input ``[x | x2]`` (``x2=``). CUDA source:
   ``kernels/csrc/sepconv_pair.cu``.
+* :func:`sepconv_stats` (K9, TPU kernel ``_sepconv_kernel_db_stats``): the
+  plain sepconv ``y = (dw3x3(x) -> dtype) . pw`` rounded to the dtype, with
+  the per-channel Σy and Σy² of the rounded y. CUDA source: the
+  ``unet_sepconv_stats`` entry of ``kernels/csrc/chain_fwd.cu`` (K1's kernel
+  with no input transform and no dropout).
+* :func:`sepconv_bwd` (K10, TPU kernel ``fused_sepconv_bwd.py:_bwd_kernel``):
+  ``dx`` (written in the dtype), ``ddw``, ``dpw`` and ``dbias`` of the plain
+  sepconv from x and the cotangent g. CUDA source: the ``unet_sepconv_bwd``
+  entry of ``kernels/csrc/chain_bwd.cu`` (K2's two passes without the
+  BatchNorm backward, plus Σg).
 
-Each kernel's wrapper (:func:`sepconv_block`, :func:`sepconv_pair`) takes
-weights already cast to the compute dtype and fp32 affines
-(:class:`BlockWeights`). Given a CPU tensor it runs the plain PyTorch
-version beside it (``*_reference``); given a CUDA tensor it launches the
-kernel on the current stream or raises. :data:`LAUNCHES` counts kernel
-launches, and only those.
+Each kernel's wrapper takes weights already cast to the compute dtype (and
+K7/K8 fp32 affines, :class:`BlockWeights`). Given a CPU tensor it runs the
+plain PyTorch version beside it (``*_reference``); given a CUDA tensor it
+launches the kernel on the current stream or raises. :data:`LAUNCHES`
+counts kernel launches, and only those.
+
+The differentiable entry points follow the JAX custom VJPs:
+:func:`fused_sepconv_bn_relu` runs K8 forward and the composed backward
+(``_sepconv_core``), :func:`sepconv_apply` K8 forward and K10 backward
+(``_sepconv_plain``), :func:`sepconv_apply_stats` K9 forward and K10
+backward (``_sepconv_stats``: the cotangents of Σy and Σy² fold into the
+output cotangent, ``g = T(gy + gs + 2 y gq)``, and ``ddw``/``dpw`` are
+rounded to the dtype, as the JAX VJP casts them to the kernels' dtype).
 """
 
 from __future__ import annotations
@@ -26,10 +46,12 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from unet_image_segmentation_tpu_torch.ops import fused_train as ft
 from unet_image_segmentation_tpu_torch.ops.conv import max_pool_2x2
 from unet_image_segmentation_tpu_torch.ops.kernels import build
 
-LAUNCHES: Dict[str, int] = {"sepconv_block": 0, "sepconv_pair": 0}
+LAUNCHES: Dict[str, int] = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 0,
+                            "sepconv_bwd": 0}
 
 _MAX_BATCH = 65535  # gridDim.z
 
@@ -107,10 +129,7 @@ def sepconv_block_reference(
     x: torch.Tensor, w: BlockWeights, relu: bool = True
 ) -> torch.Tensor:
     """Plain version of K8: fp32 depthwise, rounded to x.dtype, fp32 pointwise."""
-    c = x.shape[-1]
-    taps = w.dw.float().permute(2, 0, 1).unsqueeze(1)  # (C, 1, 3, 3)
-    d = F.conv2d(x.float().permute(0, 3, 1, 2), taps, padding=1, groups=c)
-    d = d.permute(0, 2, 3, 1).to(x.dtype)
+    d = ft._depthwise(x, w.dw).to(x.dtype)
     y = torch.matmul(d.float(), w.pw.float()) * w.scale + w.shift
     if relu:
         y = y.clamp_min(0.0)
@@ -133,6 +152,41 @@ def sepconv_pair_reference(
     return y
 
 
+def sepconv_stats_reference(
+    x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K9: ``(y, Σy, Σy²)``, plain K1 with no input transform: the
+    depthwise sum is rounded to x.dtype, the pointwise accumulates in fp32,
+    y is rounded, and the sums are taken over the rounded y in fp32."""
+    return ft.chain_fwd_reference(x, dw, pw)
+
+
+def sepconv_bwd_reference(
+    x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K10: ``(dx, ddw (3,3,C), dpw (C,F), dbias (F,))``, the grads fp32.
+
+    dm = g.pw^T in fp32 (never rounded); dx is the correlation of dm with
+    the flipped taps, rounded to x.dtype; ddw = Σ shifted x * dm; the
+    recomputed depthwise m is rounded before dpw = m^T.g; dbias = Σg. The
+    image edges are zero ('same' padding).
+    """
+    c = x.shape[-1]
+    h, w = x.shape[1], x.shape[2]
+    gf = g.float()
+    dm = torch.matmul(gf, pw.float().t())
+    flipped = dw.float().flip(0, 1).permute(2, 0, 1).unsqueeze(1)
+    dx = F.conv2d(dm.permute(0, 3, 1, 2), flipped, padding=1, groups=c).permute(0, 2, 3, 1)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    ddw = torch.stack([
+        torch.stack([(xp[:, i:i + h, j:j + w] * dm).sum(dim=(0, 1, 2)) for j in range(3)])
+        for i in range(3)
+    ])
+    m = ft._depthwise(x, dw).to(x.dtype)
+    dpw = torch.matmul(m.reshape(-1, c).float().t(), gf.reshape(-1, gf.shape[-1]))
+    return dx.to(x.dtype).contiguous(), ddw, dpw, gf.sum(dim=(0, 1, 2))
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -151,12 +205,17 @@ def _check_cuda_input(x: torch.Tensor, name: str) -> None:
 
 def _check_weights(w: BlockWeights, c: int, x: torch.Tensor, name: str) -> int:
     f = w.pw.shape[-1]
-    expect = [
+    _check_tensors(x, name, [
         (w.dw, (3, 3, c), x.dtype),
         (w.pw, (c, f), x.dtype),
         (w.scale, (f,), torch.float32),
         (w.shift, (f,), torch.float32),
-    ]
+    ])
+    return f
+
+
+def _check_tensors(x: torch.Tensor, name: str, expect) -> None:
+    """Each ``(tensor, shape, dtype)`` of ``expect`` contiguous on x's device."""
     for t, shape, dtype in expect:
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(
@@ -165,7 +224,6 @@ def _check_weights(w: BlockWeights, c: int, x: torch.Tensor, name: str) -> int:
             )
         if not t.is_contiguous():
             raise ValueError(f"{name}: weights must be contiguous")
-    return f
 
 
 def sepconv_block(
@@ -236,6 +294,164 @@ def sepconv_pair(
     return (out, pooled) if pool else out
 
 
+def sepconv_stats(
+    x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9 on a CUDA tensor, its plain version on a CPU tensor.
+
+    ``dw`` (3,3,C) and ``pw`` (C,F) in x.dtype. Returns ``(y (B,H,W,F),
+    Σy (F,), Σy² (F,))``, the sums fp32.
+    """
+    if x.device.type == "cpu":
+        return sepconv_stats_reference(x, dw, pw)
+    _check_cuda_input(x, "sepconv_stats")
+    b, h, wd, c = x.shape
+    f = pw.shape[-1]
+    _check_tensors(x, "sepconv_stats", [(dw, (3, 3, c), x.dtype), (pw, (c, f), x.dtype)])
+    lib = build.load_library()
+    y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
+    sums = torch.empty((2, f), dtype=torch.float32, device=x.device)
+    work = torch.empty(lib.unet_chain_fwd_workspace(b, h, wd, c, f),
+                       dtype=torch.float32, device=x.device)
+    status = lib.unet_sepconv_stats(
+        x.data_ptr(), dw.data_ptr(), pw.data_ptr(), y.data_ptr(), work.data_ptr(),
+        sums.data_ptr(), b, h, wd, c, f, build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+    )
+    build.check(status, "sepconv_stats")
+    LAUNCHES["sepconv_stats"] += 1
+    return y, sums[0], sums[1]
+
+
+def sepconv_bwd(
+    x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10 on a CUDA tensor, its plain version on a CPU tensor.
+
+    ``x`` (B,H,W,C) and the cotangent ``g`` (B,H,W,F) in one dtype, ``dw``
+    and ``pw`` in it too. Returns ``(dx (B,H,W,C), ddw (3,3,C), dpw (C,F),
+    dbias (F,))``, the weight grads fp32.
+    """
+    if x.device.type == "cpu":
+        return sepconv_bwd_reference(x, g, dw, pw)
+    _check_cuda_input(x, "sepconv_bwd x")
+    _check_cuda_input(g, "sepconv_bwd g")
+    b, h, wd, c = x.shape
+    f = pw.shape[-1]
+    if tuple(g.shape) != (b, h, wd, f) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"sepconv_bwd: g {tuple(g.shape)} {g.dtype}, expected "
+                         f"{(b, h, wd, f)} {x.dtype} on {x.device}")
+    _check_tensors(x, "sepconv_bwd", [(dw, (3, 3, c), x.dtype), (pw, (c, f), x.dtype)])
+    lib = build.load_library()
+    dx = torch.empty_like(x)
+    m = torch.empty_like(x)                                   # depthwise(x), rounded
+    sums = torch.empty((11, c), dtype=torch.float32, device=x.device)  # ddw (9), two zero rows
+    dpwb = torch.empty((c + 1, f), dtype=torch.float32, device=x.device)  # dpw, then dbias
+    work = torch.empty(lib.unet_sepconv_bwd_workspace(b, h, wd, c, f),
+                       dtype=torch.float32, device=x.device)
+    pwt = pw.t().contiguous()  # (F, C): the kernel stages pw^T chunks row by row
+    status = lib.unet_sepconv_bwd(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(), pwt.data_ptr(), dx.data_ptr(), m.data_ptr(),
+        work.data_ptr(), sums.data_ptr(), dpwb.data_ptr(), b, h, wd, c, f,
+        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+    )
+    build.check(status, "sepconv_bwd")
+    LAUNCHES["sepconv_bwd"] += 1
+    return dx, sums[:9].reshape(3, 3, c), dpwb[:c], dpwb[c]
+
+
+# --------------------------------------------------------------------------
+# Differentiable blocks (the JAX custom VJPs)
+# --------------------------------------------------------------------------
+
+
+class _SepconvCore(torch.autograd.Function):
+    """K8 forward, composed backward (autograd through the plain K8), as
+    the JAX ``_sepconv_core`` VJP differentiates its XLA reference."""
+
+    @staticmethod
+    def forward(ctx, x, dw, pw, scale, shift, relu: bool):
+        ctx.save_for_backward(x, dw, pw, scale, shift)
+        ctx.relu = relu
+        return sepconv_block(x, BlockWeights(dw, pw, scale, shift), relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y = sepconv_block_reference(leaves[0], BlockWeights(*leaves[1:]), ctx.relu)
+            grads = torch.autograd.grad(y, leaves, g)
+        return (*grads, None)
+
+
+class _SepconvPlain(torch.autograd.Function):
+    """Plain sepconv plus bias: K8 forward (scale 1, shift = bias, no
+    ReLU), K10 backward (JAX ``_sepconv_plain``)."""
+
+    @staticmethod
+    def forward(ctx, x, dw, pw, bias):
+        ctx.save_for_backward(x, dw, pw, bias)
+        ones = torch.ones(pw.shape[-1], dtype=torch.float32, device=x.device)
+        return sepconv_block(x, BlockWeights(dw, pw, ones, bias.float().contiguous()), relu=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, dw, pw, bias = ctx.saved_tensors
+        dx, ddw, dpw, dbias = sepconv_bwd(x, g.to(x.dtype).contiguous(), dw, pw)
+        return dx, ddw.to(dw.dtype), dpw.to(pw.dtype), dbias.to(bias.dtype)
+
+
+class _SepconvStats(torch.autograd.Function):
+    """K9 forward, K10 backward (JAX ``_sepconv_stats``)."""
+
+    @staticmethod
+    def forward(ctx, x, dw, pw):
+        y, s, q = sepconv_stats(x, dw, pw)
+        ctx.save_for_backward(x, dw, pw, y)
+        return y, s, q
+
+    @staticmethod
+    def backward(ctx, gy, gs, gq):
+        x, dw, pw, y = ctx.saved_tensors
+        # Σy and Σy² are elementwise functions of y: fold their cotangents in
+        g_eff = (gy.float() + gs + y.float() * (2.0 * gq)).to(x.dtype).contiguous()
+        dx, ddw, dpw, _ = sepconv_bwd(x, g_eff, dw, pw)
+        return dx, ddw.to(dw.dtype), dpw.to(pw.dtype)
+
+
+def _kernel_form(x: torch.Tensor, depthwise_kernel: torch.Tensor,
+                 pointwise_kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Taps (3,3,C) and pointwise (C,F) in x.dtype (a differentiable cast)."""
+    c, f = x.shape[-1], pointwise_kernel.shape[-1]
+    return (depthwise_kernel.reshape(3, 3, c).to(x.dtype).contiguous(),
+            pointwise_kernel.reshape(c, f).to(x.dtype).contiguous())
+
+
+def sepconv_apply(
+    x: torch.Tensor,
+    depthwise_kernel: torch.Tensor,         # (3, 3, C, 1)
+    pointwise_kernel: torch.Tensor,         # (1, 1, C, F) or (C, F)
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain separable conv (no BN, no ReLU): K8 forward, K10 backward. A
+    zero bias stands in when none is given."""
+    dw, pw = _kernel_form(x, depthwise_kernel, pointwise_kernel)
+    if bias is None:
+        bias = torch.zeros(pw.shape[-1], dtype=torch.float32, device=x.device)
+    return _SepconvPlain.apply(x.contiguous(), dw, pw, bias)
+
+
+def sepconv_apply_stats(
+    x: torch.Tensor,
+    depthwise_kernel: torch.Tensor,         # (3, 3, C, 1)
+    pointwise_kernel: torch.Tensor,         # (1, 1, C, F) or (C, F)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain separable conv and the per-channel ``(Σy, Σy²)`` of its
+    output, fp32, for the training block's batch moments: K9 forward, K10
+    backward. Returns ``(y, sum, sum_sq)``."""
+    dw, pw = _kernel_form(x, depthwise_kernel, pointwise_kernel)
+    return _SepconvStats.apply(x.contiguous(), dw, pw)
+
+
 # --------------------------------------------------------------------------
 # Entry points with the JAX package's signatures
 # --------------------------------------------------------------------------
@@ -253,13 +469,15 @@ def fused_sepconv_bn_relu(
     eps: float = 1e-3,
     relu: bool = True,
 ) -> torch.Tensor:
-    """Fused inference block: sepconv (+bias) (+folded BN) (+ReLU), K8."""
+    """Fused block: sepconv (+bias) (+folded BN) (+ReLU), K8 forward; its
+    gradient is the composed block's (JAX ``_sepconv_core``)."""
     block = {"depthwise_kernel": depthwise_kernel, "pointwise_kernel": pointwise_kernel}
     if bias is not None:
         block["bias"] = bias
     if bn_scale is not None:
         block.update(scale=bn_scale, offset=bn_offset, mean=bn_mean, var=bn_var)
-    return sepconv_block(x, prepare_block(block, x.dtype, eps, x.device), relu)
+    w = prepare_block(block, x.dtype, eps, x.device)
+    return _SepconvCore.apply(x.contiguous(), *w, relu)
 
 
 def fused_sepconv_pair(

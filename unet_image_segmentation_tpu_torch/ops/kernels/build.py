@@ -61,15 +61,25 @@ SIGNATURES = {
     "unet_head_fwd": [_P] * 7 + [_I] * 4 + [_P],
     # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, dtype, stream
     "unet_head_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    # y, tgt, aff, w, hb, work, sums, B, HW, F, NC, dtype, stream
+    "unet_head_fwd_mc": [_P] * 7 + [_I] * 5 + [_P],
+    # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, NC, dtype, stream
+    "unet_head_bwd_mc": [_P] * 9 + [_I] * 5 + [_P],
+    # x, dw, pw, y, work, sums, B, H, W, C, F, dtype, stream
+    "unet_sepconv_stats": [_P] * 6 + [_I] * 6 + [_P],
+    # x, g, dw, pwt, dx, m, work, sums, dpwb, B, H, W, C, F, dtype, stream
+    "unet_sepconv_bwd": [_P] * 9 + [_I] * 6 + [_P],
 }
 # Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, F,
-# dtype / B, HW, F, dtype, which
+# dtype / B, HW, F, dtype, which / B, HW, F, NC, dtype, which
 WORKSPACE_SIGNATURES = {
     "unet_chain_fwd_workspace": [_I] * 5,
     "unet_chain_bwd_workspace": [_I] * 5,
+    "unet_sepconv_bwd_workspace": [_I] * 5,
     "unet_tail_pool_bwd_workspace": [_I] * 5,
     "unet_upconcat_bwd_workspace": [_I] * 5,
     "unet_head_workspace": [_I] * 5,
+    "unet_head_mc_workspace": [_I] * 6,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -41,6 +41,17 @@
 // Every cross-block sum (ddw, S, T over tiles; dpw over splits) goes
 // through reduce_rows(): fixed order, bit-reproducible. The sums run over
 // B*H*W pixels (2M at the 256 px stage of batch 32) in fp32.
+//
+// K10, the per-block training backward (unet_sepconv_bwd below), is these
+// two passes in their plain mode: no BatchNorm backward (comb null, so
+// gy = g and pass (b) reads g itself), no input transform, no dropout, and
+// pass (b) also sums dbias = Σg over its split's pixels; its __global__
+// entries sepconv_bwd_tile_kernel and sepconv_bwd_dpw_kernel inline the
+// passes' bodies with that mode compiled in. It replaces the TPU
+// kernel unet_image_segmentation_tpu/ops/pallas/fused_sepconv_bwd.py:
+// _bwd_kernel (launched by sepconv_bwd_pallas): dm = g . pw^T in fp32,
+// dx = the correlation of dm with the flipped taps (written in T),
+// ddw = Σ shifted x * dm, m = depthwise(x) -> T, dpw = m^T . g, dbias = Σg.
 #include <algorithm>
 
 #include "train_common.cuh"
@@ -58,15 +69,19 @@ constexpr int kZFloats = kHaloPx * kTileC;   // z over the ring, [px][c]
 constexpr int kTileSmem = (kGyFloats + kPwFloats + kDmFloats + kZFloats) * 4;
 constexpr int kNSums = 11;                 // ddw (9), S, T
 
+// Pass (a) of one block: the tile blockIdx.x, the C chunk blockIdx.y, sample
+// blockIdx.z. comb null: the plain mode (gy = g; yv and gy_out unused).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    chain_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                          const T* __restrict__ yv, const float* __restrict__ in_aff,
-                          const float* __restrict__ comb, const T* __restrict__ dw,
-                          const T* __restrict__ pwt_g, T* __restrict__ dx, T* __restrict__ m_out,
-                          T* __restrict__ gy_out, float* __restrict__ partials, int H, int W,
-                          int C, int F, int tiles_x, int mask_combine, uint32_t seed,
-                          uint32_t thresh, float drop_scale) {
+__device__ __forceinline__ void chain_bwd_tile(const T* __restrict__ x, const T* __restrict__ g,
+                                               const T* __restrict__ yv,
+                                               const float* __restrict__ in_aff,
+                                               const float* __restrict__ comb,
+                                               const T* __restrict__ dw,
+                                               const T* __restrict__ pwt_g, T* __restrict__ dx,
+                                               T* __restrict__ m_out, T* __restrict__ gy_out,
+                                               float* __restrict__ partials, int H, int W, int C,
+                                               int F, int tiles_x, int mask_combine,
+                                               uint32_t seed, uint32_t thresh, float drop_scale) {
   extern __shared__ __align__(16) float smem[];
   float* gys = smem;                    // [kKC][kLdM]
   float* pwt = gys + kGyFloats;         // [kKC][kTileC]
@@ -91,7 +106,7 @@ __global__ void __launch_bounds__(kThreads)
     const int kf = min(kKC, F - f0);
     const int f = f0 + k;
     float cA = 0.f, cB = 0.f, cC = 0.f, cMean = 0.f, cA_out = 0.f, cB_out = 0.f;
-    if (k < kf) {
+    if (comb && k < kf) {
       cA = comb[f];
       cB = comb[F + f];
       cC = comb[2 * F + f];
@@ -104,13 +119,17 @@ __global__ void __launch_bounds__(kThreads)
       float v = 0.f;
       if (p < kHaloPx && k < kf && Y >= 0 && Y < H && X >= 0 && X < W) {
         const size_t o = (img + (size_t)Y * W + X) * F + f;
-        float gf = to_f(g[o]);
-        const float yf = to_f(yv[o]);
-        if (mask_combine && !(affine_rn(yf, cA_out, cB_out) > 0.f)) gf = 0.f;
-        const T t = from_f<T>(gf * cA + cB + (yf - cMean) * cC);
-        v = to_f(t);
-        const int r = p / kHalo, cc = p % kHalo;
-        if (blockIdx.y == 0 && r >= 1 && r <= kTile && cc >= 1 && cc <= kTile) gy_out[o] = t;
+        if (comb) {
+          float gf = to_f(g[o]);
+          const float yf = to_f(yv[o]);
+          if (mask_combine && !(affine_rn(yf, cA_out, cB_out) > 0.f)) gf = 0.f;
+          const T t = from_f<T>(gf * cA + cB + (yf - cMean) * cC);
+          v = to_f(t);
+          const int r = p / kHalo, cc = p % kHalo;
+          if (blockIdx.y == 0 && r >= 1 && r <= kTile && cc >= 1 && cc <= kTile) gy_out[o] = t;
+        } else {
+          v = to_f(g[o]);  // plain mode (K10): gy = g
+        }
       }
       gys[k * kLdM + p] = v;
     }
@@ -226,11 +245,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// part[split][c][f] = Σ over the split's pixels of m[p][c] * gy[p][f].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    chain_bwd_dpw_kernel(const T* __restrict__ m, const T* __restrict__ gy,
-                         float* __restrict__ part, int P, int C, int F, int px_per_split) {
+    chain_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          const T* __restrict__ yv, const float* __restrict__ in_aff,
+                          const float* __restrict__ comb, const T* __restrict__ dw,
+                          const T* __restrict__ pwt_g, T* __restrict__ dx, T* __restrict__ m_out,
+                          T* __restrict__ gy_out, float* __restrict__ partials, int H, int W,
+                          int C, int F, int tiles_x, int mask_combine, uint32_t seed,
+                          uint32_t thresh, float drop_scale) {
+  chain_bwd_tile<T>(x, g, yv, in_aff, comb, dw, pwt_g, dx, m_out, gy_out, partials, H, W, C, F,
+                    tiles_x, mask_combine, seed, thresh, drop_scale);
+}
+
+// K10's pass (a): the plain mode
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sepconv_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const T* __restrict__ dw, const T* __restrict__ pwt_g,
+                            T* __restrict__ dx, T* __restrict__ m_out,
+                            float* __restrict__ partials, int H, int W, int C, int F,
+                            int tiles_x) {
+  chain_bwd_tile<T>(x, g, nullptr, nullptr, nullptr, dw, pwt_g, dx, m_out, nullptr, partials, H,
+                    W, C, F, tiles_x, 0, 0u, 0u, 1.f);
+}
+
+// part[split][c * F + f] = Σ over the split's pixels of m[p][c] * gy[p][f];
+// with kBias, also part[split][C * F + f] = Σ gy[p][f] (from the blocks of
+// the first C tile). Rows of part are cols floats apart.
+template <typename T, bool kBias>
+__device__ __forceinline__ void chain_bwd_dpw(const T* __restrict__ m, const T* __restrict__ gy,
+                                              float* __restrict__ part, int P, int C, int F,
+                                              int px_per_split, long long cols) {
   __shared__ __align__(16) float ms[kKC * kLdA64];   // [p][c]
   __shared__ __align__(16) float gs[kKC * kTileF];   // [p][f]
   const int tid = threadIdx.x;
@@ -238,7 +284,8 @@ __global__ void __launch_bounds__(kThreads)
   const int p_begin = blockIdx.z * px_per_split;
   const int p_end = min(P, p_begin + px_per_split);
   const int tm = tid / (kTileF / 4), tn = tid % (kTileF / 4);
-  float acc[4][4] = {};
+  const bool sums_bias = kBias && blockIdx.y == 0 && tm == 0;
+  float acc[4][4] = {}, bsum[4] = {};
   for (int p0 = p_begin; p0 < p_end; p0 += kKC) {
     const int kp = min(kKC, p_end - p0);
     for (int idx = tid; idx < kKC * kTileC; idx += kThreads) {
@@ -253,9 +300,19 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     smem_gemm<kLdA64, kTileF>(acc, ms, gs, kp, tm, tn);
+    if (sums_bias)
+      for (int kk = 0; kk < kp; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bsum[j] += gs[kk * kTileF + tn * 4 + j];
     __syncthreads();
   }
-  float* out = part + (size_t)blockIdx.z * C * F;
+  float* out = part + (size_t)blockIdx.z * cols;
+  if (sums_bias)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int f = f0 + tn * 4 + j;
+      if (f < F) out[(size_t)C * F + f] = bsum[j];
+    }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = c0 + tm * 4 + i;
@@ -268,14 +325,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    chain_bwd_dpw_kernel(const T* __restrict__ m, const T* __restrict__ gy,
+                         float* __restrict__ part, int P, int C, int F, int px_per_split,
+                         long long cols) {
+  chain_bwd_dpw<T, false>(m, gy, part, P, C, F, px_per_split, cols);
+}
+
+// K10's pass (b): dpw and dbias
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sepconv_bwd_dpw_kernel(const T* __restrict__ m, const T* __restrict__ g,
+                           float* __restrict__ part, int P, int C, int F, int px_per_split,
+                           long long cols) {
+  chain_bwd_dpw<T, true>(m, g, part, P, C, F, px_per_split, cols);
+}
+
 struct BwdPlan {
   int tiles_x, tiles;
   long long rows_a, cols_a;   // tile partials [B*tiles][11*C]
   int splits, px_per_split;   // pass (b)
-  long long cols_b;           // C*F
+  long long cols_b;           // C*F, plus F for the bias row
 };
 
-BwdPlan bwd_plan(int B, int H, int W, int C, int F) {
+BwdPlan bwd_plan(int B, int H, int W, int C, int F, bool bias_row) {
   const int tiles_x = (W + kTile - 1) / kTile, tiles_y = (H + kTile - 1) / kTile;
   const long long P = (long long)B * H * W;
   const int out_tiles = ((C + kTileC - 1) / kTileC) * ((F + kTileF - 1) / kTileF);
@@ -286,7 +360,7 @@ BwdPlan bwd_plan(int B, int H, int W, int C, int F) {
   per = (per + kKC - 1) / kKC * kKC;
   splits = (P + per - 1) / per;
   return {tiles_x, tiles_x * tiles_y, (long long)B * tiles_x * tiles_y, (long long)kNSums * C,
-          (int)splits, (int)per, (long long)C * F};
+          (int)splits, (int)per, (long long)C * F + (bias_row ? F : 0)};
 }
 
 long long bwd_workspace(const BwdPlan& p) {
@@ -298,29 +372,41 @@ template <typename T>
 int launch(const void* x, const void* g, const void* y, const void* in_aff, const void* comb,
            const void* dw, const void* pwt, void* dx, void* m, void* gy, float* work,
            float* sums, float* dpw, int B, int H, int W, int C, int F, int mask_combine,
-           int seed, int thresh, float drop_scale, cudaStream_t stream) {
-  const BwdPlan plan = bwd_plan(B, H, W, C, F);
+           int seed, int thresh, float drop_scale, cudaStream_t stream, bool plain = false) {
+  const BwdPlan plan = bwd_plan(B, H, W, C, F, plain);
   float* part_a = work;
   float* scratch_a = part_a + plan.rows_a * plan.cols_a;
   float* part_b = scratch_a + reduce_scratch_floats(plan.rows_a, plan.cols_a);
   float* scratch_b = part_b + (long long)plan.splits * plan.cols_b;
-  int err = (int)cudaFuncSetAttribute(chain_bwd_tile_kernel<T>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+  int err = (int)cudaFuncSetAttribute(
+      plain ? (const void*)sepconv_bwd_tile_kernel<T> : (const void*)chain_bwd_tile_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
   if (err) return err;
   const dim3 grid_a(plan.tiles, (C + kTileC - 1) / kTileC, B);
-  chain_bwd_tile_kernel<T><<<grid_a, kThreads, kTileSmem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(y),
-      static_cast<const float*>(in_aff), static_cast<const float*>(comb),
-      static_cast<const T*>(dw), static_cast<const T*>(pwt), static_cast<T*>(dx),
-      static_cast<T*>(m), static_cast<T*>(gy), part_a, H, W, C, F, plan.tiles_x, mask_combine,
-      (uint32_t)seed, (uint32_t)thresh, drop_scale);
+  if (plain)
+    sepconv_bwd_tile_kernel<T><<<grid_a, kThreads, kTileSmem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dw),
+        static_cast<const T*>(pwt), static_cast<T*>(dx), static_cast<T*>(m), part_a, H, W, C, F,
+        plan.tiles_x);
+  else
+    chain_bwd_tile_kernel<T><<<grid_a, kThreads, kTileSmem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(y),
+        static_cast<const float*>(in_aff), static_cast<const float*>(comb),
+        static_cast<const T*>(dw), static_cast<const T*>(pwt), static_cast<T*>(dx),
+        static_cast<T*>(m), static_cast<T*>(gy), part_a, H, W, C, F, plan.tiles_x, mask_combine,
+        (uint32_t)seed, (uint32_t)thresh, drop_scale);
   if ((err = (int)cudaGetLastError())) return err;
   if ((err = reduce_rows(part_a, (int)plan.rows_a, (int)plan.cols_a, scratch_a, sums, stream)))
     return err;
   const dim3 grid_b((F + kTileF - 1) / kTileF, (C + kTileC - 1) / kTileC, plan.splits);
-  chain_bwd_dpw_kernel<T><<<grid_b, kThreads, 0, stream>>>(
-      static_cast<const T*>(m), static_cast<const T*>(gy), part_b, B * H * W, C, F,
-      plan.px_per_split);
+  if (plain)  // K10: pass (b) reads the cotangent itself and sums dbias
+    sepconv_bwd_dpw_kernel<T><<<grid_b, kThreads, 0, stream>>>(
+        static_cast<const T*>(m), static_cast<const T*>(g), part_b, B * H * W, C, F,
+        plan.px_per_split, plan.cols_b);
+  else
+    chain_bwd_dpw_kernel<T><<<grid_b, kThreads, 0, stream>>>(
+        static_cast<const T*>(m), static_cast<const T*>(gy), part_b, B * H * W, C, F,
+        plan.px_per_split, plan.cols_b);
   if ((err = (int)cudaGetLastError())) return err;
   return reduce_rows(part_b, plan.splits, (int)plan.cols_b, scratch_b, dpw, stream);
 }
@@ -330,7 +416,12 @@ int launch(const void* x, const void* g, const void* y, const void* in_aff, cons
 
 // Floats of workspace unet_chain_bwd needs.
 extern "C" long long unet_chain_bwd_workspace(int B, int H, int W, int C, int F) {
-  return unet::bwd_workspace(unet::bwd_plan(B, H, W, C, F));
+  return unet::bwd_workspace(unet::bwd_plan(B, H, W, C, F, false));
+}
+
+// Floats of workspace unet_sepconv_bwd needs.
+extern "C" long long unet_sepconv_bwd_workspace(int B, int H, int W, int C, int F) {
+  return unet::bwd_workspace(unet::bwd_plan(B, H, W, C, F, true));
 }
 
 // x, dx, m (B,H,W,C) and g, y, gy (B,H,W,F) in T; dw (3,3,C) and the
@@ -353,5 +444,25 @@ extern "C" int unet_chain_bwd(const void* x, const void* g, const void* y, const
   if (dtype == 1)
     return unet::launch<__nv_bfloat16>(x, g, y, in_aff, comb, dw, pwt, dx, m, gy, w, o, d, B, H,
                                        W, C, F, mask_combine, seed, thresh, drop_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10: x, dx, m (B,H,W,C) and g (B,H,W,F) in T; dw (3,3,C) and the
+// transposed pointwise pwt (F,C) in T; sums (11,C) fp32 = ddw (9 rows,
+// tap-major) and two zero rows; dpwb (C+1,F) fp32 = dpw, then dbias. m is a
+// pass-(a) output read by pass (b). Returns cudaGetLastError().
+extern "C" int unet_sepconv_bwd(const void* x, const void* g, const void* dw, const void* pwt,
+                                void* dx, void* m, void* work, void* sums, void* dpwb, int B,
+                                int H, int W, int C, int F, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(work);
+  float* o = static_cast<float*>(sums);
+  float* d = static_cast<float*>(dpwb);
+  if (dtype == 0)
+    return unet::launch<float>(x, g, nullptr, nullptr, nullptr, dw, pwt, dx, m, nullptr, w, o, d,
+                               B, H, W, C, F, 0, 0, 0, 1.f, s, true);
+  if (dtype == 1)
+    return unet::launch<__nv_bfloat16>(x, g, nullptr, nullptr, nullptr, dw, pwt, dx, m, nullptr,
+                                       w, o, d, B, H, W, C, F, 0, 0, 0, 1.f, s, true);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,17 +28,28 @@
 // pixels. The per-block Σy/Σy² partials (a fixed-order sum over the 16
 // threads of a channel column) go to a [tiles][2F] matrix that
 // reduce_rows() sums in a fixed order: no atomics, bit-reproducible.
+//
+// K9, the per-block training forward (unet_sepconv_stats below), is this
+// kernel with no input transform and no dropout: it replaces the TPU kernel
+// unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py:
+// _sepconv_kernel_db_stats (launched by _fused_sepconv_stats_impl from
+// sepconv_apply_stats): y = (dw3x3(x) -> T) . pw rounded to T, and Σy, Σy²
+// over the rounded y. Its __global__ entry sepconv_stats_kernel inlines K1's
+// tile body with the transform and dropout compiled out.
 #include "train_common.cuh"
 
 namespace unet {
 namespace {
 
+// One block's work: the tile blockIdx.x, the F tile blockIdx.y, sample
+// blockIdx.z. in_aff null: no input transform; thresh 0: no dropout.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    chain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dw,
-                     const T* __restrict__ pw, const float* __restrict__ in_aff,
-                     T* __restrict__ y, float* __restrict__ partials, int H, int W, int C, int F,
-                     int tiles_x, uint32_t seed, uint32_t thresh, float drop_scale) {
+__device__ __forceinline__ void chain_fwd_tile(const T* __restrict__ x, const T* __restrict__ dw,
+                                               const T* __restrict__ pw,
+                                               const float* __restrict__ in_aff,
+                                               T* __restrict__ y, float* __restrict__ partials,
+                                               int H, int W, int C, int F, int tiles_x,
+                                               uint32_t seed, uint32_t thresh, float drop_scale) {
   __shared__ __align__(16) float zs[kHaloPx * kKC];   // z chunk over the tile + ring [px][k]
   __shared__ __align__(16) float dws[kKC * kLdA64];   // depthwise chunk [k][m]
   __shared__ __align__(16) float pws[kKC * kTileF];   // pointwise chunk [k][f]
@@ -131,6 +142,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    chain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dw,
+                     const T* __restrict__ pw, const float* __restrict__ in_aff,
+                     T* __restrict__ y, float* __restrict__ partials, int H, int W, int C, int F,
+                     int tiles_x, uint32_t seed, uint32_t thresh, float drop_scale) {
+  chain_fwd_tile<T>(x, dw, pw, in_aff, y, partials, H, W, C, F, tiles_x, seed, thresh,
+                    drop_scale);
+}
+
+// K9: the plain sepconv and its sums (no transform, no dropout)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sepconv_stats_kernel(const T* __restrict__ x, const T* __restrict__ dw,
+                         const T* __restrict__ pw, T* __restrict__ y,
+                         float* __restrict__ partials, int H, int W, int C, int F, int tiles_x) {
+  chain_fwd_tile<T>(x, dw, pw, nullptr, y, partials, H, W, C, F, tiles_x, 0u, 0u, 1.f);
+}
+
 struct FwdPlan {
   int tiles_x, tiles;
   long long rows, cols;
@@ -144,15 +174,20 @@ FwdPlan fwd_plan(int B, int H, int W, int F) {
 template <typename T>
 int launch(const void* x, const void* dw, const void* pw, const void* in_aff, void* y,
            float* work, float* sums, int B, int H, int W, int C, int F, int seed, int thresh,
-           float drop_scale, cudaStream_t stream) {
+           float drop_scale, cudaStream_t stream, bool plain = false) {
   const FwdPlan plan = fwd_plan(B, H, W, F);
   float* partials = work;
   float* scratch = work + plan.rows * plan.cols;
   const dim3 grid(plan.tiles, (F + kTileF - 1) / kTileF, B);
-  chain_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
-      static_cast<const float*>(in_aff), static_cast<T*>(y), partials, H, W, C, F,
-      plan.tiles_x, (uint32_t)seed, (uint32_t)thresh, drop_scale);
+  if (plain)
+    sepconv_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
+        static_cast<T*>(y), partials, H, W, C, F, plan.tiles_x);
+  else
+    chain_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
+        static_cast<const float*>(in_aff), static_cast<T*>(y), partials, H, W, C, F,
+        plan.tiles_x, (uint32_t)seed, (uint32_t)thresh, drop_scale);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce_rows(partials, (int)plan.rows, (int)plan.cols, scratch, sums, stream);
@@ -183,5 +218,22 @@ extern "C" int unet_chain_fwd(const void* x, const void* dw, const void* pw, con
   if (dtype == 1)
     return unet::launch<__nv_bfloat16>(x, dw, pw, in_aff, y, w, o, B, H, W, C, F, seed, thresh,
                                        drop_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K9: x (B,H,W,C), dw (3,3,C), pw (C,F) in T; y (B,H,W,F) in T; sums (2,F)
+// fp32 = Σy, Σy². Workspace as unet_chain_fwd_workspace. Returns
+// cudaGetLastError().
+extern "C" int unet_sepconv_stats(const void* x, const void* dw, const void* pw, void* y,
+                                  void* work, void* sums, int B, int H, int W, int C, int F,
+                                  int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(work);
+  float* o = static_cast<float*>(sums);
+  if (dtype == 0)
+    return unet::launch<float>(x, dw, pw, nullptr, y, w, o, B, H, W, C, F, 0, 0, 1.f, s, true);
+  if (dtype == 1)
+    return unet::launch<__nv_bfloat16>(x, dw, pw, nullptr, y, w, o, B, H, W, C, F, 0, 0, 1.f, s,
+                                       true);
   return (int)cudaErrorInvalidValue;
 }
