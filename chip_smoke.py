@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port's serving and training paths on one GPU.
+"""Smoke test of the PyTorch/CUDA port's serving, training and troubleshoot paths on one GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -37,10 +37,12 @@ exit code and no result line:
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
    3 train steps with the kernels against 3 of the composed path in fp32
    and bf16 (loss per step, step-1 gradients, BatchNorm running stats after
-   step 3), the K1-K6 launches of every kernels-on step, train images/s and
-   peak memory; one bf16 kernels-on step with ``fused_head`` off (the same
-   launches but K5's); then ``fit`` for one epoch whose ``best/`` checkpoint
-   a ``Predictor`` serves;
+   step 3), the K1-K6 launches of every kernels-on step, train images/s,
+   peak memory, and two steps under ``torch.profiler`` attributed to the
+   kernels by ``troubleshoot/step_attribution.py`` (each kernel's launches a
+   step held to the wrappers' counters); one bf16 kernels-on step with
+   ``fused_head`` off (the same launches but K5's); then ``fit`` for one
+   epoch whose ``best/`` checkpoint a ``Predictor`` serves;
 9. K1-K6, K9, K10 at batch 32 and K11 at batch 8 of 512 px (the paths'
    batches), whose launch plans differ from batch 2's: each output held
    against its plain version under phase 7's bars, then both timed;
@@ -55,9 +57,20 @@ exit code and no result line:
    256 px model at batch 32 with BatchNorm and ``use_pallas`` (one K9 and
    one K10 launch a block) against the composed block (output, every
    gradient, running statistics), then one train step of the 256 px U-Net
-   without BatchNorm (18 K8 launches) against its composed step; then the
-   fourteen kernels' JSON line (with each kernel's bound) and the result
-   line.
+   without BatchNorm (18 K8 launches) against its composed step;
+12. the troubleshoot tools: K12a (the launch probe, ``x + 1`` on (8, 128)
+   fp32) exactly and K12b (the FMA-rate probe at (1024, 512), K = 2048)
+   bit for bit in bf16 and within K * 2^-24 in fp32 against their plain
+   versions, with their times; ``link_floors --iters 5`` (K12's launch cost
+   and FMA rates, K2 timed alone at the 18 links with one launch a timed
+   call, each link split into pass (a), pass (b) and the row sums under the
+   profiler, against its bytes floor and FMA model; ``build/link_floors.json``);
+   ``step_attribution`` on the default step (sites plus glue equal to the
+   device's busy time within 2%, 18/18/4/4 K1-K4, 4/4 K6 and 1/1 K5
+   launches a step; ``build/step_attribution.json``); ``check_install`` and
+   ``check_gpu_benchmark`` (one run of three trials on the CPU leg), both
+   exiting 0; then the sixteen kernels' JSON line (with each kernel's bound,
+   and K12a's library time) and the result line.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN), so the
 plain versions compute in full fp32 like the kernels. Relative errors are
@@ -67,7 +80,6 @@ plain versions compute in full fp32 like the kernels. Relative errors are
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -76,6 +88,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPORT = os.path.join(ROOT, "build", "chip_smoke.json")  # all numbers of the run
+sys.path.insert(0, ROOT)
+from unet_image_segmentation_tpu_torch.troubleshoot import roofline  # noqa: E402
 
 IMAGE = 256
 FILTERS = (64, 128, 256, 512)
@@ -152,88 +166,27 @@ TRAIN_STATS_TOL = 2e-2
 BLOCK_OUT_TOL = 1e-4
 BLOCK_GRAD_TOL = 5e-4
 BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 1, "sepconv_bwd": 1}
-BN_OFF_K8_LAUNCHES = 18# kernel name -> (CUDA source under ops/kernels/csrc/, TPU kernel it replaces
-# under unet_image_segmentation_tpu/ops/pallas/)
-KERNELS = {
-    "sepconv_pair": ("sepconv_pair.cu", "fused_sepconv.py:903"),
-    "sepconv_block": ("sepconv_block.cu", "fused_sepconv.py:300"),
-    "chain_fwd": ("chain_fwd.cu", "fused_train.py:93"),
-    "chain_bwd": ("chain_bwd.cu", "fused_train.py:1422"),
-    "tail_pool": ("tail_pool.cu", "fused_train.py:468"),
-    "tail_pool_bwd": ("tail_pool.cu", "fused_train.py:1068"),
-    "upconcat": ("upconcat.cu", "fused_upconcat.py:153"),
-    "upconcat_bwd": ("upconcat.cu", "fused_upconcat.py:203"),
-    "head_fwd": ("head.cu", "fused_head.py:119"),
-    "head_bwd": ("head.cu", "fused_head.py:433"),
-    "head_fwd_mc": ("head.cu", "fused_head.py:303"),
-    "head_bwd_mc": ("head.cu", "fused_head.py:635"),
-    "sepconv_stats": ("chain_fwd.cu", "fused_sepconv.py:631"),
-    "sepconv_bwd": ("chain_bwd.cu", "fused_sepconv_bwd.py:40"),
-}
-# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): memory
-# bytes/s, and operations/s by type (bf16 tensor cores; fp32 outside them).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
-
-
-def stage_shapes():
-    """(name, Cx, Cx2, F1, F2, H, mode) of the nine K7 calls at 256 px."""
-    shapes, c, h = [], 3, IMAGE
-    for s, f in enumerate(FILTERS, 1):
-        shapes.append((f"enc{s}", c, 0, f, f, h, "pool"))
-        c, h = f, h // 2
-    shapes.append(("bneck", c, 0, 2 * c, 2 * c, h, "plain"))
-    for s in range(len(FILTERS), 0, -1):
-        f = FILTERS[s - 1]
-        h *= 2
-        shapes.append((f"dec{s}", f, f, f, f, h, "x2"))
-    return shapes
+BN_OFF_K8_LAUNCHES = 18
+# phase 12: K12b at its full shape, and the counts the troubleshoot tools run
+FMA_PROBE_K = 2048
+FMA_PROBE_SHAPE = (1024, 512)
+LINK_FLOORS_ARGS = ["--iters", "5"]
+ATTRIBUTION_ARGS = ["--warmup", "3", "--steps", "3"]
+GPU_BENCHMARK_ARGS = ["--cpu-runs", "1", "--cpu-trials", "3"]
+# the shapes of the kernels' calls on the paths (troubleshoot/roofline.py)
+STAGES = roofline.stage_shapes(IMAGE, FILTERS)
+LINKS = roofline.chain_links(IMAGE, FILTERS)
+POOLS = roofline.pool_shapes(IMAGE, FILTERS)
+FEEDS = roofline.upconcat_shapes(IMAGE, FILTERS)
 
 
 def block_shapes():
     """Distinct (C, F, H) of the 18 K8 blocks at 256 px."""
     out = []
-    for _, cx, cx2, f1, f2, h, _ in stage_shapes():
+    for _, cx, cx2, f1, f2, h, _ in STAGES:
         for shape in ((cx + cx2, f1, h), (f1, f2, h)):
             if shape not in out:
                 out.append(shape)
-    return out
-
-
-def chain_links():
-    """(name, C, F, H, in_aff, drop, mask_combine) of the 18 chain links of
-    one train step at 256 px, in the modes the chains run them: the input
-    affine on every second link, dropout on the first link of dec4..dec2,
-    and the output mask folded into K2 where the chain's boundary is not
-    the pool (bneck and decoder second links)."""
-    links, c, h = [], 3, IMAGE
-    for s, f in enumerate(FILTERS, 1):
-        links += [(f"enc{s}.1", c, f, h, False, False, False),
-                  (f"enc{s}.2", f, f, h, True, False, False)]
-        c, h = f, h // 2
-    links += [("bneck.1", c, 2 * c, h, False, False, False),
-              ("bneck.2", 2 * c, 2 * c, h, True, False, True)]
-    for s in range(len(FILTERS), 0, -1):
-        f = FILTERS[s - 1]
-        h *= 2
-        links += [(f"dec{s}.1", 2 * f, f, h, False, s > 1, False),
-                  (f"dec{s}.2", f, f, h, True, False, True)]
-    return links
-
-
-def pool_shapes():
-    """(name, F, H) of the 4 encoder boundaries at 256 px."""
-    return [(f"enc{s}", f, IMAGE >> (s - 1)) for s, f in enumerate(FILTERS, 1)]
-
-
-def upconcat_shapes():
-    """(name, C, F, H) of the 4 decoder feeds at 256 px: x (B,H,H,C) ->
-    cat (B,2H,2H,2F)."""
-    out, c, h = [], 2 * FILTERS[-1], IMAGE >> len(FILTERS)
-    for s in range(len(FILTERS), 0, -1):
-        f = FILTERS[s - 1]
-        out.append((f"dec{s}", c, f, h))
-        c, h = f, 2 * h
     return out
 
 
@@ -293,105 +246,21 @@ def block_case(torch, rnd, dev, dtype, batch, c, f, h):
                 g=rnd(batch, h, h, f).to(dev, dtype))
 
 
-def bounds_ms(name, shape, dname):
-    """The least time, in ms, the card could take for one call of kernel
-    ``name`` at ``shape`` in ``dname``: the larger of the bytes it must move
-    (each input read once, each output written once) over the memory rate
-    and its operations (2 per multiply-add) over the peak for the type.
-    Returns (ms, "bytes" or "operations")."""
-    e = 4 if dname == "float32" else 2
-    if name == "sepconv_pair":
-        _, cx, cx2, f1, f2, h, mode = shape
-        c, px = cx + cx2, BATCH_SERVE * h * h
-        out = px * f2 * (1.25 if mode == "pool" else 1.0)
-        nbytes = e * (px * c + out + 9 * c + c * f1 + 9 * f1 + f1 * f2)
-        ops = 2 * px * (9 * c + c * f1 + 9 * f1 + f1 * f2)
-    elif name == "sepconv_block":
-        c, f, h = shape
-        px = BATCH_SERVE * h * h
-        nbytes, ops = e * (px * (c + f) + 9 * c + c * f), 2 * px * (9 * c + c * f)
-    elif name in ("chain_fwd", "chain_bwd"):
-        _, c, f, h, _, _, _ = shape
-        px = BATCH_SERVE * h * h
-        if name == "chain_fwd":   # x -> y, Σy, Σy²
-            nbytes = e * (px * (c + f) + 9 * c + c * f) + 4 * 2 * f
-            ops = 2 * px * (9 * c + c * f)
-        else:                     # x, g, y -> dx, ddw, dpw, S, T
-            nbytes = e * (px * (c + 2 * f + c) + 9 * c + c * f) + 4 * (11 * c + c * f)
-            ops = 2 * px * (2 * c * f + 27 * c)   # dm, dpw; dz, ddw, m
-    elif name in ("tail_pool", "tail_pool_bwd"):
-        _, f, h = shape
-        px = BATCH_SERVE * h * h
-        nbytes = e * px * f * (2.25 if name == "tail_pool" else 3.25)
-        ops = px * f * (3 if name == "tail_pool" else 8)
-    elif name in ("upconcat", "upconcat_bwd"):
-        _, c, f, h = shape
-        px = BATCH_SERVE * h * h
-        gemm = 2 * px * c * 4 * f
-        if name == "upconcat":    # x, skip, W -> cat
-            nbytes, ops = e * (px * c + 4 * px * f + 4 * c * f + 8 * px * f), gemm
-        else:                     # x, g, W -> dx, d_skip, d_kernel, d_bias
-            nbytes = e * (2 * px * c + 8 * px * f + 4 * px * f + 4 * c * f) + 4 * 4 * c * f
-            ops = 2 * gemm
-    elif name in ("sepconv_stats", "sepconv_bwd"):
-        _, c, f, h = shape[:4]
-        px = BATCH_SERVE * h * h
-        if name == "sepconv_stats":   # x -> y, Σy, Σy²
-            nbytes = e * (px * (c + f) + 9 * c + c * f) + 4 * 2 * f
-            ops = 2 * px * (9 * c + c * f)
-        else:                     # x, g -> dx, ddw, dpw, dbias
-            nbytes = e * (px * (2 * c + f) + 9 * c + c * f) + 4 * (9 * c + c * f + f)
-            ops = 2 * px * (2 * c * f + 27 * c) + px * f   # dm, dpw; dz, ddw, m; dbias
-    elif name in ("head_fwd_mc", "head_bwd_mc"):  # at dec1 of the 512 px model
-        f, nc, px = FILTERS[0], 3, MC_BATCH * MC_IMAGE * MC_IMAGE
-        if name == "head_fwd_mc":  # y, targets -> 3nc+1+nc^2 sums a sample
-            nbytes, ops = e * px * f + px, px * ((3 + 2 * nc) * f + 12 * nc + 20)
-        else:                     # y, targets -> dzt, S, T, dw, db
-            nbytes = 2 * e * px * f + px
-            ops = px * ((7 + 6 * nc) * f + 30 * nc)
-    else:                         # head_fwd, head_bwd at dec1
-        f, px = FILTERS[0], BATCH_SERVE * IMAGE * IMAGE
-        if name == "head_fwd":    # y, targets -> 9 sums a sample
-            nbytes, ops = e * px * f + px, px * (6 * f + 20)
-        else:                     # y, targets -> dzt, S, T, dw, db
-            nbytes, ops = 2 * e * px * f + px, px * (14 * f + 24)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_shapes():
-    """Kernel name -> the shapes of its calls on the path, as bounds_ms takes them."""
-    stages, links = stage_shapes(), chain_links()
-    return {
-        "sepconv_pair": stages,
-        "sepconv_block": [(cx + cx2, f1, h) for _, cx, cx2, f1, _, h, _ in stages] +
-                         [(f1, f2, h) for _, _, _, f1, f2, h, _ in stages],
-        "chain_fwd": links, "chain_bwd": links,
-        "tail_pool": pool_shapes(), "tail_pool_bwd": pool_shapes(),
-        "upconcat": upconcat_shapes(), "upconcat_bwd": upconcat_shapes(),
-        "head_fwd": [None], "head_bwd": [None],
-        "head_fwd_mc": [None], "head_bwd_mc": [None],
-        "sepconv_stats": links, "sepconv_bwd": links,
-    }
-
-
-def link_case(torch, rnd, dev, dtype, batch, c, f, h, in_aff, drop, ft):
-    """Seeded inputs of one link for K1 and K2 (y is the plain K1 output,
-    so K2's masks see realistic values)."""
-    x = rnd(batch, h, h, c).to(dev, dtype)
-    dw = rnd(3, 3, c, scale=(6 / (9 * c + 9)) ** 0.5).to(dev, dtype)
-    pw = rnd(c, f, scale=(6 / (c + f)) ** 0.5).to(dev, dtype)
-    aff2 = aff4 = None
-    if in_aff:
-        aff4 = torch.stack([1 + 0.5 * rnd(c), 0.1 * rnd(c), 0.1 * rnd(c),
-                            1 + 0.5 * rnd(c).abs()]).to(dev).contiguous()
-        aff2 = aff4[:2].contiguous()
-    d = ft.Dropout(-123456789, 0.2) if drop else None
-    y = ft.chain_fwd_reference(x, dw, pw, aff2, d)[0]
-    g = rnd(batch, h, h, f).to(dev, dtype)
-    comb = torch.stack([1 + 0.5 * rnd(f), 0.01 * rnd(f), 0.01 * rnd(f), 0.1 * rnd(f),
-                        1 + 0.5 * rnd(f), 0.1 * rnd(f)]).to(dev).contiguous()
-    return dict(x=x, dw=dw, pw=pw, aff2=aff2, aff4=aff4, drop=d, y=y, g=g, comb=comb)
+    """Kernel name -> (batch, the shapes of its calls on the path), as
+    ``roofline.bounds_ms`` takes them."""
+    train = roofline.train_step_shapes(IMAGE, FILTERS, 1)
+    mc = roofline.train_step_shapes(MC_IMAGE, FILTERS, 3)
+    out = {name: (BATCH_SERVE, shapes) for name, shapes in train.items()}
+    out.update(
+        sepconv_pair=(BATCH_SERVE, STAGES),
+        sepconv_block=(BATCH_SERVE, [(cx + cx2, f1, h) for _, cx, cx2, f1, _, h, _ in STAGES] +
+                       [(f1, f2, h) for _, _, _, f1, f2, h, _ in STAGES]),
+        sepconv_stats=(BATCH_SERVE, LINKS), sepconv_bwd=(BATCH_SERVE, LINKS),
+        head_fwd_mc=(MC_BATCH, mc["head_fwd_mc"]), head_bwd_mc=(MC_BATCH, mc["head_bwd_mc"]),
+        dispatch_probe=(1, [(8 * 128,)]),
+        fma_probe=(1, [(FMA_PROBE_SHAPE[0] * FMA_PROBE_SHAPE[1], FMA_PROBE_K)]))
+    return out
 
 
 def pool_case(torch, rnd, dev, dtype, batch, f, h):
@@ -491,9 +360,11 @@ def link_label(name, c, f, h, in_aff, drop, mc):
 
 def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
     """Phase 7: K1-K6 and K9-K11 against their plain versions at every path shape."""
+    from unet_image_segmentation_tpu_torch.troubleshoot.link_floors import link_inputs
+
     print(f"K5/K6/K11 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
-        for name, c, f, h in upconcat_shapes() + [FEED_FMA_SHAPE]:
+        for name, c, f, h in FEEDS + [FEED_FMA_SHAPE]:
             k = upconcat_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h)
             judge_feed(fu, tjudge, k, f"{name} {c}@{h}->{2 * f}@{2 * h}", dname)
         k = head_case(torch, rnd, dev, dtype, BATCH_CHECK)
@@ -509,17 +380,17 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
 
     print(f"K9/K10 per-block training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
-        for name, c, f, h, *_ in chain_links():
+        for name, c, f, h, *_ in LINKS:
             k = block_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h)
             judge_block(fs, tjudge, k, f"block {name} {c}->{f}@{h}", dname)
 
     print(f"K1-K4 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
-        for name, c, f, h, in_aff, drop, mc in chain_links():
-            k = link_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h, in_aff, drop, ft)
+        for name, c, f, h, in_aff, drop, mc in LINKS:
+            k = link_inputs(rnd, dev, dtype, BATCH_CHECK, c, f, h, in_aff, drop)
             judge_link(ft, tjudge, k, link_label(name, c, f, h, in_aff, drop, mc), dname,
                        in_aff, mc)
-        for name, f, h in pool_shapes():
+        for name, f, h in POOLS:
             k = pool_case(torch, rnd, dev, dtype, BATCH_CHECK, f, h)
             zc = ft.tail_pool_reference(k["y"], k["aff4"][0], k["aff4"][1])[0].float()
             win = zc.reshape(BATCH_CHECK, h // 2, 2, h // 2, 2, f)
@@ -676,12 +547,7 @@ def train_ab(torch, dev, smi, base, x, m, launches, expect, variant=None):
         if variant is not None:
             out[dname] = {"variant": variant_ab(torch, dev, smi, base, x, m, dname, on, variant,
                                                 launches)}
-        prof = profile_step(torch, on["step"], on["state"], x, m)
-        print(f"  {dname} kernels-on step under torch.profiler: {prof['wall_ms']:.1f} ms a step, "
-              f"device busy {prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}); "
-              "device ms a step: " + ", ".join(f"{k} {v:.2f}" for k, v in prof["groups"].items()))
-        print("    largest PyTorch kernels, ms a step: " + "; ".join(
-            f"{name[:60]} {t:.2f}" for name, t in prof["glue_top"]))
+        prof = attributed_step(torch, dev, on["step"], on["state"], x, m, base, dname, expect)
         out.setdefault(dname, {}).update(
             losses_on=on["losses"], losses_off=off["losses"], grad_rel=g_rel, stats_rel=s_rel,
             images_per_s=rates, peak_gib={"on": on["peak_gb"], "off": off["peak_gb"]},
@@ -843,7 +709,7 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
           f"x the plain per-block path + {BF16_GRAD_SLACK:g} per tensor")
     report["block_train"] = {}
     gen = torch.Generator().manual_seed(SEED + 5)
-    for name, c, f, h, *_ in chain_links():
+    for name, c, f, h, *_ in LINKS:
         x = torch.rand(BATCH_SERVE, h, h, c, generator=gen) * 2 - 1
         g = torch.rand(BATCH_SERVE, h, h, f, generator=gen) * 2 - 1
         seed = int(torch.randint(0, 2**31, (1,), generator=gen))
@@ -950,49 +816,125 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
         del runs, on, off
 
 
-# share by which the profiler's device time may exceed the host's wall time
-PROFILE_JITTER = 0.02
-# substrings of the port's kernel names -> the table's labels (first match wins)
-KERNEL_GROUPS = (("sepconv_stats", "K9"), ("sepconv_bwd", "K10"), ("head_fwd_mc", "K11"),
-                 ("head_bwd_mc", "K11"), ("chain_fwd", "K1"), ("chain_bwd", "K2"),
-                 ("tail_pool_bwd", "K4"),
-                 ("tail_pool", "K3"), ("upconcat", "K6"), ("head_", "K5"),
-                 ("colsum", "fixed-order sums"))
+def check_attribution(prof, expect, label):
+    """The profiler saw each kernel of the step at the launches ``expect``
+    (wrapper -> a step) that the wrappers' counters also saw."""
+    want = {k: v for k, v in expect.items() if v}
+    seen = {k: row["launches"] for k, row in prof["per_kernel"].items() if k in roofline.KERNELS}
+    if seen != want or prof["counter_launches_per_step"] != want:
+        raise AssertionError(f"{label}: the profile saw launches {seen} a step, the counters "
+                             f"{prof['counter_launches_per_step']}, expected {want}")
 
 
-def profile_step(torch, step, state, x, m, reps=2):
-    """Device time of ``reps`` train steps by kernel group, from
-    ``torch.profiler``: the wall time a step under the profiler, the device
-    busy time (the sum of the kernels' times; the step's kernels run on one
-    stream), the idle share, and the largest PyTorch kernels."""
-    from torch.profiler import ProfilerActivity, profile
+def attributed_step(torch, dev, step, state, x, m, base, dname, expect):
+    """Phases 8 and 10: one warm-up step, then two traced steps of the
+    kernels-on ``step`` attributed to the kernels by ``step_attribution``,
+    their launches held to ``expect``."""
+    from unet_image_segmentation_tpu_torch.troubleshoot import step_attribution
 
-    step(state, x, m)
+    mc = base["model"]
+    prof = step_attribution.profile_train_step(
+        step, state, x, m, dev, steps=2, warmup=1, batch=x.shape[0], dname=dname,
+        shapes=roofline.train_step_shapes(mc["image_height"], mc["filters"], mc["num_classes"]))
+    check_attribution(prof, expect, f"{dname} profiled step")
+    print(f"  {dname} kernels-on step under torch.profiler: {prof['wall_ms_per_step']:.1f} ms a "
+          f"step, device busy {prof['device_ms_per_step']:.1f} ms (idle share "
+          f"{prof['idle_share']:.3f}); device ms a step: " + ", ".join(
+              f"{row['label']} {w} {row['ms']:.2f}" for w, row in prof["per_kernel"].items()) +
+          f", PyTorch glue {prof['glue_ms_per_step']:.2f}")
+    print("    largest PyTorch kernel families, ms a step: " + "; ".join(
+        f"{name[:60]} {t:.2f}" for name, t in list(prof["glue_ms"].items())[:6]))
+    return prof
+
+
+def troubleshoot_path(torch, dev, smi, report, launches, worst_abs, totals):
+    """Phase 12: K12 against its plain versions, then the troubleshoot tools
+    as a user runs them: ``link_floors`` (K12's probes, K2 at the 18 links
+    split by pass), ``step_attribution`` (the default step by kernel),
+    ``check_install`` and ``check_gpu_benchmark``. Returns the library
+    times of the kernels that have one (K12a: ``x + 1``)."""
+    from unet_image_segmentation_tpu_torch.ops import probes
+    from unet_image_segmentation_tpu_torch.troubleshoot import (
+        check_gpu_benchmark, check_install, link_floors, step_attribution)
+
+    rng = np.random.RandomState(SEED + 7)
+    print(f"K12 probes vs plain: K12a on (8, 128) fp32 exactly; K12b at {FMA_PROBE_SHAPE}, K = "
+          f"{FMA_PROBE_K}, bf16 bit for bit, fp32 within K * 2^-24 relative [{smi}]")
+    x = torch.from_numpy(rng.rand(8, 128).astype(np.float32)).to(dev)
+    got, want = probes.dispatch_probe(x), probes.dispatch_probe_reference(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step(state, x, m)
+    if not torch.equal(got, want):
+        raise AssertionError("K12a differs from x + 1")
+    k12a = link_floors.measure_dispatch_ms(dev)
+    plain_ms = link_floors.graph_ms(lambda: probes.dispatch_probe_reference(x), 2000)
+    totals["float32"]["dispatch_probe"] = (k12a["device_ms"], plain_ms)
+    print(f"  K12a exact; a launch costs the device {k12a['device_ms'] * 1e3:.3f} us (from a "
+          f"CUDA graph), {k12a['stream_ms'] * 1e3:.3f} us back to back from Python, "
+          f"{k12a['host_ms'] * 1e3:.3f} us a launch-and-synchronise on the host; plain / "
+          f"library x + 1 {plain_ms * 1e3:.3f} / {k12a['library_ms'] * 1e3:.3f} us (graph); "
+          f"bound {k12a['bound_ms'] * 1e6:.2f} ns")
+    x0 = torch.from_numpy(rng.rand(*FMA_PROBE_SHAPE).astype(np.float32) * 1e-3)
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        xd = x0.to(dev, dtype)
+        got = probes.fma_probe(xd, FMA_PROBE_K)
+        want = probes.fma_probe_reference(xd, FMA_PROBE_K)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    groups, glue = {}, {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", 0.0) / 1e3 / reps
-        if t <= 0:
-            continue
-        label = next((lab for key, lab in KERNEL_GROUPS if key in ev.key), "PyTorch")
-        groups[label] = groups.get(label, 0.0) + t
-        if label == "PyTorch":
-            glue[ev.key] = glue.get(ev.key, 0.0) + t
-    busy = sum(groups.values())
-    if busy <= 0:
-        raise AssertionError("torch.profiler traced no device time")
-    # one stream: busy cannot exceed the wall time beyond the two clocks' jitter
-    if busy > wall * (1 + PROFILE_JITTER):
-        raise AssertionError(f"device busy {busy:.2f} ms exceeds the wall time {wall:.2f} ms")
-    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
-            "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "glue_top": sorted(glue.items(), key=lambda kv: -kv[1])[:6]}
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        tol = 0.0 if dname == "bfloat16" else FMA_PROBE_K * 2.0 ** -24
+        worst_abs["fma_probe"] = max(worst_abs["fma_probe"], err)
+        rate = link_floors.measure_fma_rate(dname, dev)
+        plain_ms = time_ms(lambda: probes.fma_probe_reference(xd, FMA_PROBE_K), torch, 2)
+        totals[dname]["fma_probe"] = (rate["ms"], plain_ms)
+        ok = torch.isfinite(got.float()).all().item() and rel <= tol
+        print(f"  K12b {dname}: max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}) "
+              f"{'ok' if ok else 'FAIL'}; {rate['ms'] * 1e3:.2f} us a call ({rate['gops']:.0f} "
+              f"Gop/s, {100 * rate['bound_share']:.1f}% of the {rate['bound_ms'] * 1e3:.2f} us "
+              f"bound); plain {plain_ms:.2f} ms")
+        if not ok:
+            raise AssertionError(f"K12b {dname} disagrees with its plain version")
+    report["k12"] = {"dispatch": k12a, "fma": {d: totals[d]["fma_probe"] for d in totals}}
+
+    print(f"link_floors {' '.join(LINK_FLOORS_ARGS)}:")
+    probes.reset_launch_counts()
+    if link_floors.main(LINK_FLOORS_ARGS) != 0:
+        raise AssertionError("link_floors failed")
+    torch.cuda.synchronize()
+    for name, n in probes.LAUNCHES.items():
+        if n == 0:
+            raise AssertionError(f"link_floors launched no {name}")
+        launches[name] = n
+    with open(link_floors.OUT) as f:
+        floors = json.load(f)
+    iters = int(LINK_FLOORS_ARGS[1])
+    if len(floors["links"]) != len(LINKS) or any(
+            r["launches"] != iters or min(r["pass_a_ms"], r["pass_b_ms"], r["sums_ms"]) <= 0
+            for r in floors["links"]):
+        raise AssertionError(f"{link_floors.OUT}: expected {len(LINKS)} links, each with "
+                             f"{iters} K2 launches and its time split by pass")
+    print(f"  {len(floors['links'])} links, one K2 launch a timed call, each split into "
+          f"pass (a), pass (b) and sums -> {link_floors.OUT}")
+    report["link_floors"] = floors
+
+    print(f"step_attribution {' '.join(ATTRIBUTION_ARGS)}:")
+    if step_attribution.main(ATTRIBUTION_ARGS) != 0:
+        raise AssertionError("step_attribution failed")
+    with open(step_attribution.OUT) as f:
+        attr = json.load(f)
+    check_attribution(attr, STEP_LAUNCHES, "step_attribution")
+    total = attr["kernel_ms_per_step"] + attr["glue_ms_per_step"]
+    if abs(total - attr["device_ms_per_step"]) > 0.02 * attr["device_ms_per_step"]:
+        raise AssertionError(f"sites + glue {total} ms != busy {attr['device_ms_per_step']} ms")
+    print(f"  sites + glue {total:.3f} ms = device busy {attr['device_ms_per_step']:.3f} ms a "
+          f"step (within 2%); launches a step as the counters: "
+          f"{attr['counter_launches_per_step']}")
+    report["step_attribution"] = attr
+
+    for tool, args in ((check_install, []), (check_gpu_benchmark, GPU_BENCHMARK_ARGS)):
+        print(f"{tool.__name__.rsplit('.', 1)[-1]} {' '.join(args)}:")
+        if tool.main(args) != 0:
+            raise AssertionError(f"{tool.__name__} failed")
+    return {"dispatch_probe": k12a["library_ms"]}
 
 
 def reset_train_counts():
@@ -1026,7 +968,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     from unet_image_segmentation_tpu_torch.inference import Predictor
     from unet_image_segmentation_tpu_torch.models.layers import BatchNorm
     from unet_image_segmentation_tpu_torch.models.unet import UNet, recalibrate_batch_norm
@@ -1036,6 +977,7 @@ def main() -> int:
     from unet_image_segmentation_tpu_torch.ops import fused_upconcat as fu
     from unet_image_segmentation_tpu_torch.ops.kernels import build
     from unet_image_segmentation_tpu_torch.train.checkpoint import save_inference_variables
+    from unet_image_segmentation_tpu_torch.troubleshoot.link_floors import link_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1044,10 +986,7 @@ def main() -> int:
     report = {"stages": {}, "blocks": {}, "predictor": {}}
 
     # ---- 1. the card -----------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = roofline.card()
     print(smi)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
@@ -1077,7 +1016,7 @@ def main() -> int:
         err = (got.float() - want.float()).abs().max().item()
         return err, err / max(want.float().abs().max().item(), 1e-30)
 
-    worst_abs = {name: 0.0 for name in KERNELS}
+    worst_abs = {name: 0.0 for name in roofline.KERNELS}
 
     def judge(name, label, dtype_name, pairs, tols=KERNEL_TOL):
         for got, want in pairs:
@@ -1107,7 +1046,7 @@ def main() -> int:
     # ---- 4. K7 vs plain -----------------------------------------------------
     print("K7 sepconv_pair vs plain, batch 2:")
     for dname, dtype in dtypes.items():
-        for name, cx, cx2, f1, f2, h, mode in stage_shapes():
+        for name, cx, cx2, f1, f2, h, mode in STAGES:
             w1, w2 = weights(cx + cx2, f1, dtype), weights(f1, f2, dtype)
             x = rnd(BATCH_CHECK, h, h, cx).to(dev, dtype)
             x2 = rnd(BATCH_CHECK, h, h, cx2).to(dev, dtype) if cx2 else None
@@ -1201,7 +1140,7 @@ def main() -> int:
     totals = {}
     for dname, dtype in dtypes.items():
         tot = {"sepconv_pair": [0.0, 0.0], "sepconv_block": [0.0, 0.0]}
-        for name, cx, cx2, f1, f2, h, mode in stage_shapes():
+        for name, cx, cx2, f1, f2, h, mode in STAGES:
             w1, w2 = weights(cx + cx2, f1, dtype), weights(f1, f2, dtype)
             x = rnd(BATCH_SERVE, h, h, cx).to(dev, dtype)
             x2 = rnd(BATCH_SERVE, h, h, cx2).to(dev, dtype) if cx2 else None
@@ -1253,8 +1192,8 @@ def main() -> int:
                                               "head_fwd", "head_bwd", "sepconv_stats",
                                               "sepconv_bwd", "head_fwd_mc", "head_bwd_mc")}
         cases = []
-        for name, c, f, h, in_aff, drop, mc in chain_links():
-            k = link_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h, in_aff, drop, ft)
+        for name, c, f, h, in_aff, drop, mc in LINKS:
+            k = link_inputs(rnd, dev, dtype, BATCH_SERVE, c, f, h, in_aff, drop)
             label = link_label(name, c, f, h, in_aff, drop, mc)
             judge_link(ft, tjudge, k, label, dname, in_aff, mc)
             fwd = (k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
@@ -1264,7 +1203,7 @@ def main() -> int:
                 "chain_bwd": (lambda: ft.chain_bwd(*bwd), lambda: ft.chain_bwd_reference(*bwd)),
             })))
             del k, fwd, bwd
-        for name, f, h in pool_shapes():
+        for name, f, h in POOLS:
             k = pool_case(torch, rnd, dev, dtype, BATCH_SERVE, f, h)
             label = f"{name} boundary F={f}@{h}"
             judge_pool(ft, tjudge, k, label, dname)
@@ -1277,7 +1216,7 @@ def main() -> int:
                                   lambda: ft.tail_pool_bwd_reference(*bwd)),
             })))
             del k, bwd
-        for name, c, f, h in upconcat_shapes():
+        for name, c, f, h in FEEDS:
             k = upconcat_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h)
             label = f"{name} feed {c}@{h}->{2 * f}@{2 * h}"
             judge_feed(fu, tjudge, k, label, dname)
@@ -1298,7 +1237,7 @@ def main() -> int:
             "head_bwd": (lambda: fh.head_bwd(*bwd), lambda: fh.head_bwd_reference(*bwd)),
         })))
         del k, fwd, bwd
-        for name, c, f, h, *_ in chain_links():
+        for name, c, f, h, *_ in LINKS:
             k = block_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h)
             label = f"block {name} {c}->{f}@{h}"
             judge_block(fs, tjudge, k, label, dname)
@@ -1339,46 +1278,54 @@ def main() -> int:
     # ---- 11. per-block training through K9/K10, BatchNorm-free U-Net ---------
     block_train_path(torch, dev, smi, report, launches, dtypes)
 
+    # ---- 12. the troubleshoot tools: K12, K2 link by link, the step's attribution
+    library_ms = troubleshoot_path(torch, dev, smi, report, launches, worst_abs, totals)
+
     kernels, report["bounds"] = [], {}
-    for name, (src, replaces) in KERNELS.items():
-        t_k, t_p = totals["bfloat16"][name]
+    shapes = kernel_shapes()
+    for name, (label, src, replaces) in roofline.KERNELS.items():
+        batch, calls = shapes[name]
         bound = {}
         for dname in dtypes:
-            parts = [bounds_ms(name, shape, dname) for shape in kernel_shapes()[name]]
-            by = {lim: sum(t for t, b in parts if b == lim) for lim in ("bytes", "operations")}
-            bound[dname] = (sum(t for t, _ in parts), max(by, key=by.get))
+            if name not in totals[dname]:
+                continue
+            bound[dname] = roofline.sum_bounds(name, calls, dname, batch)
             report["bounds"][f"{name} {dname}"] = {
                 "ms": totals[dname][name][0], "plain_ms": totals[dname][name][1],
                 "bound_ms": bound[dname][0], "bound_by": bound[dname][1]}
+        line_dtype = "bfloat16" if "bfloat16" in bound else "float32"   # K12a: fp32 only
+        t_k, t_p = totals[line_dtype][name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"unet_image_segmentation_tpu_torch/ops/kernels/csrc/{src}",
-            "replaces": f"unet_image_segmentation_tpu/ops/pallas/{replaces}",
+            "replaces": f"unet_image_segmentation_tpu/{replaces}",
             "launches": launches[name],
             "max_abs_err": worst_abs[name],
             "ms": t_k,
             "plain_ms": t_p,
-            "bound_ms": bound["bfloat16"][0],
-            "bound_by": bound["bfloat16"][1],
-            # no single PyTorch call computes any of these kernels' whole
-            # function (each fuses a conv or GEMM with BatchNorm, ReLU, a
-            # pool, a concat or reductions)
-            "library_ms": None,
+            "bound_ms": bound[line_dtype][0],
+            "bound_by": bound[line_dtype][1],
+            # K12a's function is one PyTorch call (x + 1); no single call
+            # computes any other kernel's whole function (each fuses a conv or
+            # GEMM with BatchNorm, ReLU, a pool, a concat or reductions; K12b
+            # is a loop of 2K calls)
+            "library_ms": library_ms.get(name),
         })
-        print(f"  {name}: bound bf16 {bound['bfloat16'][0]:.3f} ms ({bound['bfloat16'][1]}), "
-              f"fp32 {bound['float32'][0]:.3f} ms ({bound['float32'][1]}); measured bf16 "
-              f"{t_k:.3f}, fp32 {totals['float32'][name][0]:.3f}")
+        print(f"  {label} {name}: " + "; ".join(
+            f"{dtype_label(d)} measured {totals[d][name][0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})"
+            for d, b in bound.items()))
     report["kernels"] = kernels
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1)
     print("ms / plain_ms / bound_ms: bf16, batch 32 (K11: batch 8 of 512 px), summed over the "
           "path's shapes (9 pair and 18 block shapes; 18 chain links; 4 encoder boundaries; 4 "
-          "decoder feeds; the head; 18 per-block sepconvs); launches: K7/K8 over phase 5's "
+          "decoder feeds; the head; 18 per-block sepconvs); K12a: fp32 (8, 128), ms a launch; "
+          f"K12b: bf16 {FMA_PROBE_SHAPE} at K = {FMA_PROBE_K}; launches: K7/K8 over phase 5's "
           f"forwards, K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
           "A/B step) in each dtype, K11 over phase 10's, K9/K10 over phase 11's 18 blocks in each "
-          "dtype")
+          "dtype, K12 over phase 12's link_floors run")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,10 @@ def test_port_modules_import_no_jax():
                  "ops.losses", "ops.metrics", "ops.fused_head", "ops.fused_upconcat",
                  "train.state", "train.steps", "train.callbacks", "train.loop", "cli.train",
                  "config", "utils.image", "utils.keras_import", "utils.tb_writer",
-                 "data.loader", "data.packed", "data.autopack"):
+                 "data.loader", "data.packed", "data.autopack", "ops.probes", "utils.profiling",
+                 "troubleshoot.profile_summary", "troubleshoot.roofline",
+                 "troubleshoot.step_attribution", "troubleshoot.link_floors",
+                 "troubleshoot.check_install", "troubleshoot.check_gpu_benchmark"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

@@ -1,0 +1,398 @@
+"""The port's troubleshoot tools on the CPU.
+
+K12's plain versions against copies of the JAX probe kernels
+(``troubleshoot/link_floors.py:56-57`` and ``:87-93``) run through
+``pl.pallas_call(..., interpret=True)`` with the same VMEM specs; the link
+table against the JAX tool's; the bounds, the K2 instruction count and the
+kernel-site map by hand; the Chrome-trace reader on hand-written and real
+CPU traces; ``fit`` with ``profile_dir``; and every tool's refusal to run
+without a card unless asked for the CPU. Inputs come from numpy seeds.
+"""
+
+import collections
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from unet_image_segmentation_tpu.troubleshoot import link_floors as jax_link_floors
+from unet_image_segmentation_tpu_torch.config import Config
+from unet_image_segmentation_tpu_torch.ops import fused_train as ft
+from unet_image_segmentation_tpu_torch.ops import probes
+from unet_image_segmentation_tpu_torch.train import loop
+from unet_image_segmentation_tpu_torch.train.state import create_train_state
+from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+from unet_image_segmentation_tpu_torch.troubleshoot import (
+    check_gpu_benchmark,
+    check_install,
+    link_floors,
+    profile_summary,
+    roofline,
+    step_attribution,
+)
+from unet_image_segmentation_tpu_torch.utils import profiling
+
+FMA_K = 64
+_VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
+
+
+def _jax_dispatch(x):
+    """The body of the JAX tool's measure_dispatch_ms kernel."""
+    def kernel(x_ref, o_ref):
+        o_ref[...] = x_ref[...] + 1.0
+
+    return pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(x.shape, jnp.float32),
+                          in_specs=[_VMEM], out_specs=_VMEM, interpret=True)(x)
+
+
+def _jax_fma(x, k):
+    """The body of the JAX tool's measure_vpu_rate kernel, k steps."""
+    dt = x.dtype
+
+    def kernel(x_ref, o_ref):
+        one_eps = jnp.asarray(1.000001, dt)
+
+        def body(i, acc):
+            return acc * one_eps + x_ref[...]
+
+        o_ref[...] = jax.lax.fori_loop(0, k, body, x_ref[...])
+
+    return pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(x.shape, dt),
+                          in_specs=[_VMEM], out_specs=_VMEM, interpret=True)(x)
+
+
+def test_dispatch_probe_matches_the_jax_kernel_exactly():
+    x = np.random.RandomState(0).randn(8, 128).astype(np.float32)
+    want = np.asarray(_jax_dispatch(jnp.asarray(x)))
+    got = probes.dispatch_probe(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fma_probe_matches_the_jax_kernel(dtype):
+    """bf16: bit for bit (one_eps rounds to 1.0, the loop only adds and
+    saturates); fp32: within K * 2^-24 of max|want| (FMA contraction)."""
+    x = (np.random.RandomState(1).rand(16, 128) * 1e-3).astype(np.float32)
+    want = np.asarray(_jax_fma(jnp.asarray(x).astype(dtype), FMA_K).astype(jnp.float32))
+    got = probes.fma_probe(torch.from_numpy(x).to(getattr(torch, dtype)), FMA_K).float().numpy()
+    if dtype == "bfloat16":
+        assert float(probes.one_eps(torch.bfloat16)) == 1.0
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.abs(got - want).max() <= FMA_K * 2.0 ** -24 * np.abs(want).max()
+        assert not np.array_equal(got, x * (FMA_K + 1))   # one_eps != 1 in fp32
+
+
+def test_probe_wrappers_run_their_plain_versions_on_the_cpu():
+    probes.reset_launch_counts()
+    x = torch.from_numpy(np.random.RandomState(2).rand(4, 6).astype(np.float32))
+    assert torch.equal(probes.dispatch_probe(x), x + 1)
+    assert torch.equal(probes.fma_probe(x, 3), probes.fma_probe_reference(x, 3))
+    assert probes.LAUNCHES == {"dispatch_probe": 0, "fma_probe": 0}
+    with pytest.raises(ValueError, match="k = -1"):
+        probes.fma_probe(x, -1)
+
+
+def test_stage_table_has_the_jax_chain_shapes():
+    """18 links with the JAX table's (C, F, H), but enc1.1 takes the 3 image
+    channels (K2 masks C; the TPU chain pads them to 16)."""
+    want = []
+    for _, h, c_in, f1, f2, _ in jax_link_floors.stage_table():
+        want += [(c_in, f1, h), (f1, f2, h)]
+    got = [(c, f, h) for _, c, f, h, *_ in link_floors.stage_table()]
+    assert len(got) == 18
+    assert want[0] == (16, 64, 256) and got[0] == (3, 64, 256)
+    assert got[1:] == want[1:]
+
+
+def test_stage_table_modes_are_those_of_the_train_step(monkeypatch):
+    """The (C, F, H, input affine, dropout, output mask) of every K1/K2 call
+    of a fused train step are the table's links, at 32 px, filters (8, 16)."""
+    seen = collections.Counter()
+    fwd, bwd = ft.chain_fwd, ft.chain_bwd
+
+    def spy_fwd(x, dw, pw, in_aff=None, drop=None):
+        seen[("fwd", x.shape[-1], pw.shape[-1], x.shape[1], in_aff is not None,
+              drop is not None)] += 1
+        return fwd(x, dw, pw, in_aff, drop)
+
+    def spy_bwd(x, g, y, in_aff, comb, dw, pw, mask_combine, drop=None):
+        seen[("bwd", x.shape[-1], pw.shape[-1], x.shape[1], in_aff is not None,
+              drop is not None, bool(mask_combine))] += 1
+        return bwd(x, g, y, in_aff, comb, dw, pw, mask_combine, drop)
+
+    monkeypatch.setattr(ft, "chain_fwd", spy_fwd)
+    monkeypatch.setattr(ft, "chain_bwd", spy_bwd)
+    cfg = Config().override(model__image_height=32, model__image_width=32,
+                            model__filters=(8, 16), model__use_pallas=True,
+                            model__dropout_rate=0.3, train__batch_size=2)
+    state = create_train_state(cfg, device="cpu")
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.rand(2, 32, 32, 3).astype(np.float32))
+    m = torch.from_numpy((rng.rand(2, 32, 32, 1) > 0.5).astype(np.float32))
+    make_train_step(state.model, "dice")(state, x, m)
+    want = collections.Counter()
+    for _, c, f, h, aff, drop, mask in link_floors.stage_table(32, (8, 16)):
+        want[("fwd", c, f, h, aff, drop)] += 1
+        want[("bwd", c, f, h, aff, drop, mask)] += 1
+    assert seen == want
+
+
+def test_bounds_by_hand():
+    # K2 at enc1.2 (64 -> 64 @ 256), batch 32, bf16: x, g, y, dx once each
+    # (2 bytes), dw and pw, then ddw, S, T and dpw in fp32
+    px = 32 * 256 * 256
+    nbytes = 2 * (px * (64 + 2 * 64 + 64) + 9 * 64 + 64 * 64) + 4 * (11 * 64 + 64 * 64)
+    assert nbytes == 1_073_770_368
+    link = ("enc1.2", 64, 64, 256, True, False, False)
+    assert roofline.bounds_ms("chain_bwd", link, "bfloat16", 32) == \
+        pytest.approx((nbytes / 3.35e12 * 1e3, "bytes"))
+    # fp32: 4-byte activations (0.641 ms) outweigh its 2*(2*C*F + 27*C)
+    # operations a pixel on the CUDA cores (0.621 ms)
+    nbytes32 = 4 * (px * 256 + 9 * 64 + 64 * 64) + 4 * (11 * 64 + 64 * 64)
+    ops = 2 * px * (2 * 64 * 64 + 27 * 64)
+    assert roofline.work("chain_bwd", link, "float32", 32) == (nbytes32, ops)
+    assert roofline.bounds_ms("chain_bwd", link, "float32", 32) == \
+        pytest.approx((nbytes32 / 3.35e12 * 1e3, "bytes"))
+    assert ops / 67e12 * 1e3 == pytest.approx(0.62101, rel=1e-4)
+    # K12b at (1024, 512), K = 2048: 2.15 GFLOP, bound by operations
+    n = 1024 * 512
+    assert roofline.bounds_ms("fma_probe", (n, 2048), "float32") == \
+        pytest.approx((0.032052, "operations"), rel=1e-4)
+    assert roofline.bounds_ms("fma_probe", (n, 2048), "bfloat16") == \
+        pytest.approx((0.016050, "operations"), rel=1e-4)
+    assert roofline.work("fma_probe", (n, 2048), "float32") == (2 * 4 * n, 2 * 2048 * n)
+    # K12a: 4 KiB in, 4 KiB out
+    assert roofline.bounds_ms("dispatch_probe", (1024,), "float32") == \
+        pytest.approx((8192 / 3.35e12 * 1e3, "bytes"))
+    total, by = roofline.sum_bounds("chain_bwd", link_floors.stage_table(), "bfloat16", 32)
+    assert by == "bytes" and total == pytest.approx(sum(
+        roofline.bounds_ms("chain_bwd", lk, "bfloat16", 32)[0]
+        for lk in link_floors.stage_table()))
+
+
+def test_k2_instruction_count_by_hand():
+    """One 8x8 tile, C = 3 (one 64-wide chunk), F = 8, no modes."""
+    got = link_floors.k2_instructions(1, 8, 8, 3, 8, False, False, False)
+    pass_a = 100 * 8 * 3 + 128 * 64 * 8 + 64 * 64 * 27 + 4 * 11 * 64
+    assert got == {"pass_a": pass_a, "pass_b": 64 * 64 * 64, "sums": 11 * 3 + 3 * 8}
+    modes = link_floors.k2_instructions(1, 8, 8, 3, 8, True, False, True)
+    assert modes["pass_a"] == pass_a + 100 * 8 * 2 + 100 * 64 * 3 + 64 * 64 * 6
+    plan = link_floors.k2_plan(32, 256, 256, 64, 64)
+    assert plan["blocks_a"] == 32 * 32 * 32 and plan["rows_a"] == 32 * 1024
+    # 1056 splits asked, 1986 pixels each rounded up to 2016 (32-pixel steps)
+    assert plan["splits"] == -(-32 * 256 * 256 // 2016) == 1041
+
+
+def test_every_kernel_entry_maps_to_a_label():
+    sites = step_attribution.kernel_sites()
+    assert set(sites) == set(roofline.ENTRIES), set(sites) ^ set(roofline.ENTRIES)
+    assert sites["chain_bwd_tile_kernel"].startswith("chain_bwd.cu:")
+    assert sites["colsum_kernel"].startswith("train_common.cuh:")
+    for entry in sites:
+        label = roofline.label_of(entry)
+        assert label.startswith("K") or label == roofline.SUMS, entry
+        wrapper = roofline.ENTRIES[entry][0]
+        assert wrapper is None or wrapper in roofline.KERNELS
+    from unet_image_segmentation_tpu_torch.ops import (
+        fused_head, fused_sepconv, fused_upconcat)
+    counters = set()
+    for mod in (ft, fused_upconcat, fused_head, fused_sepconv, probes):
+        counters |= set(mod.LAUNCHES)
+    assert counters == set(roofline.KERNELS)
+    for _, src, _ in roofline.KERNELS.values():
+        assert os.path.exists(os.path.join(link_floors.ROOT, "unet_image_segmentation_tpu_torch",
+                                           "ops", "kernels", "csrc", src))
+    name = "void unet::(anonymous namespace)::upconcat_dx_tc_kernel<4>(__nv_bfloat16 const*)"
+    assert roofline.entry_of(name) == "upconcat_dx_tc_kernel"
+    assert roofline.entry_of("void unet::(anonymous namespace)::head_fwd_mc_kernel<float, 3>(f)"
+                             ) == "head_fwd_mc_kernel"
+    assert roofline.entry_of("void at::native::elementwise_kernel<128, 2>(int)") is None
+    assert roofline.entry_of("_ZN4unet12_GLOBAL__N_121chain_bwd_tile_kernelI13__nv_bfloat16EEvPKT_"
+                             ) == "chain_bwd_tile_kernel"   # mangled, as some profilers name it
+
+
+def _event(cat, name, ts, dur, correlation=None):
+    return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 7, "ts": ts, "dur": dur,
+            "args": {"correlation": correlation}}
+
+
+TILE = "void unet::(anonymous namespace)::chain_bwd_tile_kernel<__nv_bfloat16>(float)"
+DPW = "void unet::(anonymous namespace)::chain_bwd_dpw_kernel<__nv_bfloat16>(float)"
+COLSUM = "void unet::(anonymous namespace)::colsum_kernel(float const*, int, int, float*)"
+MUL = ("void at::native::vectorized_elementwise_kernel<4, at::native::BinaryFunctor<float, "
+       "float, float, at::native::binary_internal::MulFunctor<float> >, std::array<char*, 3ul> "
+       ">(int, at::native::BinaryFunctor<float>, std::array<char*, 3ul>)")
+
+
+def _write_trace(path, events):
+    with open(path, "w") as f:
+        json.dump({"schemaVersion": 1, "traceEvents": [
+            {"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "x"}}] + events}, f)
+
+
+def test_profile_summary_on_a_hand_written_trace(tmp_path):
+    """Kernels at [0, 10) and [5, 15) overlap, [30, 40) and a memcpy at
+    [50, 55) stand alone, a CPU op spans [-10, 100): busy 30 us of 110. Of
+    the two launch calls, the one at 20 us has no kernel in the trace."""
+    _write_trace(tmp_path / "a.pt.trace.json", [
+        _event("cpu_op", "aten::mul", -10.0, 110.0),
+        _event("kernel", TILE, 0.0, 10.0, 1), _event("kernel", DPW, 5.0, 10.0, 2),
+        _event("kernel", TILE, 30.0, 10.0, 3),
+        _event("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 50.0, 5.0, 4),
+        _event("cuda_runtime", "cudaLaunchKernel", -5.0, 2.0, 1),
+        _event("cuda_runtime", "cudaLaunchKernel", 20.0, 2.0, 9),
+        _event("cuda_runtime", "cudaMemcpyAsync", 45.0, 2.0, 4),
+    ])
+    for path in (tmp_path, tmp_path / "a.pt.trace.json"):
+        s = profile_summary.summarize(str(path))
+        assert s["kernels"] == {TILE: 0.020, DPW: 0.010}
+        assert s["copies"] == {"Memcpy HtoD (Pageable -> Device)": 0.005}
+        assert s["launches"][TILE] == 2 and s["launch_calls"] == 2
+        assert s["lost_launch_ms"] == [pytest.approx(0.030)]
+        assert s["busy_ms"] == pytest.approx(0.030)
+        assert s["window_ms"] == pytest.approx(0.110)
+        assert s["idle_share"] == pytest.approx(1 - 30 / 110)
+    assert profile_summary.main([str(tmp_path), "--top", "2"]) == 0
+
+
+def test_profile_summary_within_spans(tmp_path):
+    """Only the work launched inside the "step" spans counts: a lead-in
+    kernel launched before them is left out, and a launch inside them
+    whose kernel the trace lacks is reported."""
+    _write_trace(tmp_path / "b.pt.trace.json", [
+        _event("cuda_runtime", "cudaLaunchKernel", 0.0, 1.0, 1),
+        _event("kernel", TILE, 2.0, 5.0, 1),
+        _event("user_annotation", "step", 10.0, 20.0),
+        _event("cuda_runtime", "cudaLaunchKernel", 11.0, 1.0, 2),
+        _event("cuda_runtime", "cudaLaunchKernel", 12.0, 1.0, 3),
+        _event("cuda_runtime", "cudaMemsetAsync", 13.0, 1.0, 4),
+        _event("kernel", DPW, 15.0, 20.0, 2),
+        _event("gpu_memset", "Memset (Device)", 36.0, 2.0, 4),
+    ])
+    s = profile_summary.summarize(str(tmp_path), within="step")
+    assert s["kernels"] == {DPW: 0.020} and s["copies"] == {"Memset (Device)": 0.002}
+    assert s["launch_calls"] == 2 and s["lost_launch_ms"] == [pytest.approx(0.002)]
+    with pytest.raises(AssertionError, match="lacks 1 of the 2 kernels"):
+        profile_summary.check_complete(s, "step")
+    assert s["busy_ms"] == pytest.approx(0.022) and s["window_ms"] == pytest.approx(0.028)
+    with pytest.raises(ValueError, match="no 'other' span"):
+        profile_summary.summarize(str(tmp_path), within="other")
+
+
+def test_profile_summary_reads_the_ports_cpu_trace(tmp_path):
+    with profiling.trace(str(tmp_path), "cpu"):
+        a = torch.ones(8, 8)
+        (a @ a).sum()
+    s = profile_summary.summarize(str(tmp_path))
+    assert len(s["files"]) == 1 and s["files"][0].endswith(".pt.trace.json")
+    assert s["kernels"] == {} and s["busy_ms"] == 0.0
+    assert s["window_ms"] > 0 and s["idle_share"] == 1.0
+
+
+def test_attribute_splits_sites_sums_and_glue():
+    """Two steps: K2's two passes once a step each, two row sums a step,
+    and PyTorch glue rolled up by family."""
+    summary = {"kernels": {TILE: 6.0, DPW: 2.0, COLSUM: 0.4, MUL: 1.0},
+               "copies": {"Memcpy HtoD (Pageable -> Device)": 0.2},
+               "launches": {TILE: 2, DPW: 2, COLSUM: 4, MUL: 10,
+                            "Memcpy HtoD (Pageable -> Device)": 2},
+               "busy_ms": 9.6, "idle_share": 0.1}
+    rec = step_attribution.attribute(summary, 2, step_attribution.kernel_sites())
+    assert rec["device_ms_per_step"] == pytest.approx(4.8)
+    assert rec["kernel_ms_per_step"] == pytest.approx(4.2)
+    assert rec["glue_ms_per_step"] == pytest.approx(0.6)
+    k2 = rec["per_kernel"]["chain_bwd"]
+    assert k2["label"] == "K2" and k2["ms"] == pytest.approx(4.0) and k2["launches"] == 1
+    assert rec["per_kernel"]["sums"] == {"label": "sums", "ms": pytest.approx(0.2),
+                                         "launches": 2}
+    site = next(s for s in rec["per_site_ms"] if s.endswith(" chain_bwd_tile_kernel"))
+    assert site.startswith("chain_bwd.cu:") and rec["per_site_ms"][site] == pytest.approx(3.0)
+    assert rec["glue_ms"] == {"vectorized_elementwise_kernel[MulFunctor]": pytest.approx(0.5),
+                              "Memcpy HtoD": pytest.approx(0.1)}
+
+
+def test_trace_on_the_card_without_one_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with profiling.trace(str(tmp_path), "cuda"):
+            pass
+
+
+def test_step_timer_lives_in_profiling():
+    assert loop.StepTimer is profiling.StepTimer
+    timer = profiling.StepTimer("cpu", sync_every=2)
+    for _ in range(6):
+        timer.lap()
+    s = timer.summary()
+    assert s["steps"] == 6.0 and len(timer.times) == 3 and s["max_ms"] >= s["p50_ms"] >= 0
+
+
+class _Scenes:
+    """In-memory dataset: ``len`` and ``batches`` as the loaders have them."""
+
+    def __init__(self, n, seed):
+        rng = np.random.RandomState(seed)
+        self.images = rng.rand(n, 32, 32, 3).astype(np.float32)
+        self.masks = (rng.rand(n, 32, 32, 1) > 0.6).astype(np.float32)
+
+    def __len__(self):
+        return len(self.images)
+
+    def batches(self, batch_size, epoch=0, steps=None, num_workers=0):
+        n = len(self) // batch_size if steps is None else min(len(self) // batch_size, steps)
+        for b in range(n):
+            sl = slice(b * batch_size, (b + 1) * batch_size)
+            yield self.images[sl], self.masks[sl]
+
+
+@pytest.mark.parametrize("profile_steps", [1, 5])
+def test_fit_profile_dir_traces_and_trains_alike(tmp_path, profile_steps):
+    """``profile_dir`` traces the first ``profile_steps`` steps of the first
+    epoch (all 3 of them when that is more) and changes nothing else."""
+    results = {}
+    for mode in ("plain", "profiled"):
+        cfg = Config().override(
+            model__image_height=32, model__image_width=32, model__filters=(8, 16),
+            model__use_pallas=True, train__batch_size=2, train__epochs=2,
+            train__model_out=str(tmp_path / mode / "model"),
+            train__log_dir=str(tmp_path / mode / "logs"),
+            train__profile_dir=str(tmp_path / "trace") if mode == "profiled" else None,
+            train__profile_steps=profile_steps)
+        results[mode] = loop.fit(cfg, _Scenes(6, 0), _Scenes(2, 1), device="cpu",
+                                 verbose=False)
+    plain, prof = results["plain"], results["profiled"]
+    assert prof.epochs_run == plain.epochs_run == 2
+    assert prof.state.step == plain.state.step == 6
+    timing = {"epoch_time_sec", "step_mean_ms", "step_p50_ms", "step_max_ms"}
+    assert set(prof.history) == set(plain.history)
+    for k, v in plain.history.items():
+        if k not in timing:
+            assert prof.history[k] == v, k
+    for (k, a), b in zip(plain.state.model.state_dict().items(),
+                         prof.state.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    s = profile_summary.summarize(str(tmp_path / "trace"))
+    assert len(s["files"]) == 1 and s["window_ms"] > 0
+    events = profile_summary.read_events(s["files"][0])
+    steps = sum(e["name"] == "Optimizer.step#AdamW.step" for e in events)
+    assert steps == min(profile_steps, 3)
+
+
+def test_check_install_on_the_cpu_passes():
+    assert check_install.main(["--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("tool", [check_install, check_gpu_benchmark, link_floors,
+                                  step_attribution], ids=lambda m: m.__name__.split(".")[-1])
+def test_tools_refuse_to_run_without_a_card(tool, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main([]) != 0
+    out = capsys.readouterr()
+    assert "no CUDA device" in out.out + out.err

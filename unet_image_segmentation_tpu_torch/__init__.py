@@ -16,6 +16,10 @@ Keras-layout parameter shapes, so one set of weights drives both
   single-image pipeline.
 * :mod:`.train` / :mod:`.cli.train` — train state, steps, checkpoints,
   callbacks and ``fit``.
+* :mod:`.troubleshoot` — install and matmul checks, the card's probes
+  (:mod:`.ops.probes`), the per-link K2 floor table, the train step's
+  per-kernel attribution, and the reader of :mod:`.utils.profiling`'s
+  traces.
 
 The port imports nothing of the JAX package. What it needs of the JAX
 package's framework-free modules it keeps as its own copies with the same

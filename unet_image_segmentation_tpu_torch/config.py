@@ -3,7 +3,7 @@
 The port's own copy of ``unet_image_segmentation_tpu/config.py``: the same
 dataclasses, defaults, ``from_dict``/``override`` rules and JSON format, so
 every file under ``configs/`` loads into either package unchanged. Some
-fields (``mesh``, ``rng_impl``, ``dropout_impl``, ``profile_dir``) steer
+fields (``mesh``, ``rng_impl``, ``dropout_impl``) steer
 parts of the JAX package the port does not run; they are kept so the two
 packages read the same files.
 
@@ -126,8 +126,9 @@ class TrainConfig:
     resume: bool = False
     # Steps between async checkpoint keep-alives; 0 = per-epoch only.
     checkpoint_every_steps: int = 0
-    # When set, capture a jax.profiler trace of the first profile_steps
-    # train steps into this directory (TensorBoard-compatible).
+    # When set, trace the first profile_steps train steps of the first epoch
+    # into this directory (the port: a torch.profiler Chrome trace; the JAX
+    # package: a jax.profiler trace), then finish the epoch untraced.
     profile_dir: Optional[str] = None
     profile_steps: int = 5
     # JAX PRNG implementation for the JAX package's dropout masks ('rbg',

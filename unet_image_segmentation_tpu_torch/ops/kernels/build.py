@@ -69,6 +69,10 @@ SIGNATURES = {
     "unet_sepconv_stats": [_P] * 6 + [_I] * 6 + [_P],
     # x, g, dw, pwt, dx, m, work, sums, dpwb, B, H, W, C, F, dtype, stream
     "unet_sepconv_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # x, out, n, stream
+    "unet_dispatch_probe": [_P] * 2 + [_I, _P],
+    # x, out, n, k, one_eps, dtype, stream
+    "unet_fma_probe": [_P] * 2 + [_I] * 2 + [_F, _I, _P],
 }
 # Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, F,
 # dtype / B, HW, F, dtype, which / B, HW, F, NC, dtype, which

@@ -6,7 +6,9 @@ slice). Per epoch: prefetched host batches (:mod:`..data.loader`'s loaders and
 ``Prefetcher``, :mod:`..data.autopack`) -> device -> train step -> metric sums
 kept on the device and fetched once per epoch -> validation -> callbacks
 (best checkpoint, early stop, LR plateau, TensorBoard) -> ``meta.json`` for
-``--resume``.
+``--resume``. With ``train.profile_dir`` set, the first ``profile_steps``
+steps of the first epoch run under a ``torch.profiler`` trace written there
+(:func:`..utils.profiling.trace`); the epoch then goes on untraced.
 
 Metric names mirror Keras logs: ``loss``, ``dice_coef``, ``mean_io_u``
 (Keras int-cast semantics), ``mean_io_u_thresh`` (> 0.5), and ``val_*``.
@@ -14,6 +16,7 @@ Metric names mirror Keras logs: ``loss``, ``dice_coef``, ``mean_io_u``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -39,6 +42,7 @@ from unet_image_segmentation_tpu_torch.train.callbacks import (
 )
 from unet_image_segmentation_tpu_torch.train.state import TrainState, create_train_state
 from unet_image_segmentation_tpu_torch.train.steps import make_eval_step, make_train_step
+from unet_image_segmentation_tpu_torch.utils.profiling import StepTimer, trace
 
 
 @dataclass
@@ -82,36 +86,6 @@ class _EpochMetrics:
                     out[prefix + f"iou_class_{i}"] = float(v)
         if prefix + "dice" in out:
             out[prefix + "dice_coef"] = out.pop(prefix + "dice")
-        return out
-
-
-class StepTimer:
-    """Per-step wall time, averaged over windows of ``sync_every`` steps; the
-    device is synchronized once per window, not once per step."""
-
-    def __init__(self, device: torch.device, sync_every: int = 32):
-        self.device = device
-        self.sync_every = max(1, sync_every)
-        self.times: List[float] = []
-        self._n = 0
-        self._t0 = time.perf_counter()
-
-    def lap(self) -> None:
-        self._n += 1
-        if self._n % self.sync_every == 0:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.times.append((time.perf_counter() - self._t0) / self.sync_every)
-            self._t0 = time.perf_counter()
-
-    def summary(self) -> Dict[str, float]:
-        if self._n == 0:
-            return {}
-        out = {"steps": float(self._n)}
-        if self.times:
-            ts = self.times[1:] if len(self.times) > 2 else self.times  # drop warm-up
-            out.update(mean_ms=float(np.mean(ts)) * 1e3, p50_ms=float(np.median(ts)) * 1e3,
-                       max_ms=max(ts) * 1e3)
         return out
 
 
@@ -205,6 +179,17 @@ def fit(
         return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
                      for x in batch)
 
+    def run_steps(batches, acc, timer, limit=None) -> bool:
+        """Train on ``batches`` until they end (False) or, with ``limit``,
+        until ``limit`` steps have run (True: the rest is left in ``batches``)."""
+        for n, (images, masks) in enumerate(batches, 1):
+            images, masks = put((images, masks))
+            acc.update(train_step(state, images, masks))
+            timer.lap()
+            if limit is not None and n >= limit:
+                return True
+        return False
+
     steps_per_epoch = max(1, len(train_ds) // tcfg.batch_size)
     val_steps = max(1, len(val_ds) // tcfg.batch_size)
     history: Dict[str, List[float]] = {}
@@ -236,10 +221,13 @@ def fit(
                                  num_workers=cfg.data.num_workers),
                 depth=cfg.data.prefetch,
             )
-            for images, masks in batches:
-                images, masks = put((images, masks))
-                acc.update(train_step(state, images, masks))
-                timer.lap()
+            # profile_dir: trace the first profile_steps steps of the first
+            # epoch run, then finish that epoch outside the trace
+            profiling = tcfg.profile_dir is not None and epoch == start_epoch
+            with trace(tcfg.profile_dir, device) if profiling else contextlib.nullcontext():
+                cut = run_steps(batches, acc, timer, tcfg.profile_steps if profiling else None)
+            if cut:
+                run_steps(batches, acc, timer)
             logs = acc.result()
             logs.update({f"step_{k}": v for k, v in timer.summary().items()})
 

@@ -1,0 +1,349 @@
+"""Per-link K2 floor table on the card, with the card's probes (K12).
+
+Port of ``unet_image_segmentation_tpu/troubleshoot/link_floors.py``. It
+measures the card's launch overhead and elementwise FMA rate with the two
+K12 probes (:mod:`..ops.probes`), then times the chain's backward link
+kernel K2 (:func:`..ops.fused_train.chain_bwd`) alone at each of the 18
+links of the 256 px, batch-32 train step, in the modes the step runs it
+(:func:`stage_table`), and holds each link's time against
+
+* its bytes floor: x, g, y and dx once each, plus weights and sums, over
+  the card's memory rate (:func:`.roofline.work`);
+* an FMA model: the fp32 FMA, multiply and add instructions K2's body
+  executes, counted from ``chain_bwd.cu`` (:func:`k2_instructions`), over
+  the fp32 FMA rate K12b measured (K2 runs on fp32 FMAs in both dtypes).
+
+A ``torch.profiler`` pass over the same calls splits each link's time into
+pass (a) (``chain_bwd_tile_kernel``: gy, dm, dz, dx, m, ddw, S, T), pass (b)
+(``chain_bwd_dpw_kernel``: dpw), the fixed-order row sums
+(``colsum_kernel``) and any PyTorch glue (the transposed pointwise copy).
+
+Writes ``build/link_floors.json`` and prints the table. Needs a CUDA card::
+
+    python -m unet_image_segmentation_tpu_torch.troubleshoot.link_floors \\
+        [--iters 20] [--dtype bfloat16|float32] [--out build/link_floors.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import tempfile
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from unet_image_segmentation_tpu_torch.ops import fused_train as ft
+from unet_image_segmentation_tpu_torch.ops import probes
+from unet_image_segmentation_tpu_torch.troubleshoot import profile_summary, roofline
+from unet_image_segmentation_tpu_torch.utils.profiling import hard_sync, trace
+
+HW = 256
+BATCH = 32
+FILTERS = (64, 128, 256, 512)
+WARMUP = 5
+DISPATCH_SHAPE = (8, 128)
+DISPATCH_LAUNCHES = 2000     # back-to-back launches timed with CUDA events
+HOST_ITERS = 200             # launch-and-synchronise rounds timed on the host clock
+FMA_K = 2048
+FMA_SHAPE = (1024, 512)
+PROFILED_CALLS = 5           # calls per link under the profiler
+CALL_SPAN = "link_floors"   # + ".<link>": the record_function span of a profiled call
+SEED = 2301
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+OUT = os.path.join(ROOT, "build", "link_floors.json")
+
+# K2's launch plan (chain_bwd.cu): pass (a) blocks of an 8x8 tile and 64 C
+# channels, dm over the 10x10 ring padded to 128 GEMM rows; pass (b) 64x64
+# dpw tiles, split-K over pixels; colsum_kernel sums 512 rows a block
+TILE, RING_PX, GEMM_ROWS, TILE_C, TILE_F, RED_ROWS, KC = 8, 100, 128, 64, 64, 512, 32
+
+
+def stage_table(image: int = HW, filters=FILTERS):
+    """The 18 links (name, C, F, H, in_aff, drop, mask_combine) of one train
+    step, in the modes the step runs them (:func:`.roofline.chain_links`).
+    The image enters enc1.1 with its 3 channels: K2 masks C, so nothing is
+    padded to 16 as on the TPU, and every link runs."""
+    return roofline.chain_links(image, filters)
+
+
+def _event_ms(fn, n: int) -> float:
+    """Mean device time of ``fn`` over ``n`` back-to-back calls."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int, replays: int = 5) -> float:
+    """Device time per call of ``fn``, from ``n`` calls captured in one CUDA
+    graph and replayed: the device's own cost of each launch, with the
+    host's cost of issuing it taken away."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _event_ms(graph.replay, replays) / n
+
+
+def measure_dispatch_ms(device="cuda", launches: int = DISPATCH_LAUNCHES,
+                        host_iters: int = HOST_ITERS) -> Dict[str, float]:
+    """K12a's cost of one launch, in ms: ``device_ms``, on the device, over
+    ``launches`` launches replayed from one CUDA graph (what each kernel
+    boundary costs a stream the host keeps fed); ``stream_ms``, per launch
+    over ``launches`` back-to-back launches from Python (the host's issue
+    rate through the wrapper, when the kernels are shorter than it);
+    ``host_ms``, per launch-and-synchronise on the host clock; and
+    ``library_ms``, ``x + 1`` (the one PyTorch call that computes K12a's
+    function) timed like ``device_ms``."""
+    x = torch.zeros(DISPATCH_SHAPE, dtype=torch.float32, device=device)
+    for _ in range(10):
+        probes.dispatch_probe(x)
+    hard_sync(device)
+    stream_ms = _event_ms(lambda: probes.dispatch_probe(x), launches)
+    t0 = time.perf_counter()
+    for _ in range(host_iters):
+        probes.dispatch_probe(x)
+        torch.cuda.synchronize(device)
+    host_ms = (time.perf_counter() - t0) * 1e3 / host_iters
+    return {"device_ms": graph_ms(lambda: probes.dispatch_probe(x), launches),
+            "stream_ms": stream_ms, "host_ms": host_ms,
+            "library_ms": graph_ms(lambda: x + 1.0, launches),
+            "bound_ms": roofline.bounds_ms("dispatch_probe", (x.numel(),), "float32")[0]}
+
+
+def measure_fma_rate(dtype: str = "float32", device="cuda", k: int = FMA_K,
+                     iters: int = 10) -> Dict[str, float]:
+    """K12b's elementwise FMA rate on register-resident data: ``ms`` per call
+    at (1024, 512) and ``k`` steps, from ``iters`` calls replayed from a CUDA
+    graph (back to back from Python, the host's issue gaps showed in a call
+    this short), ``gops`` = 2*k*N / time in Gop/s, and its bound (the CUDA
+    cores' peak for the dtype). In bf16 one_eps rounds to 1.0, so the loop
+    adds (``probes`` module docstring)."""
+    x = torch.from_numpy(np.random.RandomState(0).rand(*FMA_SHAPE).astype(np.float32) * 1e-3)
+    x = x.to(device=device, dtype=getattr(torch, dtype))
+    for _ in range(3):
+        probes.fma_probe(x, k)
+    hard_sync(device)
+    ms = graph_ms(lambda: probes.fma_probe(x, k), iters)
+    bound, _ = roofline.bounds_ms("fma_probe", (x.numel(), k), dtype)
+    return {"ms": ms, "gops": 2 * k * x.numel() / (ms * 1e-3) / 1e9, "bound_ms": bound,
+            "bound_share": bound / ms}
+
+
+measure_vpu_rate = measure_fma_rate  # the JAX tool's name for the same probe
+
+
+def k2_plan(b: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:
+    """K2's launch plan (``bwd_plan`` in chain_bwd.cu)."""
+    tiles = math.ceil(h / TILE) * math.ceil(w / TILE)
+    p = b * h * w
+    out_tiles = math.ceil(c / TILE_C) * math.ceil(f / TILE_F)
+    splits = max(1, min(math.ceil(1056 / out_tiles), math.ceil(p / 256)))
+    per = math.ceil(math.ceil(p / splits) / KC) * KC
+    return {"blocks_a": tiles * math.ceil(c / TILE_C) * b, "rows_a": b * tiles,
+            "splits": math.ceil(p / per)}
+
+
+def _colsum_adds(rows: int, cols: int) -> int:
+    total = 0
+    while rows > RED_ROWS:
+        total += rows * cols
+        rows = math.ceil(rows / RED_ROWS)
+    return total + rows * cols
+
+
+def k2_instructions(b: int, h: int, w: int, c: int, f: int, in_aff: bool, drop: bool,
+                    mask: bool) -> Dict[str, int]:
+    """fp32 FMA, multiply and add instructions K2 executes for one call, by
+    pass, counted from chain_bwd.cu (padding included: a pass-(a) block
+    always works on 64 C channels and 128 GEMM rows, a pass-(b) tile on
+    64x64). Pass (a), per block: gy over the 100 ring pixels (3 a value,
+    +2 for the output mask), dm = gy . pw^T (128 x 64 x F FMAs), z over the
+    ring (+3 with the input affine, +1 with dropout), and per tile pixel and
+    channel 27 FMAs for dz, m and ddw (+6 for the affine's mask, S and T,
+    +1 for dropout), then the 4-way sum of 11 partials. Pass (b): m^T . gy
+    over all pixels. Sums: the adds of the fixed-order row sums."""
+    plan = k2_plan(b, h, w, c, f)
+    gy = RING_PX * f * (3 + 2 * mask)
+    dm = GEMM_ROWS * TILE_C * f
+    z = RING_PX * TILE_C * (3 * in_aff + drop)
+    center = TILE * TILE * TILE_C * (27 + 6 * in_aff + drop)
+    pass_a = plan["blocks_a"] * (gy + dm + z + center + 4 * 11 * TILE_C)
+    pass_b = b * h * w * math.ceil(c / TILE_C) * TILE_C * math.ceil(f / TILE_F) * TILE_F
+    sums = _colsum_adds(plan["rows_a"], 11 * c) + _colsum_adds(plan["splits"], c * f)
+    return {"pass_a": pass_a, "pass_b": pass_b, "sums": sums}
+
+
+def link_inputs(rnd, dev, dtype, batch: int, c: int, f: int, h: int, in_aff: bool,
+                drop: bool) -> dict:
+    """Seeded inputs of one link for K1 and K2; ``rnd(*shape, scale=1.0)``
+    draws uniform [-scale, scale). y is the plain K1 output, so K2's masks
+    see the values the step gives it."""
+    x = rnd(batch, h, h, c).to(dev, dtype)
+    dw = rnd(3, 3, c, scale=(6 / (9 * c + 9)) ** 0.5).to(dev, dtype)
+    pw = rnd(c, f, scale=(6 / (c + f)) ** 0.5).to(dev, dtype)
+    aff2 = aff4 = None
+    if in_aff:
+        aff4 = torch.stack([1 + 0.5 * rnd(c), 0.1 * rnd(c), 0.1 * rnd(c),
+                            1 + 0.5 * rnd(c).abs()]).to(dev).contiguous()
+        aff2 = aff4[:2].contiguous()
+    d = ft.Dropout(-123456789, 0.2) if drop else None
+    y = ft.chain_fwd_reference(x, dw, pw, aff2, d)[0]
+    g = rnd(batch, h, h, f).to(dev, dtype)
+    comb = torch.stack([1 + 0.5 * rnd(f), 0.01 * rnd(f), 0.01 * rnd(f), 0.1 * rnd(f),
+                        1 + 0.5 * rnd(f), 0.1 * rnd(f)]).to(dev).contiguous()
+    return dict(x=x, dw=dw, pw=pw, aff2=aff2, aff4=aff4, drop=d, y=y, g=g, comb=comb)
+
+
+def _split(summary: dict, calls: int) -> Dict[str, float]:
+    """ms per call of K2's passes, its row sums and other kernels, and the
+    kernels launched per call, from the trace of ``calls`` calls."""
+    parts = {"pass_a": 0.0, "pass_b": 0.0, "sums": 0.0, "glue": 0.0}
+    names = {"chain_bwd_tile_kernel": "pass_a", "chain_bwd_dpw_kernel": "pass_b",
+             "colsum_kernel": "sums"}
+    for name, ms in {**summary["kernels"], **summary["copies"]}.items():
+        part = names.get(roofline.entry_of(name) if name in summary["kernels"] else None, "glue")
+        parts[part] += ms / calls
+    parts["kernels_per_call"] = sum(summary["launches"].values()) / calls
+    return parts
+
+
+def time_links(dname: str, iters: int, fma_gops: float, launch_ms: float, device="cuda"):
+    """The per-link rows (and their totals): K2 timed with CUDA events after
+    :data:`WARMUP` calls, one launch counted per timed call; then, in one
+    trace, :data:`PROFILED_CALLS` more calls a link, each link's split by
+    pass."""
+    dtype = getattr(torch, dname)
+    links = stage_table()
+
+    def link_args(c, f, h, in_aff, drop, mask, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.rand(*shape, generator=gen, device=device) * 2 - 1) * scale
+
+        k = link_inputs(rnd, device, dtype, BATCH, c, f, h, in_aff, drop)
+        return (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mask, k["drop"])
+
+    timed = []
+    for i, (name, c, f, h, in_aff, drop, mask) in enumerate(links):
+        args = link_args(c, f, h, in_aff, drop, mask, SEED + i)
+        for _ in range(WARMUP):
+            ft.chain_bwd(*args)
+        hard_sync(device)
+        ft.reset_launch_counts()
+        timed.append((_event_ms(lambda: ft.chain_bwd(*args), iters), ft.LAUNCHES["chain_bwd"]))
+        if timed[-1][1] != iters:
+            raise AssertionError(f"{name}: {timed[-1][1]} K2 launches for {iters} timed calls")
+        del args
+    with tempfile.TemporaryDirectory(prefix="unet_links_") as tdir:
+        with trace(tdir, device):
+            for i, (name, c, f, h, in_aff, drop, mask) in enumerate(links):
+                args = link_args(c, f, h, in_aff, drop, mask, SEED + i)
+                ft.chain_bwd(*args)
+                for _ in range(PROFILED_CALLS):
+                    with record_function(f"{CALL_SPAN}.{name}"):
+                        ft.chain_bwd(*args)
+                del args
+        events = [e for path in profile_summary.trace_files(tdir)
+                  for e in profile_summary.read_events(path)]
+    fma_per_ms = fma_gops / 2 * 1e6   # fp32 FMA instructions a ms
+    rows = []
+    for (name, c, f, h, in_aff, drop, mask), (ms, launches) in zip(links, timed):
+        summary = profile_summary.summarize_events(events, within=f"{CALL_SPAN}.{name}")
+        profile_summary.check_complete(summary, f"link_floors {name}")
+        split = _split(summary, PROFILED_CALLS)
+        minus = ms - split["kernels_per_call"] * launch_ms
+        nbytes, _ = roofline.work("chain_bwd", (name, c, f, h), dname, BATCH)
+        bytes_ms = nbytes / roofline.PEAK_BYTES_PER_S * 1e3
+        instr = k2_instructions(BATCH, h, h, c, f, in_aff, drop, mask)
+        model = {part: n / fma_per_ms for part, n in instr.items()}
+        model_ms = sum(model.values())
+        modes = [m for m, on in (("affine", in_aff), ("dropout", drop), ("mask", mask)) if on]
+        rows.append({
+            "link": name, "shape": f"{c}->{f}@{h}", "modes": modes or ["plain"],
+            "launches": launches, "ms": ms, "minus_launch_ms": minus,
+            "pass_a_ms": split["pass_a"], "pass_b_ms": split["pass_b"],
+            "sums_ms": split["sums"], "glue_ms": split["glue"],
+            "kernels_per_call": split["kernels_per_call"],
+            "bytes_ms": bytes_ms, "x_bytes": minus / bytes_ms,
+            "model_ms": model_ms, "model_pass_a_ms": model["pass_a"],
+            "model_pass_b_ms": model["pass_b"], "model_sums_ms": model["sums"],
+            "x_model": minus / model_ms,
+        })
+    totals = {key: sum(r[key] for r in rows) for key in (
+        "ms", "minus_launch_ms", "pass_a_ms", "pass_b_ms", "sums_ms", "glue_ms", "bytes_ms",
+        "model_ms", "model_pass_a_ms", "model_pass_b_ms", "model_sums_ms")}
+    totals["x_bytes"] = totals["minus_launch_ms"] / totals["bytes_ms"]
+    totals["x_model"] = totals["minus_launch_ms"] / totals["model_ms"]
+    return rows, totals
+
+
+def print_table(rec: dict) -> None:
+    print(f"  {'link':<8} {'C->F@H':<14} {'modes':<15} {'ms':>7} {'-launch':>7} {'(a)':>7} "
+          f"{'(b)':>7} {'sums':>6} {'glue':>6} {'bytes':>6} {'x':>6} {'model':>7} {'x':>5}")
+    for r in rec["links"]:
+        print(f"  {r['link']:<8} {r['shape']:<14} {','.join(r['modes']):<15} {r['ms']:7.3f} "
+              f"{r['minus_launch_ms']:7.3f} {r['pass_a_ms']:7.3f} {r['pass_b_ms']:7.3f} "
+              f"{r['sums_ms']:6.3f} {r['glue_ms']:6.3f} {r['bytes_ms']:6.3f} "
+              f"{r['x_bytes']:6.1f} {r['model_ms']:7.3f} {r['x_model']:5.2f}")
+    t = rec["totals"]
+    print(f"  TOTAL {t['minus_launch_ms']:.3f} ms (less launches; pass (a) {t['pass_a_ms']:.3f}, "
+          f"pass (b) {t['pass_b_ms']:.3f}, sums {t['sums_ms']:.3f}, glue {t['glue_ms']:.3f}) "
+          f"against the bytes floor {t['bytes_ms']:.3f} ({t['x_bytes']:.1f}x) and the FMA model "
+          f"{t['model_ms']:.3f} ({t['x_model']:.2f}x; pass (a) {t['model_pass_a_ms']:.3f}, "
+          f"pass (b) {t['model_pass_b_ms']:.3f})")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", default=OUT)
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("link_floors: no CUDA device is available; it measures the card",
+              file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    card = roofline.card()
+    dispatch = measure_dispatch_ms(device)
+    fma = {d: measure_fma_rate(d, device) for d in ("float32", "bfloat16")}
+    print(f"[{card}] K12a launch: {dispatch['device_ms'] * 1e3:.2f} us a launch on the device "
+          f"(x + 1: {dispatch['library_ms'] * 1e3:.2f} us), {dispatch['stream_ms'] * 1e3:.2f} us "
+          f"back to back from the host, {dispatch['host_ms'] * 1e3:.2f} us a "
+          "launch-and-synchronise; K12b FMA rate: " + ", ".join(
+              f"{d} {v['gops']:.0f} Gop/s ({100 * v['bound_share']:.1f}% of its bound)"
+              for d, v in fma.items()))
+    rows, totals = time_links(args.dtype, args.iters, fma["float32"]["gops"],
+                              dispatch["device_ms"], device)
+    rec = {"config": f"{HW}px b{BATCH} {args.dtype}, K2 links alone, {args.iters} timed calls "
+                     f"after {WARMUP}", "card": card, "dtype": args.dtype, "iters": args.iters,
+           "dispatch": dispatch, "fma": fma, "links": rows, "totals": totals}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(rec, f, indent=2)
+    print_table(rec)
+    print(f"-> {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
