@@ -13,15 +13,24 @@ exit code and no result line:
 3. K8 (one sepconv block) against its plain PyTorch version at every block
    shape of the 256x256 binary U-Net, batch 2, fp32 and bf16;
 4. K7 (a fused block pair) likewise at the nine stage shapes, ``pool=True``
-   on the encoder stages and ``x2`` on the decoder stages;
+   on the encoder stages and ``x2`` on the decoder stages; then at ragged
+   shapes at batch 2 and 3 (H x W 20 x 36, a 3-channel input with F = 48,
+   ``x2`` with 80 + 80 channels and F = 80, ``pool`` at 18 x 18 with F = 200
+   so the cluster's last slice is partial, odd widths: ``x2`` with 5 + 3
+   channels and F 33 -> 7, a cluster of 4 with F 300 -> 270) and at the nine
+   stage shapes of the 512 px model (``configs/multiclass_512.json``);
 5. the main path at full width (filters 64..512, bottleneck 1024, 256x256):
    a port checkpoint of seeded weights, ``Predictor(use_pallas=True)``
    answering batches of 1, 5 (bucketed to 8) and 32 in fp32 and bf16, held
    against a ``Predictor`` with kernels off on the same card; the module
    path with ``use_pallas=True`` (K8 in every ConvBlock) likewise; the
    launch counters of that run; images/s at batch 32, kernels on and off;
-6. K7 and K8 times at batch 32 beside their plain versions', summed over
-   the path's shapes;
+   one bf16 batch-32 ``predict`` under ``torch.profiler`` (device busy, idle
+   share, K7's share of the busy time, the host copies);
+6. K7 at batch 32, each output held against its plain version under
+   phase 4's bars, then timed beside it, with its bound and its executed
+   over useful multiply-adds a stage; K8 times at batch 32 beside its plain
+   version's; both summed over the path's shapes;
 7. K1-K6, K9-K11 against their plain versions at every shape of their
    paths, batch 2, fp32 and bf16: K1-K4 (the training chain's link forward
    and backward, the encoder boundary's pool and its backward; K4 on inputs
@@ -175,6 +184,19 @@ ATTRIBUTION_ARGS = ["--warmup", "3", "--steps", "3"]
 GPU_BENCHMARK_ARGS = ["--cpu-runs", "1", "--cpu-trials", "3"]
 # the shapes of the kernels' calls on the paths (troubleshoot/roofline.py)
 STAGES = roofline.stage_shapes(IMAGE, FILTERS)
+# K7 beyond the path's shapes (phase 4): (label, Cx, Cx2, F1, F2, H, W, mode)
+# at these batches; ragged edges, a partial last slice of the cluster, and
+# the 512 px model's stages
+PAIR_RAGGED = [("20x36", 32, 0, 64, 64, 20, 36, "plain"),
+               ("cx3 f48", 3, 0, 48, 48, 24, 24, "pool"),
+               ("x2 80|80 f80", 80, 80, 80, 80, 16, 16, "x2"),
+               ("pool 18x18 f200", 64, 0, 200, 200, 18, 18, "pool"),
+               # odd widths: the plain-load staging of x2 and the weights, odd stores
+               ("odd x2 5|3 f33 f7", 5, 3, 33, 7, 10, 14, "x2"),
+               ("odd cluster f300 f270", 12, 0, 300, 270, 9, 9, "plain")] + [
+    (f"512px {name}", cx, cx2, f1, f2, h, h, mode)
+    for name, cx, cx2, f1, f2, h, mode in roofline.stage_shapes(512, FILTERS)]
+PAIR_RAGGED_BATCHES = (2, 3)
 LINKS = roofline.chain_links(IMAGE, FILTERS)
 POOLS = roofline.pool_shapes(IMAGE, FILTERS)
 FEEDS = roofline.upconcat_shapes(IMAGE, FILTERS)
@@ -1044,18 +1066,36 @@ def main() -> int:
             judge("sepconv_block", f"{c}->{f}@{h}", dname, [(got, want)])
 
     # ---- 4. K7 vs plain -----------------------------------------------------
+    def pair_case(batch, cx, cx2, f1, f2, h, w, mode, dtype):
+        """Seeded inputs of one K7 call and its keyword arguments."""
+        w1, w2 = weights(cx + cx2, f1, dtype), weights(f1, f2, dtype)
+        x = rnd(batch, h, w, cx).to(dev, dtype)
+        x2 = rnd(batch, h, w, cx2).to(dev, dtype) if cx2 else None
+        return (x, w1, w2), dict(pool=mode == "pool", x2=x2)
+
+    def judge_pair(label, dname, args, kw):
+        got = fs.sepconv_pair(*args, **kw)
+        want = fs.sepconv_pair_reference(*args, **kw)
+        torch.cuda.synchronize()
+        judge("sepconv_pair", label, dname, list(zip(got, want)) if kw["pool"] else [(got, want)])
+
     print("K7 sepconv_pair vs plain, batch 2:")
     for dname, dtype in dtypes.items():
         for name, cx, cx2, f1, f2, h, mode in STAGES:
-            w1, w2 = weights(cx + cx2, f1, dtype), weights(f1, f2, dtype)
-            x = rnd(BATCH_CHECK, h, h, cx).to(dev, dtype)
-            x2 = rnd(BATCH_CHECK, h, h, cx2).to(dev, dtype) if cx2 else None
-            got = fs.sepconv_pair(x, w1, w2, pool=mode == "pool", x2=x2)
-            want = fs.sepconv_pair_reference(x, w1, w2, pool=mode == "pool", x2=x2)
-            torch.cuda.synchronize()
-            pairs = list(zip(got, want)) if mode == "pool" else [(got, want)]
+            args, kw = pair_case(BATCH_CHECK, cx, cx2, f1, f2, h, h, mode, dtype)
             label = f"{name} ({cx}{'|%d' % cx2 if cx2 else ''})->{f1}->{f2}@{h} {mode}"
-            judge("sepconv_pair", label, dname, pairs)
+            judge_pair(label, dname, args, kw)
+    print(f"K7 vs plain at other shapes, batch {' and '.join(map(str, PAIR_RAGGED_BATCHES))}:")
+    stream = gen.get_state()  # these cases leave the later phases' seeded inputs as they were
+    for dname, dtype in dtypes.items():
+        for batch in PAIR_RAGGED_BATCHES:
+            for name, cx, cx2, f1, f2, h, w, mode in PAIR_RAGGED:
+                args, kw = pair_case(batch, cx, cx2, f1, f2, h, w, mode, dtype)
+                plan = fs.pair_plan(h, w, cx + cx2, f1, f2, dtype, batch)
+                label = (f"{name} ({cx}{'|%d' % cx2 if cx2 else ''})->{f1}->{f2}@{h}x{w} "
+                         f"{mode} batch {batch}, cluster {plan.n} x {plan.s1}/{plan.s2}")
+                judge_pair(label, dname, args, kw)
+    gen.set_state(stream)
 
     # ---- 5. main path -------------------------------------------------------
     print(f"main path: U-Net filters {FILTERS} at {IMAGE}x{IMAGE}, seeded weights")
@@ -1134,23 +1174,32 @@ def main() -> int:
                         for k, v in rates.items())
         print(f"  Predictor {dname} batch {BATCH_SERVE} images/s: {msg} [{smi}]")
         report["predictor"][f"{dname} images_per_s"] = rates
+    report["predictor"]["profile"] = profile_predict(torch, dev, on["bfloat16"], batch, smi)
 
     # ---- 6. kernel timings --------------------------------------------------
-    print(f"kernel timings, batch {BATCH_SERVE}, ms (kernel / plain) [{smi}]:")
+    # K7's launch plan depends on the batch (the grid), so each output at the
+    # path's batch is held against its plain version before it is timed
+    print(f"kernel timings, batch {BATCH_SERVE}, ms (kernel / plain; K7 also its bound and "
+          f"executed / useful multiply-adds) [{smi}]:")
     totals = {}
     for dname, dtype in dtypes.items():
         tot = {"sepconv_pair": [0.0, 0.0], "sepconv_block": [0.0, 0.0]}
-        for name, cx, cx2, f1, f2, h, mode in STAGES:
-            w1, w2 = weights(cx + cx2, f1, dtype), weights(f1, f2, dtype)
-            x = rnd(BATCH_SERVE, h, h, cx).to(dev, dtype)
-            x2 = rnd(BATCH_SERVE, h, h, cx2).to(dev, dtype) if cx2 else None
-            kw = dict(pool=mode == "pool", x2=x2)
-            t_k = time_ms(lambda: fs.sepconv_pair(x, w1, w2, **kw), torch)
-            t_p = time_ms(lambda: fs.sepconv_pair_reference(x, w1, w2, **kw), torch)
+        for stage in STAGES:
+            name, cx, cx2, f1, f2, h, mode = stage
+            args, kw = pair_case(BATCH_SERVE, cx, cx2, f1, f2, h, h, mode, dtype)
+            judge_pair(f"{name} batch {BATCH_SERVE}", dname, args, kw)
+            t_k = time_ms(lambda: fs.sepconv_pair(*args, **kw), torch)
+            t_p = time_ms(lambda: fs.sepconv_pair_reference(*args, **kw), torch)
+            bound, by = roofline.bounds_ms("sepconv_pair", stage, dname, BATCH_SERVE)
+            executed, useful = fs.pair_work(h, h, cx + cx2, f1, f2, dtype)
             tot["sepconv_pair"][0] += t_k
             tot["sepconv_pair"][1] += t_p
-            print(f"  K7 {name} {dtype_label(dname)}: {t_k:.3f} / {t_p:.3f}")
-            report["stages"][f"{name} {dname}"] = [t_k, t_p]
+            print(f"  K7 {name} {dtype_label(dname)}: {t_k:.3f} / {t_p:.3f}, bound {bound:.4f} "
+                  f"({by}), executed / useful {executed / useful:.3f}")
+            report["stages"][f"{name} {dname}"] = {
+                "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                "executed_over_useful": executed / useful}
+            del args, kw
             for c, f in ((cx + cx2, f1), (f1, f2)):
                 w = weights(c, f, dtype)
                 xb = rnd(BATCH_SERVE, h, h, c).to(dev, dtype)
@@ -1359,6 +1408,45 @@ def images_per_second(predictor, batch, torch, reps=5):
         predictor.predict(batch)
     torch.cuda.synchronize()
     return reps * len(batch) / (time.perf_counter() - t0)
+
+
+def profile_predict(torch, dev, predictor, batch, smi):
+    """Phase 5: one ``predict`` of ``batch`` under ``torch.profiler``
+    (``utils/profiling.trace``, read by ``troubleshoot/profile_summary``):
+    the device's busy time and idle share over the call, K7's share of the
+    busy time, and the host copies."""
+    from torch.profiler import record_function
+
+    from unet_image_segmentation_tpu_torch.troubleshoot import profile_summary
+    from unet_image_segmentation_tpu_torch.utils import profiling
+
+    predictor.predict(batch)
+    with tempfile.TemporaryDirectory() as tdir:
+        with profiling.trace(tdir, dev):
+            with record_function("predict"):
+                predictor.predict(batch)
+        s = profile_summary.summarize(tdir, within="predict")
+    profile_summary.check_complete(s, "Predictor profile")
+    k7 = sum(ms for name, ms in s["kernels"].items()
+             if roofline.entry_of(name) == "sepconv_pair_cluster_kernel")
+    k7_n = sum(n for name, n in s["launches"].items()
+               if roofline.entry_of(name) == "sepconv_pair_cluster_kernel")
+    if k7_n != PAIR_LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"Predictor profile: {k7_n} K7 launches, expected "
+                             f"{PAIR_LAUNCHES_PER_FORWARD}")
+    out = {"window_ms": s["window_ms"], "busy_ms": s["busy_ms"], "idle_share": s["idle_share"],
+           "k7_ms": k7, "k7_share_of_busy": k7 / s["busy_ms"],
+           "copies": {name: {"ms": ms, "n": s["launches"][name]}
+                      for name, ms in s["copies"].items()},
+           "other_kernels": {name: ms for name, ms in sorted(
+               s["kernels"].items(), key=lambda kv: -kv[1])
+               if roofline.entry_of(name) is None}}
+    print(f"  bf16 predict of {len(batch)} under torch.profiler: {s['window_ms']:.2f} ms, device "
+          f"busy {s['busy_ms']:.2f} ms (idle share {s['idle_share']:.3f}); K7 {k7:.2f} ms in "
+          f"{k7_n} launches ({100 * k7 / s['busy_ms']:.1f}% of busy); host copies " + ", ".join(
+              f"{name} {v['ms']:.3f} ms x{v['n']}" for name, v in out["copies"].items()) +
+          f"; other kernels {sum(out['other_kernels'].values()):.3f} ms [{smi}]")
+    return out
 
 
 def multiclass_scenes(n, size, seed):

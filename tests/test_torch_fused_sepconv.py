@@ -15,6 +15,7 @@ from unet_image_segmentation_tpu.ops import conv as jops
 from unet_image_segmentation_tpu.ops.pallas import fused_sepconv as jfs
 from unet_image_segmentation_tpu_torch.ops import fused_sepconv as tfs
 from unet_image_segmentation_tpu_torch.ops.kernels import build
+from unet_image_segmentation_tpu_torch.troubleshoot import roofline
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 HW = 16
@@ -77,26 +78,44 @@ def test_block_plain_matches_jax(c, f, bn, bias, relu):
 
 
 @pytest.mark.parametrize(
-    "c,f1,f2,mode",
+    "c,f1,f2,mode,hw,route",
     [
-        (3, 8, 8, "pool"),      # encoder stage 1: 3-channel input, fused pool
-        (8, 16, 16, "pool"),
-        (16, 16, 8, "plain"),   # bottleneck-like, no pool
-        (8, 8, 8, "x2"),        # decoder stage: [x | x2] two-stream input
-        (16, 16, 16, "x2"),
+        pytest.param(3, 8, 8, "pool", (HW, HW), "pair", id="3-8-8-pool"),  # image input, pool
+        pytest.param(8, 16, 16, "pool", (HW, HW), "pair", id="8-16-16-pool"),
+        pytest.param(16, 16, 8, "plain", (HW, HW), "pair", id="16-16-8-plain"),  # no pool
+        pytest.param(8, 8, 8, "x2", (HW, HW), "pair", id="8-8-8-x2"),  # [x | x2] input
+        pytest.param(16, 16, 16, "x2", (HW, HW), "pair", id="16-16-16-x2"),
+        # ragged: H not a multiple of 8, H != W, F not a multiple of 16
+        pytest.param(16, 16, 16, "plain", (12, 24), "pair", id="ragged-12x24"),
+        pytest.param(8, 24, 24, "pool", (10, 16), "pair", id="ragged-10x16-f24-pool"),
+        pytest.param(8, 24, 24, "x2", (12, 16), "pair", id="ragged-12x16-f24-x2"),
+        # no lane packing fits W (JAX returns None): its two single blocks
+        pytest.param(3, 40, 40, "plain", (14, 18), "blocks", id="ragged-14x18-f40-blocks"),
+        pytest.param(8, 40, 24, "pool", (6, 10), "blocks", id="ragged-6x10-f40-24-blocks"),
     ],
 )
-def test_pair_plain_matches_jax(c, f1, f2, mode):
+def test_pair_plain_matches_jax(c, f1, f2, mode, hw, route):
     """For x2 JAX gets the concat; for the pool JAX's version is
-    max_pool_2x2 of the pair output."""
-    rng = np.random.RandomState(c * 1000 + f1 * 10 + f2)
+    max_pool_2x2 of the pair output. Where no lane packing of JAX's pair
+    kernel fits (``route`` "blocks"), ``fused_sepconv_pair`` returns None
+    and JAX's serving graph runs two single-block kernels
+    (``serving._pair``), and so does the reference here."""
+    h, w = hw
+    rng = np.random.RandomState(c * 1000 + f1 * 10 + f2 + (0 if hw == (HW, HW) else h * w))
     cin = 2 * c if mode == "x2" else c
     b1, b2 = _block(rng, cin, f1), _block(rng, f1, f2)
-    x = _x(rng, c)
-    x2 = _x(rng, c) if mode == "x2" else None
+    x = rng.standard_normal((2, h, w, c)).astype(np.float32)
+    x2 = rng.standard_normal((2, h, w, c)).astype(np.float32) if mode == "x2" else None
     xin = np.concatenate([x, x2], axis=-1) if mode == "x2" else x
     want = jfs.fused_sepconv_pair(jnp.asarray(xin), _jax(b1), _jax(b2))
-    assert want is not None
+    assert (want is None) == (route == "blocks")
+    if want is None:
+        want = xin
+        for blk in (b1, b2):
+            j = _jax(blk)
+            want = jfs.fused_sepconv_bn_relu(
+                jnp.asarray(want), j["depthwise_kernel"], j["pointwise_kernel"],
+                bn_scale=j["scale"], bn_offset=j["offset"], bn_mean=j["mean"], bn_var=j["var"])
     got = tfs.fused_sepconv_pair(
         torch.from_numpy(x), _torch(b1), _torch(b2), pool=mode == "pool",
         x2=torch.from_numpy(x2) if x2 is not None else None,
@@ -106,8 +125,72 @@ def test_pair_plain_matches_jax(c, f1, f2, mode):
         np.testing.assert_allclose(
             pooled.numpy(), np.asarray(jops.max_pool_2x2(want)), **TOL
         )
-        assert pooled.shape == (2, HW // 2, HW // 2, f2)
+        assert pooled.shape == (2, h // 2, w // 2, f2)
+    assert got.shape == (2, h, w, f2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# K7's launch plans: (H, W, C, F1, F2, batch) at every stage of the 256,
+# 512 and 1024 px models (filters 64..512, bottleneck 1024), at ragged
+# shapes (chip_smoke.py's phase 4) and at the batch limits
+_PLAN_SHAPES = (
+    [pytest.param(h, h, cx + cx2, f1, f2, 1, id=f"{px}px-{name}")
+     for px in (256, 512, 1024)
+     for name, cx, cx2, f1, f2, h, _ in roofline.stage_shapes(px, (64, 128, 256, 512))]
+    + [pytest.param(20, 36, 32, 64, 64, 2, id="ragged-20x36"),
+       pytest.param(24, 24, 3, 48, 48, 3, id="ragged-cx3-f48"),
+       pytest.param(16, 16, 160, 80, 80, 2, id="ragged-x2-80"),
+       pytest.param(18, 18, 64, 200, 200, 3, id="ragged-pool18-f200"),
+       pytest.param(13, 11, 16, 40, 24, 2, id="ragged-f1-ne-f2"),
+       pytest.param(8, 8, 16, 16, 1024, 2, id="ragged-f1-16-f2-1024"),
+       pytest.param(256, 256, 3, 64, 64, 1, id="batch-1"),
+       pytest.param(16, 16, 512, 1024, 1024, 65535, id="batch-65535")]
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("h,w,c,f1,f2,batch", _PLAN_SHAPES)
+def test_pair_plan(h, w, c, f1, f2, batch, dtype):
+    """The cluster's slices cover F1 and F2 exactly, each within the GEMM
+    width and starting on a 16-channel boundary; at most 8 CTAs a cluster;
+    the shared memory within the 227 KB a CTA may use; the grid within
+    CUDA's limits."""
+    plan = tfs.pair_plan(h, w, c, f1, f2, dtype, batch)
+    assert plan.n in (1, 2, 4, 8)
+    assert plan.width in (64, 128)
+    for f, s in ((f1, plan.s1), (f2, plan.s2)):
+        ranges = tfs.slice_ranges(plan.n, s, f)
+        assert s % 16 == 0 and s <= plan.width
+        assert ranges[0][0] == 0 and ranges[-1][1] == f
+        assert all(lo == prev_hi for (_, prev_hi), (lo, _) in zip(ranges, ranges[1:]))
+        assert all(lo % 16 == 0 and 0 <= hi - lo <= s for lo, hi in ranges)
+        assert ranges[0][1] > 0
+    assert 0 < plan.smem <= tfs.SMEM_MAX == 232448
+    assert plan.grid == (plan.n * -(-h // 8) * -(-w // 8), batch)
+    assert plan.grid[0] < 2 ** 31 and plan.grid[1] <= 65535
+
+
+def test_pair_plan_refuses_what_the_kernel_cannot_launch():
+    with pytest.raises(ValueError, match="at most 1024"):
+        tfs.pair_plan(16, 16, 64, 1025, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="batch"):
+        tfs.pair_plan(16, 16, 64, 64, 64, torch.bfloat16, 65536)
+    with pytest.raises(TypeError):
+        tfs.pair_plan(16, 16, 64, 64, 64, torch.float16)
+
+
+def test_pair_work_by_hand():
+    """One 8x8 tile, C = 3, F1 = F2 = 16, bf16: one cluster of one CTA,
+    width 64; C pads to one k16 step; GEMM2 runs one 16-deep chunk."""
+    executed, useful = tfs.pair_work(8, 8, 3, 16, 16, torch.bfloat16)
+    assert useful == 64 * (27 + 48 + 144 + 256)
+    assert executed == 100 * 9 * 16 + 112 * 64 * 16 + 64 * 9 * 64 + 64 * 64 * 16
+    # the U-Net's stages: only the ring, the GEMM rows' padding to 112 and
+    # the input's padding to one mma step are left, at most 1.6x
+    for name, cx, cx2, f1, f2, h, _ in roofline.stage_shapes(256, (64, 128, 256, 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            executed, useful = tfs.pair_work(h, h, cx + cx2, f1, f2, dtype)
+            assert 1.0 < executed / useful <= 1.6, (name, dtype, executed / useful)
 
 
 def test_pair_zero_pads_y1_not_block1_past_the_edge():

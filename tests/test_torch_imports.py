@@ -33,7 +33,8 @@ def test_port_modules_import_no_jax():
                  "data.loader", "data.packed", "data.autopack", "ops.probes", "utils.profiling",
                  "troubleshoot.profile_summary", "troubleshoot.roofline",
                  "troubleshoot.step_attribution", "troubleshoot.link_floors",
-                 "troubleshoot.check_install", "troubleshoot.check_gpu_benchmark"):
+                 "troubleshoot.check_install", "troubleshoot.check_gpu_benchmark",
+                 "troubleshoot.pair_phases"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

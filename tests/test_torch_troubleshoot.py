@@ -12,6 +12,7 @@ without a card unless asked for the CPU. Inputs come from numpy seeds.
 import collections
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from unet_image_segmentation_tpu_torch.troubleshoot import (
     check_gpu_benchmark,
     check_install,
     link_floors,
+    pair_phases,
     profile_summary,
     roofline,
     step_attribution,
@@ -175,6 +177,46 @@ def test_bounds_by_hand():
     assert by == "bytes" and total == pytest.approx(sum(
         roofline.bounds_ms("chain_bwd", lk, "bfloat16", 32)[0]
         for lk in link_floors.stage_table()))
+
+
+def test_k7_bound_by_hand():
+    """K7 at the bottleneck (512 -> 1024 -> 1024 @ 16), batch 32: its
+    products on the tensor cores (bf16 at 989 TFLOP/s; fp32 as 3xTF32,
+    three TF32 products each at 495) while the depthwise runs on the CUDA
+    cores (67 TFLOP/s fp32), the larger of the two against the bytes."""
+    stage = ("bneck", 512, 0, 1024, 1024, 16, "plain")
+    px = 32 * 16 * 16
+    gemm, dw = 2 * px * (512 * 1024 + 1024 * 1024), 2 * px * (9 * 512 + 9 * 1024)
+    assert roofline.pair_ops(stage, 32) == (gemm, dw)
+    nbytes = 2 * (px * (512 + 1024) + 9 * 512 + 512 * 1024 + 9 * 1024 + 1024 * 1024)
+    assert roofline.work("sepconv_pair", stage, "bfloat16", 32) == (nbytes, gemm + dw)
+    assert roofline.bounds_ms("sepconv_pair", stage, "bfloat16", 32) == \
+        pytest.approx((gemm / 989e12 * 1e3, "operations"))
+    assert roofline.bounds_ms("sepconv_pair", stage, "float32", 32) == \
+        pytest.approx((3 * gemm / 495e12 * 1e3, "operations"))
+    # enc1 (3 -> 64 -> 64 @ 256, pooled): fp32's 4-byte activations bound it
+    enc1 = ("enc1", 3, 0, 64, 64, 256, "pool")
+    px = 32 * 256 * 256
+    nbytes32 = 4 * (px * 3 + px * 64 * 1.25 + 27 + 3 * 64 + 9 * 64 + 64 * 64)
+    assert roofline.bounds_ms("sepconv_pair", enc1, "float32", 32) == \
+        pytest.approx((nbytes32 / 3.35e12 * 1e3, "bytes"))
+
+
+def test_pair_phases_marks_match_the_kernel():
+    """Every PAIR_PHASE mark of sepconv_pair.cu names one of the tool's
+    phases, in order, and the kernel's buffer holds as many a CTA."""
+    from unet_image_segmentation_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / "sepconv_pair.cu").read_text()
+    marks = [int(m) for m in re.findall(r"PAIR_PHASE\((\d+)\)", src)]
+    assert marks == list(range(len(pair_phases.PHASES)))
+    assert f"kPairPhases = {len(pair_phases.PHASES)};" in src
+
+
+def test_pair_phases_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pair_phases.main(["--iters", "1"]) == 1
+    assert "CUDA card" in capsys.readouterr().err
 
 
 def test_k2_instruction_count_by_hand():

@@ -12,7 +12,9 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
   two such blocks with ReLU, block 1's output never leaving the chip,
   optionally with the 2x2 max pool of the output (``pool=True``) and a
   two-stream input ``[x | x2]`` (``x2=``). CUDA source:
-  ``kernels/csrc/sepconv_pair.cu``.
+  ``kernels/csrc/sepconv_pair.cu``, one thread-block cluster per 8x8 tile;
+  :func:`pair_plan` chooses its launch and :func:`pair_work` counts the
+  multiply-adds it executes.
 * :func:`sepconv_stats` (K9, TPU kernel ``_sepconv_kernel_db_stats``): the
   plain sepconv ``y = (dw3x3(x) -> dtype) . pw`` rounded to the dtype, with
   the per-channel Σy and Σy² of the rounded y. CUDA source: the
@@ -53,7 +55,16 @@ from unet_image_segmentation_tpu_torch.ops.kernels import build
 LAUNCHES: Dict[str, int] = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 0,
                             "sepconv_bwd": 0}
 
-_MAX_BATCH = 65535  # gridDim.z
+_MAX_BATCH = 65535  # gridDim.y of K7, gridDim.z of the others
+
+# K7's launch plan (kernels/csrc/sepconv_pair.cu): a cluster of up to 8 CTAs
+# per 8x8 output tile, each owning a slice of at most 128 channels of F1 and
+# of F2; the shared memory a CTA may use (227 KB)
+_PAIR_SLICE = 128
+_PAIR_MAX_CLUSTER = 8
+SMEM_MAX = 232448
+# (channels of a C chunk, mma depth) per dtype
+_PAIR_CHUNK = {torch.bfloat16: (64, 16), torch.float32: (32, 8)}
 
 
 def reset_launch_counts() -> None:
@@ -188,6 +199,98 @@ def sepconv_bwd_reference(
 
 
 # --------------------------------------------------------------------------
+# K7's launch plan
+# --------------------------------------------------------------------------
+
+
+class PairPlan(NamedTuple):
+    """K7's launch: ``n`` CTAs a cluster (1, 2, 4 or 8), CTA r owning F1
+    channels ``[r*s1, (r+1)*s1)`` and F2 channels ``[r*s2, (r+1)*s2)`` (cut
+    at F1 and F2), both padded to ``width`` (64 or 128) in its GEMM tiles;
+    ``tiles_y * tiles_x`` 8x8 output tiles an image, ``n`` CTAs each; the
+    grid ``(n * tiles, batch)``; ``smem`` bytes of dynamic shared memory a
+    CTA."""
+
+    n: int
+    s1: int
+    s2: int
+    width: int
+    tiles_y: int
+    tiles_x: int
+    grid: Tuple[int, int]
+    smem: int
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def slice_ranges(n: int, s: int, f: int) -> list:
+    """The ``[start, end)`` channels of each of the ``n`` slices of ``f``
+    channels ``s`` wide (the last ones may be short or empty)."""
+    return [(min(r * s, f), min((r + 1) * s, f)) for r in range(n)]
+
+
+def pair_plan(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype,
+              batch: int = 1) -> PairPlan:
+    """K7's launch plan for ``batch`` (H, W) images with C input channels (x
+    and x2 together) and widths F1, F2 in ``dtype``. The shared-memory
+    layout is ``PairSmem`` of ``sepconv_pair.cu``, which checks the byte
+    count."""
+    if min(h, w, c, f1, f2) < 1:
+        raise ValueError(f"sepconv_pair: empty shape H={h} W={w} C={c} F1={f1} F2={f2}")
+    if not 0 < batch <= _MAX_BATCH:
+        raise ValueError(f"sepconv_pair: batch {batch} outside 1..{_MAX_BATCH}")
+    if dtype not in _PAIR_CHUNK:
+        raise TypeError(f"sepconv_pair: dtype {dtype} not supported (float32, bfloat16)")
+    fmax = max(f1, f2)
+    if fmax > _PAIR_SLICE * _PAIR_MAX_CLUSTER:
+        raise ValueError(f"sepconv_pair: F1={f1}, F2={f2}; at most "
+                         f"{_PAIR_SLICE * _PAIR_MAX_CLUSTER} channels ({_PAIR_MAX_CLUSTER} "
+                         f"CTAs of {_PAIR_SLICE})")
+    n = 1
+    while n * _PAIR_SLICE < fmax:
+        n *= 2
+    s1, s2 = _round_up(-(-f1 // n), 16), _round_up(-(-f2 // n), 16)
+    width = 64 if max(s1, s2) <= 64 else 128
+    kc, _ = _PAIR_CHUNK[dtype]
+    e = dtype.itemsize
+    ldk, ldn = kc + 16 // e, width + 8
+    # block 1: fp32 affines (4 x width), then in T the dw1 taps (2 x 9 x kc)
+    # and dw2 taps (9 x width), x halo tiles (2 x 144 px x kc), dw1 chunks
+    # (2 x 112 x ldk) and weight chunks (2 x kc x ldn); block 2: y1 (100 x
+    # ldn), d2 (64 x ldn) and pulled d2 chunks (2 x 64 x ldk), in the x tiles'
+    # and dw1 chunks' place where they fit
+    front = 16 * width + e * (2 * 9 * kc + 9 * width)
+    tiles = e * (2 * 144 * kc + 2 * 112 * ldk)
+    block2 = e * ((100 + 64) * ldn + 2 * 64 * ldk)
+    smem = front + tiles + e * 2 * kc * ldn + (block2 if block2 > tiles else 0)
+    if smem > SMEM_MAX:
+        raise ValueError(f"sepconv_pair: {smem} bytes of shared memory, at most {SMEM_MAX}")
+    ty, tx = -(-h // 8), -(-w // 8)
+    return PairPlan(n, s1, s2, width, ty, tx, (n * ty * tx, batch), smem)
+
+
+def pair_work(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(executed, useful) multiply-adds of one K7 call on one image. Useful:
+    ``H*W*(9C + C*F1 + 9F1 + F1*F2)``. Executed: what :func:`pair_plan`'s
+    launch issues, each product counted once (fp32 issues three TF32
+    products for each): dw1 on the 10x10 ring of every 8x8 tile with C
+    padded to the mma depth in each chunk, GEMM1 over 112 rows and every
+    CTA's padded width, dw2 over the padded widths, GEMM2 for every CTA with
+    F2 channels over the chunks of every F1 slice."""
+    p = pair_plan(h, w, c, f1, f2, dtype)
+    kc, ks = _PAIR_CHUNK[dtype]
+    cpad = sum(min(kc, _round_up(c - c0, ks)) for c0 in range(0, c, kc))
+    k2 = sum(min(kc, _round_up(hi - lo - k0, ks))
+             for lo, hi in slice_ranges(p.n, p.s1, f1) for k0 in range(0, hi - lo, kc))
+    ctas2 = sum(hi > lo for lo, hi in slice_ranges(p.n, p.s2, f2))
+    nw = p.n * p.width
+    tile = 100 * 9 * cpad + 112 * nw * cpad + 64 * 9 * nw + 64 * p.width * ctas2 * k2
+    return p.tiles_y * p.tiles_x * tile, h * w * (9 * c + c * f1 + 9 * f1 + f1 * f2)
+
+
+# --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -260,6 +363,16 @@ def sepconv_pair(
     """
     if x.device.type == "cpu":
         return sepconv_pair_reference(x, w1, w2, pool=pool, x2=x2)
+    out, pooled = pair_launch(build.load_library(), x, w1, w2, pool, x2)
+    LAUNCHES["sepconv_pair"] += 1
+    return (out, pooled) if pool else out
+
+
+def pair_launch(lib, x: torch.Tensor, w1: BlockWeights, w2: BlockWeights, pool: bool,
+                x2: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Check K7's inputs, launch ``lib``'s ``unet_sepconv_pair`` on them
+    (the kernel library, or an instrumented build of ``sepconv_pair.cu``)
+    and return ``(y, pooled or None)``. Counts nothing."""
     _check_cuda_input(x, "sepconv_pair")
     b, h, wd, cx = x.shape
     cx2 = 0
@@ -275,7 +388,7 @@ def sepconv_pair(
     f2 = _check_weights(w2, f1, x, "sepconv_pair block2")
     if pool and (h % 2 or wd % 2):
         raise ValueError(f"sepconv_pair: pool needs even H and W, got {h}x{wd}")
-    lib = build.load_library()
+    plan = pair_plan(h, wd, cx + cx2, f1, f2, x.dtype, b)
     out = torch.empty((b, h, wd, f2), dtype=x.dtype, device=x.device)
     pooled = (
         torch.empty((b, h // 2, wd // 2, f2), dtype=x.dtype, device=x.device)
@@ -286,12 +399,11 @@ def sepconv_pair(
         w1.dw.data_ptr(), w1.pw.data_ptr(), w1.scale.data_ptr(), w1.shift.data_ptr(),
         w2.dw.data_ptr(), w2.pw.data_ptr(), w2.scale.data_ptr(), w2.shift.data_ptr(),
         out.data_ptr(), pooled.data_ptr() if pooled is not None else None,
-        b, h, wd, cx, cx2, f1, f2, build.DTYPE_CODE[x.dtype],
-        build.stream_handle(x.device),
+        b, h, wd, cx, cx2, f1, f2, plan.n, plan.s1, plan.s2, plan.width, plan.smem,
+        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "sepconv_pair")
-    LAUNCHES["sepconv_pair"] += 1
-    return (out, pooled) if pool else out
+    return out, pooled
 
 
 def sepconv_stats(

@@ -41,8 +41,8 @@ SIGNATURES = {
     # x, dw, pw, scale, shift, out, B, H, W, C, F, relu, dtype, stream
     "unet_sepconv_block": [_P] * 6 + [_I] * 7 + [_P],
     # x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out,
-    # pooled, B, H, W, Cx, Cx2, F1, F2, dtype, stream
-    "unet_sepconv_pair": [_P] * 12 + [_I] * 8 + [_P],
+    # pooled, B, H, W, Cx, Cx2, F1, F2, n, s1, s2, width, smem, dtype, stream
+    "unet_sepconv_pair": [_P] * 12 + [_I] * 13 + [_P],
     # x, dw, pw, in_aff, y, work, sums, B, H, W, C, F, seed, thresh,
     # drop_scale, dtype, stream
     "unet_chain_fwd": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
@@ -110,13 +110,24 @@ def _raise_on_failure(cmd, returncode: int, log: str) -> None:
         raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{log}")
 
 
-def library_path() -> Path:
-    cu, cuh = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
+def _digest(flags, paths) -> str:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    return BUILD_DIR / f"libunet_kernels_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def _bind(lib: ctypes.CDLL, signatures, restype) -> None:
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    return BUILD_DIR / f"libunet_kernels_{_digest(NVCC_FLAGS, cu + cuh)}.so"
 
 
 def load_library() -> ctypes.CDLL:
@@ -152,17 +163,33 @@ def load_library() -> ctypes.CDLL:
         for obj in objs:
             obj.unlink()
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    for name, argtypes in WORKSPACE_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_longlong
+    _bind(lib, SIGNATURES, ctypes.c_int)
+    _bind(lib, WORKSPACE_SIGNATURES, ctypes.c_longlong)
     lib.unet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.unet_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
+    return lib
+
+
+def load_variant(source: str, defines) -> ctypes.CDLL:
+    """Build (once per source hash and flags) and load one source of
+    ``csrc/`` alone with extra ``-D`` defines, for a troubleshoot tool that
+    needs an instrumented copy of a kernel beside the library proper; its
+    entry points take :data:`SIGNATURES`."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; none is available")
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    src = CSRC / source
+    out = BUILD_DIR / f"lib{src.stem}_{_digest(flags, [src, *_sources()[1]])}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *flags, "-shared", "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _raise_on_failure(cmd, proc.returncode, proc.stdout)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _bind(lib, {n: a for n, a in SIGNATURES.items() if hasattr(lib, n)}, ctypes.c_int)
     return lib
 
 

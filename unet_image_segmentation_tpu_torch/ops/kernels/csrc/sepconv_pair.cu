@@ -6,218 +6,802 @@
 // modes: plain, pool=True (the encoder's 2x2 max pool of the dtype-cast y2
 // written beside y2) and two-stream (block 1's input is the channel concat
 // [x | x2], read from two pointers, so the decoder's concat is never stored).
-// Semantics kept: y1 = relu(dw1/pw1 affine) rounded to the compute dtype T;
-// y1 is ZERO outside the image, so block 2's 'same' padding sees zeros and not
-// block 1 evaluated past the edge; every sum in fp32.
+// Semantics kept: the dw1 result is rounded to the compute dtype T before
+// pw1; y1 = relu(affine) rounded to T; y1 is ZERO outside the image, so block
+// 2's 'same' padding sees zeros and not block 1 evaluated past the edge; the
+// dw2 result is rounded to T before pw2; y2 rounded to T; every sum in fp32.
 //
-// What bounds it on the H100: the products. Per output pixel a stage does
-// 9C + C*F1 + 9F1 + F1*F2 multiply-adds while it reads C and writes F2
-// elements, far above the fp32 CUDA-core balance point (~20 FLOP per byte).
-// This kernel runs them as fp32 FMAs from shared memory, so FMA issue,
-// shared-memory bandwidth and the recompute below bound it.
+// What bounds it on the H100: per output pixel a stage does 9C + C*F1 + 9F1
+// + F1*F2 multiply-adds while it reads C and writes F2 elements. In bf16 the
+// products run on the tensor cores and the bytes bound the path (0.73 ms
+// over the nine stages at batch 32 against 0.33 ms of bf16 products); in
+// fp32 the products run as 3xTF32 (three TF32 products each, 495 TFLOP/s:
+// 1.99 ms, against 4.9 ms for the same products as fp32 FMAs on the CUDA
+// cores) and the operations bound it. The kernel reaches about a tenth of
+// either bound: it is bound by the issue of its CUDA-core work and the
+// latency that leaves exposed at 8-16 warps an SM (troubleshoot/pair_phases.py
+// splits a CTA's cycles by phase): at the 256 px stages, 32768 CTAs of one
+// spend half their cycles in fixed costs, the staging and the epilogue
+// (enc1's 3-channel input takes the plain-load path, 30% in staging its
+// x); at the deep stages block 1 (the depthwise, a cluster barrier and the
+// staged x and weights a chunk, GEMM1) takes 55-80% and GEMM2 10-32% in
+// bf16; in fp32 block 1 and GEMM2 (their 3xTF32 products) take 67-96% of
+// a CTA at every stage but enc1.
 //
-// Design: the TPU kernel holds whole row slabs of y1 in VMEM (megabytes); a
-// block here has at most 227 KB of shared memory, which cannot hold y1 at
-// F1 = 1024 nor even one row at F1 = 64. So one block owns an 8x8 output tile
-// and 64 channels of F2, with 256 threads and a 4x4 register tile each for y2.
-// It walks F1 in chunks of 32. For each chunk it
-//   1. builds y1 over the 10x10 tile-plus-halo (padded to 128 rows of the
-//      GEMM): block 1's depthwise of x over C in chunks of 32, then the
-//      register GEMM with pw1's slice;
-//   2. applies block 1's affine and ReLU, zeroes halo pixels outside the
-//      image, rounds to T and keeps the chunk in shared memory;
-//   3. runs block 2's depthwise on the chunk for the 64 output pixels;
-//   4. accumulates the chunk's pointwise product into the y2 registers.
-// Recompute: y1 is rebuilt for every 64-wide F2 tile and over a ring of
-// 100/64 = 1.56x the tile's pixels, so block 1's pointwise runs
-// 1.56 * ceil(F2/64) times (1.56x at F2 = 64, 25x at the 1024-wide
-// bottleneck); block 1's depthwise runs 1.56 * ceil(F1/32) * ceil(F2/64)
-// times. Tensor cores, TMA, pipelining and cutting that recompute are later
-// work.
+// Design (the plan is pair_plan in ops/fused_sepconv.py, which must agree
+// with PairSmem below):
+//   * One thread-block cluster of n CTAs (n in {1, 2, 4, 8}) per 8x8 output
+//     tile and image. CTA r owns slice r of F1 and slice r of F2 (s1, s2
+//     channels, multiples of 16; the width W in {64, 128} pads them).
+//   * Block 1, per chunk of KC input channels: every CTA stages its share
+//     (KC/n channels) of the chunk's 12x12 halo tile of x (and x2) into
+//     shared memory with cp.async, double-buffered against the previous
+//     chunk's GEMM, computes dw1 on the 10x10 ring for that share and
+//     stores the rounded result into every CTA's A buffer through
+//     distributed shared memory; one cluster barrier later each CTA runs
+//     GEMM1 (112 ring rows x its F1 slice x the chunk) on the tensor cores.
+//     So dw1 of x is computed once per tile, not once per F1 chunk.
+//   * Block 1's epilogue: affine, ReLU, zero outside the image and outside
+//     F1, rounded into the CTA's own y1 slice (100 ring pixels).
+//   * Block 2: dw2 on the CTA's own F1 slice (per channel: no exchange),
+//     rounded into d2 (64 pixels x the slice); one cluster barrier; GEMM2
+//     for the CTA's F2 slice over all of F1, pulling each CTA's d2 chunk
+//     through distributed shared memory into a local double buffer (the
+//     next chunk's loads in flight during the current chunk's products).
+//   * y1 is built once per output tile: the only recompute left is the
+//     ring (100 of 64 pixels for dw1, 112 GEMM rows for GEMM1), the
+//     padding of the channels to KC, the mma depth and the slice width.
+//     Executed over useful multiply-adds at batch 32, 256 px (pair_work):
+//     enc1 1.37 (bf16; the 3 input channels pad to one k16 step) / 1.16
+//     (fp32), enc2-enc4 1.25, bneck 1.25, dec4-dec1 1.49-1.50; 1.41 (bf16)
+//     and 1.40 (fp32) over the path, against 4.94 for the first K7.
+//   * Products: bf16 on mma.sync m16n8k16 (ldmatrix fragments, fp32 sums);
+//     fp32 as 3xTF32 on mma.sync m16n8k8 (a = a_hi + a_lo, each TF32; the
+//     sum a_lo*b_hi + a_hi*b_lo + a_hi*b_hi keeps ~fp32 accuracy where TF32
+//     alone would break the 1e-4 bar). The 8 warps stand 2 along M by 4
+//     along N: a warp owns W/4 columns of 4 of GEMM1's 7 m16 tiles, or of 2
+//     of GEMM2's 4.
+//   * A cluster of one CTA (the 64- and 128-channel stages) takes no
+//     cluster barrier and no distributed-shared-memory access: CTA barriers
+//     and its own shared memory stand in for them.
+//   * Block 2's buffers take block 1's x tiles and dw1 chunks where they
+//     fit, so an SM holds two CTAs (128 registers a thread) in bf16 and in
+//     fp32 at W = 64; fp32 at W = 128 holds one. Staging is cp.async
+//     wherever widths and pointers align to 16 bytes (plain loads else, as
+//     for the 3-channel input); each thread keeps one column group, so no
+//     address needs a runtime division; dw1 takes two ring pixels an item,
+//     dw2 keeps its taps in registers.
+//   * The 64 output pixels follow tile_px2's order along M, so a thread's
+//     accumulator rows hold whole 2x2 windows and the fused pool is local.
+// Room for the int8 I/O mode: in_scale folds into the dw1 taps as they are
+// staged, 1/out_scale into scale2/shift2; only the staging of x and the
+// epilogue's rounding change.
+#include <cooperative_groups.h>
+
 #include "sepconv_common.cuh"
+
+namespace cg = cooperative_groups;
+
+// Phase marks, compiled only into the library troubleshoot/pair_phases.py
+// builds with -DUNET_PAIR_PHASES: thread 0 of every CTA writes the clock64
+// cycles from its start to each of the kPairPhases marks into
+// unet_pair_phases[CTA][mark] (the CTA being blockIdx.y * gridDim.x +
+// blockIdx.x). The kernel library proper has none of it.
+#ifdef UNET_PAIR_PHASES
+constexpr int kPairPhases = 8;
+__device__ long long* unet_pair_phases;
+#define PAIR_PHASES_START const long long phases_t0 = clock64();
+#define PAIR_PHASE(i)                                                                     \
+  if (threadIdx.x == 0)                                                                   \
+    unet_pair_phases[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * kPairPhases + (i)] = \
+        clock64() - phases_t0;
+#else
+#define PAIR_PHASES_START
+#define PAIR_PHASE(i)
+#endif
 
 namespace unet {
 namespace {
 
-constexpr int kHalo = kTile + 2;         // side of the y1 tile: output tile + 1-pixel ring
-constexpr int kHaloPx = kHalo * kHalo;   // 100 y1 pixels
-constexpr int kHaloM = 128;              // y1 pixels padded to the GEMM's M
-constexpr int kLdA128 = kHaloM + 4;      // row stride of the [k][p] depthwise operand
-constexpr int kKC1 = 32;                 // y1 channels per chunk
-constexpr int kLdY1 = kKC1 + 1;          // row stride of the y1 chunk [p][k1]
-static_assert(kKC1 == kKC, "stage_weights stages kKC rows of pw2");
-static_assert(kHaloM * kLdY1 <= kKC * kLdA128, "the y1 chunk reuses the depthwise buffer");
+using bf16 = __nv_bfloat16;
+
+constexpr int kPairThreads = 256;
+constexpr int kHalo = kTile + 2;        // side of the y1 ring tile
+constexpr int kHaloPx = kHalo * kHalo;  // 100 y1 pixels
+constexpr int kM1 = 112;                // GEMM1 rows: the 100 ring pixels in 7 m16 tiles
+constexpr int kXs = kTile + 4;          // side of the staged x tile
+constexpr int kXsPx = kXs * kXs;        // 144 x pixels
+
+// KC: input channels of a chunk (the GEMM depth staged at once); KS: the
+// mma's depth; V: elements of T in 16 bytes (one vector load or store).
+template <typename T> struct PairCfg;
+template <> struct PairCfg<bf16> { static constexpr int KC = 64, KS = 16, V = 8; };
+template <> struct PairCfg<float> { static constexpr int KC = 32, KS = 8, V = 4; };
+
+// Shared-memory layout of one CTA, in bytes; pair_plan (fused_sepconv.py)
+// mirrors it. Block 1's buffers: the fp32 affines [4][W] (scale1, shift1 of
+// the F1 slice, scale2, shift2 of the F2 slice), then in T the dw1 taps
+// [2][9][KC] and dw2 taps [9][W], the x halo tiles [2][144][KC], the dw1
+// chunks [2][112][LDK] and the weight chunks [2][KC][LDN]. Block 2's
+// buffers, y1 [100][LDN], d2 [64][LDN] and the pulled d2 chunks [2][64][LDK],
+// reuse the x tiles and dw1 chunks where they fit (block 1 is done with them
+// by then), else follow the weight chunks.
+template <typename T, int W>
+struct PairSmem {
+  static constexpr int KC = PairCfg<T>::KC, LDK = KC + PairCfg<T>::V, LDN = W + 8;
+  static constexpr int e = sizeof(T);
+  static constexpr int aff = 0, taps1 = 4 * 4 * W, taps2 = taps1 + e * 2 * 9 * KC;
+  static constexpr int xs = taps2 + e * 9 * W, As = xs + e * 2 * kXsPx * KC;
+  static constexpr int Bs = As + e * 2 * kM1 * LDK, block1_end = Bs + e * 2 * KC * LDN;
+  static constexpr int block2 = e * ((kHaloPx + kTilePx) * LDN + 2 * kTilePx * LDK);
+  static constexpr bool reuse = block2 <= Bs - xs;
+  static constexpr int y1s = reuse ? xs : block1_end, d2s = y1s + e * kHaloPx * LDN;
+  static constexpr int A2s = d2s + e * kTilePx * LDN;
+  static constexpr int bytes = reuse ? block1_end : block1_end + block2;
+  // two CTAs an SM where their shared memory fits (228 KB an SM, 1 KB of it
+  // reserved a CTA); the registers are then held to 128 a thread
+  static constexpr int min_blocks = 2 * (bytes + 1024) <= 228 * 1024 ? 2 : 1;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sepconv_pair_kernel(const T* __restrict__ x, const T* __restrict__ x2,
-                        const T* __restrict__ dw1, const T* __restrict__ pw1,
-                        const float* __restrict__ scale1, const float* __restrict__ shift1,
-                        const T* __restrict__ dw2, const T* __restrict__ pw2,
-                        const float* __restrict__ scale2, const float* __restrict__ shift2,
-                        T* __restrict__ out, T* __restrict__ pooled, int H, int W, int Cx,
-                        int Cx2, int F1, int F2, int tiles_x) {
-  __shared__ __align__(16) float bufA[kKC * kLdA128];  // dw1(x) chunk [k][p], then y1 [p][k1]
-  __shared__ __align__(16) float pw1s[kKC * kKC1];     // pw1 slice [k][f1]
-  __shared__ __align__(16) float d2s[kKC1 * kLdA64];   // dw2(y1) chunk [k1][m]
-  __shared__ __align__(16) float pw2s[kKC1 * kTileF];  // pw2 slice [k1][f2]
-  float* y1s = bufA;
-  const int C = Cx + Cx2;
-  const int tid = threadIdx.x;
-  const int ty0 = (blockIdx.x / tiles_x) * kTile;
-  const int tx0 = (blockIdx.x % tiles_x) * kTile;
-  const int f0 = blockIdx.y * kTileF;
-  const int b = blockIdx.z;
-  const T* xb = x + (size_t)b * H * W * Cx;
-  const T* x2b = Cx2 > 0 ? x2 + (size_t)b * H * W * Cx2 : nullptr;
-  const int tm1 = tid / (kKC1 / 4), tn1 = tid % (kKC1 / 4);    // y1 GEMM: 128 px x 32 ch
-  const int tm2 = tid / (kTileF / 4), tn2 = tid % (kTileF / 4);  // y2 GEMM: 64 px x 64 ch
-  const int k = tid % kKC;
-  float acc2[4][4] = {};
+struct PairArgs {
+  const T* x;
+  const T* x2;
+  const T* dw1;
+  const T* pw1;
+  const float* scale1;
+  const float* shift1;
+  const T* dw2;
+  const T* pw2;
+  const float* scale2;
+  const float* shift2;
+  T* out;
+  T* pooled;
+  int H, W, Cx, Cx2, F1, F2, tiles_x, n, s1, s2;
+  int vec_x, vec_w1, vec_w2;  // 16-byte staging allowed (widths and pointers aligned)
+};
 
-  for (int f1c = 0; f1c < F1; f1c += kKC1) {
-    // 1. y1 chunk (pre-affine) over the halo tile
-    float acc1[4][4] = {};
-    for (int c0 = 0; c0 < C; c0 += kKC) {
-      const int kc = min(kKC, C - c0);
-      const int c = c0 + k;
-      const T* src = nullptr;  // channel c of [x | x2]
-      int cs = 0, ld = 0;
-      if (k < kc) {
-        if (c < Cx) {
-          src = xb, cs = c, ld = Cx;
-        } else {
-          src = x2b, cs = c - Cx, ld = Cx2;
-        }
-      }
-      float taps[9];
-#pragma unroll
-      for (int t = 0; t < 9; ++t) taps[t] = src ? to_f(dw1[t * C + c]) : 0.f;
-#pragma unroll 4
-      for (int i = 0; i < kHaloM / (kThreads / kKC); ++i) {
-        const int p = tid / kKC + (kThreads / kKC) * i;
-        float s = 0.f;
-        if (src && p < kHaloPx) {
-          const int Y = ty0 - 1 + p / kHalo, X = tx0 - 1 + p % kHalo;
-#pragma unroll
-          for (int di = 0; di < 3; ++di) {
-            const int yy = Y + di - 1;
-            if (yy < 0 || yy >= H) continue;
-#pragma unroll
-            for (int dj = 0; dj < 3; ++dj) {
-              const int xx = X + dj - 1;
-              if (xx < 0 || xx >= W) continue;
-              s += to_f(src[((size_t)yy * W + xx) * ld + cs]) * taps[di * 3 + dj];
-            }
-          }
-        }
-        bufA[k * kLdA128 + p] = round_to<T>(s);
-      }
-      stage_weights<T, kKC1>(pw1s, pw1, C, F1, c0, f1c);
-      __syncthreads();
-      smem_gemm<kLdA128, kKC1>(acc1, bufA, pw1s, kc, tm1, tn1);
-      __syncthreads();
-    }
+// ---- small PTX wrappers ----
 
-    // 2. y1 = relu(affine), zero outside the image, rounded to T
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = tm1 * 4 + i;
-      const int Y = ty0 - 1 + p / kHalo, X = tx0 - 1 + p % kHalo;
-      const bool inside = p < kHaloPx && Y >= 0 && Y < H && X >= 0 && X < W;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k1 = tn1 * 4 + j, f1 = f1c + k1;
-        float v = 0.f;
-        if (inside && f1 < F1)
-          v = round_to<T>(fmaxf(acc1[i][j] * scale1[f1] + shift1[f1], 0.f));
-        y1s[p * kLdY1 + k1] = v;
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-    // 3. block 2's depthwise on the chunk, for the 64 output pixels
-    {
-      const int m = tid % kTilePx;
-      int r, cc;
-      tile_px(m, r, cc);
-#pragma unroll
-      for (int i = 0; i < kKC1 / (kThreads / kTilePx); ++i) {
-        const int k1 = tid / kTilePx + (kThreads / kTilePx) * i;
-        const int f1 = f1c + k1;
-        float s = 0.f;
-        if (f1 < F1) {
-#pragma unroll
-          for (int di = 0; di < 3; ++di)
-#pragma unroll
-            for (int dj = 0; dj < 3; ++dj)
-              s += y1s[((r + di) * kHalo + cc + dj) * kLdY1 + k1] *
-                   to_f(dw2[(di * 3 + dj) * F1 + f1]);
-        }
-        d2s[k1 * kLdA64 + m] = round_to<T>(s);
-      }
-    }
-    stage_weights<T, kTileF>(pw2s, pw2, F1, F2, f1c, f0);
-    __syncthreads();
+// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared, zero-filled when !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-    // 4. y2 += dw2(y1 chunk) . pw2 slice
-    smem_gemm<kLdA64, kTileF>(acc2, d2s, pw2s, min(kKC1, F1 - f1c), tm2, tn2);
-    __syncthreads();
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v = hi + lo, each rounded to TF32 (the 3xTF32 split)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// ---- 16-byte vectors of T as fp32 ----
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
   }
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x), f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z), f[3] = __uint_as_float(u.w);
+}
+// Round to T and pack (the rounding point of a depthwise result).
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
 
-  // y2 = relu(affine) in T; the pool is the max of the thread's 2x2 quad
-  const int qy = ty0 + 2 * (tm2 >> 2), qx = tx0 + 2 * (tm2 & 3);
+// Order of the 64 output pixels along GEMM2's M: m = 16*mt + 8*h + g lies in
+// 2x2 window q = 2g + mt/2 at position i = 2*(mt%2) + h. An mma thread holds
+// rows g and g+8 of its m-tiles, so each pair of m-tiles (2j, 2j+1) gives it
+// one whole window per column.
+__device__ __forceinline__ void tile_px2(int m, int& r, int& c) {
+  const int mt = m >> 4, h = (m >> 3) & 1, g = m & 7;
+  const int q = 2 * g + (mt >> 1), i = 2 * (mt & 1) + h;
+  r = 2 * (q >> 2) + (i >> 1);
+  c = 2 * (q & 3) + (i & 1);
+}
+
+// acc[mi][ni] += A[m-tile mt0+mi rows] . B[:, n0 + 8ni .. +8] over ksteps mma
+// depths. A is [row][LDA] (k contiguous), B is [k][LDB] (n contiguous), both
+// in shared memory. m-tiles at or past mt_end are skipped.
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const bf16* A, const bf16* B,
+                                          int mt0, int mt_end, int n0, int ksteps, int lane) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t b[NT / 2][4];  // n-tiles 2np and 2np+1: {b0, b1} each
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int f = f0 + tn2 * 4 + j;
-    if (f >= F2) continue;
-    const float sc = scale2[f], sh = shift2[f];
-    float mx = 0.f;  // every v is >= 0 after the ReLU
+    for (int np = 0; np < NT / 2; ++np)
+      ldsm_x4_trans(b[np], B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n0 +
+                               np * 16 + (lane >> 4) * 8);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int Y = qy + (i >> 1), X = qx + (i & 1);
-      const float v = round_to<T>(fmaxf(acc2[i][j] * sc + sh, 0.f));
-      if (Y < H && X < W) out[(((size_t)b * H + Y) * W + X) * F2 + f] = from_f<T>(v);
-      mx = fmaxf(mx, v);
+    for (int mi = 0; mi < MT; ++mi) {
+      if (mt0 + mi >= mt_end) break;
+      uint32_t a[4];
+      ldsm_x4(a, A + ((mt0 + mi) * 16 + (lane & 15)) * LDA + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+        mma_bf16(acc[mi][ni], a, b[ni / 2][2 * (ni & 1)], b[ni / 2][2 * (ni & 1) + 1]);
     }
-    if (pooled != nullptr && qy < H && qx < W)
-      pooled[(((size_t)b * (H / 2) + qy / 2) * (W / 2) + qx / 2) * F2 + f] = from_f<T>(mx);
   }
 }
 
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const float* A,
+                                          const float* B, int mt0, int mt_end, int n0,
+                                          int ksteps, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[ni][h], bl[ni][h]);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      if (mt0 + mi >= mt_end) break;
+      const float* p = A + ((mt0 + mi) * 16 + g) * LDA + ks * 8 + t;
+      uint32_t ah[4], al[4];
+      split_tf32(p[0], ah[0], al[0]);
+      split_tf32(p[8 * LDA], ah[1], al[1]);
+      split_tf32(p[4], ah[2], al[2]);
+      split_tf32(p[8 * LDA + 4], ah[3], al[3]);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        mma_tf32(acc[mi][ni], al, bh[ni]);
+        mma_tf32(acc[mi][ni], ah, bl[ni]);
+        mma_tf32(acc[mi][ni], ah, bh[ni]);
+      }
+    }
+  }
+}
+
+// Store v[0..1] (columns f, f+1) of an output pixel row, as one vector where
+// both columns exist and the pair is aligned.
 template <typename T>
-int launch(const void* x, const void* x2, const void* dw1, const void* pw1, const void* scale1,
-           const void* shift1, const void* dw2, const void* pw2, const void* scale2,
-           const void* shift2, void* out, void* pooled, int B, int H, int W, int Cx, int Cx2,
-           int F1, int F2, cudaStream_t stream) {
-  const int tiles_x = (W + kTile - 1) / kTile, tiles_y = (H + kTile - 1) / kTile;
-  const dim3 grid(tiles_x * tiles_y, (F2 + kTileF - 1) / kTileF, B);
-  sepconv_pair_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(x2), static_cast<const T*>(dw1),
-      static_cast<const T*>(pw1), static_cast<const float*>(scale1),
-      static_cast<const float*>(shift1), static_cast<const T*>(dw2), static_cast<const T*>(pw2),
-      static_cast<const float*>(scale2), static_cast<const float*>(shift2), static_cast<T*>(out),
-      static_cast<T*>(pooled), H, W, Cx, Cx2, F1, F2, tiles_x);
+__device__ __forceinline__ void store_pair(T* row, int f, int F, bool second, float v0,
+                                           float v1) {
+  if (second && (F & 1) == 0) {
+    if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(row + f) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      *reinterpret_cast<float2*>(row + f) = make_float2(v0, v1);
+    }
+    return;
+  }
+  row[f] = from_f<T>(v0);
+  if (second) row[f + 1] = from_f<T>(v1);
+}
+
+__device__ __forceinline__ float affine_relu(float v, float sc, float sh) {
+  // separately rounded, as the plain version computes v * scale + shift
+  return fmaxf(__fadd_rn(__fmul_rn(v, sc), sh), 0.f);
+}
+
+// Stage a rows x (G * V) tile of T into shared memory dst (row stride lds):
+// element (r, j) is *src(r, j), or 0 where src gives nullptr; only the first
+// `groups` column groups of V are written. With vec, src(r, j) for j a
+// multiple of V points to V elements in one 16-byte-aligned vector (or is
+// nullptr for all of them) and the copy is cp.async, completed by the
+// caller's cp_async_wait_all; a thread keeps one column group. Without vec,
+// plain loads, 8 in flight a thread, stored at once. No runtime division.
+template <int G, typename T, typename Src>
+__device__ __forceinline__ void stage_tile(T* dst, int lds, int rows, int groups, bool vec,
+                                           const T* any, Src src) {
+  constexpr int V = PairCfg<T>::V;
+  if (vec) {
+    static_assert(kPairThreads % G == 0, "a pass covers whole rows");
+    const int j = (threadIdx.x % G) * V;
+    if (j >= groups * V) return;
+    for (int r = threadIdx.x / G; r < rows; r += kPairThreads / G) {
+      const T* p = src(r, j);
+      cp_async16(dst + r * lds + j, p ? p : any, p != nullptr);
+    }
+    return;
+  }
+  constexpr int CB = 16, RS = kPairThreads / CB;  // columns, rows of a pass
+  for (int c = threadIdx.x % CB; c < groups * V; c += CB) {
+    for (int r0 = threadIdx.x / CB; r0 < rows; r0 += 8 * RS) {
+      T v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int r = r0 + u * RS;
+        const T* p = r < rows ? src(r, c) : nullptr;
+        v[u] = p ? *p : from_f<T>(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (r0 + u * RS < rows) dst[(r0 + u * RS) * lds + c] = v[u];
+    }
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
+    sepconv_pair_cluster_kernel(const PairArgs<T> a) {
+  using L = PairSmem<T, W>;
+  constexpr int KC = PairCfg<T>::KC, KS = PairCfg<T>::KS, V = PairCfg<T>::V;
+  constexpr int LDK = L::LDK, LDN = L::LDN;
+  // 8 warps, 2 along M by 4 along N: a warp owns NT n8 tiles (W / 4 columns)
+  // and 4 of GEMM1's 7 m16 tiles (3 in the second row) or 2 of GEMM2's 4
+  constexpr int NT = W / 32, MT1 = 4, MT2 = 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* aff = reinterpret_cast<float*>(smem + L::aff);  // [4][W] scale1, shift1, scale2, shift2
+  T* taps1 = reinterpret_cast<T*>(smem + L::taps1);      // [2][9][KC] dw1 taps of the share
+  T* taps2 = reinterpret_cast<T*>(smem + L::taps2);      // [9][W] dw2 taps of the F1 slice
+  T* xs = reinterpret_cast<T*>(smem + L::xs);            // [2][144][KC] x halo tile of the share
+  T* As = reinterpret_cast<T*>(smem + L::As);            // [2][112][LDK] dw1 of the chunk
+  T* Bs = reinterpret_cast<T*>(smem + L::Bs);            // [2][KC][LDN] pw1 / pw2 chunk
+  T* y1s = reinterpret_cast<T*>(smem + L::y1s);          // [100][LDN] y1 slice on the ring
+  T* d2s = reinterpret_cast<T*>(smem + L::d2s);          // [64][LDN] dw2 of the y1 slice
+  T* A2s = reinterpret_cast<T*>(smem + L::A2s);          // [2][64][LDK] a d2 chunk of any CTA
+
+  PAIR_PHASES_START
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = a.n, rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / n, b = blockIdx.y;
+  const int ty0 = (tile / a.tiles_x) * kTile, tx0 = (tile % a.tiles_x) * kTile;
+  const int H = a.H, Wd = a.W, Cx = a.Cx, C = a.Cx + a.Cx2, F1 = a.F1, F2 = a.F2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wn = warp & 3, wm = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int sh = KC / n;  // this CTA's share of a chunk's channels
+  const int f1_0 = rank * a.s1, len1 = max(0, min(a.s1, F1 - f1_0));
+  const int f2_0 = rank * a.s2, len2 = max(0, min(a.s2, F2 - f2_0));
+
+  // a barrier of the cluster, or of the CTA alone when it is the cluster
+  auto cluster_sync = [&]() {
+    if (n == 1)
+      __syncthreads();
+    else
+      cluster.sync();
+  };
+
+  // channels of chunk c0 that GEMM1 reads (padded to the mma depth), and the
+  // part of this CTA's share among them (a multiple of V)
+  auto share_len = [&](int c0) {
+    const int kpad = min(KC, (C - c0 + KS - 1) / KS * KS);
+    return max(0, min(sh, kpad - rank * sh));
+  };
+  // x halo tile and dw1 taps of this CTA's share of chunk c0 into buffer buf
+  auto stage_x = [&](int c0, int buf) {
+    const int cs = c0 + rank * sh, groups = share_len(c0) / V;
+    stage_tile<KC / V>(xs + buf * kXsPx * KC, KC, kXsPx, groups, a.vec_x, a.x, [&](int q, int k) {
+      const int Y = ty0 - 2 + q / kXs, X = tx0 - 2 + q % kXs, c = cs + k;
+      if (Y < 0 || Y >= H || X < 0 || X >= Wd || c >= C) return (const T*)nullptr;
+      const size_t pix = ((size_t)b * H + Y) * Wd + X;
+      return c < Cx ? a.x + pix * Cx + c : a.x2 + pix * a.Cx2 + (c - Cx);
+    });
+    stage_tile<KC / V>(taps1 + buf * 9 * KC, KC, 9, groups, a.vec_x, a.x, [&](int tap, int k) {
+      return cs + k < C ? a.dw1 + tap * C + cs + k : (const T*)nullptr;
+    });
+  };
+  // Bs[buf][k][j] = w[r0 + k][c0 + j] for k < rows, j < cols, else 0
+  auto stage_w = [&](const T* w, int ld, int r0, int rows, int c0, int cols, int vec, int buf) {
+    stage_tile<W / V>(Bs + buf * KC * LDN, LDN, KC, W / V, vec, a.x, [&](int k, int j) {
+      return k < rows && j < cols ? w + (size_t)(r0 + k) * ld + c0 + j : (const T*)nullptr;
+    });
+  };
+
+  // dw1 of this CTA's share of chunk c0 on the ring, rounded to T, into
+  // buffer buf of every CTA's As. A thread keeps one group of V channels and
+  // takes two horizontally neighbouring ring pixels at a time, so the four
+  // x columns and three taps of each row it loads serve both.
+  auto dw1_push = [&](int c0, int buf) {
+    const T* src = xs + buf * kXsPx * KC;
+    const T* tp = taps1 + buf * 9 * KC;
+    constexpr int G = KC / V;
+    const int v = tid % G;
+    if (v >= share_len(c0) / V) return;
+    const int off = buf * kM1 * LDK + rank * sh + v * V;
+    for (int pp = tid / G; pp < kHaloPx / 2; pp += kPairThreads / G) {
+      const int py = pp / (kHalo / 2), px = 2 * (pp % (kHalo / 2));
+      float s0[V] = {}, s1[V] = {};
+#pragma unroll
+      for (int di = 0; di < 3; ++di) {
+        float tv[3][V];
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj)
+          unpack(*reinterpret_cast<const uint4*>(tp + (di * 3 + dj) * KC + v * V), tv[dj]);
+#pragma unroll
+        for (int dx = 0; dx < 4; ++dx) {
+          float xv[V];
+          unpack(*reinterpret_cast<const uint4*>(src + ((py + di) * kXs + px + dx) * KC + v * V),
+                 xv);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            if (dx < 3) s0[j] = fmaf(xv[j], tv[dx][j], s0[j]);
+            if (dx > 0) s1[j] = fmaf(xv[j], tv[dx - 1][j], s1[j]);
+          }
+        }
+      }
+      const int p = py * kHalo + px;
+      const uint4 v0 = pack(s0), v1 = pack(s1);
+      if (n == 1) {
+        *reinterpret_cast<uint4*>(As + off + p * LDK) = v0;
+        *reinterpret_cast<uint4*>(As + off + (p + 1) * LDK) = v1;
+      } else {
+        for (int q = 0; q < n; ++q) {
+          T* dst = cluster.map_shared_rank(As, q) + off + p * LDK;
+          *reinterpret_cast<uint4*>(dst) = v0;
+          *reinterpret_cast<uint4*>(dst + LDK) = v1;
+        }
+      }
+    }
+  };
+
+  // ---- block 1: y1 slice = relu(affine(dw1(x) . pw1[:, slice])) on the ring ----
+  // the slice's affines and dw2 taps, and chunk 0, all in flight together
+  for (int i = tid; i < 4 * W; i += kPairThreads) {
+    const int which = i / W, j = i % W, f = (which < 2 ? f1_0 : f2_0) + j;
+    const bool ok = j < (which < 2 ? len1 : len2);
+    const float* src = which == 0 ? a.scale1 : which == 1 ? a.shift1 : which == 2 ? a.scale2
+                                                                                   : a.shift2;
+    cp_async4(aff + i, ok ? src + f : a.scale1, ok);
+  }
+  stage_tile<W / V>(taps2, W, 9, W / V, a.vec_w1, a.x, [&](int tap, int j) {
+    return j < len1 ? a.dw2 + tap * F1 + f1_0 + j : (const T*)nullptr;
+  });
+  PAIR_PHASE(0)
+  const int nch1 = (C + KC - 1) / KC;
+  stage_x(0, 0);
+  stage_w(a.pw1, F1, 0, min(KC, C), f1_0, len1, a.vec_w1, 0);
+  cp_async_commit();
+  PAIR_PHASE(1)
+  cluster_sync();  // every CTA of the cluster runs before any remote store
+  float acc1[MT1][NT][4] = {};
+  for (int i = 0; i < nch1; ++i) {
+    const int c0 = i * KC, buf = i & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (i == 0) {
+      PAIR_PHASE(2)
+    }
+    if (i + 1 < nch1) {
+      stage_x(c0 + KC, buf ^ 1);
+      stage_w(a.pw1, F1, c0 + KC, min(KC, C - c0 - KC), f1_0, len1, a.vec_w1, buf ^ 1);
+    }
+    cp_async_commit();
+    dw1_push(c0, buf);
+    cluster_sync();  // the chunk's dw1 is complete in every CTA
+    const int ksteps = min(KC, (C - c0 + KS - 1) / KS * KS) / KS;
+    warp_gemm<MT1, NT, LDK, LDN>(acc1, As + buf * kM1 * LDK, Bs + buf * KC * LDN, wm * MT1, 7,
+                                 wn * 8 * NT, ksteps, lane);
+  }
+
+  // GEMM2's chunks: chunk j -> (source CTA q, first column kc of its F1
+  // slice, valid columns); its weights go to Bs[(nch1 + j) & 1], and chunk
+  // 0's are requested now, the buffer being free since chunk nch1 - 2
+  auto chunk_of = [&](int j, int& q, int& kc, int& cols) {
+    for (q = 0; q < n; ++q) {
+      const int len = max(0, min(a.s1, F1 - q * a.s1)), cnt = (len + KC - 1) / KC;
+      if (j < cnt) {
+        kc = j * KC;
+        cols = min(KC, len - kc);
+        return;
+      }
+      j -= cnt;
+    }
+  };
+  PAIR_PHASE(3)
+  int nch2 = 0;
+  for (int q = 0; q < n; ++q) nch2 += (max(0, min(a.s1, F1 - q * a.s1)) + KC - 1) / KC;
+  const bool gemm2 = len2 > 0 && nch2 > 0;
+  if (gemm2) {
+    int q, kc, cols;
+    chunk_of(0, q, kc, cols);
+    stage_w(a.pw2, F2, q * a.s1 + kc, cols, f2_0, len2, a.vec_w2, nch1 & 1);
+  }
+  cp_async_commit();
+  __syncthreads();  // y1 may reuse the x tiles and dw1 chunks
+
+  // y1 = relu(affine), zero outside the image and outside F1, rounded to T
+  float sc1[NT][2], sh1[NT][2];
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int col = wn * 8 * NT + ni * 8 + 2 * t + jj;
+      sc1[ni][jj] = aff[col], sh1[ni][jj] = aff[W + col];
+    }
+#pragma unroll
+  for (int mi = 0; mi < MT1; ++mi) {
+    const int mt = wm * MT1 + mi;
+    if (mt >= 7) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mt * 16 + h * 8 + g;
+      if (p >= kHaloPx) continue;
+      const int Y = ty0 - 1 + p / kHalo, X = tx0 - 1 + p % kHalo;
+      const bool inside = Y >= 0 && Y < H && X >= 0 && X < Wd;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int col = wn * 8 * NT + ni * 8 + 2 * t;
+        float v[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          v[jj] = inside && col + jj < len1
+                      ? affine_relu(acc1[mi][ni][2 * h + jj], sc1[ni][jj], sh1[ni][jj])
+                      : 0.f;
+        store_pair(y1s + p * LDN, col, 0, true, v[0], v[1]);
+      }
+    }
+  }
+  __syncthreads();
+  PAIR_PHASE(4)
+
+  // ---- block 2's depthwise on the slice, for the 64 output pixels ----
+  // A thread keeps one group of V channels, its 9 taps in registers.
+  {
+    constexpr int G = W / V;
+    const int v = tid % G;
+    float tv[9][V];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      unpack(*reinterpret_cast<const uint4*>(taps2 + tap * W + v * V), tv[tap]);
+#pragma unroll 2
+    for (int m = tid / G; m < kTilePx; m += kPairThreads / G) {
+      int r, c;
+      tile_px2(m, r, c);
+      float s[V] = {};
+#pragma unroll
+      for (int di = 0; di < 3; ++di)
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj) {
+          float yv[V];
+          unpack(*reinterpret_cast<const uint4*>(y1s + ((r + di) * kHalo + c + dj) * LDN + v * V),
+                 yv);
+#pragma unroll
+          for (int j = 0; j < V; ++j) s[j] = fmaf(yv[j], tv[di * 3 + dj][j], s[j]);
+        }
+      *reinterpret_cast<uint4*>(d2s + m * LDN + v * V) = pack(s);
+    }
+  }
+  cluster_sync();  // every CTA's d2 slice is complete
+  PAIR_PHASE(5)
+
+  // ---- GEMM2: y2[:, F2 slice] = sum over the CTAs' F1 slices of d2 . pw2 ----
+  // a d2 chunk: 64 rows x KC columns = 512 vectors, two a thread
+  auto load_a2 = [&](int q, int kc, uint4 (&r)[2]) {
+    const T* src = q == rank ? d2s : cluster.map_shared_rank(d2s, q);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = tid + e * kPairThreads, m = i / (KC / V), v = i % (KC / V);
+      r[e] = *reinterpret_cast<const uint4*>(src + m * LDN + kc + v * V);
+    }
+  };
+  auto store_a2 = [&](int buf, const uint4 (&r)[2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = tid + e * kPairThreads, m = i / (KC / V), v = i % (KC / V);
+      *reinterpret_cast<uint4*>(A2s + buf * kTilePx * LDK + m * LDK + v * V) = r[e];
+    }
+  };
+
+  float acc2[MT2][NT][4] = {};
+  if (gemm2) {
+    int q, kc, cols;
+    uint4 pre[2];
+    chunk_of(0, q, kc, cols);
+    load_a2(q, kc, pre);
+    store_a2(0, pre);
+    for (int j = 0; j < nch2; ++j) {
+      const int buf = j & 1, wbuf = (nch1 + j) & 1;
+      chunk_of(j, q, kc, cols);
+      const int ksteps = (cols + KS - 1) / KS;
+      cp_async_wait_all();
+      __syncthreads();
+      const bool more = j + 1 < nch2;
+      if (more) {
+        int q1, kc1, cols1;
+        chunk_of(j + 1, q1, kc1, cols1);
+        stage_w(a.pw2, F2, q1 * a.s1 + kc1, cols1, f2_0, len2, a.vec_w2, wbuf ^ 1);
+        load_a2(q1, kc1, pre);
+      }
+      cp_async_commit();
+      warp_gemm<MT2, NT, LDK, LDN>(acc2, A2s + buf * kTilePx * LDK, Bs + wbuf * KC * LDN,
+                                   wm * MT2, 4, wn * 8 * NT, ksteps, lane);
+      if (more) store_a2(buf ^ 1, pre);
+    }
+  }
+
+  PAIR_PHASE(6)
+  // y2 = relu(affine) in T. A thread's rows of its two m-tiles are one 2x2
+  // window (tile_px2), so the pool is the max over its own four values.
+  const size_t img = (size_t)b * H * Wd;
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) {
+    const int col = wn * 8 * NT + ni * 8 + 2 * t;
+    if (col >= len2) continue;
+    const bool second = col + 1 < len2;
+    float sc[2], shf[2], mx[2] = {0.f, 0.f};  // every value is >= 0 after the ReLU
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) sc[jj] = aff[2 * W + col + jj], shf[jj] = aff[3 * W + col + jj];
+    int r = 0, c = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tile_px2((wm * MT2 + e) * 16 + h * 8 + g, r, c);
+        float v[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          v[jj] = round_to<T>(affine_relu(acc2[e][ni][2 * h + jj], sc[jj], shf[jj]));
+          mx[jj] = fmaxf(mx[jj], v[jj]);
+        }
+        const int Y = ty0 + r, X = tx0 + c;
+        if (Y < H && X < Wd)
+          store_pair(a.out + (img + (size_t)Y * Wd + X) * F2, f2_0 + col, F2, second, v[0], v[1]);
+      }
+    const int Yq = ty0 + (r & ~1), Xq = tx0 + (c & ~1);
+    if (a.pooled != nullptr && Yq < H && Xq < Wd)
+      store_pair(a.pooled + (((size_t)b * (H / 2) + Yq / 2) * (Wd / 2) + Xq / 2) * F2,
+                 f2_0 + col, F2, second, mx[0], mx[1]);
+  }
+  PAIR_PHASE(7)
+  // no CTA leaves while another may still read its d2; the arrival releases
+  // nothing (every remote access before it was a read, already complete)
+  if (n > 1) {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  }
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <typename T, int W>
+int launch(PairArgs<T> a, int B, int tiles, int smem, cudaStream_t stream) {
+  if (smem != PairSmem<T, W>::bytes) return (int)cudaErrorInvalidValue;
+  auto kernel = sepconv_pair_cluster_kernel<T, W>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n * tiles, B, 1);
+  cfg.blockDim = dim3(kPairThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
+                const void* scale1, const void* shift1, const void* dw2, const void* pw2,
+                const void* scale2, const void* shift2, void* out, void* pooled, int B, int H,
+                int W, int Cx, int Cx2, int F1, int F2, int n, int s1, int s2, int width,
+                int smem, cudaStream_t stream) {
+  constexpr int V = PairCfg<T>::V;
+  const bool plan_ok = (n == 1 || n == 2 || n == 4 || n == 8) && s1 % 16 == 0 &&
+                       s2 % 16 == 0 && s1 > 0 && s2 > 0 && s1 <= width && s2 <= width &&
+                       n * s1 >= F1 && n * s2 >= F2 && Cx > 0 && Cx2 >= 0 && B > 0 &&
+                       B <= 65535 && H > 0 && W > 0;
+  if (!plan_ok || (Cx2 > 0 && x2 == nullptr)) return (int)cudaErrorInvalidValue;
+  PairArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.x2 = static_cast<const T*>(x2);
+  a.dw1 = static_cast<const T*>(dw1);
+  a.pw1 = static_cast<const T*>(pw1);
+  a.scale1 = static_cast<const float*>(scale1);
+  a.shift1 = static_cast<const float*>(shift1);
+  a.dw2 = static_cast<const T*>(dw2);
+  a.pw2 = static_cast<const T*>(pw2);
+  a.scale2 = static_cast<const float*>(scale2);
+  a.shift2 = static_cast<const float*>(shift2);
+  a.out = static_cast<T*>(out);
+  a.pooled = static_cast<T*>(pooled);
+  a.H = H, a.W = W, a.Cx = Cx, a.Cx2 = Cx2, a.F1 = F1, a.F2 = F2;
+  a.tiles_x = (W + kTile - 1) / kTile;
+  a.n = n, a.s1 = s1, a.s2 = s2;
+  a.vec_x = Cx % V == 0 && Cx2 % V == 0 && aligned16(x) && (Cx2 == 0 || aligned16(x2)) &&
+            aligned16(dw1);
+  a.vec_w1 = F1 % V == 0 && aligned16(pw1) && aligned16(dw2);
+  a.vec_w2 = F2 % V == 0 && aligned16(pw2);
+  const int tiles = a.tiles_x * ((H + kTile - 1) / kTile);
+  if (width == 64) return launch<T, 64>(a, B, tiles, smem, stream);
+  if (width == 128) return launch<T, 128>(a, B, tiles, smem, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace unet
 
+#ifdef UNET_PAIR_PHASES
+// Where the phase marks go: a device buffer of kPairPhases int64 a CTA.
+extern "C" int unet_pair_phases_buffer(void* buf) {
+  return (int)cudaMemcpyToSymbol(unet_pair_phases, &buf, sizeof(buf));
+}
+#endif
+
 // x2 may be null when Cx2 == 0; pooled may be null (no pool output; H and W
-// must be even when it is given). dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch.
+// must be even when it is given). (n, s1, s2, width, smem) is the launch plan
+// of pair_plan (fused_sepconv.py): n CTAs a cluster, F1 and F2 slices of s1
+// and s2 channels, the slice width 64 or 128, the dynamic shared memory in
+// bytes (checked against this file's layout). dtype: 0 = float32, 1 =
+// bfloat16. Returns cudaGetLastError() after the launch.
 extern "C" int unet_sepconv_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
                                  const void* scale1, const void* shift1, const void* dw2,
                                  const void* pw2, const void* scale2, const void* shift2,
                                  void* out, void* pooled, int B, int H, int W, int Cx, int Cx2,
-                                 int F1, int F2, int dtype, void* stream) {
+                                 int F1, int F2, int n, int s1, int s2, int width, int smem,
+                                 int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return unet::launch<float>(x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out,
-                               pooled, B, H, W, Cx, Cx2, F1, F2, s);
+    return unet::launch_pair<float>(x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2,
+                                    out, pooled, B, H, W, Cx, Cx2, F1, F2, n, s1, s2, width,
+                                    smem, s);
   if (dtype == 1)
-    return unet::launch<__nv_bfloat16>(x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2,
-                                       out, pooled, B, H, W, Cx, Cx2, F1, F2, s);
+    return unet::launch_pair<__nv_bfloat16>(x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2,
+                                            shift2, out, pooled, B, H, W, Cx, Cx2, F1, F2, n, s1,
+                                            s2, width, smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,7 @@ callbacks the reference trains with:
 * :class:`EarlyStopping`: patience, optional restore of the best weights;
 * :class:`ReduceLROnPlateau`: lowers the AdamW learning rate in place;
 * :class:`TensorBoardLogger`: per-epoch scalars and weight histograms
-  through the JAX package's pure-Python event writer.
+  through the port's own pure-Python event writer, ``utils/tb_writer.py``.
 
 All comparisons use strict improvement (Keras min_delta=0).
 """

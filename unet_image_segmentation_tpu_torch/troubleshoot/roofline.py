@@ -33,6 +33,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # the CUDA cores alone (K12b's elementwise FMAs): fp32 67 TFLOP/s, bf16x2
 # FMAs 133.8 TFLOP/s (Hopper white paper)
 PEAK_CUDA_CORE_OPS_PER_S = {"bfloat16": 133.8e12, "float32": 67e12}
+# TF32 on the tensor cores (K7's fp32 products run as 3xTF32: three TF32
+# products for each)
+PEAK_TF32_OPS_PER_S = 495e12
 
 # wrapper (its key in an ops module's LAUNCHES) -> (K label, CUDA source
 # under ops/kernels/csrc/, the TPU kernel it replaces under
@@ -60,7 +63,7 @@ SUMS = "sums"  # label of reduce_rows' colsum_kernel, which every summing kernel
 # __global__ entry -> (wrapper, part). A wrapper call launches each of its
 # parts once, one entry of each (the tensor-core or the FMA variant).
 ENTRIES: Dict[str, Tuple[Optional[str], str]] = {
-    "sepconv_pair_kernel": ("sepconv_pair", "pair"),
+    "sepconv_pair_cluster_kernel": ("sepconv_pair", "pair"),
     "sepconv_block_kernel": ("sepconv_block", "block"),
     "chain_fwd_kernel": ("chain_fwd", "link"),
     "chain_bwd_tile_kernel": ("chain_bwd", "pass (a)"),
@@ -210,7 +213,7 @@ def work(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, fl
         c, px = cx + cx2, batch * h * h
         out = px * f2 * (1.25 if mode == "pool" else 1.0)
         nbytes = e * (px * c + out + 9 * c + c * f1 + 9 * f1 + f1 * f2)
-        ops = 2 * px * (9 * c + c * f1 + 9 * f1 + f1 * f2)
+        ops = sum(pair_ops(shape, batch))
     elif name == "sepconv_block":
         c, f, h = shape
         px = batch * h * h
@@ -266,14 +269,30 @@ def work(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, fl
     return float(nbytes), float(ops)
 
 
+def pair_ops(shape: tuple, batch: int = 1) -> Tuple[float, float]:
+    """(products, depthwise) operations of one K7 call at a stage ``shape``:
+    the two pointwise GEMMs and the two 3x3 depthwise convolutions."""
+    _, cx, cx2, f1, f2, h, _ = shape
+    c, px = cx + cx2, batch * h * h
+    return 2.0 * px * (c * f1 + f1 * f2), 2.0 * px * (9 * c + 9 * f1)
+
+
 def bounds_ms(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, str]:
     """The least time, in ms, the card could take for one call of wrapper
     ``name`` at ``shape`` in ``dname``, and which of "bytes" and
-    "operations" bounds it. K12b's FMAs are held to the CUDA cores' peak,
-    every other kernel's operations to :data:`PEAK_OPS_PER_S`."""
+    "operations" bounds it. K12b's FMAs are held to the CUDA cores' peak.
+    K7's products run on the tensor cores (bf16; fp32 as 3xTF32, three TF32
+    products each) while its depthwise runs on the CUDA cores in fp32, the
+    two at once. Every other kernel's operations are held to
+    :data:`PEAK_OPS_PER_S`."""
     nbytes, ops = work(name, shape, dname, batch)
     peaks = PEAK_CUDA_CORE_OPS_PER_S if name == "fma_probe" else PEAK_OPS_PER_S
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peaks[dname] * 1e3
+    if name == "sepconv_pair":
+        gemm, dw = pair_ops(shape, batch)
+        tc = (gemm / PEAK_OPS_PER_S["bfloat16"] if dname == "bfloat16"
+              else 3 * gemm / PEAK_TF32_OPS_PER_S)
+        t_ops = max(tc, dw / PEAK_OPS_PER_S["float32"]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
