@@ -41,7 +41,11 @@ exit code and no result line:
    dec1 of the 512 px model with 3 classes and at another width with 4, on
    such inputs and with two classes' logits tied everywhere (the confusion
    matrix must match exactly), K9/K10 (per-block training) at the 18 block
-   shapes of the 256 px model;
+   shapes of the 256 px model; then K2 and K10 at other shapes, batch 2 and
+   3 (``LINK_RAGGED``: H x W 20 x 36, 3 input channels with F = 48, C = 5
+   with F = 33 off the mma's depth, C = 200 with F = 72 so the last C
+   slice and dpw tile are partial, a 1024 -> 1024 link at 16 px with the
+   affine, the dropout and the output mask, and the 512 px model's links);
 8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
    3 train steps with the kernels against 3 of the composed path in fp32
@@ -71,9 +75,11 @@ exit code and no result line:
    fp32) exactly and K12b (the FMA-rate probe at (1024, 512), K = 2048)
    bit for bit in bf16 and within K * 2^-24 in fp32 against their plain
    versions, with their times; ``link_floors --iters 5`` (K12's launch cost
-   and FMA rates, K2 timed alone at the 18 links with one launch a timed
-   call, each link split into pass (a), pass (b) and the row sums under the
-   profiler, against its bytes floor and FMA model; ``build/link_floors.json``);
+   and FMA rates, the tensor cores' product rate, K2 timed alone at the 18
+   links with one launch a timed call, each link split into pass (a), pass
+   (b) and the row sums under the profiler, against its bytes floor and the
+   model of its route, with its executed over useful multiply-adds;
+   ``build/link_floors.json``);
    ``step_attribution`` on the default step (sites plus glue equal to the
    device's busy time within 2%, 18/18/4/4 K1-K4, 4/4 K6 and 1/1 K5
    launches a step; ``build/step_attribution.json``); ``check_install`` and
@@ -197,6 +203,19 @@ PAIR_RAGGED = [("20x36", 32, 0, 64, 64, 20, 36, "plain"),
     (f"512px {name}", cx, cx2, f1, f2, h, h, mode)
     for name, cx, cx2, f1, f2, h, mode in roofline.stage_shapes(512, FILTERS)]
 PAIR_RAGGED_BATCHES = (2, 3)
+# K2/K10 beyond the path's shapes (phase 7): (label, C, F, H, W, in_aff, drop,
+# mask_combine) at these batches; ragged edges, 3 and 5 input channels, F
+# off the mma's k16 (33), a partial last C slice and dpw tile (C = 200), the
+# deepest link in every mode, and the 512 px model's links
+LINK_RAGGED = [("20x36", 32, 64, 20, 36, True, False, True),
+               ("c3 f48", 3, 48, 24, 24, False, False, False),
+               ("c5 f33", 5, 33, 10, 14, True, False, True),
+               ("c200 f72", 200, 72, 12, 20, True, False, False),
+               ("deep affine mask", 1024, 1024, 16, 16, True, False, True),
+               ("deep dropout mask", 1024, 1024, 16, 16, False, True, True)] + [
+    (f"512px {name}", c, f, h, h, in_aff, drop, mask)
+    for name, c, f, h, in_aff, drop, mask in roofline.chain_links(512, FILTERS)]
+LINK_RAGGED_BATCHES = (2, 3)
 LINKS = roofline.chain_links(IMAGE, FILTERS)
 POOLS = roofline.pool_shapes(IMAGE, FILTERS)
 FEEDS = roofline.upconcat_shapes(IMAGE, FILTERS)
@@ -364,6 +383,21 @@ def judge_link(ft, tjudge, k, label, dname, in_aff, mc):
     tjudge("chain_bwd", label + " ddw/dpw/st", dname, pairs, sums=True)
 
 
+def judge_bwd(ft, fs, tjudge, k, label, dname, in_aff, mc):
+    """K2 and K10 on one link's inputs, against plain (K10 takes the link's
+    x, g and weights)."""
+    args = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
+    got, want = ft.chain_bwd(*args), ft.chain_bwd_reference(*args)
+    tjudge("chain_bwd", label + " dx", dname, [(got[0], want[0])])
+    pairs = [(got[1], want[1]), (got[2], want[2])] + ([(got[3], want[3])] if in_aff else [])
+    tjudge("chain_bwd", label + " ddw/dpw/st", dname, pairs, sums=True)
+    bwd = (k["x"], k["g"], k["dw"], k["pw"])
+    got, want = fs.sepconv_bwd(*bwd), fs.sepconv_bwd_reference(*bwd)
+    tjudge("sepconv_bwd", label + " dx", dname, [(got[0], want[0])])
+    tjudge("sepconv_bwd", label + " ddw/dpw/dbias", dname, list(zip(got[1:], want[1:])),
+           sums=True)
+
+
 def judge_pool(ft, tjudge, k, label, dname):
     """K3 and K4 on one encoder boundary's inputs, against plain."""
     a, b = k["aff4"][0], k["aff4"][1]
@@ -419,6 +453,20 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
             ties = ((win == win.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4)) > 1)
             judge_pool(ft, tjudge, k, f"{name} F={f}@{h} (windows with a tied max "
                        f"{ties.float().mean().item():.2f})", dname)
+
+    print(f"K2/K10 vs plain at other shapes, batch "
+          f"{' and '.join(map(str, LINK_RAGGED_BATCHES))}, TF32 off:")
+    stream = rnd.gen.get_state()  # these cases leave the later phases' seeded inputs as they were
+    for dname, dtype in dtypes.items():
+        for batch in LINK_RAGGED_BATCHES:
+            for name, c, f, h, w, in_aff, drop, mc in LINK_RAGGED:
+                k = link_inputs(rnd, dev, dtype, batch, c, f, h, in_aff, drop, w)
+                plan = ft.chain_bwd_plan(batch, h, w, c, f, dtype)
+                label = (f"{link_label(name, c, f, f'{h}x{w}', in_aff, drop, mc)} batch {batch}, "
+                         f"slices {plan.grid_a[1]} x {plan.wc}, dpw {plan.tm}x{plan.tn} "
+                         f"x {plan.splits} splits")
+                judge_bwd(ft, fs, tjudge, k, label, dname, in_aff, mc)
+    rnd.gen.set_state(stream)
 
 
 class MemoryDataset:

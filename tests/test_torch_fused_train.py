@@ -16,6 +16,7 @@ import torch
 
 from unet_image_segmentation_tpu.ops.pallas import fused_train as jft
 from unet_image_segmentation_tpu_torch.ops import fused_train as tft
+from unet_image_segmentation_tpu_torch.troubleshoot import roofline
 
 HW = 16
 OUT_TOL = dict(atol=2e-4, rtol=1e-4)
@@ -181,3 +182,105 @@ def test_link_wrappers_reject_dropout_with_affine():
     with pytest.raises(ValueError, match="exclusive"):
         tft.chain_fwd(x, torch.zeros(3, 3, 2), torch.zeros(2, 2), torch.ones(2, 2),
                       tft.Dropout(1, 0.5))
+
+
+_BWD_PLAN_SHAPES = [
+    pytest.param(2, 8, 8, 3, 33, id="c3-f33"),
+    pytest.param(3, 20, 36, 3, 48, id="ragged-20x36-c3-f48"),
+    pytest.param(2, 13, 11, 5, 33, id="ragged-c5-f33"),
+    pytest.param(2, 16, 16, 64, 1024, id="c64-f1024"),
+    pytest.param(3, 20, 36, 200, 72, id="ragged-c200-f72"),
+    pytest.param(2, 16, 16, 1024, 33, id="c1024-f33"),
+    pytest.param(32, 16, 16, 1024, 1024, id="bneck2-batch32"),
+    pytest.param(32, 256, 256, 64, 64, id="enc1.2-batch32"),
+    pytest.param(65535, 8, 8, 128, 128, id="batch-65535"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,w,c,f", _BWD_PLAN_SHAPES)
+def test_chain_bwd_plan(b, h, w, c, f, dtype):
+    """Pass (a): a CTA per 8x8 tile, C slice and sample, the slice 64 wide
+    only where C fits it, so gy is built once per tile up to C = 128 and
+    C/128 times past it; two CTAs an SM by shared memory. Pass (b): dpw
+    tiles of 64 or 128 covering C x F, splits of whole KC-pixel chunks that
+    cover the B*H*W pixels, each split non-empty; the grids within CUDA's
+    limits."""
+    plan = tft.chain_bwd_plan(b, h, w, c, f, dtype)
+    kc = {torch.bfloat16: 32, torch.float32: 16}[dtype]
+    assert plan.wc == (64 if c <= 64 else 128)
+    assert plan.grid_a == (-(-h // 8) * -(-w // 8), -(-c // plan.wc), b)
+    assert plan.grid_a[1] == max(1, -(-c // 128))
+    assert 2 * (plan.smem_a + 1024) <= 228 * 1024 and plan.smem_b <= tft.SMEM_MAX == 232448
+    assert plan.tm in (64, 128) and plan.tn in (64, 128)
+    assert plan.tm >= min(c, 128) or c > 64 and plan.tm == 128
+    p = b * h * w
+    assert plan.per % kc == 0 and (plan.splits - 1) * plan.per < p <= plan.splits * plan.per
+    assert plan.grid_b == (-(-f // plan.tn), -(-c // plan.tm), plan.splits)
+    assert plan.grid_b[2] <= 65535 and plan.grid_a[0] < 2 ** 31
+    assert plan.cols_b == c * f
+    assert plan.cm % (16 // dtype.itemsize) == 0 and c <= plan.cm < c + 16 // dtype.itemsize
+    assert tft.chain_bwd_plan(b, h, w, c, f, dtype, bias=True).cols_b == c * f + f
+
+
+def test_chain_bwd_plan_by_hand():
+    """bf16 enc1.2 of the 256 px step at batch 32: 1024 tiles of 64 channels;
+    dpw in one 64x64 tile, 264 splits of 7968 pixels (2^21 / 264 = 7944.2,
+    rounded up to 32-pixel chunks); the shared memory of TileSmem /
+    DpwSmem in chain_bwd.cu."""
+    plan = tft.chain_bwd_plan(32, 256, 256, 64, 64, torch.bfloat16)
+    assert plan.grid_a == (1024, 1, 32) and plan.wc == 64
+    # 4 stages of g [112][40], y [100][40], pw [64][40] (bf16) and comb [6][32]
+    assert plan.smem_a == 4 * (2 * (112 + 100 + 64) * 40 + 4 * 6 * 32) == 91392
+    assert (plan.tm, plan.tn, plan.splits, plan.per) == (64, 64, 264, 7968)
+    assert plan.smem_b == 2 * 4 * 32 * (72 + 72) == 36864
+    deep = tft.chain_bwd_plan(32, 16, 16, 1024, 1024, torch.float32)
+    assert deep.grid_a == (4, 8, 32)
+    assert deep.smem_a == 4 * (4 * (112 + 100 + 128) * 20 + 4 * 6 * 16) == 110336
+    assert deep.smem_a > 2 * 4 * 100 * 136   # dm and x [100][136] (fp32) in the stages' place
+    assert deep.grid_b[:2] == (8, 8) and deep.smem_b == 4 * 4 * 16 * (136 + 136)
+
+
+def test_chain_bwd_plan_refuses_what_the_kernel_cannot_launch():
+    with pytest.raises(ValueError, match="batch"):
+        tft.chain_bwd_plan(65536, 8, 8, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="empty"):
+        tft.chain_bwd_plan(1, 8, 8, 0, 64, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tft.chain_bwd_plan(1, 8, 8, 64, 64, torch.float16)
+
+
+def test_chain_bwd_work_by_hand():
+    """One 8x8 tile, C = 3, F = 8, bf16: one CTA of a 64-wide slice whose
+    first warp column (16 channels) alone holds C; F pads to one k16 step;
+    pass (b) one 64x64 tile with one m16 tile and one warp's 16 columns
+    over 64 pixels."""
+    work = tft.chain_bwd_work(1, 8, 8, 3, 8, torch.bfloat16)
+    assert work.pass_a_mma == 112 * 16 * 16
+    assert work.pass_b_mma == 16 * 16 * 64
+    assert work.elementwise == 64 * 3 * 27
+    assert work.useful == 64 * (2 * 3 * 8 + 27 * 3)
+    assert work.executed == work.pass_a_mma + work.pass_b_mma + work.elementwise
+    fp32 = tft.chain_bwd_work(1, 8, 8, 3, 8, torch.float32)   # F = 8: one k8 step
+    assert fp32.pass_a_mma == 112 * 16 * 8 and fp32.pass_b_mma == 16 * 16 * 64
+    # C = 200, F = 72 at 20x36: two slices (128 + 72 channels: 3 of 4 warp
+    # columns of the second), 3 x 5 tiles; F in chunks of 32 (32, 32, 8 -> 16)
+    # pass (b): 128 + 80 rows of m16 tiles holding C, F in one 128 tile of
+    # which 3 warp columns (96) hold F, 3 splits of 480 pixels over 1440
+    work = tft.chain_bwd_work(2, 20, 36, 200, 72, torch.bfloat16)
+    assert work.pass_a_mma == 2 * 15 * 112 * (128 + 96) * 80
+    plan = tft.chain_bwd_plan(2, 20, 36, 200, 72, torch.bfloat16)
+    assert (plan.tm, plan.tn, plan.splits, plan.per) == (128, 128, 3, 480)
+    assert work.pass_b_mma == (128 + 80) * 96 * 1440
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_chain_bwd_work_on_the_unet_links(dtype):
+    """At the 256 px step's links only the ring (112 GEMM rows for 64
+    pixels), the slice width and the mma depth are left: at most 1.4x
+    executed over useful, but at enc1.1, whose 3 input channels take one
+    16-channel warp column of dm and one m16 tile of dpw."""
+    for name, c, f, h, *_ in roofline.chain_links(256, (64, 128, 256, 512)):
+        work = tft.chain_bwd_work(32, h, h, c, f, dtype)
+        ratio = work.executed / work.useful
+        assert 1.0 < ratio <= (6.5 if name == "enc1.1" else 1.4), (name, ratio)

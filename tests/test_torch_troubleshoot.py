@@ -156,7 +156,7 @@ def test_bounds_by_hand():
     assert roofline.bounds_ms("chain_bwd", link, "bfloat16", 32) == \
         pytest.approx((nbytes / 3.35e12 * 1e3, "bytes"))
     # fp32: 4-byte activations (0.641 ms) outweigh its 2*(2*C*F + 27*C)
-    # operations a pixel on the CUDA cores (0.621 ms)
+    # operations a pixel (0.621 ms even if all ran on the CUDA cores)
     nbytes32 = 4 * (px * 256 + 9 * 64 + 64 * 64) + 4 * (11 * 64 + 64 * 64)
     ops = 2 * px * (2 * 64 * 64 + 27 * 64)
     assert roofline.work("chain_bwd", link, "float32", 32) == (nbytes32, ops)
@@ -220,16 +220,69 @@ def test_pair_phases_needs_a_card(monkeypatch, capsys):
 
 
 def test_k2_instruction_count_by_hand():
-    """One 8x8 tile, C = 3 (one 64-wide chunk), F = 8, no modes."""
+    """One 8x8 tile, C = 3 (one 64-wide slice), F = 8, no modes, bf16: dm
+    on 112 GEMM rows x the first warp column's 16 channels x one k16 step;
+    dpw on one m16 tile x one warp's 16 columns x 64 pixels; on the CUDA
+    cores gy over the ring and the 32 channels of the chunk, 27 FMAs a
+    pixel for each of the 3 channels, the 4 row groups' sum of 11 partials."""
     got = link_floors.k2_instructions(1, 8, 8, 3, 8, False, False, False)
-    pass_a = 100 * 8 * 3 + 128 * 64 * 8 + 64 * 64 * 27 + 4 * 11 * 64
-    assert got == {"pass_a": pass_a, "pass_b": 64 * 64 * 64, "sums": 11 * 3 + 3 * 8}
+    pass_a = 100 * 32 * 3 + 64 * 3 * 27 + 3 * 4 * 11
+    assert got == {"pass_a_mma": 112 * 16 * 16, "pass_b_mma": 16 * 16 * 64, "pass_a_fma": pass_a,
+                   "sums": 11 * 3 + 3 * 8}
+    # the input affine (its mask, S, T, and z of 2 new values a pixel) and
+    # the output mask (2 more a gy value)
     modes = link_floors.k2_instructions(1, 8, 8, 3, 8, True, False, True)
-    assert modes["pass_a"] == pass_a + 100 * 8 * 2 + 100 * 64 * 3 + 64 * 64 * 6
+    assert modes["pass_a_fma"] == pass_a + 100 * 32 * 2 + 64 * 3 * (6 + 2 * 3)
+    drop = link_floors.k2_instructions(1, 8, 8, 3, 8, False, True, False)
+    assert drop["pass_a_fma"] == pass_a + 64 * 3 * (1 + 2 * 1)
+    fp32 = link_floors.k2_instructions(1, 8, 8, 3, 8, False, False, False, "float32")
+    assert fp32["pass_a_mma"] == 112 * 16 * 8   # F = 8 is one k8 step; chunks of 16
+    assert fp32["pass_a_fma"] == 100 * 16 * 3 + 64 * 3 * 27 + 3 * 4 * 11
     plan = link_floors.k2_plan(32, 256, 256, 64, 64)
-    assert plan["blocks_a"] == 32 * 32 * 32 and plan["rows_a"] == 32 * 1024
-    # 1056 splits asked, 1986 pixels each rounded up to 2016 (32-pixel steps)
-    assert plan["splits"] == -(-32 * 256 * 256 // 2016) == 1041
+    assert plan["ctas_a"] == 32 * 1024 and plan["rows_a"] == 32 * 1024
+    # 264 splits asked, 7944.2 pixels each rounded up to 7968 (32-pixel chunks)
+    assert plan["splits"] == -(-32 * 256 * 256 // 7968) == 264
+    # a 128-wide slice has 2 row groups; C = 1024 takes 8 slices a tile
+    deep = link_floors.k2_plan(32, 16, 16, 1024, 1024)
+    assert deep["ctas_a"] == 4 * 8 * 32 and deep["wc"] == 128
+    got = link_floors.k2_instructions(32, 16, 16, 1024, 1024, True, False, True)
+    assert got["pass_a_fma"] == deep["ctas_a"] * (
+        100 * 1024 * 5 + 128 * (64 * (27 + 6 + 6) + 2 * 11))
+
+
+def test_k2_model_by_hand():
+    """Products at the measured product rate (three TF32 products for each
+    fp32 one), CUDA-core instructions at K12b's fp32 rate (2 operations an
+    FMA instruction)."""
+    instr = {"pass_a_mma": 10 ** 9, "pass_b_mma": 5 * 10 ** 8, "pass_a_fma": 2 * 10 ** 8,
+             "sums": 10 ** 6}
+    bf16 = link_floors.k2_model_ms(instr, "bfloat16", 500e12, 50e3)
+    assert bf16 == pytest.approx({"pass_a": 2e9 / 500e12 * 1e3 + 4e8 / 50e12 * 1e3,
+                                  "pass_b": 1e9 / 500e12 * 1e3, "sums": 2e6 / 50e12 * 1e3})
+    fp32 = link_floors.k2_model_ms(instr, "float32", 250e12, 50e3)
+    assert fp32["pass_b"] == pytest.approx(3 * 1e9 / 250e12 * 1e3)
+
+
+def test_k2_k10_bounds_on_their_route_by_hand():
+    """K2 and K10 at the bottleneck's second link (1024 -> 1024 @ 16),
+    batch 32: dm and dpw on the tensor cores (bf16 at 989 TFLOP/s; fp32 as
+    3xTF32 at 495) beside the 27*C elementwise multiply-adds on the CUDA
+    cores (67 TFLOP/s fp32), the larger of the two against the bytes."""
+    link = ("bneck.2", 1024, 1024, 16, True, False, True)
+    px = 32 * 16 * 16
+    gemm, rest = 2 * px * 2 * 1024 * 1024, 2 * px * 27 * 1024
+    assert roofline.bwd_ops("chain_bwd", link, 32) == (gemm, rest)
+    assert roofline.bwd_ops("sepconv_bwd", link, 32) == (gemm, rest + px * 1024)
+    assert roofline.bounds_ms("chain_bwd", link, "bfloat16", 32) == \
+        pytest.approx((gemm / 989e12 * 1e3, "operations"))
+    assert roofline.bounds_ms("chain_bwd", link, "float32", 32) == \
+        pytest.approx((3 * gemm / 495e12 * 1e3, "operations"))
+    # enc1.1 (3 -> 64 @ 256): the bytes bound it in both dtypes
+    enc = ("enc1.1", 3, 64, 256, False, False, False)
+    for dname in ("bfloat16", "float32"):
+        nbytes, _ = roofline.work("chain_bwd", enc, dname, 32)
+        assert roofline.bounds_ms("chain_bwd", enc, dname, 32) == \
+            pytest.approx((nbytes / 3.35e12 * 1e3, "bytes"))
 
 
 def test_every_kernel_entry_maps_to_a_label():

@@ -24,7 +24,8 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
   ``dx`` (written in the dtype), ``ddw``, ``dpw`` and ``dbias`` of the plain
   sepconv from x and the cotangent g. CUDA source: the ``unet_sepconv_bwd``
   entry of ``kernels/csrc/chain_bwd.cu`` (K2's two passes without the
-  BatchNorm backward, plus Σg).
+  BatchNorm backward, plus Σg; its launch plan is
+  :func:`..fused_train.chain_bwd_plan` with the dbias row).
 
 Each kernel's wrapper takes weights already cast to the compute dtype (and
 K7/K8 fp32 affines, :class:`BlockWeights`). Given a CPU tensor it runs the
@@ -62,7 +63,7 @@ _MAX_BATCH = 65535  # gridDim.y of K7, gridDim.z of the others
 # of F2; the shared memory a CTA may use (227 KB)
 _PAIR_SLICE = 128
 _PAIR_MAX_CLUSTER = 8
-SMEM_MAX = 232448
+SMEM_MAX = ft.SMEM_MAX
 # (channels of a C chunk, mma depth) per dtype
 _PAIR_CHUNK = {torch.bfloat16: (64, 16), torch.float32: (32, 8)}
 
@@ -453,18 +454,18 @@ def sepconv_bwd(
         raise ValueError(f"sepconv_bwd: g {tuple(g.shape)} {g.dtype}, expected "
                          f"{(b, h, wd, f)} {x.dtype} on {x.device}")
     _check_tensors(x, "sepconv_bwd", [(dw, (3, 3, c), x.dtype), (pw, (c, f), x.dtype)])
+    plan = ft.chain_bwd_plan(b, h, wd, c, f, x.dtype, bias=True)
     lib = build.load_library()
     dx = torch.empty_like(x)
-    m = torch.empty_like(x)                                   # depthwise(x), rounded
+    m = torch.empty((b, h, wd, plan.cm), dtype=x.dtype, device=x.device)  # depthwise(x), rounded
     sums = torch.empty((11, c), dtype=torch.float32, device=x.device)  # ddw (9), two zero rows
     dpwb = torch.empty((c + 1, f), dtype=torch.float32, device=x.device)  # dpw, then dbias
-    work = torch.empty(lib.unet_sepconv_bwd_workspace(b, h, wd, c, f),
+    work = torch.empty(lib.unet_sepconv_bwd_workspace(b, h, wd, c, f, plan.splits),
                        dtype=torch.float32, device=x.device)
-    pwt = pw.t().contiguous()  # (F, C): the kernel stages pw^T chunks row by row
     status = lib.unet_sepconv_bwd(
-        x.data_ptr(), g.data_ptr(), dw.data_ptr(), pwt.data_ptr(), dx.data_ptr(), m.data_ptr(),
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(), pw.data_ptr(), dx.data_ptr(), m.data_ptr(),
         work.data_ptr(), sums.data_ptr(), dpwb.data_ptr(), b, h, wd, c, f,
-        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+        *ft.plan_args(plan), build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "sepconv_bwd")
     LAUNCHES["sepconv_bwd"] += 1

@@ -51,6 +51,18 @@ LAUNCHES: Dict[str, int] = {"chain_fwd": 0, "chain_bwd": 0, "tail_pool": 0, "tai
 
 _MAX_BATCH = 65535  # gridDim.z of K1 and K2
 
+# K2's launch plan (kernels/csrc/chain_bwd.cu): per dtype the GEMM depth
+# staged at once (F channels in pass (a), pixels in pass (b)), the mma's
+# depth and the elements of 16 bytes; the ring and GEMM rows of an 8x8 tile
+# and the cp.async stages; the shared memory a CTA may use (227 KB, K7's too);
+# pass (b)'s split-K aims at this many CTAs (two a SM of a 132-SM card) with
+# at least this many pixels a split
+_BWD_CHUNK = {torch.bfloat16: (32, 16, 8), torch.float32: (16, 8, 4)}
+_RING_PX, _GEMM_ROWS, _TILE, _STAGES = 100, 112, 8, 4
+SMEM_MAX = 232448
+_BWD_TARGET_CTAS = 264
+_BWD_MIN_SPLIT = 512
+
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -222,6 +234,121 @@ def tail_pool_bwd_reference(
 
 
 # --------------------------------------------------------------------------
+# K2's launch plan and work
+# --------------------------------------------------------------------------
+
+
+class BwdPlan(NamedTuple):
+    """K2's (and K10's) launch. Pass (a): a CTA per 8x8 output tile, ``wc``
+    channels of C (64 or 128) and sample, on the grid ``grid_a``
+    (tiles, C slices, batch), ``smem_a`` bytes of dynamic shared memory.
+    Pass (b): ``tm`` x ``tn`` tiles of dpw (64 or 128 each), split-K over
+    ``splits`` runs of ``per`` pixels, on ``grid_b`` (F tiles, C tiles,
+    splits), ``smem_b`` bytes. No cluster. ``cols_b`` floats a split's
+    partial (C*F, plus F for K10's dbias row); ``cm`` the channels of the
+    recomputed depthwise m that pass (a) hands pass (b): C rounded up to 16
+    bytes, so pass (b) stages it with cp.async at any C."""
+
+    wc: int
+    tiles_y: int
+    tiles_x: int
+    grid_a: Tuple[int, int, int]
+    smem_a: int
+    tm: int
+    tn: int
+    splits: int
+    per: int
+    grid_b: Tuple[int, int, int]
+    smem_b: int
+    cols_b: int
+    cm: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chain_bwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype,
+                   bias: bool = False) -> BwdPlan:
+    """K2's launch plan for ``b`` (H, W) images, C input and F output
+    channels in ``dtype``; ``bias`` for K10 (its dbias row). The layouts
+    are ``TileSmem`` and ``DpwSmem`` of ``chain_bwd.cu``, which checks the
+    byte counts."""
+    if min(b, h, w, c, f) < 1:
+        raise ValueError(f"chain_bwd: empty shape B={b} H={h} W={w} C={c} F={f}")
+    if b > _MAX_BATCH:
+        raise ValueError(f"chain_bwd: batch {b} outside 1..{_MAX_BATCH}")
+    if dtype not in _BWD_CHUNK:
+        raise TypeError(f"chain_bwd: dtype {dtype} not supported (float32, bfloat16)")
+    p = b * h * w
+    if p >= 2 ** 31:
+        raise ValueError(f"chain_bwd: {p} pixels, at most 2^31 - 1")
+    kc, _, v = _BWD_CHUNK[dtype]
+    e = dtype.itemsize
+    wc = 64 if c <= 64 else 128
+    # pass (a): stages of g (then gy) [112][kc + v], y [100][kc + v] and pw
+    # [wc][kc + v] in T and comb [6][kc] in fp32, then in their place dm
+    # [100][wc + 8] in fp32 and x [100][wc + 8] in T
+    stage = e * (_GEMM_ROWS + _RING_PX + wc) * (kc + v) + 4 * 6 * kc
+    smem_a = max(_STAGES * stage, (4 + e) * _RING_PX * (wc + 8))
+    tm, tn = (64 if c <= 64 else 128), (64 if f <= 64 else 128)
+    smem_b = e * _STAGES * kc * (tm + 8 + tn + 8)   # stages of m [kc][tm + 8], gy [kc][tn + 8]
+    for smem in (smem_a, smem_b):
+        if smem > SMEM_MAX:
+            raise ValueError(f"chain_bwd: {smem} bytes of shared memory, at most {SMEM_MAX}")
+    out_tiles = _cdiv(c, tm) * _cdiv(f, tn)
+    splits = max(1, min(_cdiv(_BWD_TARGET_CTAS, out_tiles), _cdiv(p, _BWD_MIN_SPLIT)))
+    per = _cdiv(_cdiv(p, splits), kc) * kc
+    splits = _cdiv(p, per)
+    ty, tx = _cdiv(h, _TILE), _cdiv(w, _TILE)
+    return BwdPlan(wc, ty, tx, (ty * tx, _cdiv(c, wc), b), smem_a, tm, tn, splits, per,
+                   (_cdiv(f, tn), _cdiv(c, tm), splits), smem_b, c * f + (f if bias else 0),
+                   _cdiv(c, v) * v)
+
+
+class BwdWork(NamedTuple):
+    """Multiply-adds of one K2 call: what :func:`chain_bwd_plan`'s launch
+    executes on the tensor cores in each pass (each product counted once;
+    fp32 issues three TF32 products for each) and on the CUDA cores (dz,
+    ddw and m over the tile pixels), and the useful ones,
+    ``B*H*W*(2*C*F + 27*C)``."""
+
+    pass_a_mma: int
+    pass_b_mma: int
+    elementwise: int
+    useful: int
+
+    @property
+    def executed(self) -> int:
+        return self.pass_a_mma + self.pass_b_mma + self.elementwise
+
+
+def chain_bwd_work(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> BwdWork:
+    """:class:`BwdWork` of one K2 (or K10) call. Pass (a): per CTA 112
+    GEMM rows x the columns of its active warps (a quarter of ``wc`` each,
+    idle past C) x F padded to the mma depth in each chunk, and 64 pixels x
+    27 for each channel of its slice that C holds. Pass (b): per output
+    tile the rows of its m16 tiles that hold C, the columns of its active
+    warps, and each split's pixels padded to the mma depth."""
+    plan = chain_bwd_plan(b, h, w, c, f, dtype)
+    kc, ks, _ = _BWD_CHUNK[dtype]
+    p = b * h * w
+    ctas = b * plan.tiles_y * plan.tiles_x
+    fpad = sum(_cdiv(min(kc, f - f0), ks) * ks for f0 in range(0, f, kc))
+    quarter = plan.wc // 4
+    cols_a = sum(quarter * min(4, _cdiv(min(plan.wc, c - c0), quarter))
+                 for c0 in range(0, c, plan.wc))
+    pass_a = ctas * _GEMM_ROWS * cols_a * fpad
+    elementwise = ctas * 64 * c * 27
+    rows_b = sum(16 * min(plan.tm // 16, _cdiv(min(plan.tm, c - c0), 16))
+                 for c0 in range(0, c, plan.tm))
+    cols_b = sum(plan.tn // 4 * min(4, _cdiv(min(plan.tn, f - f0), plan.tn // 4))
+                 for f0 in range(0, f, plan.tn))
+    depth = (plan.splits - 1) * plan.per + _cdiv(p - (plan.splits - 1) * plan.per, ks) * ks
+    return BwdWork(pass_a, rows_b * cols_b * depth, elementwise, p * (2 * c * f + 27 * c))
+
+
+# --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -337,27 +464,33 @@ def chain_bwd(
     _check_small(pw, "chain_bwd pw", (c, f), x.dtype, x.device)
     _check_small(in_aff, "chain_bwd in_aff", (4, c), torch.float32, x.device)
     _check_small(comb, "chain_bwd comb", (6, f), torch.float32, x.device)
+    plan = chain_bwd_plan(b, h, w, c, f, x.dtype)
     lib = build.load_library()
     dx = torch.empty_like(x)
-    m = torch.empty_like(x)                                   # depthwise(z), rounded
+    m = torch.empty((b, h, w, plan.cm), dtype=x.dtype, device=x.device)  # depthwise(z), rounded
     gy = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
     sums = torch.empty((11, c), dtype=torch.float32, device=x.device)  # ddw (9), S, T
     dpw = torch.empty((c, f), dtype=torch.float32, device=x.device)
-    work = torch.empty(lib.unet_chain_bwd_workspace(b, h, w, c, f),
+    work = torch.empty(lib.unet_chain_bwd_workspace(b, h, w, c, f, plan.splits),
                        dtype=torch.float32, device=x.device)
     seed, thresh, scale = _drop_args(drop)
-    pwt = pw.t().contiguous()  # (F, C): the kernel stages pw^T chunks row by row
     status = lib.unet_chain_bwd(
         x.data_ptr(), g.data_ptr(), y.data_ptr(), _ptr(in_aff), comb.data_ptr(),
-        dw.data_ptr(), pwt.data_ptr(), dx.data_ptr(), m.data_ptr(), gy.data_ptr(),
+        dw.data_ptr(), pw.data_ptr(), dx.data_ptr(), m.data_ptr(), gy.data_ptr(),
         work.data_ptr(), sums.data_ptr(), dpw.data_ptr(), b, h, w, c, f,
-        int(mask_combine), seed, thresh, scale, build.DTYPE_CODE[x.dtype],
-        build.stream_handle(x.device),
+        int(mask_combine), seed, thresh, scale, *plan_args(plan),
+        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "chain_bwd")
     LAUNCHES["chain_bwd"] += 1
     st = sums[9:11] if in_aff is not None else None
     return dx, sums[:9].reshape(3, 3, c), dpw, st
+
+
+def plan_args(plan: BwdPlan) -> Tuple[int, ...]:
+    """The plan as the C entries of K2 and K10 take it: (wc, tm, tn, splits,
+    per, smem_a, smem_b)."""
+    return plan.wc, plan.tm, plan.tn, plan.splits, plan.per, plan.smem_a, plan.smem_b
 
 
 def _check_aligned(t: torch.Tensor, name: str) -> None:

@@ -46,9 +46,10 @@ SIGNATURES = {
     # x, dw, pw, in_aff, y, work, sums, B, H, W, C, F, seed, thresh,
     # drop_scale, dtype, stream
     "unet_chain_fwd": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
-    # x, g, y, in_aff, comb, dw, pwt, dx, m, gy, work, sums, dpw, B, H, W, C,
-    # F, mask_combine, seed, thresh, drop_scale, dtype, stream
-    "unet_chain_bwd": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
+    # x, g, y, in_aff, comb, dw, pw, dx, m, gy, work, sums, dpw, B, H, W, C,
+    # F, mask_combine, seed, thresh, drop_scale, wc, tm, tn, splits, per,
+    # smem_a, smem_b, dtype, stream
+    "unet_chain_bwd": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 8 + [_P],
     # y, aff, z, pooled, B, H, W, F, dtype, stream
     "unet_tail_pool": [_P] * 4 + [_I] * 5 + [_P],
     # y, gs, gp, aff4, dzt, work, st, B, H, W, F, dtype, stream
@@ -67,19 +68,21 @@ SIGNATURES = {
     "unet_head_bwd_mc": [_P] * 9 + [_I] * 5 + [_P],
     # x, dw, pw, y, work, sums, B, H, W, C, F, dtype, stream
     "unet_sepconv_stats": [_P] * 6 + [_I] * 6 + [_P],
-    # x, g, dw, pwt, dx, m, work, sums, dpwb, B, H, W, C, F, dtype, stream
-    "unet_sepconv_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # x, g, dw, pw, dx, m, work, sums, dpwb, B, H, W, C, F, wc, tm, tn,
+    # splits, per, smem_a, smem_b, dtype, stream
+    "unet_sepconv_bwd": [_P] * 9 + [_I] * 13 + [_P],
     # x, out, n, stream
     "unet_dispatch_probe": [_P] * 2 + [_I, _P],
     # x, out, n, k, one_eps, dtype, stream
     "unet_fma_probe": [_P] * 2 + [_I] * 2 + [_F, _I, _P],
 }
-# Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, F,
-# dtype / B, HW, F, dtype, which / B, HW, F, NC, dtype, which
+# Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, C,
+# F, splits / B, H, W, F, dtype / B, HW, F, dtype, which / B, HW, F, NC,
+# dtype, which
 WORKSPACE_SIGNATURES = {
     "unet_chain_fwd_workspace": [_I] * 5,
-    "unet_chain_bwd_workspace": [_I] * 5,
-    "unet_sepconv_bwd_workspace": [_I] * 5,
+    "unet_chain_bwd_workspace": [_I] * 6,
+    "unet_sepconv_bwd_workspace": [_I] * 6,
     "unet_tail_pool_bwd_workspace": [_I] * 5,
     "unet_upconcat_bwd_workspace": [_I] * 5,
     "unet_head_workspace": [_I] * 5,

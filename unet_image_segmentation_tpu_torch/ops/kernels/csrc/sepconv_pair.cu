@@ -78,6 +78,7 @@
 // epilogue's rounding change.
 #include <cooperative_groups.h>
 
+#include "mma_common.cuh"
 #include "sepconv_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -160,97 +161,6 @@ struct PairArgs {
   int H, W, Cx, Cx2, F1, F2, tiles_x, n, s1, s2;
   int vec_x, vec_w1, vec_w2;  // 16-byte staging allowed (widths and pointers aligned)
 };
-
-// ---- small PTX wrappers ----
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-// 4 bytes global -> shared, zero-filled when !ok
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// v = hi + lo, each rounded to TF32 (the 3xTF32 split)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
-}
-
-// ---- 16-byte vectors of T as fp32 ----
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x), f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z), f[3] = __uint_as_float(u.w);
-}
-// Round to T and pack (the rounding point of a depthwise result).
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&p);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
 
 // Order of the 64 output pixels along GEMM2's M: m = 16*mt + 8*h + g lies in
 // 2x2 window q = 2g + mt/2 at position i = 2*(mt%2) + h. An mma thread holds

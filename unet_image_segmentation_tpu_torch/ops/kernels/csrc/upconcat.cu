@@ -42,6 +42,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "mma_common.cuh"
 #include "train_common.cuh"
 
 namespace unet {
@@ -250,15 +251,6 @@ using bf16 = __nv_bfloat16;
 // The shapes the tensor-core path takes (every decoder feed of the U-Net).
 __host__ __device__ inline bool tc_shape(int C, int F) { return C % 64 == 0 && F % 16 == 0; }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // acc += As[warp rows][0, kTcBK) . Bs[warp cols][0, kTcBK)^T for one chunk.
 __device__ __forceinline__ void warp_mma_chunk(float (&acc)[2][4][4], const bf16* As,
                                                const bf16* Bs, int wm, int wn, int lane) {
@@ -283,7 +275,7 @@ __device__ __forceinline__ void warp_mma_chunk(float (&acc)[2][4][4], const bf16
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
   }
 }
 

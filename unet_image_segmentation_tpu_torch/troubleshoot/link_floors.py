@@ -9,14 +9,20 @@ links of the 256 px, batch-32 train step, in the modes the step runs it
 
 * its bytes floor: x, g, y and dx once each, plus weights and sums, over
   the card's memory rate (:func:`.roofline.work`);
-* an FMA model: the fp32 FMA, multiply and add instructions K2's body
-  executes, counted from ``chain_bwd.cu`` (:func:`k2_instructions`), over
-  the fp32 FMA rate K12b measured (K2 runs on fp32 FMAs in both dtypes).
+* a model of the route K2 takes (:func:`k2_instructions`, from
+  :func:`..ops.fused_train.chain_bwd_plan` and ``chain_bwd.cu``): its
+  products (dm in pass (a), dpw in pass (b), the multiply-adds the plan
+  executes) at the product rate of a 4096^3 ``torch.matmul`` on the card
+  (:func:`measure_product_rate`: bf16, or TF32 with three TF32 products
+  for each fp32 one, as K2's 3xTF32 issues them), plus its CUDA-core
+  instructions (gy, z, dz, dx, m, ddw, S, T and the row sums) at the fp32
+  FMA rate K12b measured.
 
 A ``torch.profiler`` pass over the same calls splits each link's time into
 pass (a) (``chain_bwd_tile_kernel``: gy, dm, dz, dx, m, ddw, S, T), pass (b)
 (``chain_bwd_dpw_kernel``: dpw), the fixed-order row sums
-(``colsum_kernel``) and any PyTorch glue (the transposed pointwise copy).
+(``colsum_kernel``) and any PyTorch glue. Each row also gives the
+executed over useful multiply-adds (:func:`..ops.fused_train.chain_bwd_work`).
 
 Writes ``build/link_floors.json`` and prints the table. Needs a CUDA card::
 
@@ -33,7 +39,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -41,7 +47,8 @@ from torch.profiler import record_function
 
 from unet_image_segmentation_tpu_torch.ops import fused_train as ft
 from unet_image_segmentation_tpu_torch.ops import probes
-from unet_image_segmentation_tpu_torch.troubleshoot import profile_summary, roofline
+from unet_image_segmentation_tpu_torch.troubleshoot import (
+    check_gpu_benchmark, profile_summary, roofline)
 from unet_image_segmentation_tpu_torch.utils.profiling import hard_sync, trace
 
 HW = 256
@@ -59,10 +66,10 @@ SEED = 2301
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT = os.path.join(ROOT, "build", "link_floors.json")
 
-# K2's launch plan (chain_bwd.cu): pass (a) blocks of an 8x8 tile and 64 C
-# channels, dm over the 10x10 ring padded to 128 GEMM rows; pass (b) 64x64
-# dpw tiles, split-K over pixels; colsum_kernel sums 512 rows a block
-TILE, RING_PX, GEMM_ROWS, TILE_C, TILE_F, RED_ROWS, KC = 8, 100, 128, 64, 64, 512, 32
+# K2's pass-(a) tile and ring, its threads a CTA, and the rows one
+# colsum_kernel block sums (chain_bwd.cu, train_common.cuh)
+TILE, RING_PX, THREADS, RED_ROWS = 8, 100, 256, 512
+PRODUCT_MATRIX = 4096        # side of the matmul that measures the product rate
 
 
 def stage_table(image: int = HW, filters=FILTERS):
@@ -150,15 +157,29 @@ def measure_fma_rate(dtype: str = "float32", device="cuda", k: int = FMA_K,
 measure_vpu_rate = measure_fma_rate  # the JAX tool's name for the same probe
 
 
-def k2_plan(b: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:
-    """K2's launch plan (``bwd_plan`` in chain_bwd.cu)."""
-    tiles = math.ceil(h / TILE) * math.ceil(w / TILE)
-    p = b * h * w
-    out_tiles = math.ceil(c / TILE_C) * math.ceil(f / TILE_F)
-    splits = max(1, min(math.ceil(1056 / out_tiles), math.ceil(p / 256)))
-    per = math.ceil(math.ceil(p / splits) / KC) * KC
-    return {"blocks_a": tiles * math.ceil(c / TILE_C) * b, "rows_a": b * tiles,
-            "splits": math.ceil(p / per)}
+def measure_product_rate(dname: str, device="cuda") -> float:
+    """Operations a second of the tensor cores' products, from a
+    :data:`PRODUCT_MATRIX`-square ``torch.matmul`` timed as
+    ``check_gpu_benchmark`` times it: bf16 operands for "bfloat16", TF32
+    for "float32" (K2's fp32 products issue three TF32 products each)."""
+    dtype = torch.bfloat16 if dname == "bfloat16" else torch.float32
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = dname == "float32"
+    try:
+        secs = min(check_gpu_benchmark.benchmark_matmul(
+            torch.device(device), dtype, PRODUCT_MATRIX, warmup=3, trials=10, runs=2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return 2 * PRODUCT_MATRIX ** 3 / secs
+
+
+def k2_plan(b: int, h: int, w: int, c: int, f: int, dname: str = "bfloat16") -> Dict[str, int]:
+    """K2's launch plan (:func:`..ops.fused_train.chain_bwd_plan`): pass
+    (a)'s CTAs and per-tile partial rows, pass (b)'s splits."""
+    plan = ft.chain_bwd_plan(b, h, w, c, f, getattr(torch, dname))
+    ctas = plan.grid_a[0] * plan.grid_a[1] * plan.grid_a[2]
+    return {"ctas_a": ctas, "rows_a": b * plan.tiles_y * plan.tiles_x, "splits": plan.splits,
+            "wc": plan.wc, "kc": ft._BWD_CHUNK[getattr(torch, dname)][0]}
 
 
 def _colsum_adds(rows: int, cols: int) -> int:
@@ -170,33 +191,52 @@ def _colsum_adds(rows: int, cols: int) -> int:
 
 
 def k2_instructions(b: int, h: int, w: int, c: int, f: int, in_aff: bool, drop: bool,
-                    mask: bool) -> Dict[str, int]:
-    """fp32 FMA, multiply and add instructions K2 executes for one call, by
-    pass, counted from chain_bwd.cu (padding included: a pass-(a) block
-    always works on 64 C channels and 128 GEMM rows, a pass-(b) tile on
-    64x64). Pass (a), per block: gy over the 100 ring pixels (3 a value,
-    +2 for the output mask), dm = gy . pw^T (128 x 64 x F FMAs), z over the
-    ring (+3 with the input affine, +1 with dropout), and per tile pixel and
-    channel 27 FMAs for dz, m and ddw (+6 for the affine's mask, S and T,
-    +1 for dropout), then the 4-way sum of 11 partials. Pass (b): m^T . gy
-    over all pixels. Sums: the adds of the fixed-order row sums."""
-    plan = k2_plan(b, h, w, c, f)
-    gy = RING_PX * f * (3 + 2 * mask)
-    dm = GEMM_ROWS * TILE_C * f
-    z = RING_PX * TILE_C * (3 * in_aff + drop)
-    center = TILE * TILE * TILE_C * (27 + 6 * in_aff + drop)
-    pass_a = plan["blocks_a"] * (gy + dm + z + center + 4 * 11 * TILE_C)
-    pass_b = b * h * w * math.ceil(c / TILE_C) * TILE_C * math.ceil(f / TILE_F) * TILE_F
+                    mask: bool, dname: str = "bfloat16") -> Dict[str, int]:
+    """What K2 executes for one call, by part, counted from chain_bwd.cu
+    on :func:`k2_plan`'s launch. ``pass_a_mma`` and ``pass_b_mma``: the
+    multiply-adds of dm and dpw on the tensor cores
+    (:func:`..ops.fused_train.chain_bwd_work`, padding included). The
+    CUDA cores' fp32 instructions: ``pass_a_fma``, per CTA gy over the 100
+    ring pixels and every chunk's KC channels (3 a value, +2 for the output
+    mask), then per tile pixel and channel of the slice that C holds 27
+    FMAs for dz, m and ddw, +6 for the input affine's mask, S and T, +1 for
+    dropout, and the z of the sliding window's new column (two values a
+    pixel in bands of two rows; 3 instructions each with the affine, 1
+    with dropout), then the row groups' sum of 11 partials;
+    ``sums``: the adds of the fixed-order row sums."""
+    plan = k2_plan(b, h, w, c, f, dname)
+    work = ft.chain_bwd_work(b, h, w, c, f, getattr(torch, dname))
+    wc, kc = plan["wc"], plan["kc"]
+    tiles = plan["rows_a"]
+    gy = RING_PX * math.ceil(f / kc) * kc * (3 + 2 * mask)
+    per_channel = TILE * TILE * (27 + 6 * in_aff + drop + 2 * (3 * in_aff + drop)) + \
+        THREADS // wc * 11
+    pass_a = plan["ctas_a"] * gy + tiles * c * per_channel
     sums = _colsum_adds(plan["rows_a"], 11 * c) + _colsum_adds(plan["splits"], c * f)
-    return {"pass_a": pass_a, "pass_b": pass_b, "sums": sums}
+    return {"pass_a_mma": work.pass_a_mma, "pass_b_mma": work.pass_b_mma, "pass_a_fma": pass_a,
+            "sums": sums}
+
+
+def k2_model_ms(instr: Dict[str, int], dname: str, product_ops: float,
+                fma_gops: float) -> Dict[str, float]:
+    """ms of each of K2's parts at the measured rates: the products at
+    ``product_ops`` operations a second (three TF32 products for each fp32
+    one), the CUDA-core instructions at ``fma_gops`` / 2 FMA instructions
+    a ns (K12b's fp32 rate)."""
+    per_product = 2 * (3 if dname == "float32" else 1) / product_ops * 1e3
+    fma_ms = 2 / (fma_gops * 1e9) * 1e3
+    pass_a = instr["pass_a_mma"] * per_product + instr["pass_a_fma"] * fma_ms
+    return {"pass_a": pass_a, "pass_b": instr["pass_b_mma"] * per_product,
+            "sums": instr["sums"] * fma_ms}
 
 
 def link_inputs(rnd, dev, dtype, batch: int, c: int, f: int, h: int, in_aff: bool,
-                drop: bool) -> dict:
-    """Seeded inputs of one link for K1 and K2; ``rnd(*shape, scale=1.0)``
-    draws uniform [-scale, scale). y is the plain K1 output, so K2's masks
-    see the values the step gives it."""
-    x = rnd(batch, h, h, c).to(dev, dtype)
+                drop: bool, w: Optional[int] = None) -> dict:
+    """Seeded inputs of one link for K1 and K2 at H x W (W = H unless
+    given); ``rnd(*shape, scale=1.0)`` draws uniform [-scale, scale). y is
+    the plain K1 output, so K2's masks see the values the step gives it."""
+    w = h if w is None else w
+    x = rnd(batch, h, w, c).to(dev, dtype)
     dw = rnd(3, 3, c, scale=(6 / (9 * c + 9)) ** 0.5).to(dev, dtype)
     pw = rnd(c, f, scale=(6 / (c + f)) ** 0.5).to(dev, dtype)
     aff2 = aff4 = None
@@ -206,7 +246,7 @@ def link_inputs(rnd, dev, dtype, batch: int, c: int, f: int, h: int, in_aff: boo
         aff2 = aff4[:2].contiguous()
     d = ft.Dropout(-123456789, 0.2) if drop else None
     y = ft.chain_fwd_reference(x, dw, pw, aff2, d)[0]
-    g = rnd(batch, h, h, f).to(dev, dtype)
+    g = rnd(batch, h, w, f).to(dev, dtype)
     comb = torch.stack([1 + 0.5 * rnd(f), 0.01 * rnd(f), 0.01 * rnd(f), 0.1 * rnd(f),
                         1 + 0.5 * rnd(f), 0.1 * rnd(f)]).to(dev).contiguous()
     return dict(x=x, dw=dw, pw=pw, aff2=aff2, aff4=aff4, drop=d, y=y, g=g, comb=comb)
@@ -225,11 +265,12 @@ def _split(summary: dict, calls: int) -> Dict[str, float]:
     return parts
 
 
-def time_links(dname: str, iters: int, fma_gops: float, launch_ms: float, device="cuda"):
+def time_links(dname: str, iters: int, fma_gops: float, product_ops: float, launch_ms: float,
+               device="cuda"):
     """The per-link rows (and their totals): K2 timed with CUDA events after
     :data:`WARMUP` calls, one launch counted per timed call; then, in one
     trace, :data:`PROFILED_CALLS` more calls a link, each link's split by
-    pass."""
+    pass; each beside :func:`k2_model_ms` at the measured rates."""
     dtype = getattr(torch, dname)
     links = stage_table()
 
@@ -264,8 +305,7 @@ def time_links(dname: str, iters: int, fma_gops: float, launch_ms: float, device
                 del args
         events = [e for path in profile_summary.trace_files(tdir)
                   for e in profile_summary.read_events(path)]
-    fma_per_ms = fma_gops / 2 * 1e6   # fp32 FMA instructions a ms
-    rows = []
+    rows, executed, useful = [], 0, 0
     for (name, c, f, h, in_aff, drop, mask), (ms, launches) in zip(links, timed):
         summary = profile_summary.summarize_events(events, within=f"{CALL_SPAN}.{name}")
         profile_summary.check_complete(summary, f"link_floors {name}")
@@ -273,9 +313,11 @@ def time_links(dname: str, iters: int, fma_gops: float, launch_ms: float, device
         minus = ms - split["kernels_per_call"] * launch_ms
         nbytes, _ = roofline.work("chain_bwd", (name, c, f, h), dname, BATCH)
         bytes_ms = nbytes / roofline.PEAK_BYTES_PER_S * 1e3
-        instr = k2_instructions(BATCH, h, h, c, f, in_aff, drop, mask)
-        model = {part: n / fma_per_ms for part, n in instr.items()}
+        instr = k2_instructions(BATCH, h, h, c, f, in_aff, drop, mask, dname)
+        model = k2_model_ms(instr, dname, product_ops, fma_gops)
         model_ms = sum(model.values())
+        work = ft.chain_bwd_work(BATCH, h, h, c, f, dtype)
+        executed, useful = executed + work.executed, useful + work.useful
         modes = [m for m, on in (("affine", in_aff), ("dropout", drop), ("mask", mask)) if on]
         rows.append({
             "link": name, "shape": f"{c}->{f}@{h}", "modes": modes or ["plain"],
@@ -286,11 +328,12 @@ def time_links(dname: str, iters: int, fma_gops: float, launch_ms: float, device
             "bytes_ms": bytes_ms, "x_bytes": minus / bytes_ms,
             "model_ms": model_ms, "model_pass_a_ms": model["pass_a"],
             "model_pass_b_ms": model["pass_b"], "model_sums_ms": model["sums"],
-            "x_model": minus / model_ms,
+            "x_model": minus / model_ms, "executed_over_useful": work.executed / work.useful,
         })
     totals = {key: sum(r[key] for r in rows) for key in (
         "ms", "minus_launch_ms", "pass_a_ms", "pass_b_ms", "sums_ms", "glue_ms", "bytes_ms",
         "model_ms", "model_pass_a_ms", "model_pass_b_ms", "model_sums_ms")}
+    totals["executed_over_useful"] = executed / useful
     totals["x_bytes"] = totals["minus_launch_ms"] / totals["bytes_ms"]
     totals["x_model"] = totals["minus_launch_ms"] / totals["model_ms"]
     return rows, totals
@@ -298,18 +341,22 @@ def time_links(dname: str, iters: int, fma_gops: float, launch_ms: float, device
 
 def print_table(rec: dict) -> None:
     print(f"  {'link':<8} {'C->F@H':<14} {'modes':<15} {'ms':>7} {'-launch':>7} {'(a)':>7} "
-          f"{'(b)':>7} {'sums':>6} {'glue':>6} {'bytes':>6} {'x':>6} {'model':>7} {'x':>5}")
+          f"{'(b)':>7} {'sums':>6} {'glue':>6} {'bytes':>6} {'x':>6} {'model(a)':>8} "
+          f"{'model(b)':>8} {'x':>5} {'exec/use':>8}")
     for r in rec["links"]:
         print(f"  {r['link']:<8} {r['shape']:<14} {','.join(r['modes']):<15} {r['ms']:7.3f} "
               f"{r['minus_launch_ms']:7.3f} {r['pass_a_ms']:7.3f} {r['pass_b_ms']:7.3f} "
               f"{r['sums_ms']:6.3f} {r['glue_ms']:6.3f} {r['bytes_ms']:6.3f} "
-              f"{r['x_bytes']:6.1f} {r['model_ms']:7.3f} {r['x_model']:5.2f}")
+              f"{r['x_bytes']:6.1f} {r['model_pass_a_ms']:8.3f} {r['model_pass_b_ms']:8.3f} "
+              f"{r['x_model']:5.2f} {r['executed_over_useful']:8.3f}")
     t = rec["totals"]
     print(f"  TOTAL {t['minus_launch_ms']:.3f} ms (less launches; pass (a) {t['pass_a_ms']:.3f}, "
           f"pass (b) {t['pass_b_ms']:.3f}, sums {t['sums_ms']:.3f}, glue {t['glue_ms']:.3f}) "
-          f"against the bytes floor {t['bytes_ms']:.3f} ({t['x_bytes']:.1f}x) and the FMA model "
+          f"against the bytes floor {t['bytes_ms']:.3f} ({t['x_bytes']:.1f}x) and the model "
           f"{t['model_ms']:.3f} ({t['x_model']:.2f}x; pass (a) {t['model_pass_a_ms']:.3f}, "
-          f"pass (b) {t['model_pass_b_ms']:.3f})")
+          f"pass (b) {t['model_pass_b_ms']:.3f}; products at {rec['product_tops']:.1f} Top/s, "
+          f"CUDA-core instructions at K12b's fp32 rate); executed / useful multiply-adds "
+          f"{t['executed_over_useful']:.3f}")
 
 
 def main(argv=None) -> int:
@@ -332,11 +379,15 @@ def main(argv=None) -> int:
           "launch-and-synchronise; K12b FMA rate: " + ", ".join(
               f"{d} {v['gops']:.0f} Gop/s ({100 * v['bound_share']:.1f}% of its bound)"
               for d, v in fma.items()))
-    rows, totals = time_links(args.dtype, args.iters, fma["float32"]["gops"],
+    product_ops = measure_product_rate(args.dtype, device)
+    print(f"[{card}] product rate ({'TF32' if args.dtype == 'float32' else 'bf16'} "
+          f"{PRODUCT_MATRIX}^3 torch.matmul): {product_ops / 1e12:.1f} Top/s")
+    rows, totals = time_links(args.dtype, args.iters, fma["float32"]["gops"], product_ops,
                               dispatch["device_ms"], device)
     rec = {"config": f"{HW}px b{BATCH} {args.dtype}, K2 links alone, {args.iters} timed calls "
                      f"after {WARMUP}", "card": card, "dtype": args.dtype, "iters": args.iters,
-           "dispatch": dispatch, "fma": fma, "links": rows, "totals": totals}
+           "dispatch": dispatch, "fma": fma, "product_tops": product_ops / 1e12, "links": rows,
+           "totals": totals}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=2)
