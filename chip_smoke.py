@@ -11,7 +11,11 @@ exit code and no result line:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA kernels from ``csrc/*.cu`` with nvcc for sm_90a;
 3. K8 (one sepconv block) against its plain PyTorch version at every block
-   shape of the 256x256 binary U-Net, batch 2, fp32 and bf16;
+   shape of the 256x256 binary U-Net, batch 2, fp32 and bf16; then at other
+   shapes at batch 2 and 3, ReLU on and off (``BLOCK_RAGGED``: H x W 20 x
+   36, C = 3 with F = 48, C = 5 with F = 33, C = 200 with F = 72, F = 300
+   over a cluster of 4 whose last slice is partial, 1024 -> 1024 at 16 px,
+   and the 512 px model's blocks);
 4. K7 (a fused block pair) likewise at the nine stage shapes, ``pool=True``
    on the encoder stages and ``x2`` on the decoder stages; then at ragged
    shapes at batch 2 and 3 (H x W 20 x 36, a 3-channel input with F = 48,
@@ -27,10 +31,10 @@ exit code and no result line:
    launch counters of that run; images/s at batch 32, kernels on and off;
    one bf16 batch-32 ``predict`` under ``torch.profiler`` (device busy, idle
    share, K7's share of the busy time, the host copies);
-6. K7 at batch 32, each output held against its plain version under
-   phase 4's bars, then timed beside it, with its bound and its executed
-   over useful multiply-adds a stage; K8 times at batch 32 beside its plain
-   version's; both summed over the path's shapes;
+6. K7 and K8 at batch 32, each output held against its plain version under
+   phase 4's and phase 3's bars, then timed beside it, with its bound and
+   its executed over useful multiply-adds a stage or block; both summed
+   over the path's shapes;
 7. K1-K6, K9-K11 against their plain versions at every shape of their
    paths, batch 2, fp32 and bf16: K1-K4 (the training chain's link forward
    and backward, the encoder boundary's pool and its backward; K4 on inputs
@@ -41,8 +45,8 @@ exit code and no result line:
    dec1 of the 512 px model with 3 classes and at another width with 4, on
    such inputs and with two classes' logits tied everywhere (the confusion
    matrix must match exactly), K9/K10 (per-block training) at the 18 block
-   shapes of the 256 px model; then K2 and K10 at other shapes, batch 2 and
-   3 (``LINK_RAGGED``: H x W 20 x 36, 3 input channels with F = 48, C = 5
+   shapes of the 256 px model; then K1, K9, K2 and K10 at other shapes, batch
+   2 and 3 (``LINK_RAGGED``: H x W 20 x 36, 3 input channels with F = 48, C = 5
    with F = 33 off the mma's depth, C = 200 with F = 72 so the last C
    slice and dpw tile are partial, a 1024 -> 1024 link at 16 px with the
    affine, the dropout and the output mask, and the 512 px model's links);
@@ -54,8 +58,11 @@ exit code and no result line:
    peak memory, and two steps under ``torch.profiler`` attributed to the
    kernels by ``troubleshoot/step_attribution.py`` (each kernel's launches a
    step held to the wrappers' counters); one bf16 kernels-on step with
-   ``fused_head`` off (the same launches but K5's); then ``fit`` for one
-   epoch whose ``best/`` checkpoint a ``Predictor`` serves;
+   ``fused_head`` off (the same launches but K5's); the eval step
+   (``make_eval_step``, fit's validation step) at batch 32, 18 K8 launches,
+   kernels on against the composed path in fp32 and bf16 (loss and metrics
+   under phase 5's module-path bars) and its images/s in turns; then
+   ``fit`` for one epoch whose ``best/`` checkpoint a ``Predictor`` serves;
 9. K1-K6, K9, K10 at batch 32 and K11 at batch 8 of 512 px (the paths'
    batches), whose launch plans differ from batch 2's: each output held
    against its plain version under phase 7's bars, then both timed;
@@ -78,7 +85,8 @@ exit code and no result line:
    and FMA rates, the tensor cores' product rate, K2 timed alone at the 18
    links with one launch a timed call, each link split into pass (a), pass
    (b) and the row sums under the profiler, against its bytes floor and the
-   model of its route, with its executed over useful multiply-adds;
+   model of its route, with its executed over useful multiply-adds; K1
+   likewise, one launch a timed call;
    ``build/link_floors.json``);
    ``step_attribution`` on the default step (sites plus glue equal to the
    device's busy time within 2%, 18/18/4/4 K1-K4, 4/4 K6 and 1/1 K5
@@ -86,6 +94,10 @@ exit code and no result line:
    ``check_gpu_benchmark`` (one run of three trials on the CPU leg), both
    exiting 0; then the sixteen kernels' JSON line (with each kernel's bound,
    and K12a's library time) and the result line.
+
+``--eval-only`` runs phases 1, 2 and phase 8's eval step alone and prints no
+result line; run from the root of another checkout (a copy of this script
+there imports that checkout's package) it times that checkout's eval step.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN), so the
 plain versions compute in full fp32 like the kernels. Relative errors are
@@ -203,6 +215,17 @@ PAIR_RAGGED = [("20x36", 32, 0, 64, 64, 20, 36, "plain"),
     (f"512px {name}", cx, cx2, f1, f2, h, h, mode)
     for name, cx, cx2, f1, f2, h, mode in roofline.stage_shapes(512, FILTERS)]
 PAIR_RAGGED_BATCHES = (2, 3)
+# K8 beyond the path's shapes (phase 3): (label, C, F, H, W) at these
+# batches, ReLU on and off; ragged edges, 3 and 5 input channels (plain-load
+# staging, C off the mma depth), F off 16 (33) and a partial 128-wide slice
+# (72), a cluster of 4 whose last slice is partial (F = 300), the deepest
+# block, and the 512 px model's blocks
+BLOCK_RAGGED = [("20x36", 32, 64, 20, 36), ("c3 f48", 3, 48, 24, 24), ("c5 f33", 5, 33, 10, 14),
+                ("c200 f72", 200, 72, 12, 20), ("f300", 12, 300, 9, 9),
+                ("deep", 1024, 1024, 16, 16)]
+BLOCK_RAGGED_BATCHES = (2, 3)
+# the eval step (phase 8): K8 in each of its 18 blocks
+EVAL_K8_LAUNCHES = 18
 # K2/K10 beyond the path's shapes (phase 7): (label, C, F, H, W, in_aff, drop,
 # mask_combine) at these batches; ragged edges, 3 and 5 input channels, F
 # off the mma's k16 (33), a partial last C slice and dpw tile (C = 200), the
@@ -221,14 +244,18 @@ POOLS = roofline.pool_shapes(IMAGE, FILTERS)
 FEEDS = roofline.upconcat_shapes(IMAGE, FILTERS)
 
 
-def block_shapes():
-    """Distinct (C, F, H) of the 18 K8 blocks at 256 px."""
+def block_shapes(stages=STAGES):
+    """Distinct (C, F, H) of the 18 K8 blocks of a model's stages (256 px)."""
     out = []
-    for _, cx, cx2, f1, f2, h, _ in STAGES:
+    for _, cx, cx2, f1, f2, h, _ in stages:
         for shape in ((cx + cx2, f1, h), (f1, f2, h)):
             if shape not in out:
                 out.append(shape)
     return out
+
+
+BLOCK_RAGGED += [(f"512px {c}->{f}", c, f, h, h)
+                 for c, f, h in block_shapes(roofline.stage_shapes(512, FILTERS))]
 
 
 # a feed at widths off the tensor-core path (C % 64, F % 16 nonzero), so
@@ -355,25 +382,36 @@ def judge_head_mc(torch, fh, tjudge, k, label, dname):
     tjudge("head_bwd_mc", label + " S/T/dw/db", dname, list(zip(got[1:], want[1:])), sums=True)
 
 
-def judge_block(fs, tjudge, k, label, dname):
-    """K9 and K10 on one block's inputs, against plain."""
-    fwd, bwd = (k["x"], k["dw"], k["pw"]), (k["x"], k["g"], k["dw"], k["pw"])
+def judge_k9(fs, tjudge, k, label, dname):
+    """K9 on one block's (or link's) x and weights, against plain."""
+    fwd = (k["x"], k["dw"], k["pw"])
     got, want = fs.sepconv_stats(*fwd), fs.sepconv_stats_reference(*fwd)
     tjudge("sepconv_stats", label + " y", dname, [(got[0], want[0])])
     tjudge("sepconv_stats", label + " sums", dname, list(zip(got[1:], want[1:])), sums=True)
+
+
+def judge_block(fs, tjudge, k, label, dname):
+    """K9 and K10 on one block's inputs, against plain."""
+    judge_k9(fs, tjudge, k, label, dname)
+    bwd = (k["x"], k["g"], k["dw"], k["pw"])
     got, want = fs.sepconv_bwd(*bwd), fs.sepconv_bwd_reference(*bwd)
     tjudge("sepconv_bwd", label + " dx", dname, [(got[0], want[0])])
     tjudge("sepconv_bwd", label + " ddw/dpw/dbias", dname, list(zip(got[1:], want[1:])),
            sums=True)
 
 
-def judge_link(ft, tjudge, k, label, dname, in_aff, mc):
-    """K1 and K2 on one chain link's inputs, against plain."""
+def judge_k1(ft, tjudge, k, label, dname):
+    """K1 on one chain link's inputs, against plain."""
     got = ft.chain_fwd(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
     want = ft.chain_fwd_reference(k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
     tjudge("chain_fwd", label + " y", dname, [(got[0], want[0])])
     tjudge("chain_fwd", label + " sums", dname, [(got[1], want[1]), (got[2], want[2])],
            sums=True)
+
+
+def judge_link(ft, tjudge, k, label, dname, in_aff, mc):
+    """K1 and K2 on one chain link's inputs, against plain."""
+    judge_k1(ft, tjudge, k, label, dname)
     args = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
     got, want = ft.chain_bwd(*args), ft.chain_bwd_reference(*args)
     tjudge("chain_bwd", label + " dx", dname, [(got[0], want[0])])
@@ -454,16 +492,20 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
             judge_pool(ft, tjudge, k, f"{name} F={f}@{h} (windows with a tied max "
                        f"{ties.float().mean().item():.2f})", dname)
 
-    print(f"K2/K10 vs plain at other shapes, batch "
+    print(f"K1/K9 and K2/K10 vs plain at other shapes, batch "
           f"{' and '.join(map(str, LINK_RAGGED_BATCHES))}, TF32 off:")
     stream = rnd.gen.get_state()  # these cases leave the later phases' seeded inputs as they were
     for dname, dtype in dtypes.items():
         for batch in LINK_RAGGED_BATCHES:
             for name, c, f, h, w, in_aff, drop, mc in LINK_RAGGED:
                 k = link_inputs(rnd, dev, dtype, batch, c, f, h, in_aff, drop, w)
+                link = f"{link_label(name, c, f, f'{h}x{w}', in_aff, drop, mc)} batch {batch}"
+                fwd = ft.fwd_plan(batch, h, w, c, f, dtype)
+                label = f"{link}, cluster {fwd.n} x {fwd.s}, {fwd.per} tiles a cluster"
+                judge_k1(ft, tjudge, k, label, dname)
+                judge_k9(fs, tjudge, k, f"{link} (x, dw, pw)", dname)
                 plan = ft.chain_bwd_plan(batch, h, w, c, f, dtype)
-                label = (f"{link_label(name, c, f, f'{h}x{w}', in_aff, drop, mc)} batch {batch}, "
-                         f"slices {plan.grid_a[1]} x {plan.wc}, dpw {plan.tm}x{plan.tn} "
+                label = (f"{link}, slices {plan.grid_a[1]} x {plan.wc}, dpw {plan.tm}x{plan.tn} "
                          f"x {plan.splits} splits")
                 judge_bwd(ft, fs, tjudge, k, label, dname, in_aff, mc)
     rnd.gen.set_state(stream)
@@ -660,6 +702,88 @@ def variant_ab(torch, dev, smi, base, x, m, dname, on, variant, launches):
     return {"loss_step1": loss, "images_per_s": rates}
 
 
+def eval_ab(torch, dev, smi, base, x, m, launches):
+    """Phase 8's eval step (``make_eval_step``, which ``fit`` runs on every
+    validation batch) on config dict ``base`` at its batch: kernels on (K8
+    in each of the 18 blocks) against the composed path with the same seeded
+    weights and BatchNorm statistics (recalibrated on the batch), in fp32
+    and bf16; the loss and metrics held under phase 5's
+    module-path bars (the loss and dice within ``PROB_TOL``; the confusion
+    matrices as pixel shares, the soft one within ``PROB_TOL``, the
+    thresholded one within ``1 - MASK_MIN_AGREE``); then images/s in turns."""
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet, recalibrate_batch_norm
+    from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+    from unet_image_segmentation_tpu_torch.train.state import Config
+    from unet_image_segmentation_tpu_torch.train.steps import make_eval_step
+
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        runs, state = {}, None
+        for use_pallas in (False, True):
+            d = json.loads(json.dumps(base))
+            d["model"].update(compute_dtype=dname, use_pallas=use_pallas)
+            cfg = Config.from_dict(d)
+            model = build_unet(cfg.model, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+            if use_pallas:
+                model.load_state_dict(state)
+            else:   # BatchNorm statistics of the batch, so the outputs are not a constant 0.5
+                recalibrate_batch_norm(model, x)
+                state = model.state_dict()
+            step = make_eval_step(model, cfg.train.loss)
+            fs.reset_launch_counts()
+            metrics = step(None, x, m)
+            torch.cuda.synchronize()
+            k8 = fs.LAUNCHES["sepconv_block"]
+            if k8 != (EVAL_K8_LAUNCHES if use_pallas else 0) or not all(
+                    torch.isfinite(v.float()).all().item() for v in metrics.values()):
+                raise AssertionError(f"eval step {dname} use_pallas={use_pallas}: {k8} K8 "
+                                     f"launches, metrics {metrics}")
+            if use_pallas:
+                launches["sepconv_block"] = launches.get("sepconv_block", 0) + k8
+            runs[use_pallas] = (step, {k: v.double().cpu() for k, v in metrics.items()})
+        on, off = runs[True][1], runs[False][1]
+        diff, ok = {}, True
+        for key, want in off.items():
+            got = on[key]
+            if want.dim() == 0:
+                diff[key], bar = abs(got - want).item(), PROB_TOL[dname]
+            else:   # pixel shares of a confusion matrix
+                diff[key] = (got / got.sum() - want / want.sum()).abs().max().item()
+                bar = 1 - MASK_MIN_AGREE[dname] if key == "cm_thresh" else PROB_TOL[dname]
+            ok = ok and diff[key] <= bar
+        print(f"  {dname} eval step at batch {x.shape[0]}, {EVAL_K8_LAUNCHES} K8 launches: loss "
+              f"kernels {on['loss'].item():.6f} composed {off['loss'].item():.6f}, dice kernels "
+              f"{on['dice'].item():.6f} composed {off['dice'].item():.6f}; max difference "
+              + ", ".join(f"{k} {v:.2e}" for k, v in diff.items()) +
+              f" (bars {PROB_TOL[dname]:g}, thresholded matrix {1 - MASK_MIN_AGREE[dname]:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"eval step {dname}: kernels disagree with the composed path")
+        rates = {}
+        for label in ("on", "off", "on", "off"):
+            rates.setdefault(label, []).append(
+                eval_images_per_second(runs[label == "on"][0], x, m, torch))
+        print(f"  {dname} eval images/s at batch {x.shape[0]}: " + ", ".join(
+            f"kernels {k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) +
+            f" [{smi}]")
+        out[dname] = {"loss_on": on["loss"].item(), "loss_off": off["loss"].item(),
+                      "max_diff": diff, "images_per_s": rates}
+        del runs
+    return out
+
+
+def train_inputs(torch, dev):
+    """Phase 8's config dict, its numpy scenes and masks, and the first
+    batch of them on the card."""
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        base = json.load(f)
+    images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
+    x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
+    m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
+    return base, images, masks, x, m
+
+
 def train_path(torch, dev, smi, report, launches):
     """Phase 8: the training step at full width, kernels on against the
     composed path on the same card, then ``fit`` and a ``Predictor`` request."""
@@ -670,11 +794,7 @@ def train_path(torch, dev, smi, report, launches):
     from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
     from unet_image_segmentation_tpu_torch.train.steps import make_train_step
 
-    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
-        base = json.load(f)
-    images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
-    x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
-    m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
+    base, images, masks, x, m = train_inputs(torch, dev)
     print(f"training path: {TRAIN_CONFIG} as it is (fused_head "
           f"{base['model'].get('fused_head', 'auto')}): U-Net {base['model']['filters']}"
           f" at {IMAGE}, batch {base['train']['batch_size']}, dropout "
@@ -682,6 +802,9 @@ def train_path(torch, dev, smi, report, launches):
           f"{base['train']['learning_rate']} wd {base['train']['weight_decay']}; seeded "
           f"weights and dropout seeds; kernels on vs the composed path, {TRAIN_STEPS} steps each")
     report["train"] = train_ab(torch, dev, smi, base, x, m, launches, STEP_LAUNCHES)
+    print(f"eval step: {TRAIN_CONFIG}'s model, make_eval_step (fit's validation) at batch "
+          f"{x.shape[0]}, kernels on (K8) vs the composed path, seeded weights")
+    report["eval"] = eval_ab(torch, dev, smi, base, x, m, launches)
 
     # PR 2's path: the same config with the composed head, kernels on
     d = json.loads(json.dumps(base))
@@ -978,11 +1101,12 @@ def troubleshoot_path(torch, dev, smi, report, launches, worst_abs, totals):
         floors = json.load(f)
     iters = int(LINK_FLOORS_ARGS[1])
     if len(floors["links"]) != len(LINKS) or any(
-            r["launches"] != iters or min(r["pass_a_ms"], r["pass_b_ms"], r["sums_ms"]) <= 0
+            r["launches"] != iters or r["k1_launches"] != iters or
+            min(r["pass_a_ms"], r["pass_b_ms"], r["sums_ms"], r["k1_ms"]) <= 0
             for r in floors["links"]):
         raise AssertionError(f"{link_floors.OUT}: expected {len(LINKS)} links, each with "
-                             f"{iters} K2 launches and its time split by pass")
-    print(f"  {len(floors['links'])} links, one K2 launch a timed call, each split into "
+                             f"{iters} K1 and K2 launches and K2's time split by pass")
+    print(f"  {len(floors['links'])} links, one K1 and one K2 launch a timed call, K2 split into "
           f"pass (a), pass (b) and sums -> {link_floors.OUT}")
     report["link_floors"] = floors
 
@@ -1021,6 +1145,17 @@ def train_counts():
     return {**fused_train.LAUNCHES, **fused_upconcat.LAUNCHES, **fused_head.LAUNCHES}
 
 
+def eval_images_per_second(step, x, m, torch, reps=5):
+    """Host-clock rate of eval steps (forward, loss and metrics)."""
+    step(None, x, m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(None, x, m)
+    torch.cuda.synchronize()
+    return reps * x.shape[0] / (time.perf_counter() - t0)
+
+
 def train_images_per_second(step, state, x, m, torch, reps=3):
     """Host-clock rate of full train steps (forward, backward, AdamW)."""
     step(state, x, m)
@@ -1032,9 +1167,17 @@ def train_images_per_second(step, state, x, m, torch, reps=3):
     return reps * x.shape[0] / (time.perf_counter() - t0)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--eval-only", action="store_true",
+                        help="run the card, the build and phase 8's eval step only, and print no "
+                             "result line (run from another checkout's root, this times that "
+                             "checkout's eval step)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1067,6 +1210,14 @@ def main() -> int:
     build.load_library()
     print(f"build: nvcc {' '.join(build.NVCC_FLAGS[:2])} -> {build.library_path().name}, "
           f"nvcc {build.build_seconds} s, load {time.perf_counter() - t0:.2f} s")
+
+    if args.eval_only:
+        base, _, _, x, m = train_inputs(torch, dev)
+        print(f"eval step only: {TRAIN_CONFIG}'s model at batch {x.shape[0]}, kernels on (K8) vs "
+              "the composed path")
+        report["eval"] = eval_ab(torch, dev, smi, base, x, m, {})
+        print(json.dumps({"eval": report["eval"]}))
+        return 0
 
     def rnd(*shape, scale=1.0):
         return (torch.rand(*shape, generator=gen) * 2 - 1) * scale
@@ -1112,6 +1263,23 @@ def main() -> int:
             want = fs.sepconv_block_reference(x, w)
             torch.cuda.synchronize()
             judge("sepconv_block", f"{c}->{f}@{h}", dname, [(got, want)])
+    print(f"K8 vs plain at other shapes, batch {' and '.join(map(str, BLOCK_RAGGED_BATCHES))}, "
+          "ReLU on and off:")
+    stream = gen.get_state()  # these cases leave the later phases' seeded inputs as they were
+    for dname, dtype in dtypes.items():
+        for batch in BLOCK_RAGGED_BATCHES:
+            for name, c, f, h, w in BLOCK_RAGGED:
+                wt = weights(c, f, dtype)
+                x = rnd(batch, h, w, c).to(dev, dtype)
+                plan = ft.fwd_plan(batch, h, w, c, f, dtype)
+                for relu in (True, False):
+                    got = fs.sepconv_block(x, wt, relu)
+                    want = fs.sepconv_block_reference(x, wt, relu)
+                    torch.cuda.synchronize()
+                    judge("sepconv_block", f"{name} {c}->{f}@{h}x{w} ReLU "
+                          f"{'on' if relu else 'off'} batch {batch}, cluster {plan.n} x {plan.s}, "
+                          f"{plan.per} tiles a cluster", dname, [(got, want)])
+    gen.set_state(stream)
 
     # ---- 4. K7 vs plain -----------------------------------------------------
     def pair_case(batch, cx, cx2, f1, f2, h, w, mode, dtype):
@@ -1225,10 +1393,11 @@ def main() -> int:
     report["predictor"]["profile"] = profile_predict(torch, dev, on["bfloat16"], batch, smi)
 
     # ---- 6. kernel timings --------------------------------------------------
-    # K7's launch plan depends on the batch (the grid), so each output at the
-    # path's batch is held against its plain version before it is timed
-    print(f"kernel timings, batch {BATCH_SERVE}, ms (kernel / plain; K7 also its bound and "
-          f"executed / useful multiply-adds) [{smi}]:")
+    # K7's and K8's launch plans depend on the batch (the grid), so each
+    # output at the path's batch is held against its plain version before it
+    # is timed
+    print(f"kernel timings, batch {BATCH_SERVE}, ms (kernel / plain, its bound and executed / "
+          f"useful multiply-adds) [{smi}]:")
     totals = {}
     for dname, dtype in dtypes.items():
         tot = {"sepconv_pair": [0.0, 0.0], "sepconv_block": [0.0, 0.0]}
@@ -1251,12 +1420,22 @@ def main() -> int:
             for c, f in ((cx + cx2, f1), (f1, f2)):
                 w = weights(c, f, dtype)
                 xb = rnd(BATCH_SERVE, h, h, c).to(dev, dtype)
+                got = fs.sepconv_block(xb, w)
+                want = fs.sepconv_block_reference(xb, w)
+                torch.cuda.synchronize()
+                judge("sepconv_block", f"{c}->{f}@{h} batch {BATCH_SERVE}", dname, [(got, want)])
+                del got, want
                 t_k = time_ms(lambda: fs.sepconv_block(xb, w), torch)
                 t_p = time_ms(lambda: fs.sepconv_block_reference(xb, w), torch)
+                bound, by = roofline.bounds_ms("sepconv_block", (c, f, h), dname, BATCH_SERVE)
+                work = ft.fwd_work(BATCH_SERVE, h, h, c, f, dtype)
                 tot["sepconv_block"][0] += t_k
                 tot["sepconv_block"][1] += t_p
-                print(f"  K8 {c}->{f}@{h} {dtype_label(dname)}: {t_k:.3f} / {t_p:.3f}")
-                report["blocks"][f"{c}->{f}@{h} {dname}"] = [t_k, t_p]
+                print(f"  K8 {c}->{f}@{h} {dtype_label(dname)}: {t_k:.3f} / {t_p:.3f}, bound "
+                      f"{bound:.4f} ({by}), executed / useful {work.executed / work.useful:.3f}")
+                report["blocks"][f"{c}->{f}@{h} {dname}"] = {
+                    "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                    "executed_over_useful": work.executed / work.useful}
         totals[dname] = tot
         print(f"  {dname} totals over the path: K7 {tot['sepconv_pair'][0]:.3f} / "
               f"{tot['sepconv_pair'][1]:.3f}, K8 {tot['sepconv_block'][0]:.3f} / "
@@ -1420,7 +1599,7 @@ def main() -> int:
           "path's shapes (9 pair and 18 block shapes; 18 chain links; 4 encoder boundaries; 4 "
           "decoder feeds; the head; 18 per-block sepconvs); K12a: fp32 (8, 128), ms a launch; "
           f"K12b: bf16 {FMA_PROBE_SHAPE} at K = {FMA_PROBE_K}; launches: K7/K8 over phase 5's "
-          f"forwards, K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
+          f"forwards (K8 also phase 8's eval steps), K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
           "A/B step) in each dtype, K11 over phase 10's, K9/K10 over phase 11's 18 blocks in each "
           "dtype, K12 over phase 12's link_floors run")
     print(smi)

@@ -254,3 +254,35 @@ def test_kernel_sources_hash_into_library_name():
     for name in ("sepconv_block.cu", "sepconv_pair.cu"):
         note = (build.CSRC / name).read_text().split("#include")[0]
         assert "Replaces the TPU kernel" in note and "bounds it on the H100" in note
+
+
+@pytest.mark.parametrize("px", [256, 512])
+def test_k8_route_on_the_unet_blocks(px):
+    """K8's 18 blocks (two a K7 stage) take the plan of the forward body
+    (fused_train.fwd_plan): one CTA a tile up to F = 128, else a cluster of
+    F / 128 CTAs sharing each tile's depthwise, so only enc1.1's 3 input
+    channels, padded to one mma depth, are executed past the useful work."""
+    from unet_image_segmentation_tpu_torch.ops import fused_train as tft
+
+    for name, cx, cx2, f1, f2, h, _ in roofline.stage_shapes(px, (64, 128, 256, 512)):
+        for c, f in ((cx + cx2, f1), (f1, f2)):
+            plan = tft.fwd_plan(32, h, h, c, f, torch.bfloat16)
+            assert plan.n == max(1, f // 128) and plan.n * plan.s == max(f, 64 * plan.n)
+            work = tft.fwd_work(32, h, h, c, f, torch.bfloat16)
+            assert work.executed / work.useful == pytest.approx(16 / 3 if c == 3 else 1.0)
+
+
+def test_forward_kernels_take_their_products_to_the_tensor_cores():
+    """K8 and K1 run their pointwise products on mma.sync through the
+    forward body (sepconv_fwd.cuh: warp_gemm in bf16, warp_gemm_split's
+    3xTF32 in fp32); only K9's kept body still runs the fp32-FMA GEMM
+    (smem_gemm), inside sepconv_stats_kernel."""
+    body = (build.CSRC / "sepconv_fwd.cuh").read_text()
+    assert "warp_gemm<" in body and "warp_gemm_split<" in body and "smem_gemm" not in body
+    k8 = (build.CSRC / "sepconv_block.cu").read_text()
+    assert "sepconv_fwd_tiles<" in k8 and "smem_gemm" not in k8
+    k1 = (build.CSRC / "chain_fwd.cu").read_text()
+    assert "sepconv_fwd_tiles<" in k1
+    stats = k1.index("sepconv_stats_kernel(")
+    end = k1.index("\n}\n", stats)
+    assert k1.count("smem_gemm<") == 1 and stats < k1.index("smem_gemm<") < end

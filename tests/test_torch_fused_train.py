@@ -284,3 +284,112 @@ def test_chain_bwd_work_on_the_unet_links(dtype):
         work = tft.chain_bwd_work(32, h, h, c, f, dtype)
         ratio = work.executed / work.useful
         assert 1.0 < ratio <= (6.5 if name == "enc1.1" else 1.4), (name, ratio)
+
+
+# K1's and K8's launch plans: every link of the 256 px step at batch 32, and
+# the ragged shapes of chip_smoke.py (partial slices, C off the vector and
+# the mma depth, F off 16, a partial last cluster slice)
+_FWD_PLAN_SHAPES = (
+    [pytest.param(32, h, h, c, f, id=f"256px-{name}")
+     for name, c, f, h, *_ in roofline.chain_links(256, (64, 128, 256, 512))]
+    + [pytest.param(3, 20, 36, 32, 64, id="ragged-20x36"),
+       pytest.param(2, 24, 24, 3, 48, id="ragged-c3-f48"),
+       pytest.param(3, 10, 14, 5, 33, id="ragged-c5-f33"),
+       pytest.param(2, 12, 20, 200, 72, id="ragged-c200-f72"),
+       pytest.param(3, 9, 9, 12, 300, id="ragged-f300"),
+       pytest.param(65535, 8, 8, 16, 1024, id="batch-65535")]
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,w,c,f", _FWD_PLAN_SHAPES)
+def test_fwd_plan(b, h, w, c, f, dtype):
+    """A cluster of n CTAs whose slices (multiples of 16, within the GEMM
+    width) cover F exactly, n the fewest that fit 128-wide slices; two CTAs
+    an SM by shared memory; per tiles a cluster, the clusters covering the
+    batch's tiles, at least 8 waves of two CTAs an SM where there are tiles
+    for it; the grid within CUDA's limits."""
+    plan = tft.fwd_plan(b, h, w, c, f, dtype)
+    assert plan.n in (1, 2, 4, 8) and (plan.n == 1 or (plan.n // 2) * 128 < f <= plan.n * 128)
+    assert plan.s % 16 == 0 and plan.s <= plan.width in (64, 128)
+    assert plan.width == (64 if plan.s <= 64 else 128)
+    assert (plan.n - 1) * plan.s < f <= plan.n * plan.s
+    assert 2 * (plan.smem + 1024) <= 228 * 1024
+    tiles = b * plan.tiles_y * plan.tiles_x
+    assert (plan.tiles_y, plan.tiles_x) == (-(-h // 8), -(-w // 8))
+    assert 1 <= plan.per <= 8 and plan.grid == (plan.n * -(-tiles // plan.per),)
+    assert plan.per == 1 or plan.grid[0] >= 2112
+    assert plan.grid[0] < 2 ** 31
+    assert tft.fwd_plan_args(plan) == (plan.n, plan.s, plan.width, plan.per, plan.smem)
+
+
+def test_fwd_plan_by_hand():
+    """bf16 enc1.2 of the 256 px step at batch 32: one CTA a cluster, 64
+    channels wide, 8 of the 32768 tiles a cluster; the shared memory of
+    FwdSmem in sepconv_fwd.cuh. fp32 bneck.2: a cluster of 8 128-wide
+    slices, one tile a cluster (128 tiles)."""
+    plan = tft.fwd_plan(32, 256, 256, 64, 64, torch.bfloat16)
+    assert (plan.n, plan.s, plan.width, plan.per) == (1, 64, 64, 8)
+    assert plan.grid == (4096,)
+    # x halo [2][100][64] and taps [2][9][64], A [2][64][72], pw [2][64][72]
+    # in bf16, then the sums [4][64] in fp32
+    assert plan.smem == 2 * (2 * 100 * 64 + 2 * 9 * 64 + 2 * 64 * 72 + 2 * 64 * 72) + 16 * 64
+    assert plan.smem == 65792
+    deep = tft.fwd_plan(32, 16, 16, 1024, 1024, torch.float32)
+    assert (deep.n, deep.s, deep.width, deep.per, deep.grid) == (8, 128, 128, 1, (1024,))
+    # fp32: chunks of 32 channels, A twice (TF32 hi and lo) [2][2][64][36]
+    assert deep.smem == 4 * (2 * 100 * 32 + 2 * 9 * 32 + 4 * 64 * 36 + 2 * 32 * 136) + 16 * 128
+    # F = 300: four slices of 80 (the last holds 60); F = 33: one of 48
+    assert tft.fwd_plan(3, 9, 9, 12, 300, torch.bfloat16)[:3] == (4, 80, 128)
+    assert tft.fwd_plan(3, 10, 14, 5, 33, torch.bfloat16)[:3] == (1, 48, 64)
+
+
+def test_fwd_plan_refuses_what_the_kernel_cannot_launch():
+    with pytest.raises(ValueError, match="at most 1024"):
+        tft.fwd_plan(1, 16, 16, 64, 1025, torch.bfloat16)
+    with pytest.raises(ValueError, match="batch"):
+        tft.fwd_plan(65536, 8, 8, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="empty"):
+        tft.fwd_plan(1, 8, 0, 64, 64, torch.float32)
+    with pytest.raises(TypeError):
+        tft.fwd_plan(1, 8, 8, 64, 64, torch.float16)
+
+
+def test_fwd_work_by_hand():
+    """One 8x8 tile, C = 3, F = 16, bf16: the depthwise of one 16-deep
+    (padded) chunk on the 64 pixels; the products of the first warp column
+    (16 of the 64-wide slice) over that depth. C = 200, F = 72 at 12 x 20,
+    batch 2: 2 x 6 tiles; chunks of 64, 64, 64 and 8 -> 16 channels; one
+    128-wide slice of which 3 warp columns (96) hold F."""
+    work = tft.fwd_work(1, 8, 8, 3, 16, torch.bfloat16)
+    assert work == (64 * 9 * 16, 64 * 9 * 3, 64 * 16 * 16, 64 * 3 * 16)
+    assert work.executed == 64 * 9 * 16 + 64 * 16 * 16 and work.useful == 64 * (27 + 48)
+    fp32 = tft.fwd_work(1, 8, 8, 3, 16, torch.float32)   # k8 steps: C pads to 8
+    assert (fp32.dw_executed, fp32.mma_executed) == (64 * 9 * 8, 64 * 16 * 8)
+    work = tft.fwd_work(2, 12, 20, 200, 72, torch.bfloat16)
+    assert work.dw_executed == 2 * 6 * 64 * 9 * 208
+    assert work.mma_executed == 2 * 6 * 64 * 96 * 208
+    assert work.useful == 2 * 12 * 20 * (9 * 200 + 200 * 72)
+    # F = 300 over four 80-wide slices: 3 + 3 + 3 + 2 active warp columns of 32
+    work = tft.fwd_work(1, 8, 8, 32, 300, torch.bfloat16)
+    assert work.mma_executed == 64 * 32 * (96 * 3 + 64) and work.dw_executed == 64 * 9 * 32
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_fwd_work_on_the_unet_links(dtype):
+    """The cluster shares each tile's depthwise, so at the 256 px step's
+    links nothing is recomputed: executed equals useful but at enc1.1, whose
+    3 input channels fill one mma depth (16 in bf16, 8 in fp32). Summed over
+    the 18 links: 1.011 (bf16), 1.004 (fp32)."""
+    executed = useful = 0
+    for name, c, f, h, *_ in roofline.chain_links(256, (64, 128, 256, 512)):
+        work = tft.fwd_work(32, h, h, c, f, dtype)
+        depth = 16 if dtype == torch.bfloat16 else 8
+        want = depth / 3 if name == "enc1.1" else 1.0
+        assert work.dw_executed / work.dw_useful == pytest.approx(want), name
+        assert work.mma_executed / work.mma_useful == pytest.approx(want), name
+        executed, useful = executed + work.executed, useful + work.useful
+    assert executed / useful == pytest.approx(1.0115 if dtype == torch.bfloat16 else 1.0044,
+                                              abs=5e-4)
+    assert useful == 32 * sum(h * h * (9 * c + c * f) for _, c, f, h, *_ in
+                              roofline.chain_links(256, (64, 128, 256, 512)))

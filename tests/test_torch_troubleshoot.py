@@ -285,6 +285,76 @@ def test_k2_k10_bounds_on_their_route_by_hand():
             pytest.approx((nbytes / 3.35e12 * 1e3, "bytes"))
 
 
+def test_k1_k8_bounds_on_their_route_by_hand():
+    """K1 and K8 at the bottleneck's second block (1024 -> 1024 @ 16),
+    batch 32: the pointwise products on the tensor cores (bf16 at 989
+    TFLOP/s; fp32 as 3xTF32 at 495) beside the 9*C depthwise on the CUDA
+    cores (67 TFLOP/s fp32), the larger against the bytes; K9 keeps its
+    FMA route, every operation held to the dtype's peak."""
+    link = ("bneck.2", 1024, 1024, 16, True, False, True)
+    px = 32 * 16 * 16
+    gemm, dw = 2 * px * 1024 * 1024, 2 * px * 9 * 1024
+    assert roofline.fwd_ops("chain_fwd", link, 32) == (gemm, dw)
+    assert roofline.fwd_ops("sepconv_block", (1024, 1024, 16), 32) == (gemm, dw)
+    for name, shape in (("chain_fwd", link), ("sepconv_block", (1024, 1024, 16))):
+        assert roofline.bounds_ms(name, shape, "bfloat16", 32) == \
+            pytest.approx((gemm / 989e12 * 1e3, "operations"))
+        assert roofline.bounds_ms(name, shape, "float32", 32) == \
+            pytest.approx((3 * gemm / 495e12 * 1e3, "operations"))
+    nbytes32, ops = roofline.work("sepconv_stats", link, "float32", 32)
+    assert ops == gemm + dw
+    assert roofline.bounds_ms("sepconv_stats", link, "float32", 32) == \
+        pytest.approx((ops / 67e12 * 1e3, "operations"))
+    # enc1.2 (64 -> 64 @ 256): the bytes bound K1 in both dtypes, and K9 in bf16
+    enc = ("enc1.2", 64, 64, 256, True, False, False)
+    for dname in ("bfloat16", "float32"):
+        nbytes, _ = roofline.work("chain_fwd", enc, dname, 32)
+        assert roofline.bounds_ms("chain_fwd", enc, dname, 32) == \
+            pytest.approx((nbytes / 3.35e12 * 1e3, "bytes"))
+    # over the 18 links: bf16 bytes-bound (1.272 ms); fp32 3.07 ms, no longer
+    # K9's 5.39 ms of CUDA-core operations
+    links = link_floors.stage_table()
+    bf16 = roofline.sum_bounds("chain_fwd", links, "bfloat16", 32)
+    assert bf16[1] == "bytes" and bf16[0] == pytest.approx(1.2722, abs=1e-3)
+    fp32 = roofline.sum_bounds("chain_fwd", links, "float32", 32)
+    assert fp32[0] == pytest.approx(3.0722, abs=1e-3)
+    assert roofline.sum_bounds("sepconv_stats", links, "float32", 32)[0] == \
+        pytest.approx(5.3854, abs=1e-3)
+
+
+def test_k1_instruction_count_and_model_by_hand():
+    """One 8x8 tile, C = 3, F = 16, bf16: the products and depthwise of
+    fwd_work, the prologue over the 100 halo pixels of each of the 3
+    channels (3 instructions a value with the affine, 11 with the dropout),
+    and one row of 32 partial sums; the model prices the products at the
+    product rate and the rest at K12b's."""
+    got = link_floors.k1_instructions(1, 8, 8, 3, 16, False, False)
+    assert got == {"mma": 64 * 16 * 16, "depthwise": 64 * 9 * 16, "prologue": 0, "sums": 32}
+    assert link_floors.k1_instructions(1, 8, 8, 3, 16, True, False)["prologue"] == 100 * 3 * 3
+    assert link_floors.k1_instructions(1, 8, 8, 3, 16, False, True)["prologue"] == 100 * 3 * 11
+    instr = {"mma": 10 ** 9, "depthwise": 10 ** 8, "prologue": 10 ** 7, "sums": 10 ** 6}
+    assert link_floors.k1_model_ms(instr, "bfloat16", 500e12, 50e3) == pytest.approx(
+        2e9 / 500e12 * 1e3 + 2 * 1.11e8 / 50e12 * 1e3)
+    assert link_floors.k1_model_ms(instr, "float32", 250e12, 50e3) == pytest.approx(
+        6e9 / 250e12 * 1e3 + 2 * 1.11e8 / 50e12 * 1e3)
+
+
+def test_forward_entries_map_to_k1_k8_and_k9():
+    """The __global__ entries of the forward kernels are mapped: K8's and
+    K1's on the forward body of sepconv_fwd.cuh, K9's kept FMA body; the
+    body's header defines none of its own."""
+    sites = step_attribution.kernel_sites()
+    assert sites["sepconv_block_kernel"].startswith("sepconv_block.cu:")
+    assert sites["chain_fwd_kernel"].startswith("chain_fwd.cu:")
+    assert sites["sepconv_stats_kernel"].startswith("chain_fwd.cu:")
+    assert not any(site.startswith("sepconv_fwd.cuh:") for site in sites.values())
+    assert [roofline.label_of(e) for e in ("sepconv_block_kernel", "chain_fwd_kernel",
+                                           "sepconv_stats_kernel")] == ["K8", "K1", "K9"]
+    name = ("void unet::(anonymous namespace)::chain_fwd_kernel<__nv_bfloat16, 128, true>"
+            "(unet::FwdArgs<__nv_bfloat16>, float const*)")
+    assert roofline.entry_of(name) == "chain_fwd_kernel"
+
+
 def test_every_kernel_entry_maps_to_a_label():
     sites = step_attribution.kernel_sites()
     assert set(sites) == set(roofline.ENTRIES), set(sites) ^ set(roofline.ENTRIES)

@@ -7,7 +7,10 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
 
 * :func:`fused_sepconv_bn_relu` (K8, TPU kernel ``_sepconv_kernel_db``):
   ``relu?((dw3x3(x) -> dtype) . pw * scale + shift)`` in one pass, BN folded
-  into ``scale``/``shift``. CUDA source: ``kernels/csrc/sepconv_block.cu``.
+  into ``scale``/``shift``. CUDA source: ``kernels/csrc/sepconv_block.cu``,
+  the forward body of ``sepconv_fwd.cuh`` (shared with K1) with K8's
+  epilogue; its launch plan is :func:`..fused_train.fwd_plan` and
+  :func:`..fused_train.fwd_work` counts the multiply-adds it executes.
 * :func:`fused_sepconv_pair` (K7, TPU kernel ``_sepconv_pair_kernel_db``):
   two such blocks with ReLU, block 1's output never leaving the chip,
   optionally with the 2x2 max pool of the output (``pool=True``) and a
@@ -18,8 +21,8 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
 * :func:`sepconv_stats` (K9, TPU kernel ``_sepconv_kernel_db_stats``): the
   plain sepconv ``y = (dw3x3(x) -> dtype) . pw`` rounded to the dtype, with
   the per-channel Σy and Σy² of the rounded y. CUDA source: the
-  ``unet_sepconv_stats`` entry of ``kernels/csrc/chain_fwd.cu`` (K1's kernel
-  with no input transform and no dropout).
+  ``unet_sepconv_stats`` entry of ``kernels/csrc/chain_fwd.cu`` (the first
+  K1's fp32-FMA body with no input transform and no dropout).
 * :func:`sepconv_bwd` (K10, TPU kernel ``fused_sepconv_bwd.py:_bwd_kernel``):
   ``dx`` (written in the dtype), ``ddw``, ``dpw`` and ``dbias`` of the plain
   sepconv from x and the cotangent g. CUDA source: the ``unet_sepconv_bwd``
@@ -339,11 +342,12 @@ def sepconv_block(
     _check_cuda_input(x, "sepconv_block")
     b, h, wd, c = x.shape
     f = _check_weights(w, c, x, "sepconv_block")
+    plan = ft.fwd_plan(b, h, wd, c, f, x.dtype)
     lib = build.load_library()
     out = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
     status = lib.unet_sepconv_block(
         x.data_ptr(), w.dw.data_ptr(), w.pw.data_ptr(), w.scale.data_ptr(),
-        w.shift.data_ptr(), out.data_ptr(), b, h, wd, c, f, int(relu),
+        w.shift.data_ptr(), out.data_ptr(), b, h, wd, c, f, int(relu), *ft.fwd_plan_args(plan),
         build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "sepconv_block")

@@ -5,10 +5,11 @@ its TPU layout machinery (lane packing, narrow-input padding, halos). Four
 hand-written CUDA kernels carry a chain, each beside its plain PyTorch
 version (``*_reference``):
 
-* :func:`chain_fwd` (K1, ``kernels/csrc/chain_fwd.cu``): one forward link,
-  optional hash dropout or the previous link's BN affine + ReLU on the
-  input, the sepconv, and the link's Σy and Σy² (TPU kernel
-  ``_fwd_train_kernel``);
+* :func:`chain_fwd` (K1, ``kernels/csrc/chain_fwd.cu`` on the forward body
+  of ``sepconv_fwd.cuh``, shared with K8; launch plan :func:`fwd_plan`,
+  work :func:`fwd_work`): one forward link, optional hash dropout or the
+  previous link's BN affine + ReLU on the input, the sepconv, and the
+  link's Σy and Σy² (TPU kernel ``_fwd_train_kernel``);
 * :func:`chain_bwd` (K2, ``kernels/csrc/chain_bwd.cu``): one backward link,
   the link's BN backward folded into per-channel constants, the sepconv
   backward, and the previous link's BN reductions S and T
@@ -49,7 +50,16 @@ from unet_image_segmentation_tpu_torch.ops.kernels import build
 
 LAUNCHES: Dict[str, int] = {"chain_fwd": 0, "chain_bwd": 0, "tail_pool": 0, "tail_pool_bwd": 0}
 
-_MAX_BATCH = 65535  # gridDim.z of K1 and K2
+_MAX_BATCH = 65535  # gridDim.z of K2 and K9; K1 and K8 hold to it too
+
+# K8's and K1's launch plan (kernels/csrc/sepconv_fwd.cuh): per dtype the
+# input channels of a chunk and the mma's depth; a cluster of up to 8 CTAs,
+# each owning a slice of at most 128 channels of F
+_FWD_CHUNK = {torch.bfloat16: (64, 16), torch.float32: (32, 8)}
+_FWD_SLICE, _FWD_MAX_CLUSTER = 128, 8
+# tiles a cluster takes in turn: at most 8, and no fewer CTAs than 8 waves
+# of two a SM of a 132-SM card, so the last wave's part stays small
+_FWD_TARGET_CTAS, _FWD_MAX_PER = 2112, 8
 
 # K2's launch plan (kernels/csrc/chain_bwd.cu): per dtype the GEMM depth
 # staged at once (F channels in pass (a), pixels in pass (b)), the mma's
@@ -233,6 +243,115 @@ def tail_pool_bwd_reference(
     return dzt.to(y.dtype).contiguous(), st
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# --------------------------------------------------------------------------
+# K8's and K1's launch plan and work
+# --------------------------------------------------------------------------
+
+
+class FwdPlan(NamedTuple):
+    """The launch of K8 and K1 (the forward body of ``sepconv_fwd.cuh``):
+    ``n`` CTAs a cluster (1, 2, 4 or 8), CTA r owning F channels ``[r*s,
+    (r+1)*s)`` (cut at F), padded to ``width`` (64 or 128) in its GEMM
+    tile; ``tiles_y * tiles_x`` 8x8 output tiles an image; a cluster takes
+    ``per`` consecutive tiles of the batch's ``B * tiles`` in turn, the next
+    tile's first chunk in flight under the last one's epilogue; the grid
+    ``(n * ceil(B * tiles / per),)``; ``smem`` bytes of dynamic shared
+    memory a CTA. The depthwise of each input chunk is split over the
+    cluster's CTAs and shared through distributed shared memory, so it runs
+    once per tile at every F."""
+
+    n: int
+    s: int
+    width: int
+    per: int
+    tiles_y: int
+    tiles_x: int
+    grid: Tuple[int]
+    smem: int
+
+
+def fwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> FwdPlan:
+    """K8's and K1's launch plan for ``b`` (H, W) images, C input and F
+    output channels in ``dtype``. The shared-memory layout is ``FwdSmem`` of
+    ``sepconv_fwd.cuh``, which checks the byte count. ``per`` keeps at least
+    :data:`_FWD_TARGET_CTAS` CTAs (8 waves of two CTAs an SM of a 132-SM
+    card) where the tiles allow it, at most :data:`_FWD_MAX_PER` tiles a
+    cluster."""
+    if min(b, h, w, c, f) < 1:
+        raise ValueError(f"sepconv forward: empty shape B={b} H={h} W={w} C={c} F={f}")
+    if b > _MAX_BATCH:
+        raise ValueError(f"sepconv forward: batch {b} outside 1..{_MAX_BATCH}")
+    if dtype not in _FWD_CHUNK:
+        raise TypeError(f"sepconv forward: dtype {dtype} not supported (float32, bfloat16)")
+    if f > _FWD_SLICE * _FWD_MAX_CLUSTER:
+        raise ValueError(f"sepconv forward: F={f}; at most {_FWD_SLICE * _FWD_MAX_CLUSTER} "
+                         f"channels ({_FWD_MAX_CLUSTER} CTAs of {_FWD_SLICE})")
+    n = 1
+    while n * _FWD_SLICE < f:
+        n *= 2
+    s = -(-_cdiv(f, n) // 16) * 16
+    width = 64 if s <= 64 else 128
+    kc, _ = _FWD_CHUNK[dtype]
+    e = dtype.itemsize
+    ldk, ldn = kc + 16 // e, width + 8
+    # in T: x halo tiles (2 x 100 px x kc) and taps (2 x 9 x kc), the A
+    # buffers (2 x 64 x ldk; fp32 twice, TF32 hi and lo) and pw chunks (2 x
+    # kc x ldn); then fp32 column sums (4 x width)
+    smem = e * (2 * _RING_PX * kc + 2 * 9 * kc + 2 * (2 if e == 4 else 1) * 64 * ldk +
+                2 * kc * ldn) + 4 * 4 * width
+    if smem > SMEM_MAX:
+        raise ValueError(f"sepconv forward: {smem} bytes of shared memory, at most {SMEM_MAX}")
+    ty, tx = _cdiv(h, _TILE), _cdiv(w, _TILE)
+    tiles = b * ty * tx
+    per = max(1, min(_FWD_MAX_PER, tiles * n // _FWD_TARGET_CTAS))
+    if n * _cdiv(tiles, per) >= 2 ** 31:
+        raise ValueError(f"sepconv forward: {tiles} tiles, too many for one grid")
+    return FwdPlan(n, s, width, per, ty, tx, (n * _cdiv(tiles, per),), smem)
+
+
+class FwdWork(NamedTuple):
+    """Multiply-adds of one K8 or K1 call: the depthwise on the CUDA cores
+    and the pointwise products on the tensor cores, each executed (what
+    :func:`fwd_plan`'s launch issues; a product counted once, though fp32
+    issues three TF32 products for each) and useful (``B*H*W*9C`` and
+    ``B*H*W*C*F``)."""
+
+    dw_executed: int
+    dw_useful: int
+    mma_executed: int
+    mma_useful: int
+
+    @property
+    def executed(self) -> int:
+        return self.dw_executed + self.mma_executed
+
+    @property
+    def useful(self) -> int:
+        return self.dw_useful + self.mma_useful
+
+
+def fwd_work(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> FwdWork:
+    """:class:`FwdWork` of one K8 or K1 call. Per 8x8 tile (all 64 pixels,
+    at the ragged edge too) and chunk of C, padded to the mma depth: the
+    depthwise once for the tile (the cluster's CTAs split the chunk), the
+    products over the 64 rows and the columns of every CTA's active warps
+    (a quarter of the width each; the warps wholly past the slice skip)."""
+    plan = fwd_plan(b, h, w, c, f, dtype)
+    kc, ks = _FWD_CHUNK[dtype]
+    cpad = sum(min(kc, _cdiv(c - c0, ks) * ks) for c0 in range(0, c, kc))
+    quarter = plan.width // 4
+    cols = sum(quarter * min(4, _cdiv(hi - lo, quarter))
+               for lo, hi in ((min(r * plan.s, f), min((r + 1) * plan.s, f))
+                              for r in range(plan.n)))
+    tiles = b * plan.tiles_y * plan.tiles_x
+    p = b * h * w
+    return FwdWork(tiles * 64 * 9 * cpad, p * 9 * c, tiles * 64 * cols * cpad, p * c * f)
+
+
 # --------------------------------------------------------------------------
 # K2's launch plan and work
 # --------------------------------------------------------------------------
@@ -262,10 +381,6 @@ class BwdPlan(NamedTuple):
     smem_b: int
     cols_b: int
     cm: int
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def chain_bwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype,
@@ -415,6 +530,7 @@ def chain_fwd(
     _check_small(dw, "chain_fwd dw", (3, 3, c), x.dtype, x.device)
     _check_small(pw, "chain_fwd pw", (c, f), x.dtype, x.device)
     _check_small(in_aff, "chain_fwd in_aff", (2, c), torch.float32, x.device)
+    plan = fwd_plan(b, h, w, c, f, x.dtype)
     lib = build.load_library()
     y = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
     sums = torch.empty((2, f), dtype=torch.float32, device=x.device)
@@ -424,7 +540,7 @@ def chain_fwd(
     status = lib.unet_chain_fwd(
         x.data_ptr(), dw.data_ptr(), pw.data_ptr(), _ptr(in_aff), y.data_ptr(),
         work.data_ptr(), sums.data_ptr(), b, h, w, c, f, seed, thresh, scale,
-        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+        *fwd_plan_args(plan), build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "chain_fwd")
     LAUNCHES["chain_fwd"] += 1
@@ -485,6 +601,12 @@ def chain_bwd(
     LAUNCHES["chain_bwd"] += 1
     st = sums[9:11] if in_aff is not None else None
     return dx, sums[:9].reshape(3, 3, c), dpw, st
+
+
+def fwd_plan_args(plan: FwdPlan) -> Tuple[int, ...]:
+    """The plan as the C entries of K8 and K1 take it: (n, s, width, per,
+    smem)."""
+    return plan.n, plan.s, plan.width, plan.per, plan.smem
 
 
 def plan_args(plan: BwdPlan) -> Tuple[int, ...]:

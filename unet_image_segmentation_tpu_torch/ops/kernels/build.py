@@ -38,14 +38,15 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (all return int = cudaError_t)
 SIGNATURES = {
-    # x, dw, pw, scale, shift, out, B, H, W, C, F, relu, dtype, stream
-    "unet_sepconv_block": [_P] * 6 + [_I] * 7 + [_P],
+    # x, dw, pw, scale, shift, out, B, H, W, C, F, relu, n, s, width, per,
+    # smem, dtype, stream
+    "unet_sepconv_block": [_P] * 6 + [_I] * 12 + [_P],
     # x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out,
     # pooled, B, H, W, Cx, Cx2, F1, F2, n, s1, s2, width, smem, dtype, stream
     "unet_sepconv_pair": [_P] * 12 + [_I] * 13 + [_P],
     # x, dw, pw, in_aff, y, work, sums, B, H, W, C, F, seed, thresh,
-    # drop_scale, dtype, stream
-    "unet_chain_fwd": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    # drop_scale, n, s, width, per, smem, dtype, stream
+    "unet_chain_fwd": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
     # x, g, y, in_aff, comb, dw, pw, dx, m, gy, work, sums, dpw, B, H, W, C,
     # F, mask_combine, seed, thresh, drop_scale, wc, tm, tn, splits, per,
     # smem_a, smem_b, dtype, stream

@@ -11,45 +11,148 @@
 // to T; 'same' zero padding in z space (pixels outside the image are 0
 // AFTER the transform, since relu(b) != 0); the depthwise sum in fp32,
 // rounded to T before the pointwise; the pointwise in fp32; y rounded to T;
-// Σy and Σy² in fp32 over the rounded y. The halo mode (row-sharded
-// training) is not ported.
+// Σy and Σy² in fp32 over the rounded y. The masks are the ones K2 rebuilds
+// from the same x (hash_keep, __fmul_rn, affine_rn). The halo mode
+// (row-sharded training) is not ported; sepconv_fwd.cuh says where it goes.
 //
 // What bounds it on the H100: per pixel 9C + C*F multiply-adds for C + F
-// elements moved, so at the U-Net's widths it is bound by fp32 FMA issue
-// and shared-memory bandwidth, not by device memory (like K8).
+// elements moved; with the products on the tensor cores the bytes bound it
+// in bf16 (sepconv_fwd.cuh, as K8).
 //
-// Design: K8's tiling (sepconv_block.cu): one block owns an 8x8 pixel tile
-// and 64 output channels, 256 threads with a 4x4 register tile, and walks C
-// in chunks of 32. Per chunk it stages the transformed input z over the
-// 10x10 tile-plus-ring in shared memory once (the dropout hash and the
-// affine run once per staged element, not once per tap), takes the depthwise
-// from there, and feeds the register GEMM. The staging is redone for every
-// 64-wide F tile (ceil(F/64) times) and covers 100/64 = 1.56x the tile's
-// pixels. The per-block Σy/Σy² partials (a fixed-order sum over the 16
-// threads of a channel column) go to a [tiles][2F] matrix that
-// reduce_rows() sums in a fixed order: no atomics, bit-reproducible.
+// Design: the forward body of sepconv_fwd.cuh (a thread-block cluster per
+// 8x8 tile over slices of F, the depthwise once per tile through
+// distributed shared memory, the products on mma.sync: bf16 m16n8k16, fp32
+// 3xTF32) with
+//   * the prologue: the dropout or the affine + ReLU applied in place to
+//     the staged share of each chunk's 10x10 halo, once per element (a
+//     thread keeps one 16-byte channel group, its affine in registers),
+//     leaving pixels outside the image and channels >= C zero;
+//   * the epilogue: y rounded to T and stored (the body's store_tile); each
+//     thread's column sums of y and y² over its four fragment rows, a
+//     fixed-order shuffle sum over the 8 row groups of a warp, the two warps
+//     of a column added through shared memory in a fixed order, into the
+//     per-tile partials [B * tiles][2F] that reduce_rows() sums in a fixed
+//     order: no atomics, bit-reproducible.
 //
-// K9, the per-block training forward (unet_sepconv_stats below), is this
-// kernel with no input transform and no dropout: it replaces the TPU kernel
-// unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py:
+// K9, the per-block training forward (unet_sepconv_stats below), keeps the
+// first K1's body on fp32 FMAs until its own redesign: it replaces the TPU
+// kernel unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py:
 // _sepconv_kernel_db_stats (launched by _fused_sepconv_stats_impl from
 // sepconv_apply_stats): y = (dw3x3(x) -> T) . pw rounded to T, and Σy, Σy²
-// over the rounded y. Its __global__ entry sepconv_stats_kernel inlines K1's
-// tile body with the transform and dropout compiled out.
+// over the rounded y. One block owns an 8x8 pixel tile and 64 output
+// channels, 256 threads with a 4x4 register tile, and walks C in chunks of
+// 32; the depthwise is redone for every 64-wide F tile.
+#include "sepconv_fwd.cuh"
 #include "train_common.cuh"
 
 namespace unet {
 namespace {
 
-// One block's work: the tile blockIdx.x, the F tile blockIdx.y, sample
-// blockIdx.z. in_aff null: no input transform; thresh 0: no dropout.
+// K1: the links of the tiles of cluster blockIdx.x / a.n. kPrologue: the
+// dropout (thresh != 0) or the affine (in_aff) runs on the staged x.
+template <typename T, int W, bool kPrologue>
+__global__ void __launch_bounds__(kThreads, 2)
+    chain_fwd_kernel(const FwdArgs<T> a, const float* __restrict__ in_aff, T* __restrict__ y,
+                     float* __restrict__ partials, uint32_t seed, uint32_t thresh,
+                     float drop_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NT = W / 32, KC = FwdCfg<T>::KC, V = FwdCfg<T>::V, G = KC / V;
+  const int H = a.H, Wd = a.W, C = a.C, F = a.F;
+  // z of the staged share in place, once per element: a thread keeps one
+  // channel group (its affine in registers) and walks the halo's pixels;
+  // bf16 rounds z as it packs it
+  auto prologue = [&](T* xs, int cs, int len, const FwdTile& t) {
+    const int v = threadIdx.x % G, c = cs + v * V;
+    if (v * V >= len) return;
+    float ca[V], cb[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const bool ok = in_aff != nullptr && c + j < C;
+      ca[j] = ok ? in_aff[c + j] : 0.f;
+      cb[j] = ok ? in_aff[C + c + j] : 0.f;
+    }
+    for (int p = threadIdx.x / G; p < kFwdHaloPx; p += kThreads / G) {
+      const int Y = t.ty0 - 1 + p / kFwdHalo, X = t.tx0 - 1 + p % kFwdHalo;
+      if (Y < 0 || Y >= H || X < 0 || X >= Wd) continue;  // stays 0
+      uint4* q = reinterpret_cast<uint4*>(xs + p * KC + v * V);
+      float z[V];
+      unpack(*q, z);
+      if (thresh) {  // channels >= C hold 0, which the dropout keeps 0
+        const uint32_t base = logical_idx(t.b, Y, X, c, H, Wd, C);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          z[j] = hash_keep(base + j, seed, thresh) ? __fmul_rn(z[j], drop_scale) : 0.f;
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          z[j] = c + j < C ? fmaxf(affine_rn(z[j], ca[j], cb[j]), 0.f) : 0.f;
+      }
+      *q = pack(z);
+    }
+  };
+  // y rounded to T and stored; each thread's column sums over its rows in
+  // the image, a fixed-order shuffle sum over the warp's 8 row groups (lanes
+  // g), then the two warps of a column (wm) through shared memory, into the
+  // tile's partial row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wn = warp & 3, wm = warp >> 2, g = lane >> 2, tq = lane & 3;
+  float* red = reinterpret_cast<float*>(smem + FwdSmem<T, W>::red);  // [2 wm][2][W]
+  auto epilogue = [&](float (&acc)[2][NT][4], const FwdTile& t) {
+    float sum[NT][2] = {}, sq[NT][2] = {};
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      const int col = wn * 8 * NT + ni * 8 + 2 * tq;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool inside = t.ty0 + 2 * (wm * 2 + mi) + h < H && t.tx0 + g < Wd;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const float v = round_to<T>(acc[mi][ni][2 * h + jj]);
+            acc[mi][ni][2 * h + jj] = v;
+            if (inside && col + jj < t.len) {
+              sum[ni][jj] += v;
+              sq[ni][jj] += v * v;
+            }
+          }
+        }
+    }
+    store_tile<T, W>(a, acc, t, y);
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          sum[ni][jj] += __shfl_xor_sync(0xffffffffu, sum[ni][jj], o);
+          sq[ni][jj] += __shfl_xor_sync(0xffffffffu, sq[ni][jj], o);
+        }
+        if (g == 0) {
+          const int col = wn * 8 * NT + ni * 8 + 2 * tq + jj;
+          red[(wm * 2 + 0) * W + col] = sum[ni][jj];
+          red[(wm * 2 + 1) * W + col] = sq[ni][jj];
+        }
+      }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * W; i += kThreads) {
+      const int which = i / W, col = i % W;
+      if (col < t.len)
+        partials[((size_t)t.b * a.tiles + t.tile) * 2 * F + which * F + t.f0 + col] =
+            red[which * W + col] + red[(2 + which) * W + col];
+    }
+  };
+  sepconv_fwd_tiles<T, W, kPrologue>(a, smem, prologue, epilogue);
+}
+
+// K9's block: the tile blockIdx.x, the F tile blockIdx.y, sample
+// blockIdx.z, on fp32 FMAs (the first K1's body without its input transform
+// and dropout; K9 moves onto sepconv_fwd.cuh in its own redesign).
 template <typename T>
-__device__ __forceinline__ void chain_fwd_tile(const T* __restrict__ x, const T* __restrict__ dw,
-                                               const T* __restrict__ pw,
-                                               const float* __restrict__ in_aff,
-                                               T* __restrict__ y, float* __restrict__ partials,
-                                               int H, int W, int C, int F, int tiles_x,
-                                               uint32_t seed, uint32_t thresh, float drop_scale) {
+__global__ void __launch_bounds__(kThreads)
+    sepconv_stats_kernel(const T* __restrict__ x, const T* __restrict__ dw,
+                         const T* __restrict__ pw, T* __restrict__ y,
+                         float* __restrict__ partials, int H, int W, int C, int F, int tiles_x) {
   __shared__ __align__(16) float zs[kHaloPx * kKC];   // z chunk over the tile + ring [px][k]
   __shared__ __align__(16) float dws[kKC * kLdA64];   // depthwise chunk [k][m]
   __shared__ __align__(16) float pws[kKC * kTileF];   // pointwise chunk [k][f]
@@ -73,13 +176,8 @@ __device__ __forceinline__ void chain_fwd_tile(const T* __restrict__ x, const T*
     for (int p = prow; p < kHaloPx; p += kRowStep) {
       const int Y = ty0 - 1 + p / kHalo, X = tx0 - 1 + p % kHalo;
       float v = 0.f;
-      if (k < kc && Y >= 0 && Y < H && X >= 0 && X < W) {
+      if (k < kc && Y >= 0 && Y < H && X >= 0 && X < W)
         v = to_f(xb[((size_t)Y * W + X) * C + c]);
-        if (thresh)
-          v = hash_keep(logical_idx(b, Y, X, c, H, W, C), seed, thresh)
-                  ? round_to<T>(__fmul_rn(v, drop_scale)) : 0.f;
-        if (in_aff) v = round_to<T>(fmaxf(affine_rn(v, in_aff[c], in_aff[C + c]), 0.f));
-      }
       zs[p * kKC + k] = v;
     }
     float taps[9];
@@ -142,82 +240,89 @@ __device__ __forceinline__ void chain_fwd_tile(const T* __restrict__ x, const T*
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    chain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dw,
-                     const T* __restrict__ pw, const float* __restrict__ in_aff,
-                     T* __restrict__ y, float* __restrict__ partials, int H, int W, int C, int F,
-                     int tiles_x, uint32_t seed, uint32_t thresh, float drop_scale) {
-  chain_fwd_tile<T>(x, dw, pw, in_aff, y, partials, H, W, C, F, tiles_x, seed, thresh,
-                    drop_scale);
-}
 
-// K9: the plain sepconv and its sums (no transform, no dropout)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sepconv_stats_kernel(const T* __restrict__ x, const T* __restrict__ dw,
-                         const T* __restrict__ pw, T* __restrict__ y,
-                         float* __restrict__ partials, int H, int W, int C, int F, int tiles_x) {
-  chain_fwd_tile<T>(x, dw, pw, nullptr, y, partials, H, W, C, F, tiles_x, 0u, 0u, 1.f);
-}
-
-struct FwdPlan {
+// Per-tile partial rows of Σy and Σy² (K1 and K9): [B * tiles][2F].
+struct SumRows {
   int tiles_x, tiles;
   long long rows, cols;
 };
 
-FwdPlan fwd_plan(int B, int H, int W, int F) {
+SumRows sum_rows(int B, int H, int W, int F) {
   const int tiles_x = (W + kTile - 1) / kTile, tiles_y = (H + kTile - 1) / kTile;
   return {tiles_x, tiles_x * tiles_y, (long long)B * tiles_x * tiles_y, 2LL * F};
 }
 
+template <typename T, int W>
+int launch_link(const FwdArgs<T>& a, const float* in_aff, T* y, float* partials, int smem,
+                uint32_t seed, uint32_t thresh, float drop_scale, cudaStream_t stream) {
+  auto kernel = in_aff != nullptr || thresh != 0 ? chain_fwd_kernel<T, W, true>
+                                                 : chain_fwd_kernel<T, W, false>;
+  return launch_fwd(kernel, a, smem, stream, in_aff, y, partials, seed, thresh, drop_scale);
+}
+
 template <typename T>
-int launch(const void* x, const void* dw, const void* pw, const void* in_aff, void* y,
-           float* work, float* sums, int B, int H, int W, int C, int F, int seed, int thresh,
-           float drop_scale, cudaStream_t stream, bool plain = false) {
-  const FwdPlan plan = fwd_plan(B, H, W, F);
+int launch_chain(const void* x, const void* dw, const void* pw, const void* in_aff, void* y,
+                 float* work, float* sums, int B, int H, int W, int C, int F, int seed,
+                 int thresh, float drop_scale, int n, int s, int width, int per, int smem,
+                 cudaStream_t stream) {
+  if (!fwd_plan_ok<T>(B, H, W, C, F, n, s, width, per, smem)) return (int)cudaErrorInvalidValue;
+  const SumRows rows = sum_rows(B, H, W, F);
   float* partials = work;
-  float* scratch = work + plan.rows * plan.cols;
-  const dim3 grid(plan.tiles, (F + kTileF - 1) / kTileF, B);
-  if (plain)
-    sepconv_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
-        static_cast<T*>(y), partials, H, W, C, F, plan.tiles_x);
-  else
-    chain_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
-        static_cast<const float*>(in_aff), static_cast<T*>(y), partials, H, W, C, F,
-        plan.tiles_x, (uint32_t)seed, (uint32_t)thresh, drop_scale);
+  float* scratch = work + rows.rows * rows.cols;
+  const FwdArgs<T> a = fwd_args<T>(x, dw, pw, B, H, W, C, F, n, s, per);
+  const float* aff = static_cast<const float*>(in_aff);
+  T* out = static_cast<T*>(y);
+  const int err = width == 64 ? launch_link<T, 64>(a, aff, out, partials, smem, (uint32_t)seed,
+                                                   (uint32_t)thresh, drop_scale, stream)
+                              : launch_link<T, 128>(a, aff, out, partials, smem, (uint32_t)seed,
+                                                    (uint32_t)thresh, drop_scale, stream);
+  if (err) return err;
+  return reduce_rows(partials, (int)rows.rows, (int)rows.cols, scratch, sums, stream);
+}
+
+template <typename T>
+int launch_stats(const void* x, const void* dw, const void* pw, void* y, float* work,
+                 float* sums, int B, int H, int W, int C, int F, cudaStream_t stream) {
+  const SumRows rows = sum_rows(B, H, W, F);
+  float* partials = work;
+  float* scratch = work + rows.rows * rows.cols;
+  const dim3 grid(rows.tiles, (F + kTileF - 1) / kTileF, B);
+  sepconv_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
+      static_cast<T*>(y), partials, H, W, C, F, rows.tiles_x);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  return reduce_rows(partials, (int)plan.rows, (int)plan.cols, scratch, sums, stream);
+  return reduce_rows(partials, (int)rows.rows, (int)rows.cols, scratch, sums, stream);
 }
 
 }  // namespace
 }  // namespace unet
 
-// Floats of workspace unet_chain_fwd needs.
+// Floats of workspace unet_chain_fwd and unet_sepconv_stats need.
 extern "C" long long unet_chain_fwd_workspace(int B, int H, int W, int C, int F) {
   (void)C;
-  const unet::FwdPlan p = unet::fwd_plan(B, H, W, F);
+  const unet::SumRows p = unet::sum_rows(B, H, W, F);
   return p.rows * p.cols + unet::reduce_scratch_floats(p.rows, p.cols);
 }
 
 // x (B,H,W,C), dw (3,3,C), pw (C,F) in T; in_aff (2,C) fp32 or null; y
 // (B,H,W,F) in T; sums (2,F) fp32 = Σy, Σy². thresh 0 = no dropout.
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
+// (n, s, width, per, smem) is the launch plan of fwd_plan
+// (ops/fused_train.py), checked against sepconv_fwd.cuh's layout. dtype: 0
+// = float32, 1 = bfloat16. Returns cudaGetLastError().
 extern "C" int unet_chain_fwd(const void* x, const void* dw, const void* pw, const void* in_aff,
                               void* y, void* work, void* sums, int B, int H, int W, int C, int F,
-                              int seed, int thresh, float drop_scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                              int seed, int thresh, float drop_scale, int n, int s, int width,
+                              int per, int smem, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(sums);
   if (dtype == 0)
-    return unet::launch<float>(x, dw, pw, in_aff, y, w, o, B, H, W, C, F, seed, thresh,
-                               drop_scale, s);
+    return unet::launch_chain<float>(x, dw, pw, in_aff, y, w, o, B, H, W, C, F, seed, thresh,
+                                     drop_scale, n, s, width, per, smem, st);
   if (dtype == 1)
-    return unet::launch<__nv_bfloat16>(x, dw, pw, in_aff, y, w, o, B, H, W, C, F, seed, thresh,
-                                       drop_scale, s);
+    return unet::launch_chain<__nv_bfloat16>(x, dw, pw, in_aff, y, w, o, B, H, W, C, F, seed,
+                                             thresh, drop_scale, n, s, width, per, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -227,13 +332,11 @@ extern "C" int unet_chain_fwd(const void* x, const void* dw, const void* pw, con
 extern "C" int unet_sepconv_stats(const void* x, const void* dw, const void* pw, void* y,
                                   void* work, void* sums, int B, int H, int W, int C, int F,
                                   int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(sums);
-  if (dtype == 0)
-    return unet::launch<float>(x, dw, pw, nullptr, y, w, o, B, H, W, C, F, 0, 0, 1.f, s, true);
+  if (dtype == 0) return unet::launch_stats<float>(x, dw, pw, y, w, o, B, H, W, C, F, st);
   if (dtype == 1)
-    return unet::launch<__nv_bfloat16>(x, dw, pw, nullptr, y, w, o, B, H, W, C, F, 0, 0, 1.f, s,
-                                       true);
+    return unet::launch_stats<__nv_bfloat16>(x, dw, pw, y, w, o, B, H, W, C, F, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 // Tensor-core fragments and asynchronous copies shared by the kernels that
-// run their products on mma.sync (sepconv_pair.cu, chain_bwd.cu,
-// upconcat.cu): shared-memory addresses, cp.async, ldmatrix, the bf16
-// m16n8k16 and TF32 m16n8k8 products, the 3xTF32 split, and 16-byte
-// vectors of T unpacked to fp32 and packed back.
+// run their products on mma.sync (sepconv_pair.cu, sepconv_fwd.cuh,
+// chain_bwd.cu, upconcat.cu): shared-memory addresses, cp.async, ldmatrix,
+// the bf16 m16n8k16 and TF32 m16n8k8 products, the 3xTF32 split, 16-byte
+// vectors of T unpacked to fp32 and packed back, and the staging, warp
+// products and paired stores of the sepconv kernels (K7, K8, K1).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k8; g = lane / 4, t = lane
 // % 4): A rows g and g + 8; B column g; C rows g and g + 8, columns 2t and
@@ -13,6 +14,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sepconv_common.cuh"
 
 namespace unet {
 
@@ -119,6 +122,147 @@ __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
 __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
   return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
                     __float_as_uint(f[3]));
+}
+
+// acc[mi][ni] += A[m-tile mt0+mi rows] . B[:, n0 + 8ni .. +8] over ksteps mma
+// depths. A is [row][LDA] (k contiguous), B is [k][LDB] (n contiguous), both
+// in shared memory. m-tiles at or past mt_end are skipped.
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const __nv_bfloat16* A,
+                                          const __nv_bfloat16* B, int mt0, int mt_end, int n0,
+                                          int ksteps, int lane) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t b[NT / 2][4];  // n-tiles 2np and 2np+1: {b0, b1} each
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np)
+      ldsm_x4_trans(b[np], B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n0 +
+                               np * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      if (mt0 + mi >= mt_end) break;
+      uint32_t a[4];
+      ldsm_x4(a, A + ((mt0 + mi) * 16 + (lane & 15)) * LDA + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+        mma_bf16(acc[mi][ni], a, b[ni / 2][2 * (ni & 1)], b[ni / 2][2 * (ni & 1) + 1]);
+    }
+  }
+}
+
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const float* A,
+                                          const float* B, int mt0, int mt_end, int n0,
+                                          int ksteps, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[ni][h], bl[ni][h]);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      if (mt0 + mi >= mt_end) break;
+      const float* p = A + ((mt0 + mi) * 16 + g) * LDA + ks * 8 + t;
+      uint32_t ah[4], al[4];
+      split_tf32(p[0], ah[0], al[0]);
+      split_tf32(p[8 * LDA], ah[1], al[1]);
+      split_tf32(p[4], ah[2], al[2]);
+      split_tf32(p[8 * LDA + 4], ah[3], al[3]);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        mma_tf32(acc[mi][ni], al, bh[ni]);
+        mma_tf32(acc[mi][ni], ah, bl[ni]);
+        mma_tf32(acc[mi][ni], ah, bh[ni]);
+      }
+    }
+  }
+}
+
+// Store v[0..1] (columns f, f+1) of an output pixel row, as one vector where
+// both columns exist and the pair is aligned.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* row, int f, int F, bool second, float v0,
+                                           float v1) {
+  if (second && (F & 1) == 0) {
+    if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(row + f) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      *reinterpret_cast<float2*>(row + f) = make_float2(v0, v1);
+    }
+    return;
+  }
+  row[f] = from_f<T>(v0);
+  if (second) row[f + 1] = from_f<T>(v1);
+}
+
+// acc[mi][ni] += A[m-tile mt0+mi rows] . B[:, n0 + 8ni .. +8] over ksteps k8
+// depths as 3xTF32, A already split into its TF32 hi (Ah) and lo (Al) parts,
+// each [row][LDA] (k contiguous) and read with ldmatrix (a 16-byte row of
+// four 32-bit words is an 8x8 b16 row); B [k][LDB] fp32, split here.
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void warp_gemm_split(float (&acc)[MT][NT][4], const float* Ah,
+                                                const float* Al, const float* B, int mt0,
+                                                int n0, int ksteps, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[ni][h], bl[ni][h]);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int off = ((mt0 + mi) * 16 + (lane & 15)) * LDA + ks * 8 + (lane >> 4) * 4;
+      uint32_t ah[4], al[4];
+      ldsm_x4(ah, Ah + off);
+      ldsm_x4(al, Al + off);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) mma_3xtf32(acc[mi][ni], ah, al, bh[ni], bl[ni]);
+    }
+  }
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Stage a rows x (G * V) tile of T into shared memory dst (row stride lds):
+// element (r, j) is *src(r, j), or 0 where src gives nullptr; only the first
+// `groups` column groups of V are written. With vec, src(r, j) for j a
+// multiple of V points to V elements in one 16-byte-aligned vector (or is
+// nullptr for all of them) and the copy is cp.async, completed by the
+// caller's cp_async_wait_all; a thread keeps one column group. Without vec,
+// plain loads, 8 in flight a thread, stored at once. No runtime division.
+template <int G, typename T, typename Src>
+__device__ __forceinline__ void stage_tile(T* dst, int lds, int rows, int groups, bool vec,
+                                           const T* any, Src src) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    static_assert(kThreads % G == 0, "a pass covers whole rows");
+    const int j = (threadIdx.x % G) * V;
+    if (j >= groups * V) return;
+    for (int r = threadIdx.x / G; r < rows; r += kThreads / G) {
+      const T* p = src(r, j);
+      cp_async16(dst + r * lds + j, p ? p : any, p != nullptr);
+    }
+    return;
+  }
+  constexpr int CB = 16, RS = kThreads / CB;  // columns, rows of a pass
+  for (int c = threadIdx.x % CB; c < groups * V; c += CB) {
+    for (int r0 = threadIdx.x / CB; r0 < rows; r0 += 8 * RS) {
+      T v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int r = r0 + u * RS;
+        const T* p = r < rows ? src(r, c) : nullptr;
+        v[u] = p ? *p : from_f<T>(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (r0 + u * RS < rows) dst[(r0 + u * RS) * lds + c] = v[u];
+    }
+  }
 }
 
 }  // namespace unet

@@ -5,122 +5,89 @@
 // fused_sepconv_bn_relu). Semantics kept: 'same' zero padding; the depthwise
 // sum in fp32, rounded to the compute dtype T before the pointwise; the
 // pointwise accumulated in fp32; scale/shift in fp32 (BatchNorm folded by the
-// wrapper); the output in T.
+// wrapper), the product and the sum each rounded as the plain version
+// computes them; the output in T.
 //
-// What bounds it on the H100: per pixel it does 9C + C*F multiply-adds and
-// moves (C + F) elements. At the U-Net's widths (C, F >= 64) that is well
-// above the fp32 CUDA-core balance point (~20 FLOP per byte), so this kernel,
-// which runs its products as fp32 FMAs and not on the tensor cores, is bound
-// by FMA issue and shared-memory bandwidth, not by device memory.
+// What bounds it on the H100: per pixel 9C + C*F multiply-adds for C + F
+// elements moved. With the products on the tensor cores the bytes bound
+// every block of the U-Net in bf16 and its 256 px blocks in fp32
+// (sepconv_fwd.cuh).
 //
-// Design: one block owns an 8x8 pixel tile and 64 output channels, 256
-// threads, each holding a 4x4 register tile (4 pixels x 4 channels). It walks
-// C in chunks of 32: the depthwise of the chunk (read straight from global
-// memory, L1-cached) goes to shared memory as fp32 already rounded to T, the
-// pointwise slice is staged beside it, and the register GEMM accumulates.
-// The depthwise is recomputed once per 64-channel output tile, ceil(F/64)
-// times in all, about 9/64 of the pointwise work per extra pass. Tensor
-// cores (mma.sync / wgmma), TMA and pipelining are left for later work.
-#include "sepconv_common.cuh"
+// Design: the forward body of sepconv_fwd.cuh (a thread-block cluster per
+// 8x8 tile over slices of F, staged x, the depthwise once per tile through
+// distributed shared memory, the products on mma.sync: bf16 m16n8k16, fp32
+// 3xTF32) with this epilogue: each thread applies scale and shift to its
+// accumulator fragments and the ReLU where asked, and store_tile writes its
+// column pairs in T.
+#include "sepconv_fwd.cuh"
 
 namespace unet {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sepconv_block_kernel(const T* __restrict__ x, const T* __restrict__ dw,
-                         const T* __restrict__ pw, const float* __restrict__ scale,
-                         const float* __restrict__ shift, T* __restrict__ out, int H, int W,
-                         int C, int F, int tiles_x, int relu) {
-  __shared__ __align__(16) float dws[kKC * kLdA64];  // depthwise chunk [k][m]
-  __shared__ __align__(16) float pws[kKC * kTileF];  // pointwise chunk [k][f]
-  const int tid = threadIdx.x;
-  const int ty0 = (blockIdx.x / tiles_x) * kTile;
-  const int tx0 = (blockIdx.x % tiles_x) * kTile;
-  const int f0 = blockIdx.y * kTileF;
-  const int b = blockIdx.z;
-  const T* xb = x + (size_t)b * H * W * C;
-  const int tm = tid / (kTileF / 4), tn = tid % (kTileF / 4);
-  float acc[4][4] = {};
-
-  // Depthwise work split: lanes of a warp take 32 neighbouring channels of
-  // one pixel (coalesced reads); the 8 warps take interleaved pixels.
-  const int k = tid % kKC;
-  for (int c0 = 0; c0 < C; c0 += kKC) {
-    const int kc = min(kKC, C - c0);
-    const int c = c0 + k;
-    float taps[9];
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    sepconv_block_kernel(const FwdArgs<T> a, const float* __restrict__ scale,
+                         const float* __restrict__ shift, T* __restrict__ out, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NT = W / 32;
+  const int wn = (threadIdx.x >> 5) & 3, tq = threadIdx.x & 3;
+  auto epilogue = [&](float (&acc)[2][NT][4], const FwdTile& t) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) taps[t] = k < kc ? to_f(dw[t * C + c]) : 0.f;
-#pragma unroll 2
-    for (int i = 0; i < kTilePx / (kThreads / kKC); ++i) {
-      const int m = tid / kKC + (kThreads / kKC) * i;
-      float s = 0.f;
-      if (k < kc) {
-        int r, cc;
-        tile_px(m, r, cc);
-        const int Y = ty0 + r, X = tx0 + cc;
+    for (int ni = 0; ni < NT; ++ni) {
+      const int col = wn * 8 * NT + ni * 8 + 2 * tq;
+      float sc[2], sf[2];
 #pragma unroll
-        for (int di = 0; di < 3; ++di) {
-          const int yy = Y + di - 1;
-          if (yy < 0 || yy >= H) continue;
-#pragma unroll
-          for (int dj = 0; dj < 3; ++dj) {
-            const int xx = X + dj - 1;
-            if (xx < 0 || xx >= W) continue;
-            s += to_f(xb[((size_t)yy * W + xx) * C + c]) * taps[di * 3 + dj];
-          }
-        }
+      for (int jj = 0; jj < 2; ++jj) {
+        const bool ok = col + jj < t.len;
+        sc[jj] = ok ? scale[t.f0 + col + jj] : 0.f;
+        sf[jj] = ok ? shift[t.f0 + col + jj] : 0.f;
       }
-      dws[k * kLdA64 + m] = round_to<T>(s);
-    }
-    stage_weights<T, kTileF>(pws, pw, C, F, c0, f0);
-    __syncthreads();
-    smem_gemm<kLdA64, kTileF>(acc, dws, pws, kc, tm, tn);
-    __syncthreads();
-  }
-
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r, cc;
-    tile_px(tm * 4 + i, r, cc);
-    const int Y = ty0 + r, X = tx0 + cc;
-    if (Y >= H || X >= W) continue;
-    T* o = out + (((size_t)b * H + Y) * W + X) * F;
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = f0 + tn * 4 + j;
-      if (f >= F) continue;
-      float v = acc[i][j] * scale[f] + shift[f];
-      if (relu) v = fmaxf(v, 0.f);
-      o[f] = from_f<T>(v);
+        for (int e = 0; e < 4; ++e) {
+          float v = __fadd_rn(__fmul_rn(acc[mi][ni][e], sc[e & 1]), sf[e & 1]);
+          acc[mi][ni][e] = relu ? fmaxf(v, 0.f) : v;
+        }
     }
-  }
+    store_tile<T, W>(a, acc, t, out);
+  };
+  sepconv_fwd_tiles<T, W, false>(a, smem, [](T*, int, int, const FwdTile&) {}, epilogue);
 }
 
 template <typename T>
 int launch(const void* x, const void* dw, const void* pw, const void* scale, const void* shift,
-           void* out, int B, int H, int W, int C, int F, int relu, cudaStream_t stream) {
-  const int tiles_x = (W + kTile - 1) / kTile, tiles_y = (H + kTile - 1) / kTile;
-  const dim3 grid(tiles_x * tiles_y, (F + kTileF - 1) / kTileF, B);
-  sepconv_block_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
-      static_cast<const float*>(scale), static_cast<const float*>(shift), static_cast<T*>(out),
-      H, W, C, F, tiles_x, relu);
-  return (int)cudaGetLastError();
+           void* out, int B, int H, int W, int C, int F, int relu, int n, int s, int width,
+           int per, int smem, cudaStream_t stream) {
+  if (!fwd_plan_ok<T>(B, H, W, C, F, n, s, width, per, smem)) return (int)cudaErrorInvalidValue;
+  const FwdArgs<T> a = fwd_args<T>(x, dw, pw, B, H, W, C, F, n, s, per);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sf = static_cast<const float*>(shift);
+  T* o = static_cast<T*>(out);
+  auto kernel = width == 64 ? sepconv_block_kernel<T, 64> : sepconv_block_kernel<T, 128>;
+  return launch_fwd(kernel, a, smem, stream, sc, sf, o, relu);
 }
 
 }  // namespace
 }  // namespace unet
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// (n, s, width, per, smem) is the launch plan of fwd_plan
+// (ops/fused_train.py): n CTAs a cluster, F slices of s channels, the GEMM
+// width 64 or 128, per tiles a cluster, the dynamic shared memory in bytes
+// (checked against sepconv_fwd.cuh's layout).
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// launch.
 extern "C" int unet_sepconv_block(const void* x, const void* dw, const void* pw,
                                   const void* scale, const void* shift, void* out, int B, int H,
-                                  int W, int C, int F, int relu, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return unet::launch<float>(x, dw, pw, scale, shift, out, B, H, W, C, F, relu, s);
+                                  int W, int C, int F, int relu, int n, int s, int width,
+                                  int per, int smem, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return unet::launch<float>(x, dw, pw, scale, shift, out, B, H, W, C, F, relu, n, s, width,
+                               per, smem, st);
   if (dtype == 1)
-    return unet::launch<__nv_bfloat16>(x, dw, pw, scale, shift, out, B, H, W, C, F, relu, s);
+    return unet::launch<__nv_bfloat16>(x, dw, pw, scale, shift, out, B, H, W, C, F, relu, n, s,
+                                       width, per, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,7 @@
-// Shared pieces of the separable-conv kernels (sepconv_block.cu, sepconv_pair.cu).
+// Shared pieces of the kernels: the block size, the 8x8 output tile and the
+// conversions between T and fp32 (every kernel), and the register-tiled
+// fp32-FMA GEMM of the kernels that still run one (K9's body in
+// chain_fwd.cu, K6's FMA variants in upconcat.cu).
 //
 // Tensors are NHWC and contiguous. T is float or __nv_bfloat16 (the compute
 // dtype). Every sum is taken in fp32: values are widened to float when they

@@ -173,119 +173,9 @@ __device__ __forceinline__ void tile_px2(int m, int& r, int& c) {
   c = 2 * (q & 3) + (i & 1);
 }
 
-// acc[mi][ni] += A[m-tile mt0+mi rows] . B[:, n0 + 8ni .. +8] over ksteps mma
-// depths. A is [row][LDA] (k contiguous), B is [k][LDB] (n contiguous), both
-// in shared memory. m-tiles at or past mt_end are skipped.
-template <int MT, int NT, int LDA, int LDB>
-__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const bf16* A, const bf16* B,
-                                          int mt0, int mt_end, int n0, int ksteps, int lane) {
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t b[NT / 2][4];  // n-tiles 2np and 2np+1: {b0, b1} each
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np)
-      ldsm_x4_trans(b[np], B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n0 +
-                               np * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      if (mt0 + mi >= mt_end) break;
-      uint32_t a[4];
-      ldsm_x4(a, A + ((mt0 + mi) * 16 + (lane & 15)) * LDA + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-        mma_bf16(acc[mi][ni], a, b[ni / 2][2 * (ni & 1)], b[ni / 2][2 * (ni & 1) + 1]);
-    }
-  }
-}
-
-template <int MT, int NT, int LDA, int LDB>
-__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const float* A,
-                                          const float* B, int mt0, int mt_end, int n0,
-                                          int ksteps, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[ni][h], bl[ni][h]);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      if (mt0 + mi >= mt_end) break;
-      const float* p = A + ((mt0 + mi) * 16 + g) * LDA + ks * 8 + t;
-      uint32_t ah[4], al[4];
-      split_tf32(p[0], ah[0], al[0]);
-      split_tf32(p[8 * LDA], ah[1], al[1]);
-      split_tf32(p[4], ah[2], al[2]);
-      split_tf32(p[8 * LDA + 4], ah[3], al[3]);
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        mma_tf32(acc[mi][ni], al, bh[ni]);
-        mma_tf32(acc[mi][ni], ah, bl[ni]);
-        mma_tf32(acc[mi][ni], ah, bh[ni]);
-      }
-    }
-  }
-}
-
-// Store v[0..1] (columns f, f+1) of an output pixel row, as one vector where
-// both columns exist and the pair is aligned.
-template <typename T>
-__device__ __forceinline__ void store_pair(T* row, int f, int F, bool second, float v0,
-                                           float v1) {
-  if (second && (F & 1) == 0) {
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<__nv_bfloat162*>(row + f) = __floats2bfloat162_rn(v0, v1);
-    } else {
-      *reinterpret_cast<float2*>(row + f) = make_float2(v0, v1);
-    }
-    return;
-  }
-  row[f] = from_f<T>(v0);
-  if (second) row[f + 1] = from_f<T>(v1);
-}
-
 __device__ __forceinline__ float affine_relu(float v, float sc, float sh) {
   // separately rounded, as the plain version computes v * scale + shift
   return fmaxf(__fadd_rn(__fmul_rn(v, sc), sh), 0.f);
-}
-
-// Stage a rows x (G * V) tile of T into shared memory dst (row stride lds):
-// element (r, j) is *src(r, j), or 0 where src gives nullptr; only the first
-// `groups` column groups of V are written. With vec, src(r, j) for j a
-// multiple of V points to V elements in one 16-byte-aligned vector (or is
-// nullptr for all of them) and the copy is cp.async, completed by the
-// caller's cp_async_wait_all; a thread keeps one column group. Without vec,
-// plain loads, 8 in flight a thread, stored at once. No runtime division.
-template <int G, typename T, typename Src>
-__device__ __forceinline__ void stage_tile(T* dst, int lds, int rows, int groups, bool vec,
-                                           const T* any, Src src) {
-  constexpr int V = PairCfg<T>::V;
-  if (vec) {
-    static_assert(kPairThreads % G == 0, "a pass covers whole rows");
-    const int j = (threadIdx.x % G) * V;
-    if (j >= groups * V) return;
-    for (int r = threadIdx.x / G; r < rows; r += kPairThreads / G) {
-      const T* p = src(r, j);
-      cp_async16(dst + r * lds + j, p ? p : any, p != nullptr);
-    }
-    return;
-  }
-  constexpr int CB = 16, RS = kPairThreads / CB;  // columns, rows of a pass
-  for (int c = threadIdx.x % CB; c < groups * V; c += CB) {
-    for (int r0 = threadIdx.x / CB; r0 < rows; r0 += 8 * RS) {
-      T v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int r = r0 + u * RS;
-        const T* p = r < rows ? src(r, c) : nullptr;
-        v[u] = p ? *p : from_f<T>(0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (r0 + u * RS < rows) dst[(r0 + u * RS) * lds + c] = v[u];
-    }
-  }
 }
 
 template <typename T, int W>
@@ -617,8 +507,6 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   }
 }
-
-inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <typename T, int W>
 int launch(PairArgs<T> a, int B, int tiles, int smem, cudaStream_t stream) {

@@ -1,11 +1,16 @@
-"""Per-link K2 floor table on the card, with the card's probes (K12).
+"""Per-link K1 and K2 floor table on the card, with the card's probes (K12).
 
 Port of ``unet_image_segmentation_tpu/troubleshoot/link_floors.py``. It
 measures the card's launch overhead and elementwise FMA rate with the two
-K12 probes (:mod:`..ops.probes`), then times the chain's backward link
-kernel K2 (:func:`..ops.fused_train.chain_bwd`) alone at each of the 18
-links of the 256 px, batch-32 train step, in the modes the step runs it
-(:func:`stage_table`), and holds each link's time against
+K12 probes (:mod:`..ops.probes`), then times the chain's link kernels, the
+forward K1 (:func:`..ops.fused_train.chain_fwd`) and the backward K2
+(:func:`..ops.fused_train.chain_bwd`), alone at each of the 18 links of the
+256 px, batch-32 train step, in the modes the step runs them
+(:func:`stage_table`). K1's row: ms a call against its bytes floor, the
+model of its route (:func:`k1_model_ms`: its products at the measured
+product rate, its depthwise and prologue at K12b's) and its executed over
+useful multiply-adds (:func:`..ops.fused_train.fwd_work`). K2's row holds
+each link's time against
 
 * its bytes floor: x, g, y and dx once each, plus weights and sums, over
   the card's memory rate (:func:`.roofline.work`);
@@ -230,6 +235,36 @@ def k2_model_ms(instr: Dict[str, int], dname: str, product_ops: float,
             "sums": instr["sums"] * fma_ms}
 
 
+def k1_instructions(b: int, h: int, w: int, c: int, f: int, in_aff: bool, drop: bool,
+                    dname: str = "bfloat16") -> Dict[str, int]:
+    """What K1 executes for one call, counted from sepconv_fwd.cuh and
+    chain_fwd.cu on :func:`..ops.fused_train.fwd_plan`'s launch:
+    ``mma``, the products on the tensor cores, and ``depthwise``, its
+    multiply-adds on the CUDA cores (:func:`..ops.fused_train.fwd_work`,
+    padding included); ``prologue``, the CUDA cores' instructions of the
+    input transform on the staged halo (100 pixels a tile for every channel
+    of C: 3 a value for the affine and its ReLU, 11 for the dropout's hash,
+    test and scale); ``sums``, the adds of the fixed-order row sums."""
+    work = ft.fwd_work(b, h, w, c, f, getattr(torch, dname))
+    plan = ft.fwd_plan(b, h, w, c, f, getattr(torch, dname))
+    tiles = b * plan.tiles_y * plan.tiles_x
+    prologue = tiles * RING_PX * c * (3 * in_aff + 11 * drop)
+    return {"mma": work.mma_executed, "depthwise": work.dw_executed, "prologue": prologue,
+            "sums": _colsum_adds(tiles, 2 * f)}
+
+
+def k1_model_ms(instr: Dict[str, int], dname: str, product_ops: float,
+                fma_gops: float) -> float:
+    """ms of K1's work at the measured rates: the products at
+    ``product_ops`` operations a second (three TF32 products for each fp32
+    one), the rest (depthwise, prologue, sums) at ``fma_gops`` / 2
+    instructions a ns (K12b's fp32 rate)."""
+    per_product = 2 * (3 if dname == "float32" else 1) / product_ops * 1e3
+    fma_ms = 2 / (fma_gops * 1e9) * 1e3
+    return instr["mma"] * per_product + (
+        instr["depthwise"] + instr["prologue"] + instr["sums"]) * fma_ms
+
+
 def link_inputs(rnd, dev, dtype, batch: int, c: int, f: int, h: int, in_aff: bool,
                 drop: bool, w: Optional[int] = None) -> dict:
     """Seeded inputs of one link for K1 and K2 at H x W (W = H unless
@@ -267,10 +302,11 @@ def _split(summary: dict, calls: int) -> Dict[str, float]:
 
 def time_links(dname: str, iters: int, fma_gops: float, product_ops: float, launch_ms: float,
                device="cuda"):
-    """The per-link rows (and their totals): K2 timed with CUDA events after
-    :data:`WARMUP` calls, one launch counted per timed call; then, in one
-    trace, :data:`PROFILED_CALLS` more calls a link, each link's split by
-    pass; each beside :func:`k2_model_ms` at the measured rates."""
+    """The per-link rows (and their totals): K1 and K2 each timed with CUDA
+    events after :data:`WARMUP` calls, one launch counted per timed call;
+    then, in one trace, :data:`PROFILED_CALLS` more K2 calls a link, each
+    link's split by pass; each beside the model of its route at the
+    measured rates (:func:`k1_model_ms`, :func:`k2_model_ms`)."""
     dtype = getattr(torch, dname)
     links = stage_table()
 
@@ -281,23 +317,29 @@ def time_links(dname: str, iters: int, fma_gops: float, product_ops: float, laun
             return (torch.rand(*shape, generator=gen, device=device) * 2 - 1) * scale
 
         k = link_inputs(rnd, device, dtype, BATCH, c, f, h, in_aff, drop)
-        return (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mask, k["drop"])
+        return ((k["x"], k["dw"], k["pw"], k["aff2"], k["drop"]),
+                (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mask, k["drop"]))
 
-    timed = []
-    for i, (name, c, f, h, in_aff, drop, mask) in enumerate(links):
-        args = link_args(c, f, h, in_aff, drop, mask, SEED + i)
+    def timed_calls(name, kernel, fn):
         for _ in range(WARMUP):
-            ft.chain_bwd(*args)
+            fn()
         hard_sync(device)
         ft.reset_launch_counts()
-        timed.append((_event_ms(lambda: ft.chain_bwd(*args), iters), ft.LAUNCHES["chain_bwd"]))
-        if timed[-1][1] != iters:
-            raise AssertionError(f"{name}: {timed[-1][1]} K2 launches for {iters} timed calls")
-        del args
+        out = (_event_ms(fn, iters), ft.LAUNCHES[kernel])
+        if out[1] != iters:
+            raise AssertionError(f"{name}: {out[1]} {kernel} launches for {iters} timed calls")
+        return out
+
+    timed, timed_k1 = [], []
+    for i, (name, c, f, h, in_aff, drop, mask) in enumerate(links):
+        fwd, args = link_args(c, f, h, in_aff, drop, mask, SEED + i)
+        timed_k1.append(timed_calls(name, "chain_fwd", lambda: ft.chain_fwd(*fwd)))
+        timed.append(timed_calls(name, "chain_bwd", lambda: ft.chain_bwd(*args)))
+        del fwd, args
     with tempfile.TemporaryDirectory(prefix="unet_links_") as tdir:
         with trace(tdir, device):
             for i, (name, c, f, h, in_aff, drop, mask) in enumerate(links):
-                args = link_args(c, f, h, in_aff, drop, mask, SEED + i)
+                _, args = link_args(c, f, h, in_aff, drop, mask, SEED + i)
                 ft.chain_bwd(*args)
                 for _ in range(PROFILED_CALLS):
                     with record_function(f"{CALL_SPAN}.{name}"):
@@ -305,8 +347,9 @@ def time_links(dname: str, iters: int, fma_gops: float, product_ops: float, laun
                 del args
         events = [e for path in profile_summary.trace_files(tdir)
                   for e in profile_summary.read_events(path)]
-    rows, executed, useful = [], 0, 0
-    for (name, c, f, h, in_aff, drop, mask), (ms, launches) in zip(links, timed):
+    rows, executed, useful, k1_executed, k1_useful = [], 0, 0, 0, 0
+    for (name, c, f, h, in_aff, drop, mask), (ms, launches), (k1_ms, k1_launches) in zip(
+            links, timed, timed_k1):
         summary = profile_summary.summarize_events(events, within=f"{CALL_SPAN}.{name}")
         profile_summary.check_complete(summary, f"link_floors {name}")
         split = _split(summary, PROFILED_CALLS)
@@ -318,6 +361,13 @@ def time_links(dname: str, iters: int, fma_gops: float, product_ops: float, laun
         model_ms = sum(model.values())
         work = ft.chain_bwd_work(BATCH, h, h, c, f, dtype)
         executed, useful = executed + work.executed, useful + work.useful
+        k1_work = ft.fwd_work(BATCH, h, h, c, f, dtype)
+        k1_executed, k1_useful = k1_executed + k1_work.executed, k1_useful + k1_work.useful
+        k1_bytes, _ = roofline.work("chain_fwd", (name, c, f, h), dname, BATCH)
+        k1_bytes_ms = k1_bytes / roofline.PEAK_BYTES_PER_S * 1e3
+        k1_model = k1_model_ms(k1_instructions(BATCH, h, h, c, f, in_aff, drop, dname), dname,
+                               product_ops, fma_gops)
+        k1_minus = k1_ms - 2 * launch_ms   # K1 and its row sums
         modes = [m for m, on in (("affine", in_aff), ("dropout", drop), ("mask", mask)) if on]
         rows.append({
             "link": name, "shape": f"{c}->{f}@{h}", "modes": modes or ["plain"],
@@ -329,28 +379,48 @@ def time_links(dname: str, iters: int, fma_gops: float, product_ops: float, laun
             "model_ms": model_ms, "model_pass_a_ms": model["pass_a"],
             "model_pass_b_ms": model["pass_b"], "model_sums_ms": model["sums"],
             "x_model": minus / model_ms, "executed_over_useful": work.executed / work.useful,
+            "k1_launches": k1_launches, "k1_ms": k1_ms, "k1_minus_launch_ms": k1_minus,
+            "k1_bytes_ms": k1_bytes_ms, "k1_x_bytes": k1_minus / k1_bytes_ms,
+            "k1_model_ms": k1_model, "k1_x_model": k1_minus / k1_model,
+            "k1_executed_over_useful": k1_work.executed / k1_work.useful,
         })
     totals = {key: sum(r[key] for r in rows) for key in (
         "ms", "minus_launch_ms", "pass_a_ms", "pass_b_ms", "sums_ms", "glue_ms", "bytes_ms",
-        "model_ms", "model_pass_a_ms", "model_pass_b_ms", "model_sums_ms")}
+        "model_ms", "model_pass_a_ms", "model_pass_b_ms", "model_sums_ms", "k1_ms",
+        "k1_minus_launch_ms", "k1_bytes_ms", "k1_model_ms")}
     totals["executed_over_useful"] = executed / useful
+    totals["k1_executed_over_useful"] = k1_executed / k1_useful
+    totals["k1_x_bytes"] = totals["k1_minus_launch_ms"] / totals["k1_bytes_ms"]
+    totals["k1_x_model"] = totals["k1_minus_launch_ms"] / totals["k1_model_ms"]
     totals["x_bytes"] = totals["minus_launch_ms"] / totals["bytes_ms"]
     totals["x_model"] = totals["minus_launch_ms"] / totals["model_ms"]
     return rows, totals
 
 
 def print_table(rec: dict) -> None:
-    print(f"  {'link':<8} {'C->F@H':<14} {'modes':<15} {'ms':>7} {'-launch':>7} {'(a)':>7} "
+    print(f"  K1 {'link':<8} {'C->F@H':<14} {'modes':<15} {'ms':>7} {'-launch':>7} "
+          f"{'bytes':>6} {'x':>6} {'model':>7} {'x':>5} {'exec/use':>8}")
+    for r in rec["links"]:
+        print(f"  K1 {r['link']:<8} {r['shape']:<14} {','.join(r['modes']):<15} "
+              f"{r['k1_ms']:7.3f} {r['k1_minus_launch_ms']:7.3f} {r['k1_bytes_ms']:6.3f} "
+              f"{r['k1_x_bytes']:6.1f} {r['k1_model_ms']:7.3f} {r['k1_x_model']:5.2f} "
+              f"{r['k1_executed_over_useful']:8.3f}")
+    t = rec["totals"]
+    print(f"  K1 TOTAL {t['k1_minus_launch_ms']:.3f} ms (less launches) against the bytes floor "
+          f"{t['k1_bytes_ms']:.3f} ({t['k1_x_bytes']:.1f}x) and the model {t['k1_model_ms']:.3f} "
+          f"({t['k1_x_model']:.2f}x); executed / useful multiply-adds "
+          f"{t['k1_executed_over_useful']:.3f}")
+    print(f"  K2 {'link':<8} {'C->F@H':<14} {'modes':<15} {'ms':>7} {'-launch':>7} {'(a)':>7} "
           f"{'(b)':>7} {'sums':>6} {'glue':>6} {'bytes':>6} {'x':>6} {'model(a)':>8} "
           f"{'model(b)':>8} {'x':>5} {'exec/use':>8}")
     for r in rec["links"]:
-        print(f"  {r['link']:<8} {r['shape']:<14} {','.join(r['modes']):<15} {r['ms']:7.3f} "
+        print(f"  K2 {r['link']:<8} {r['shape']:<14} {','.join(r['modes']):<15} {r['ms']:7.3f} "
               f"{r['minus_launch_ms']:7.3f} {r['pass_a_ms']:7.3f} {r['pass_b_ms']:7.3f} "
               f"{r['sums_ms']:6.3f} {r['glue_ms']:6.3f} {r['bytes_ms']:6.3f} "
               f"{r['x_bytes']:6.1f} {r['model_pass_a_ms']:8.3f} {r['model_pass_b_ms']:8.3f} "
               f"{r['x_model']:5.2f} {r['executed_over_useful']:8.3f}")
-    t = rec["totals"]
-    print(f"  TOTAL {t['minus_launch_ms']:.3f} ms (less launches; pass (a) {t['pass_a_ms']:.3f}, "
+    print(f"  K2 TOTAL {t['minus_launch_ms']:.3f} ms (less launches; pass (a) "
+          f"{t['pass_a_ms']:.3f}, "
           f"pass (b) {t['pass_b_ms']:.3f}, sums {t['sums_ms']:.3f}, glue {t['glue_ms']:.3f}) "
           f"against the bytes floor {t['bytes_ms']:.3f} ({t['x_bytes']:.1f}x) and the model "
           f"{t['model_ms']:.3f} ({t['x_model']:.2f}x; pass (a) {t['model_pass_a_ms']:.3f}, "
@@ -384,10 +454,10 @@ def main(argv=None) -> int:
           f"{PRODUCT_MATRIX}^3 torch.matmul): {product_ops / 1e12:.1f} Top/s")
     rows, totals = time_links(args.dtype, args.iters, fma["float32"]["gops"], product_ops,
                               dispatch["device_ms"], device)
-    rec = {"config": f"{HW}px b{BATCH} {args.dtype}, K2 links alone, {args.iters} timed calls "
-                     f"after {WARMUP}", "card": card, "dtype": args.dtype, "iters": args.iters,
-           "dispatch": dispatch, "fma": fma, "product_tops": product_ops / 1e12, "links": rows,
-           "totals": totals}
+    rec = {"config": f"{HW}px b{BATCH} {args.dtype}, K1 and K2 links alone, {args.iters} timed "
+                     f"calls after {WARMUP}", "card": card, "dtype": args.dtype,
+           "iters": args.iters, "dispatch": dispatch, "fma": fma,
+           "product_tops": product_ops / 1e12, "links": rows, "totals": totals}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=2)

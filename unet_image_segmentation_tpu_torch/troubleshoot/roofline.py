@@ -33,8 +33,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # the CUDA cores alone (K12b's elementwise FMAs): fp32 67 TFLOP/s, bf16x2
 # FMAs 133.8 TFLOP/s (Hopper white paper)
 PEAK_CUDA_CORE_OPS_PER_S = {"bfloat16": 133.8e12, "float32": 67e12}
-# TF32 on the tensor cores (K7's, K2's and K10's fp32 products run as
-# 3xTF32: three TF32 products for each)
+# TF32 on the tensor cores (K7's, K8's, K1's, K2's and K10's fp32 products
+# run as 3xTF32: three TF32 products for each)
 PEAK_TF32_OPS_PER_S = 495e12
 
 # wrapper (its key in an ops module's LAUNCHES) -> (K label, CUDA source
@@ -286,9 +286,19 @@ def bwd_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
     return 2.0 * px * 2 * c * f, 2.0 * px * 27 * c + (px * f if name == "sepconv_bwd" else 0)
 
 
+def fwd_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
+    """(products, depthwise) operations of one K8 or K1 call: the pointwise
+    product (C*F multiply-adds a pixel) and the 3x3 depthwise (9*C). K8's
+    shape is (C, F, H), K1's a link (name, C, F, H, ...)."""
+    c, f, h = shape if name == "sepconv_block" else shape[1:4]
+    px = batch * h * h
+    return 2.0 * px * c * f, 2.0 * px * 9 * c
+
+
 # wrapper -> its (products, elementwise) operations, for the kernels whose
 # products run on the tensor cores and the rest on the CUDA cores
 _SPLIT_OPS = {"sepconv_pair": lambda name, shape, batch: pair_ops(shape, batch),
+              "sepconv_block": fwd_ops, "chain_fwd": fwd_ops,
               "chain_bwd": bwd_ops, "sepconv_bwd": bwd_ops}
 
 
@@ -296,10 +306,11 @@ def bounds_ms(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[floa
     """The least time, in ms, the card could take for one call of wrapper
     ``name`` at ``shape`` in ``dname``, and which of "bytes" and
     "operations" bounds it. K12b's FMAs are held to the CUDA cores' peak.
-    K7's, K2's and K10's products run on the tensor cores (bf16; fp32 as
-    3xTF32, three TF32 products each) while their depthwise work runs on
-    the CUDA cores in fp32, the two at once. Every other kernel's
-    operations are held to :data:`PEAK_OPS_PER_S`."""
+    K7's, K8's, K1's, K2's and K10's products run on the tensor cores
+    (bf16; fp32 as 3xTF32, three TF32 products each) while their depthwise
+    work runs on the CUDA cores in fp32, the two at once. Every other
+    kernel's operations (K9's FMA products among them) are held to
+    :data:`PEAK_OPS_PER_S`."""
     nbytes, ops = work(name, shape, dname, batch)
     peaks = PEAK_CUDA_CORE_OPS_PER_S if name == "fma_probe" else PEAK_OPS_PER_S
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peaks[dname] * 1e3
