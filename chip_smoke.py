@@ -14,8 +14,9 @@ exit code and no result line:
    shape of the 256x256 binary U-Net, batch 2, fp32 and bf16; then at other
    shapes at batch 2 and 3, ReLU on and off (``BLOCK_RAGGED``: H x W 20 x
    36, C = 3 with F = 48, C = 5 with F = 33, C = 200 with F = 72, F = 300
-   over a cluster of 4 whose last slice is partial, 1024 -> 1024 at 16 px,
-   and the 512 px model's blocks);
+   over a cluster of 4 whose last slice is partial, with C = 12 and with
+   C = 200 (a partial last chunk split across the cluster), 1024 -> 1024
+   at 16 px, and the 512 px model's blocks);
 4. K7 (a fused block pair) likewise at the nine stage shapes, ``pool=True``
    on the encoder stages and ``x2`` on the decoder stages; then at ragged
    shapes at batch 2 and 3 (H x W 20 x 36, a 3-channel input with F = 48,
@@ -48,7 +49,8 @@ exit code and no result line:
    shapes of the 256 px model; then K1, K9, K2 and K10 at other shapes, batch
    2 and 3 (``LINK_RAGGED``: H x W 20 x 36, 3 input channels with F = 48, C = 5
    with F = 33 off the mma's depth, C = 200 with F = 72 so the last C
-   slice and dpw tile are partial, a 1024 -> 1024 link at 16 px with the
+   slice and dpw tile are partial, C = 200 with F = 300 and the dropout (K1's
+   cluster of 4 over a partial last chunk), a 1024 -> 1024 link at 16 px with the
    affine, the dropout and the output mask, and the 512 px model's links);
 8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
@@ -94,10 +96,6 @@ exit code and no result line:
    ``check_gpu_benchmark`` (one run of three trials on the CPU leg), both
    exiting 0; then the sixteen kernels' JSON line (with each kernel's bound,
    and K12a's library time) and the result line.
-
-``--eval-only`` runs phases 1, 2 and phase 8's eval step alone and prints no
-result line; run from the root of another checkout (a copy of this script
-there imports that checkout's package) it times that checkout's eval step.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN), so the
 plain versions compute in full fp32 like the kernels. Relative errors are
@@ -218,22 +216,25 @@ PAIR_RAGGED_BATCHES = (2, 3)
 # K8 beyond the path's shapes (phase 3): (label, C, F, H, W) at these
 # batches, ReLU on and off; ragged edges, 3 and 5 input channels (plain-load
 # staging, C off the mma depth), F off 16 (33) and a partial 128-wide slice
-# (72), a cluster of 4 whose last slice is partial (F = 300), the deepest
-# block, and the 512 px model's blocks
+# (72), a cluster of 4 whose last slice is partial (F = 300) over one
+# chunk and over four whose last is partial and split across the CTAs
+# (C = 200), the deepest block, and the 512 px model's blocks
 BLOCK_RAGGED = [("20x36", 32, 64, 20, 36), ("c3 f48", 3, 48, 24, 24), ("c5 f33", 5, 33, 10, 14),
                 ("c200 f72", 200, 72, 12, 20), ("f300", 12, 300, 9, 9),
-                ("deep", 1024, 1024, 16, 16)]
+                ("c200 f300", 200, 300, 12, 20), ("deep", 1024, 1024, 16, 16)]
 BLOCK_RAGGED_BATCHES = (2, 3)
 # the eval step (phase 8): K8 in each of its 18 blocks
 EVAL_K8_LAUNCHES = 18
 # K2/K10 beyond the path's shapes (phase 7): (label, C, F, H, W, in_aff, drop,
 # mask_combine) at these batches; ragged edges, 3 and 5 input channels, F
-# off the mma's k16 (33), a partial last C slice and dpw tile (C = 200), the
-# deepest link in every mode, and the 512 px model's links
+# off the mma's k16 (33), a partial last C slice and dpw tile (C = 200), K1's
+# cluster of 4 over a partial last chunk split across its CTAs (C = 200,
+# F = 300), the deepest link in every mode, and the 512 px model's links
 LINK_RAGGED = [("20x36", 32, 64, 20, 36, True, False, True),
                ("c3 f48", 3, 48, 24, 24, False, False, False),
                ("c5 f33", 5, 33, 10, 14, True, False, True),
                ("c200 f72", 200, 72, 12, 20, True, False, False),
+               ("c200 f300", 200, 300, 12, 20, False, True, True),
                ("deep affine mask", 1024, 1024, 16, 16, True, False, True),
                ("deep dropout mask", 1024, 1024, 16, 16, False, True, True)] + [
     (f"512px {name}", c, f, h, h, in_aff, drop, mask)
@@ -454,8 +455,10 @@ def link_label(name, c, f, h, in_aff, drop, mc):
 
 def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
     """Phase 7: K1-K6 and K9-K11 against their plain versions at every path shape."""
+    from unet_image_segmentation_tpu_torch.ops.kernels import build
     from unet_image_segmentation_tpu_torch.troubleshoot.link_floors import link_inputs
 
+    sms = build.sm_count(dev)
     print(f"K5/K6/K11 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
         for name, c, f, h in FEEDS + [FEED_FMA_SHAPE]:
@@ -500,7 +503,7 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
             for name, c, f, h, w, in_aff, drop, mc in LINK_RAGGED:
                 k = link_inputs(rnd, dev, dtype, batch, c, f, h, in_aff, drop, w)
                 link = f"{link_label(name, c, f, f'{h}x{w}', in_aff, drop, mc)} batch {batch}"
-                fwd = ft.fwd_plan(batch, h, w, c, f, dtype)
+                fwd = ft.fwd_plan(batch, h, w, c, f, dtype, sms)
                 label = f"{link}, cluster {fwd.n} x {fwd.s}, {fwd.per} tiles a cluster"
                 judge_k1(ft, tjudge, k, label, dname)
                 judge_k9(fs, tjudge, k, f"{link} (x, dw, pw)", dname)
@@ -773,17 +776,6 @@ def eval_ab(torch, dev, smi, base, x, m, launches):
     return out
 
 
-def train_inputs(torch, dev):
-    """Phase 8's config dict, its numpy scenes and masks, and the first
-    batch of them on the card."""
-    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
-        base = json.load(f)
-    images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
-    x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
-    m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
-    return base, images, masks, x, m
-
-
 def train_path(torch, dev, smi, report, launches):
     """Phase 8: the training step at full width, kernels on against the
     composed path on the same card, then ``fit`` and a ``Predictor`` request."""
@@ -794,7 +786,11 @@ def train_path(torch, dev, smi, report, launches):
     from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
     from unet_image_segmentation_tpu_torch.train.steps import make_train_step
 
-    base, images, masks, x, m = train_inputs(torch, dev)
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        base = json.load(f)
+    images, masks = synthetic_scenes(3 * BATCH_SERVE, IMAGE, SEED + 1, with_masks=True)
+    x = torch.from_numpy(images[:BATCH_SERVE]).to(dev)
+    m = torch.from_numpy(masks[:BATCH_SERVE]).to(dev)
     print(f"training path: {TRAIN_CONFIG} as it is (fused_head "
           f"{base['model'].get('fused_head', 'auto')}): U-Net {base['model']['filters']}"
           f" at {IMAGE}, batch {base['train']['batch_size']}, dropout "
@@ -1167,17 +1163,9 @@ def train_images_per_second(step, state, x, m, torch, reps=3):
     return reps * x.shape[0] / (time.perf_counter() - t0)
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--eval-only", action="store_true",
-                        help="run the card, the build and phase 8's eval step only, and print no "
-                             "result line (run from another checkout's root, this times that "
-                             "checkout's eval step)")
-    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1210,14 +1198,6 @@ def main(argv=None) -> int:
     build.load_library()
     print(f"build: nvcc {' '.join(build.NVCC_FLAGS[:2])} -> {build.library_path().name}, "
           f"nvcc {build.build_seconds} s, load {time.perf_counter() - t0:.2f} s")
-
-    if args.eval_only:
-        base, _, _, x, m = train_inputs(torch, dev)
-        print(f"eval step only: {TRAIN_CONFIG}'s model at batch {x.shape[0]}, kernels on (K8) vs "
-              "the composed path")
-        report["eval"] = eval_ab(torch, dev, smi, base, x, m, {})
-        print(json.dumps({"eval": report["eval"]}))
-        return 0
 
     def rnd(*shape, scale=1.0):
         return (torch.rand(*shape, generator=gen) * 2 - 1) * scale
@@ -1271,7 +1251,7 @@ def main(argv=None) -> int:
             for name, c, f, h, w in BLOCK_RAGGED:
                 wt = weights(c, f, dtype)
                 x = rnd(batch, h, w, c).to(dev, dtype)
-                plan = ft.fwd_plan(batch, h, w, c, f, dtype)
+                plan = ft.fwd_plan(batch, h, w, c, f, dtype, build.sm_count(dev))
                 for relu in (True, False):
                     got = fs.sepconv_block(x, wt, relu)
                     want = fs.sepconv_block_reference(x, wt, relu)

@@ -266,7 +266,7 @@ def test_k8_route_on_the_unet_blocks(px):
 
     for name, cx, cx2, f1, f2, h, _ in roofline.stage_shapes(px, (64, 128, 256, 512)):
         for c, f in ((cx + cx2, f1), (f1, f2)):
-            plan = tft.fwd_plan(32, h, h, c, f, torch.bfloat16)
+            plan = tft.fwd_plan(32, h, h, c, f, torch.bfloat16, 132)
             assert plan.n == max(1, f // 128) and plan.n * plan.s == max(f, 64 * plan.n)
             work = tft.fwd_work(32, h, h, c, f, torch.bfloat16)
             assert work.executed / work.useful == pytest.approx(16 / 3 if c == 3 else 1.0)

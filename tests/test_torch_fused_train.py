@@ -288,7 +288,8 @@ def test_chain_bwd_work_on_the_unet_links(dtype):
 
 # K1's and K8's launch plans: every link of the 256 px step at batch 32, and
 # the ragged shapes of chip_smoke.py (partial slices, C off the vector and
-# the mma depth, F off 16, a partial last cluster slice)
+# the mma depth, F off 16, a partial last cluster slice, over one chunk and
+# over a partial last chunk)
 _FWD_PLAN_SHAPES = (
     [pytest.param(32, h, h, c, f, id=f"256px-{name}")
      for name, c, f, h, *_ in roofline.chain_links(256, (64, 128, 256, 512))]
@@ -297,6 +298,7 @@ _FWD_PLAN_SHAPES = (
        pytest.param(3, 10, 14, 5, 33, id="ragged-c5-f33"),
        pytest.param(2, 12, 20, 200, 72, id="ragged-c200-f72"),
        pytest.param(3, 9, 9, 12, 300, id="ragged-f300"),
+       pytest.param(3, 12, 20, 200, 300, id="ragged-c200-f300"),
        pytest.param(65535, 8, 8, 16, 1024, id="batch-65535")]
 )
 
@@ -307,9 +309,9 @@ def test_fwd_plan(b, h, w, c, f, dtype):
     """A cluster of n CTAs whose slices (multiples of 16, within the GEMM
     width) cover F exactly, n the fewest that fit 128-wide slices; two CTAs
     an SM by shared memory; per tiles a cluster, the clusters covering the
-    batch's tiles, at least 8 waves of two CTAs an SM where there are tiles
-    for it; the grid within CUDA's limits."""
-    plan = tft.fwd_plan(b, h, w, c, f, dtype)
+    batch's tiles, at least 8 waves of two CTAs an SM (of a 132-SM card)
+    where there are tiles for it; the grid within CUDA's limits."""
+    plan = tft.fwd_plan(b, h, w, c, f, dtype, 132)
     assert plan.n in (1, 2, 4, 8) and (plan.n == 1 or (plan.n // 2) * 128 < f <= plan.n * 128)
     assert plan.s % 16 == 0 and plan.s <= plan.width in (64, 128)
     assert plan.width == (64 if plan.s <= 64 else 128)
@@ -318,7 +320,7 @@ def test_fwd_plan(b, h, w, c, f, dtype):
     tiles = b * plan.tiles_y * plan.tiles_x
     assert (plan.tiles_y, plan.tiles_x) == (-(-h // 8), -(-w // 8))
     assert 1 <= plan.per <= 8 and plan.grid == (plan.n * -(-tiles // plan.per),)
-    assert plan.per == 1 or plan.grid[0] >= 2112
+    assert plan.per == 1 or plan.grid[0] >= 16 * 132
     assert plan.grid[0] < 2 ** 31
     assert tft.fwd_plan_args(plan) == (plan.n, plan.s, plan.width, plan.per, plan.smem)
 
@@ -327,32 +329,36 @@ def test_fwd_plan_by_hand():
     """bf16 enc1.2 of the 256 px step at batch 32: one CTA a cluster, 64
     channels wide, 8 of the 32768 tiles a cluster; the shared memory of
     FwdSmem in sepconv_fwd.cuh. fp32 bneck.2: a cluster of 8 128-wide
-    slices, one tile a cluster (128 tiles)."""
-    plan = tft.fwd_plan(32, 256, 256, 64, 64, torch.bfloat16)
+    slices, one tile a cluster (128 tiles). The tiles a cluster follow the
+    card's SM count: 8192 tiles of a 128-channel block at 128 px take 3 a
+    cluster on 132 SMs (2731 CTAs), 4 on 114 (2048 CTAs)."""
+    plan = tft.fwd_plan(32, 256, 256, 64, 64, torch.bfloat16, 132)
     assert (plan.n, plan.s, plan.width, plan.per) == (1, 64, 64, 8)
     assert plan.grid == (4096,)
     # x halo [2][100][64] and taps [2][9][64], A [2][64][72], pw [2][64][72]
     # in bf16, then the sums [4][64] in fp32
     assert plan.smem == 2 * (2 * 100 * 64 + 2 * 9 * 64 + 2 * 64 * 72 + 2 * 64 * 72) + 16 * 64
     assert plan.smem == 65792
-    deep = tft.fwd_plan(32, 16, 16, 1024, 1024, torch.float32)
+    deep = tft.fwd_plan(32, 16, 16, 1024, 1024, torch.float32, 132)
     assert (deep.n, deep.s, deep.width, deep.per, deep.grid) == (8, 128, 128, 1, (1024,))
     # fp32: chunks of 32 channels, A twice (TF32 hi and lo) [2][2][64][36]
     assert deep.smem == 4 * (2 * 100 * 32 + 2 * 9 * 32 + 4 * 64 * 36 + 2 * 32 * 136) + 16 * 128
     # F = 300: four slices of 80 (the last holds 60); F = 33: one of 48
-    assert tft.fwd_plan(3, 9, 9, 12, 300, torch.bfloat16)[:3] == (4, 80, 128)
-    assert tft.fwd_plan(3, 10, 14, 5, 33, torch.bfloat16)[:3] == (1, 48, 64)
+    assert tft.fwd_plan(3, 9, 9, 12, 300, torch.bfloat16, 132)[:3] == (4, 80, 128)
+    assert tft.fwd_plan(3, 10, 14, 5, 33, torch.bfloat16, 132)[:3] == (1, 48, 64)
+    assert tft.fwd_plan(32, 128, 128, 128, 128, torch.bfloat16, 132).per == 3
+    assert tft.fwd_plan(32, 128, 128, 128, 128, torch.bfloat16, 114).per == 4
 
 
 def test_fwd_plan_refuses_what_the_kernel_cannot_launch():
     with pytest.raises(ValueError, match="at most 1024"):
-        tft.fwd_plan(1, 16, 16, 64, 1025, torch.bfloat16)
+        tft.fwd_plan(1, 16, 16, 64, 1025, torch.bfloat16, 132)
     with pytest.raises(ValueError, match="batch"):
-        tft.fwd_plan(65536, 8, 8, 64, 64, torch.bfloat16)
+        tft.fwd_plan(65536, 8, 8, 64, 64, torch.bfloat16, 132)
     with pytest.raises(ValueError, match="empty"):
-        tft.fwd_plan(1, 8, 0, 64, 64, torch.float32)
+        tft.fwd_plan(1, 8, 0, 64, 64, torch.float32, 132)
     with pytest.raises(TypeError):
-        tft.fwd_plan(1, 8, 8, 64, 64, torch.float16)
+        tft.fwd_plan(1, 8, 8, 64, 64, torch.float16, 132)
 
 
 def test_fwd_work_by_hand():

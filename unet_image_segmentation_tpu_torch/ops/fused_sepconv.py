@@ -342,7 +342,7 @@ def sepconv_block(
     _check_cuda_input(x, "sepconv_block")
     b, h, wd, c = x.shape
     f = _check_weights(w, c, x, "sepconv_block")
-    plan = ft.fwd_plan(b, h, wd, c, f, x.dtype)
+    plan = ft.fwd_plan(b, h, wd, c, f, x.dtype, build.sm_count(x.device))
     lib = build.load_library()
     out = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
     status = lib.unet_sepconv_block(

@@ -58,8 +58,8 @@ _MAX_BATCH = 65535  # gridDim.z of K2 and K9; K1 and K8 hold to it too
 _FWD_CHUNK = {torch.bfloat16: (64, 16), torch.float32: (32, 8)}
 _FWD_SLICE, _FWD_MAX_CLUSTER = 128, 8
 # tiles a cluster takes in turn: at most 8, and no fewer CTAs than 8 waves
-# of two a SM of a 132-SM card, so the last wave's part stays small
-_FWD_TARGET_CTAS, _FWD_MAX_PER = 2112, 8
+# of two an SM of the card, so the last wave's part stays small
+_FWD_CTAS_PER_SM, _FWD_MAX_PER = 16, 8
 
 # K2's launch plan (kernels/csrc/chain_bwd.cu): per dtype the GEMM depth
 # staged at once (F channels in pass (a), pixels in pass (b)), the mma's
@@ -274,13 +274,12 @@ class FwdPlan(NamedTuple):
     smem: int
 
 
-def fwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> FwdPlan:
-    """K8's and K1's launch plan for ``b`` (H, W) images, C input and F
-    output channels in ``dtype``. The shared-memory layout is ``FwdSmem`` of
-    ``sepconv_fwd.cuh``, which checks the byte count. ``per`` keeps at least
-    :data:`_FWD_TARGET_CTAS` CTAs (8 waves of two CTAs an SM of a 132-SM
-    card) where the tiles allow it, at most :data:`_FWD_MAX_PER` tiles a
-    cluster."""
+def _fwd_slicing(b: int, h: int, w: int, c: int, f: int,
+                 dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(n, s, width)`` of :class:`FwdPlan` for these dimensions: the fewest
+    CTAs a cluster whose 128-wide slices hold F, the slice rounded up to 16
+    channels, the GEMM width that holds it. Raises on what the kernels
+    cannot launch."""
     if min(b, h, w, c, f) < 1:
         raise ValueError(f"sepconv forward: empty shape B={b} H={h} W={w} C={c} F={f}")
     if b > _MAX_BATCH:
@@ -294,7 +293,18 @@ def fwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> FwdP
     while n * _FWD_SLICE < f:
         n *= 2
     s = -(-_cdiv(f, n) // 16) * 16
-    width = 64 if s <= 64 else 128
+    return n, s, 64 if s <= 64 else 128
+
+
+def fwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype, sms: int) -> FwdPlan:
+    """K8's and K1's launch plan for ``b`` (H, W) images, C input and F
+    output channels in ``dtype`` on a card of ``sms`` streaming
+    multiprocessors (:func:`..kernels.build.sm_count`). The shared-memory
+    layout is ``FwdSmem`` of ``sepconv_fwd.cuh``, which checks the byte
+    count. ``per`` keeps at least :data:`_FWD_CTAS_PER_SM` CTAs an SM (8
+    waves of two) where the tiles allow it, at most :data:`_FWD_MAX_PER`
+    tiles a cluster."""
+    n, s, width = _fwd_slicing(b, h, w, c, f, dtype)
     kc, _ = _FWD_CHUNK[dtype]
     e = dtype.itemsize
     ldk, ldn = kc + 16 // e, width + 8
@@ -307,7 +317,7 @@ def fwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> FwdP
         raise ValueError(f"sepconv forward: {smem} bytes of shared memory, at most {SMEM_MAX}")
     ty, tx = _cdiv(h, _TILE), _cdiv(w, _TILE)
     tiles = b * ty * tx
-    per = max(1, min(_FWD_MAX_PER, tiles * n // _FWD_TARGET_CTAS))
+    per = max(1, min(_FWD_MAX_PER, tiles * n // (_FWD_CTAS_PER_SM * sms)))
     if n * _cdiv(tiles, per) >= 2 ** 31:
         raise ValueError(f"sepconv forward: {tiles} tiles, too many for one grid")
     return FwdPlan(n, s, width, per, ty, tx, (n * _cdiv(tiles, per),), smem)
@@ -340,14 +350,13 @@ def fwd_work(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> FwdW
     depthwise once for the tile (the cluster's CTAs split the chunk), the
     products over the 64 rows and the columns of every CTA's active warps
     (a quarter of the width each; the warps wholly past the slice skip)."""
-    plan = fwd_plan(b, h, w, c, f, dtype)
+    n, s, width = _fwd_slicing(b, h, w, c, f, dtype)
     kc, ks = _FWD_CHUNK[dtype]
     cpad = sum(min(kc, _cdiv(c - c0, ks) * ks) for c0 in range(0, c, kc))
-    quarter = plan.width // 4
+    quarter = width // 4
     cols = sum(quarter * min(4, _cdiv(hi - lo, quarter))
-               for lo, hi in ((min(r * plan.s, f), min((r + 1) * plan.s, f))
-                              for r in range(plan.n)))
-    tiles = b * plan.tiles_y * plan.tiles_x
+               for lo, hi in ((min(r * s, f), min((r + 1) * s, f)) for r in range(n)))
+    tiles = b * _cdiv(h, _TILE) * _cdiv(w, _TILE)
     p = b * h * w
     return FwdWork(tiles * 64 * 9 * cpad, p * 9 * c, tiles * 64 * cols * cpad, p * c * f)
 
@@ -530,7 +539,7 @@ def chain_fwd(
     _check_small(dw, "chain_fwd dw", (3, 3, c), x.dtype, x.device)
     _check_small(pw, "chain_fwd pw", (c, f), x.dtype, x.device)
     _check_small(in_aff, "chain_fwd in_aff", (2, c), torch.float32, x.device)
-    plan = fwd_plan(b, h, w, c, f, x.dtype)
+    plan = fwd_plan(b, h, w, c, f, x.dtype, build.sm_count(x.device))
     lib = build.load_library()
     y = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
     sums = torch.empty((2, f), dtype=torch.float32, device=x.device)

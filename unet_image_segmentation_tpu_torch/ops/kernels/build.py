@@ -206,3 +206,8 @@ def check(status: int, name: str) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -56,7 +56,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                      float* __restrict__ partials, uint32_t seed, uint32_t thresh,
                      float drop_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int NT = W / 32, KC = FwdCfg<T>::KC, V = FwdCfg<T>::V, G = KC / V;
+  constexpr int NT = W / 32, KC = ChunkCfg<T>::KC, V = ChunkCfg<T>::V, G = KC / V;
   const int H = a.H, Wd = a.W, C = a.C, F = a.F;
   // z of the staged share in place, once per element: a thread keeps one
   // channel group (its affine in registers) and walks the halo's pixels;

@@ -2,8 +2,9 @@
 // run their products on mma.sync (sepconv_pair.cu, sepconv_fwd.cuh,
 // chain_bwd.cu, upconcat.cu): shared-memory addresses, cp.async, ldmatrix,
 // the bf16 m16n8k16 and TF32 m16n8k8 products, the 3xTF32 split, 16-byte
-// vectors of T unpacked to fp32 and packed back, and the staging, warp
-// products and paired stores of the sepconv kernels (K7, K8, K1).
+// vectors of T unpacked to fp32 and packed back, and the chunk sizes,
+// staging, warp products, paired stores and cluster launch of the sepconv
+// kernels (K7, K8, K1).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k8; g = lane / 4, t = lane
 // % 4): A rows g and g + 8; B column g; C rows g and g + 8, columns 2t and
@@ -18,6 +19,13 @@
 #include "sepconv_common.cuh"
 
 namespace unet {
+
+// The sepconv kernels' chunking (K7, K8, K1): KC input channels of a chunk
+// (the GEMM depth staged at once), KS the mma's depth, V elements of T in 16
+// bytes (one vector load or store).
+template <typename T> struct ChunkCfg;
+template <> struct ChunkCfg<__nv_bfloat16> { static constexpr int KC = 64, KS = 16, V = 8; };
+template <> struct ChunkCfg<float> { static constexpr int KC = 32, KS = 8, V = 4; };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -263,6 +271,32 @@ __device__ __forceinline__ void stage_tile(T* dst, int lds, int rows, int groups
         if (r0 + u * RS < rows) dst[(r0 + u * RS) * lds + c] = v[u];
     }
   }
+}
+
+// Launch kernel(args...) on grid x threads CTAs with smem bytes of dynamic
+// shared memory, in thread-block clusters of n CTAs along x. Returns
+// cudaGetLastError() after the launch.
+template <typename... Params, typename... Args>
+inline int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem, int n,
+                          cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace unet

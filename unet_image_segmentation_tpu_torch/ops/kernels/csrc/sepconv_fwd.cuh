@@ -85,12 +85,6 @@ namespace unet {
 constexpr int kFwdHalo = kTile + 2;              // side of the staged x tile
 constexpr int kFwdHaloPx = kFwdHalo * kFwdHalo;  // 100 pixels
 
-// KC: input channels of a chunk; KS: the mma's depth; V: elements of T in
-// 16 bytes.
-template <typename T> struct FwdCfg;
-template <> struct FwdCfg<__nv_bfloat16> { static constexpr int KC = 64, KS = 16, V = 8; };
-template <> struct FwdCfg<float> { static constexpr int KC = 32, KS = 8, V = 4; };
-
 // Shared memory of one CTA, in bytes; fwd_plan (fused_train.py) mirrors it.
 // In T: the x halo tiles [2][100][KC] and taps [2][9][KC] of the CTA's
 // share, the A buffers [2][64][LDK] (fp32: [2][2][64][LDK], the TF32 hi
@@ -98,7 +92,7 @@ template <> struct FwdCfg<float> { static constexpr int KC = 32, KS = 8, V = 4; 
 // scratch [4][W] (K1's column sums of the two warp rows).
 template <typename T, int W>
 struct FwdSmem {
-  static constexpr int KC = FwdCfg<T>::KC, LDK = KC + FwdCfg<T>::V, LDN = W + 8;
+  static constexpr int KC = ChunkCfg<T>::KC, LDK = KC + ChunkCfg<T>::V, LDN = W + 8;
   static constexpr int e = sizeof(T), parts = sizeof(T) == 4 ? 2 : 1;
   static constexpr int xs = 0, taps = xs + e * 2 * kFwdHaloPx * KC;
   static constexpr int As = taps + e * 2 * 9 * KC;
@@ -125,7 +119,7 @@ struct FwdTile {
 template <typename T>
 inline FwdArgs<T> fwd_args(const void* x, const void* dw, const void* pw, int B, int H, int W,
                            int C, int F, int n, int s, int per) {
-  constexpr int V = FwdCfg<T>::V;
+  constexpr int V = ChunkCfg<T>::V;
   FwdArgs<T> a;
   a.x = static_cast<const T*>(x);
   a.dw = static_cast<const T*>(dw);
@@ -184,25 +178,9 @@ inline bool fwd_plan_ok(int B, int H, int W, int C, int F, int n, int s, int wid
 template <typename T, typename... Params, typename... Args>
 inline int launch_fwd(void (*kernel)(Params...), const FwdArgs<T>& a, int smem,
                       cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const long long clusters = ((long long)a.B * a.tiles + a.per - 1) / a.per;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(a.n * clusters), 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(kernel, dim3((unsigned)(a.n * clusters), 1, 1), kThreads, smem, a.n,
+                        stream, a, args...);
 }
 
 // One CTA's part of the per tiles (b * tiles + tile order) of cluster
@@ -222,7 +200,7 @@ __device__ __forceinline__ void sepconv_fwd_tiles(const FwdArgs<T>& a, unsigned 
                                                   Prologue prologue, Epilogue epilogue) {
   namespace cg = cooperative_groups;
   using L = FwdSmem<T, W>;
-  constexpr int KC = FwdCfg<T>::KC, KS = FwdCfg<T>::KS, V = FwdCfg<T>::V;
+  constexpr int KC = ChunkCfg<T>::KC, KS = ChunkCfg<T>::KS, V = ChunkCfg<T>::V;
   constexpr int LDK = L::LDK, LDN = L::LDN, NT = W / 32, G = KC / V;
   static_assert(kThreads % G == 0, "a thread keeps one channel group");
   T* xs = reinterpret_cast<T*>(smem + L::xs);      // [2][100][KC] x halo of the share

@@ -113,12 +113,6 @@ constexpr int kM1 = 112;                // GEMM1 rows: the 100 ring pixels in 7 
 constexpr int kXs = kTile + 4;          // side of the staged x tile
 constexpr int kXsPx = kXs * kXs;        // 144 x pixels
 
-// KC: input channels of a chunk (the GEMM depth staged at once); KS: the
-// mma's depth; V: elements of T in 16 bytes (one vector load or store).
-template <typename T> struct PairCfg;
-template <> struct PairCfg<bf16> { static constexpr int KC = 64, KS = 16, V = 8; };
-template <> struct PairCfg<float> { static constexpr int KC = 32, KS = 8, V = 4; };
-
 // Shared-memory layout of one CTA, in bytes; pair_plan (fused_sepconv.py)
 // mirrors it. Block 1's buffers: the fp32 affines [4][W] (scale1, shift1 of
 // the F1 slice, scale2, shift2 of the F2 slice), then in T the dw1 taps
@@ -129,7 +123,7 @@ template <> struct PairCfg<float> { static constexpr int KC = 32, KS = 8, V = 4;
 // by then), else follow the weight chunks.
 template <typename T, int W>
 struct PairSmem {
-  static constexpr int KC = PairCfg<T>::KC, LDK = KC + PairCfg<T>::V, LDN = W + 8;
+  static constexpr int KC = ChunkCfg<T>::KC, LDK = KC + ChunkCfg<T>::V, LDN = W + 8;
   static constexpr int e = sizeof(T);
   static constexpr int aff = 0, taps1 = 4 * 4 * W, taps2 = taps1 + e * 2 * 9 * KC;
   static constexpr int xs = taps2 + e * 9 * W, As = xs + e * 2 * kXsPx * KC;
@@ -182,7 +176,7 @@ template <typename T, int W>
 __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
     sepconv_pair_cluster_kernel(const PairArgs<T> a) {
   using L = PairSmem<T, W>;
-  constexpr int KC = PairCfg<T>::KC, KS = PairCfg<T>::KS, V = PairCfg<T>::V;
+  constexpr int KC = ChunkCfg<T>::KC, KS = ChunkCfg<T>::KS, V = ChunkCfg<T>::V;
   constexpr int LDK = L::LDK, LDN = L::LDN;
   // 8 warps, 2 along M by 4 along N: a warp owns NT n8 tiles (W / 4 columns)
   // and 4 of GEMM1's 7 m16 tiles (3 in the second row) or 2 of GEMM2's 4
@@ -511,25 +505,8 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
 template <typename T, int W>
 int launch(PairArgs<T> a, int B, int tiles, int smem, cudaStream_t stream) {
   if (smem != PairSmem<T, W>::bytes) return (int)cudaErrorInvalidValue;
-  auto kernel = sepconv_pair_cluster_kernel<T, W>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.n * tiles, B, 1);
-  cfg.blockDim = dim3(kPairThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(sepconv_pair_cluster_kernel<T, W>, dim3(a.n * tiles, B, 1),
+                        kPairThreads, smem, a.n, stream, a);
 }
 
 template <typename T>
@@ -538,7 +515,7 @@ int launch_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
                 const void* scale2, const void* shift2, void* out, void* pooled, int B, int H,
                 int W, int Cx, int Cx2, int F1, int F2, int n, int s1, int s2, int width,
                 int smem, cudaStream_t stream) {
-  constexpr int V = PairCfg<T>::V;
+  constexpr int V = ChunkCfg<T>::V;
   const bool plan_ok = (n == 1 || n == 2 || n == 4 || n == 8) && s1 % 16 == 0 &&
                        s2 % 16 == 0 && s1 > 0 && s2 > 0 && s1 <= width && s2 <= width &&
                        n * s1 >= F1 && n * s2 >= F2 && Cx > 0 && Cx2 >= 0 && B > 0 &&

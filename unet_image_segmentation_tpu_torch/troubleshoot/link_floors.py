@@ -238,7 +238,7 @@ def k2_model_ms(instr: Dict[str, int], dname: str, product_ops: float,
 def k1_instructions(b: int, h: int, w: int, c: int, f: int, in_aff: bool, drop: bool,
                     dname: str = "bfloat16") -> Dict[str, int]:
     """What K1 executes for one call, counted from sepconv_fwd.cuh and
-    chain_fwd.cu on :func:`..ops.fused_train.fwd_plan`'s launch:
+    chain_fwd.cu for :func:`..ops.fused_train.fwd_plan`'s launch:
     ``mma``, the products on the tensor cores, and ``depthwise``, its
     multiply-adds on the CUDA cores (:func:`..ops.fused_train.fwd_work`,
     padding included); ``prologue``, the CUDA cores' instructions of the
@@ -246,8 +246,7 @@ def k1_instructions(b: int, h: int, w: int, c: int, f: int, in_aff: bool, drop: 
     of C: 3 a value for the affine and its ReLU, 11 for the dropout's hash,
     test and scale); ``sums``, the adds of the fixed-order row sums."""
     work = ft.fwd_work(b, h, w, c, f, getattr(torch, dname))
-    plan = ft.fwd_plan(b, h, w, c, f, getattr(torch, dname))
-    tiles = b * plan.tiles_y * plan.tiles_x
+    tiles = b * -(-h // TILE) * -(-w // TILE)
     prologue = tiles * RING_PX * c * (3 * in_aff + 11 * drop)
     return {"mma": work.mma_executed, "depthwise": work.dw_executed, "prologue": prologue,
             "sums": _colsum_adds(tiles, 2 * f)}
