@@ -40,18 +40,22 @@ exit code and no result line:
    paths, batch 2, fp32 and bf16: K1-K4 (the training chain's link forward
    and backward, the encoder boundary's pool and its backward; K4 on inputs
    with exact ties), K6 (the decoder feed, forward and backward) at the four
-   decoder stages and at one feed of other widths (the bf16 FMA kernels),
-   K5 (the fused head, forward and backward) at dec1 on inputs where the
-   ReLU's argument is exactly 0 on some pixels, K11 (the softmax head) at
-   dec1 of the 512 px model with 3 classes and at another width with 4, on
-   such inputs and with two classes' logits tied everywhere (the confusion
+   decoder stages, K5 (the fused head, forward and backward) at dec1 on
+   inputs where the ReLU's argument is exactly 0 on some pixels, K11 (the
+   softmax head) at dec1 of the 512 px model with 3 classes and at another
+   width with 4, on such inputs and with two classes' logits tied
+   everywhere (the confusion
    matrix must match exactly), K9/K10 (per-block training) at the 18 block
    shapes of the 256 px model; then K1, K9, K2 and K10 at other shapes, batch
    2 and 3 (``LINK_RAGGED``: H x W 20 x 36, 3 input channels with F = 48, C = 5
    with F = 33 off the mma's depth, C = 200 with F = 72 so the last C
    slice and dpw tile are partial, C = 200 with F = 300 and the dropout (K1's
    cluster of 4 over a partial last chunk), a 1024 -> 1024 link at 16 px with the
-   affine, the dropout and the output mask, and the 512 px model's links);
+   affine, the dropout and the output mask, and the 512 px model's links),
+   and K6 at other feeds, batch 2 and 3, fp32 and bf16 (``FEED_RAGGED``:
+   48 -> 8 at 16 px, C = 96 and 200 with F = 24 and 40 on odd sides
+   H x W 9 x 13 and 5 x 3, odd C and F (5 -> 3), and the 512 px model's
+   feeds);
 8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
    3 train steps with the kernels against 3 of the composed path in fp32
@@ -67,7 +71,8 @@ exit code and no result line:
    ``fit`` for one epoch whose ``best/`` checkpoint a ``Predictor`` serves;
 9. K1-K6, K9, K10 at batch 32 and K11 at batch 8 of 512 px (the paths'
    batches), whose launch plans differ from batch 2's: each output held
-   against its plain version under phase 7's bars, then both timed;
+   against its plain version under phase 7's bars, then both timed, K6 and
+   K9 with their bounds and the share of the bound reached;
 10. multiclass training at full width (``configs/multiclass_512.json`` with
    ``fused_head`` all: 3 classes, 512 px, batch 8, cce, numpy class-id
    scenes): 3 steps with the kernels against 3 of the composed path in fp32
@@ -78,8 +83,12 @@ exit code and no result line:
 11. per-block training at full width: each of the 18 ConvBlocks of the
    256 px model at batch 32 with BatchNorm and ``use_pallas`` (one K9 and
    one K10 launch a block) against the composed block (output, every
-   gradient, running statistics), then one train step of the 256 px U-Net
-   without BatchNorm (18 K8 launches) against its composed step;
+   gradient, running statistics; the cotangent is 0 at the outputs whose
+   ReLU the fp32 and fp64 forwards decide apart, at most 64 a block; the
+   fp32 output and dx within 16x the fp32 composed block's distance from
+   the fp64 composed block, the rest within 5e-4 of it), then one train
+   step of the 256 px U-Net without BatchNorm (18 K8 launches) against its
+   composed step;
 12. the troubleshoot tools: K12a (the launch probe, ``x + 1`` on (8, 128)
    fp32) exactly and K12b (the FMA-rate probe at (1024, 512), K = 2048)
    bit for bit in bf16 and within K * 2^-24 in fp32 against their plain
@@ -190,6 +199,20 @@ TRAIN_STATS_TOL = 2e-2
 # 0.18 against 0.048 at enc1.1), so the composed bf16 block is no bar for it.
 BLOCK_OUT_TOL = 1e-4
 BLOCK_GRAD_TOL = 5e-4
+# The ReLU after BatchNorm decides some outputs within a few fp32 ulps of 0;
+# there the kernels (3xTF32 products), the composed block (cuDNN) and the
+# fp64 composed block may decide apart, and each such decision moves one
+# pixel's gradient by O(1). Phase 11 zeroes the cotangent at the outputs the
+# three forwards decide apart, at most RELU_APART_MAX a block (H100 run: 1-28
+# of 8-134 M between the two fp32 forwards; a systematic error in y of 5e-5
+# relative would put tens of thousands apart). On the same decisions the
+# fp32 kernels are held to the fp64 composed block: the output and dx at most
+# FP64_FACTOR x the fp32 composed block's own distance from it (H100 run: up
+# to 4.3x and 7.3x, at 5.7e-6 and 6.2e-6), the parameter gradients and
+# running statistics within BLOCK_GRAD_TOL (up to 1.5e-4, dpw at enc1.1,
+# where the composed block is 1.8e-6 off).
+RELU_APART_MAX = 64
+FP64_FACTOR = 16.0
 BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 1, "sepconv_bwd": 1}
 BN_OFF_K8_LAUNCHES = 18
 # phase 12: K12b at its full shape, and the counts the troubleshoot tools run
@@ -259,17 +282,25 @@ BLOCK_RAGGED += [(f"512px {c}->{f}", c, f, h, h)
                  for c, f, h in block_shapes(roofline.stage_shapes(512, FILTERS))]
 
 
-# a feed at widths off the tensor-core path (C % 64, F % 16 nonzero), so
-# the bf16 FMA kernels that other widths take are checked too
-FEED_FMA_SHAPE = ("fma widths", 48, 8, 16)
+# K6 beyond the path's feeds (phase 7): (label, C, F, H, W) of x at these
+# batches; widths off the 128-column tiles and the 16-byte vectors (C = 48,
+# 96, 200 with F = 8, 24, 40; C = 5 with F = 3 stages and stores element by
+# element), odd and unequal sides, and the 512 px model's feeds
+FEED_RAGGED = [("narrow", 48, 8, 16, 16), ("odd sides", 96, 24, 9, 13),
+               ("odd sides", 200, 40, 9, 13), ("small", 200, 24, 5, 3), ("small", 96, 40, 5, 3),
+               ("odd widths", 5, 3, 7, 9)] + [
+    (f"512px {name}", c, f, h, h) for name, c, f, h in roofline.upconcat_shapes(512, FILTERS)]
+FEED_RAGGED_BATCHES = (2, 3)
 
 
-def upconcat_case(torch, rnd, dev, dtype, batch, c, f, h):
-    """Seeded inputs of one decoder feed for K6 (kernel at the glorot scale)."""
-    return dict(x=rnd(batch, h, h, c).to(dev, dtype),
+def upconcat_case(torch, rnd, dev, dtype, batch, c, f, h, w=None):
+    """Seeded inputs of one decoder feed for K6 (kernel at the glorot scale),
+    x (batch, h, w, c) with w = h unless given."""
+    w = h if w is None else w
+    return dict(x=rnd(batch, h, w, c).to(dev, dtype),
                 kernel=rnd(2, 2, f, c, scale=(6 / (4 * (c + f))) ** 0.5).to(dev),
-                bias=0.1 * rnd(f).to(dev), skip=rnd(batch, 2 * h, 2 * h, f).to(dev, dtype),
-                g=rnd(batch, 2 * h, 2 * h, 2 * f).to(dev, dtype))
+                bias=0.1 * rnd(f).to(dev), skip=rnd(batch, 2 * h, 2 * w, f).to(dev, dtype),
+                g=rnd(batch, 2 * h, 2 * w, 2 * f).to(dev, dtype))
 
 
 def head_case(torch, rnd, dev, dtype, batch):
@@ -461,7 +492,7 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
     sms = build.sm_count(dev)
     print(f"K5/K6/K11 training kernels vs plain, batch {BATCH_CHECK}, TF32 off:")
     for dname, dtype in dtypes.items():
-        for name, c, f, h in FEEDS + [FEED_FMA_SHAPE]:
+        for name, c, f, h in FEEDS:
             k = upconcat_case(torch, rnd, dev, dtype, BATCH_CHECK, c, f, h)
             judge_feed(fu, tjudge, k, f"{name} {c}@{h}->{2 * f}@{2 * h}", dname)
         k = head_case(torch, rnd, dev, dtype, BATCH_CHECK)
@@ -511,6 +542,16 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
                 label = (f"{link}, slices {plan.grid_a[1]} x {plan.wc}, dpw {plan.tm}x{plan.tn} "
                          f"x {plan.splits} splits")
                 judge_bwd(ft, fs, tjudge, k, label, dname, in_aff, mc)
+    print(f"K6 vs plain at other feeds, batch {' and '.join(map(str, FEED_RAGGED_BATCHES))}, "
+          "TF32 off:")
+    for dname, dtype in dtypes.items():
+        for batch in FEED_RAGGED_BATCHES:
+            for name, c, f, h, w in FEED_RAGGED:
+                k = upconcat_case(torch, rnd, dev, dtype, batch, c, f, h, w)
+                plan = fu.upconcat_plan(batch, h, w, c, f, dtype, sms)
+                judge_feed(fu, tjudge, k, f"{name} {c}@{h}x{w}->{2 * f} batch {batch}, "
+                           f"{plan.tiles_fwd}/{plan.tiles_dx} column tiles, {plan.splits} "
+                           "d_kernel splits", dname)
     rnd.gen.set_state(stream)
 
 
@@ -541,9 +582,11 @@ def cosine(a, b):
 
 
 def rel_max(got, want):
-    """max|got - want| / max|want| of two tensors, in fp32."""
-    return ((got.float() - want.float()).abs().max() /
-            want.float().abs().max().clamp_min(1e-30)).item()
+    """max|got - want| / max|want| of two tensors, in fp32 (fp64 where either
+    is fp64)."""
+    wide = 8 in (got.element_size(), want.element_size())
+    got, want = (got.double(), want.double()) if wide else (got.float(), want.float())
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
 def train_ab(torch, dev, smi, base, x, m, launches, expect, variant=None):
@@ -894,25 +937,42 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
     print(f"per-block training: the 18 ConvBlocks of the {IMAGE} px U-Net with BatchNorm and "
           f"use_pallas at batch {BATCH_SERVE}, kernels (K9/K10) vs the composed block; fp32 "
           f"held to {BLOCK_OUT_TOL:g} (output) and {BLOCK_GRAD_TOL:g} (gradients, running "
-          f"statistics); bf16 against the fp32 composed block, kernels <= {BF16_GRAD_FACTOR:g} "
-          f"x the plain per-block path + {BF16_GRAD_SLACK:g} per tensor")
+          f"statistics); against the fp64 composed block, output and dx <= {FP64_FACTOR:g} x "
+          f"the fp32 composed block's distance, the rest <= {BLOCK_GRAD_TOL:g}; the cotangent "
+          f"0 at the ReLU decisions the three forwards take apart, at most {RELU_APART_MAX}; "
+          f"bf16 against "
+          f"the fp32 composed block, kernels <= {BF16_GRAD_FACTOR:g} x the plain per-block path "
+          f"+ {BF16_GRAD_SLACK:g} per tensor")
     report["block_train"] = {}
     gen = torch.Generator().manual_seed(SEED + 5)
     for name, c, f, h, *_ in LINKS:
         x = torch.rand(BATCH_SERVE, h, h, c, generator=gen) * 2 - 1
         g = torch.rand(BATCH_SERVE, h, h, f, generator=gen) * 2 - 1
         seed = int(torch.randint(0, 2**31, (1,), generator=gen))
+        decided = []   # the ReLU decisions of the fp32 kernels, fp32 and fp64 composed
+        for use_pallas, dt in ((True, torch.float32), (False, torch.float32),
+                               (False, torch.float64)):
+            blk = ConvBlock(c, f, use_pallas=use_pallas,
+                            generator=torch.Generator().manual_seed(seed)).to(dev, dt)
+            with torch.no_grad():
+                decided.append(blk(x.to(dev, dt), train=True) > 0)
+        split = ((decided[0] != decided[1]) | (decided[1] != decided[2])).cpu()
+        n_k32, n_c64 = int((decided[0] != decided[1]).sum()), int((decided[1] != decided[2]).sum())
+        g = torch.where(split, torch.zeros_like(g), g)
+        del decided, blk
         res = {}
         for dname, path in (("float32", "kernels"), ("float32", "composed"),
-                            ("bfloat16", "kernels"), ("bfloat16", "plain"),
-                            ("bfloat16", "composed")):
+                            ("float64", "composed"), ("bfloat16", "kernels"),
+                            ("bfloat16", "plain"), ("bfloat16", "composed")):
             blk = ConvBlock(c, f, use_pallas=path != "composed",
                             generator=torch.Generator().manual_seed(seed)).to(dev)
-            xi = x.to(dev, dtypes[dname]).detach().requires_grad_()
+            if dname == "float64":
+                blk = blk.double()
+            xi = x.to(dev, dtypes.get(dname, torch.float64)).detach().requires_grad_()
             fs.reset_launch_counts()
             with plain_per_block(fs) if path == "plain" else contextlib.nullcontext():
                 out = blk(xi, train=True)
-                (out.float() * g.to(dev)).sum().backward()
+                (out.double() * g.to(dev)).sum().backward()
             torch.cuda.synchronize()
             counts = dict(fs.LAUNCHES)
             if counts != (BLOCK_LAUNCHES if path == "kernels" else dict.fromkeys(counts, 0)):
@@ -924,7 +984,7 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
                 out=out.detach(), dx=xi.grad,
                 **{n: p.grad for n, p in blk.named_parameters()},
                 **{n: b.detach() for n, b in blk.named_buffers()})
-        ref = res[("float32", "composed")]
+        ref, exact = res[("float32", "composed")], res.pop(("float64", "composed"))
         err = {key: {k: rel_max(v, ref[k]) for k, v in res[key].items()}
                for key in res if key != ("float32", "composed")}
         err32, on16 = err[("float32", "kernels")], err[("bfloat16", "kernels")]
@@ -932,18 +992,32 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
         excess = {k: on16[k] - BF16_GRAD_FACTOR * plain16[k] for k in ref}
         worst32 = max((k for k in err32 if k != "out"), key=err32.get)
         w16 = max(excess, key=excess.get)
+        # the fp64 witness: each fp32 path's distance from the fp64 composed block
+        k64 = {k: rel_max(v, exact[k]) for k, v in res[("float32", "kernels")].items()}
+        c64 = {k: rel_max(v, exact[k]) for k, v in ref.items()}
+        ratio = {k: k64[k] / max(c64[k], 1e-30) for k in ("out", "dx")}
+        w64 = max((k for k in k64 if k not in ratio), key=k64.get)
         ok = err32["out"] <= BLOCK_OUT_TOL and err32[worst32] <= BLOCK_GRAD_TOL and \
-            excess[w16] <= BF16_GRAD_SLACK and all(np.isfinite(v) for v in on16.values())
-        print(f"  {name} {c}->{f}@{h}: fp32 out {err32['out']:.2e}, worst other "
-              f"{err32[worst32]:.2e} ({worst32}); bf16 vs fp32 composed, max over tensors: "
-              f"kernels {max(on16.values()):.2e}, plain per-block {max(plain16.values()):.2e}, "
+            excess[w16] <= BF16_GRAD_SLACK and all(np.isfinite(v) for v in on16.values()) and \
+            int(split.sum()) <= RELU_APART_MAX and max(ratio.values()) <= FP64_FACTOR and \
+            k64[w64] <= BLOCK_GRAD_TOL
+        print(f"  {name} {c}->{f}@{h}: ReLU decisions apart of {split.numel()}: {n_k32} fp32 "
+              f"kernels/composed, {n_c64} fp32/fp64 composed, {int(split.sum())} in all; fp32 out "
+              f"{err32['out']:.2e}, worst other {err32[worst32]:.2e} ({worst32}); vs fp64 "
+              f"(kernels / composed): out {k64['out']:.2e} / {c64['out']:.2e} "
+              f"({ratio['out']:.1f}x), dx {k64['dx']:.2e} / {c64['dx']:.2e} "
+              f"({ratio['dx']:.1f}x), worst other {w64} {k64[w64]:.2e} / {c64[w64]:.2e}; "
+              f"bf16 vs fp32 composed, max over tensors: kernels "
+              f"{max(on16.values()):.2e}, plain per-block {max(plain16.values()):.2e}, "
               f"composed {max(comp16.values()):.2e}; worst excess at {w16}: kernels "
               f"{on16[w16]:.2e} vs plain {plain16[w16]:.2e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"block {name}: kernels disagree with the plain/composed block")
         report["block_train"][name] = {"fp32": err32, "bf16_kernels": on16,
-                                       "bf16_plain": plain16, "bf16_composed": comp16}
-        del res, ref
+                                       "bf16_plain": plain16, "bf16_composed": comp16,
+                                       "fp32_kernels_vs_fp64": k64, "fp32_composed_vs_fp64": c64,
+                                       "relu_decisions_apart": int(split.sum())}
+        del res, ref, exact
 
     with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
         base = json.load(f)
@@ -1454,7 +1528,7 @@ def main() -> int:
             judge_link(ft, tjudge, k, label, dname, in_aff, mc)
             fwd = (k["x"], k["dw"], k["pw"], k["aff2"], k["drop"])
             bwd = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
-            cases.append((label, "K1", "K2", timed({
+            cases.append((label, "K1", "K2", None, timed({
                 "chain_fwd": (lambda: ft.chain_fwd(*fwd), lambda: ft.chain_fwd_reference(*fwd)),
                 "chain_bwd": (lambda: ft.chain_bwd(*bwd), lambda: ft.chain_bwd_reference(*bwd)),
             })))
@@ -1465,7 +1539,7 @@ def main() -> int:
             judge_pool(ft, tjudge, k, label, dname)
             a, b = k["aff4"][0], k["aff4"][1]
             bwd = (k["y"], k["gs"], k["gp"], k["aff4"])
-            cases.append((label, "K3", "K4", timed({
+            cases.append((label, "K3", "K4", None, timed({
                 "tail_pool": (lambda: ft.tail_pool(k["y"], a, b),
                               lambda: ft.tail_pool_reference(k["y"], a, b)),
                 "tail_pool_bwd": (lambda: ft.tail_pool_bwd(*bwd),
@@ -1477,7 +1551,7 @@ def main() -> int:
             label = f"{name} feed {c}@{h}->{2 * f}@{2 * h}"
             judge_feed(fu, tjudge, k, label, dname)
             fwd, bwd = (k["x"], k["kernel"], k["bias"], k["skip"]), (k["x"], k["kernel"], k["g"])
-            cases.append((label, "K6", "K6 bwd", timed({
+            cases.append((label, "K6", "K6 bwd", (name, c, f, h), timed({
                 "upconcat": (lambda: fu.upconcat(*fwd), lambda: fu.upconcat_reference(*fwd)),
                 "upconcat_bwd": (lambda: fu.upconcat_bwd(*bwd),
                                  lambda: fu.upconcat_bwd_reference(*bwd)),
@@ -1488,7 +1562,7 @@ def main() -> int:
         judge_head(fh, tjudge, k, label, dname)
         fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
         bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
-        cases.append((label, "K5", "K5 bwd", timed({
+        cases.append((label, "K5", "K5 bwd", None, timed({
             "head_fwd": (lambda: fh.head_fwd_sums(*fwd), lambda: fh.head_fwd_sums_reference(*fwd)),
             "head_bwd": (lambda: fh.head_bwd(*bwd), lambda: fh.head_bwd_reference(*bwd)),
         })))
@@ -1498,7 +1572,7 @@ def main() -> int:
             label = f"block {name} {c}->{f}@{h}"
             judge_block(fs, tjudge, k, label, dname)
             fwd, bwd = (k["x"], k["dw"], k["pw"]), (k["x"], k["g"], k["dw"], k["pw"])
-            cases.append((label, "K9", "K10", timed({
+            cases.append((label, "K9", "K10", (name, c, f, h), timed({
                 "sepconv_stats": (lambda: fs.sepconv_stats(*fwd),
                                   lambda: fs.sepconv_stats_reference(*fwd)),
                 "sepconv_bwd": (lambda: fs.sepconv_bwd(*bwd),
@@ -1510,23 +1584,30 @@ def main() -> int:
         judge_head_mc(torch, fh, tjudge, k, label, dname)
         fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
         bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
-        cases.append((label, "K11", "K11 bwd", timed({
+        cases.append((label, "K11", "K11 bwd", None, timed({
             "head_fwd_mc": (lambda: fh.head_fwd_sums_mc(*fwd),
                             lambda: fh.head_fwd_sums_mc_reference(*fwd)),
             "head_bwd_mc": (lambda: fh.head_bwd_mc(*bwd), lambda: fh.head_bwd_mc_reference(*bwd)),
         })))
         del k, fwd, bwd
-        for label, k1, k2, times in cases:
-            for kname, (t_k, t_p) in times.items():
+        bound_tot = {"upconcat": 0.0, "upconcat_bwd": 0.0, "sepconv_stats": 0.0}
+        for label, k1, k2, shape, times in cases:
+            text = []
+            for (kname, (t_k, t_p)), klabel in zip(times.items(), (k1, k2)):
                 tot[kname][0] += t_k
                 tot[kname][1] += t_p
-            t1, t2 = times.values()
-            print(f"  {label} {dtype_label(dname)}: {k1} {t1[0]:.3f} / {t1[1]:.3f}, "
-                  f"{k2} {t2[0]:.3f} / {t2[1]:.3f}")
+                text.append(f"{klabel} {t_k:.3f} / {t_p:.3f}")
+                if shape is not None and kname in bound_tot:   # K6 and K9: the bound beside
+                    bound, by = roofline.bounds_ms(kname, shape, dname, BATCH_SERVE)
+                    bound_tot[kname] += bound
+                    text[-1] += f", bound {bound:.4f} ({by}, {100 * bound / t_k:.1f}%)"
+            print(f"  {label} {dtype_label(dname)}: " + ", ".join(text))
             report["train_kernels"][f"{label} {dname}"] = times
         totals[dname].update(tot)
         print(f"  {dname} totals over the path: " + ", ".join(
-            f"{kname} {t[0]:.3f} / {t[1]:.3f}" for kname, t in tot.items()))
+            f"{kname} {t[0]:.3f} / {t[1]:.3f}" + (
+                f" (bound {bound_tot[kname]:.4f}, {100 * bound_tot[kname] / t[0]:.1f}%)"
+                if kname in bound_tot else "") for kname, t in tot.items()))
 
     # ---- 10. multiclass training through K11 ---------------------------------
     multiclass_path(torch, dev, smi, report, launches)

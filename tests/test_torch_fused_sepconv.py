@@ -6,6 +6,9 @@ run them. fp32 throughout; both sides sum in fp32 in different orders, so
 the bar is 1e-5.
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -256,6 +259,36 @@ def test_kernel_sources_hash_into_library_name():
         assert "Replaces the TPU kernel" in note and "bounds it on the H100" in note
 
 
+def _c_entries():
+    """``extern "C"`` entry -> the kinds of its parameters ("pointer",
+    "int", "float"), read from every source under ``csrc/``."""
+    entries = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern "C"\s+[\w\s*]+?\b(\w+)\s*\(([^)]*)\)\s*\{', text):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            entries[m.group(1)] = ["pointer" if "*" in p else p.rsplit(None, 1)[0]
+                                   for p in params]
+    return entries
+
+
+def test_c_entries_match_their_ctypes_signatures():
+    """Every ``extern "C"`` entry under csrc/ takes as many parameters, of
+    the same kinds, as its row in build.SIGNATURES / WORKSPACE_SIGNATURES
+    (ctypes would otherwise pass garbage, which only the card would show).
+    The error-string helper and the phase-buffer hook of K7's instrumented
+    build are bound by hand and have no row."""
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    entries = _c_entries()
+    rows = {**build.SIGNATURES, **build.WORKSPACE_SIGNATURES}
+    assert set(entries) - set(rows) == {"unet_cuda_error_string", "unet_pair_phases_buffer"}
+    assert set(rows) <= set(entries), set(rows) - set(entries)
+    for name, argtypes in rows.items():
+        assert entries[name] == [kinds[t] for t in argtypes], name
+    # K9 takes K1's plan: (n, s, width, per, smem) after the shape
+    assert entries["unet_sepconv_stats"] == ["pointer"] * 6 + ["int"] * 11 + ["pointer"]
+
+
 @pytest.mark.parametrize("px", [256, 512])
 def test_k8_route_on_the_unet_blocks(px):
     """K8's 18 blocks (two a K7 stage) take the plan of the forward body
@@ -273,10 +306,10 @@ def test_k8_route_on_the_unet_blocks(px):
 
 
 def test_forward_kernels_take_their_products_to_the_tensor_cores():
-    """K8 and K1 run their pointwise products on mma.sync through the
+    """K8, K1 and K9 run their pointwise products on mma.sync through the
     forward body (sepconv_fwd.cuh: warp_gemm in bf16, warp_gemm_split's
-    3xTF32 in fp32); only K9's kept body still runs the fp32-FMA GEMM
-    (smem_gemm), inside sepconv_stats_kernel."""
+    3xTF32 in fp32); K9's entry, sepconv_stats_kernel, is that body without
+    a prologue, and no source holds an fp32-FMA GEMM any more."""
     body = (build.CSRC / "sepconv_fwd.cuh").read_text()
     assert "warp_gemm<" in body and "warp_gemm_split<" in body and "smem_gemm" not in body
     k8 = (build.CSRC / "sepconv_block.cu").read_text()
@@ -285,4 +318,8 @@ def test_forward_kernels_take_their_products_to_the_tensor_cores():
     assert "sepconv_fwd_tiles<" in k1
     stats = k1.index("sepconv_stats_kernel(")
     end = k1.index("\n}\n", stats)
-    assert k1.count("smem_gemm<") == 1 and stats < k1.index("smem_gemm<") < end
+    assert stats < k1.index("sepconv_fwd_tiles<T, W, false>", stats) < end
+    assert "stats_epilogue<" in k1[stats:end]
+    for src in build.CSRC.glob("*.cu*"):
+        text = src.read_text()
+        assert "smem_gemm" not in text and "gemm_8x4" not in text, src.name

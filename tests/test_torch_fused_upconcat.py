@@ -14,11 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+from unet_image_segmentation_tpu.ops import conv as jconv
 from unet_image_segmentation_tpu.ops.pallas import fused_upconcat as jfu
 from unet_image_segmentation_tpu_torch.ops import conv as conv_ops
 from unet_image_segmentation_tpu_torch.ops import fused_upconcat as tfu
+from unet_image_segmentation_tpu_torch.ops.fused_train import SMEM_MAX
+from unet_image_segmentation_tpu_torch.troubleshoot import roofline
 
 B, H, W, C, F = 1, 8, 8, 128, 64   # a shape the JAX kernel takes
+# (B, H, W, C, F) off the lane-aligned widths the JAX kernel takes: odd and
+# unequal sides, C and F off every tile and vector width of the port's
+RAGGED = [(2, 9, 13, 48, 8), (3, 6, 10, 200, 40), (2, 5, 3, 96, 24)]
 
 
 def _inputs(seed, b=B, h=H, w=W, c=C, f=F):
@@ -82,7 +88,7 @@ def test_upconcat_matches_jax_bf16():
         assert rel <= 2e-2, (name, rel)
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 6, 16, 8), (1, 3, 5, 12, 4)])
+@pytest.mark.parametrize("shape", [(2, 4, 6, 16, 8), (1, 3, 5, 12, 4)] + RAGGED)
 def test_upconcat_backward_is_autograd_of_composed_feed(shape):
     """Any width (the port has no lane constraint): the plain forward is
     the composed ``conv_transpose_2x2`` + concat in fp32, and the
@@ -111,3 +117,85 @@ def test_upconcat_bias_rounds_once_in_bf16():
     # the composed feed rounds the product 1 + 2^-8 (a tie) to 1 first
     composed = conv_ops.conv_transpose_2x2(x, k, bias)
     assert torch.equal(composed[..., 0].float(), torch.ones(1, 2, 2))
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+def test_upconcat_matches_jax_composed_feed_at_ragged_widths(shape):
+    """At widths the JAX kernel does not take, the JAX U-Net composes
+    ``ops/conv.py:conv_transpose_2x2`` + concat; the port's feed (the plain
+    K6 on the CPU) matches it, forward and backward, in fp32 (where the
+    two bias conventions agree) within fp32 summation-order noise."""
+    x, k, bias, skip = _inputs(4, *shape)
+    g = np.random.RandomState(5).randn(*skip.shape[:3], 2 * skip.shape[3]).astype(np.float32)
+
+    def composed(x, k, bias, skip):
+        return jnp.concatenate([jconv.conv_transpose_2x2(x, k, bias), skip], axis=-1)
+
+    cat_j, vjp = jax.vjp(composed, *(jnp.asarray(a) for a in (x, k, bias, skip)))
+    grads_j = vjp(jnp.asarray(g))
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, k, bias, skip)]
+    cat_t = tfu.fused_upconcat(*args)
+    grads_t = torch.autograd.grad(cat_t, args, torch.from_numpy(g))
+    np.testing.assert_allclose(cat_t.detach().numpy(), np.asarray(cat_j), rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(("x", "kernel", "bias", "skip"), grads_t, grads_j):
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5 * scale,
+                                   err_msg=name)
+
+
+_PATH_FEEDS = [(32, h, h, c, f) for _, c, f, h in roofline.upconcat_shapes(256, (64, 128, 256, 512))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _PATH_FEEDS + [(2, 8, 16, 48, 8)] + RAGGED)
+def test_upconcat_plan_covers_the_feed(shape, dtype):
+    """The forward and dx grids hold one CTA for every 128-pixel tile of x
+    and 128-column tile of the GEMM (4F forward, C for dx), so every pixel
+    and column once; the d_kernel grid covers (C, 4F) and its splits every
+    pixel, in no more than whole waves of two CTAs an SM where the tiles
+    allow; both layouts fit a CTA's 227 KB of shared memory."""
+    b, h, w, c, f = shape
+    plan = tfu.upconcat_plan(b, h, w, c, f, dtype, 132)
+    p, tiles = b * h * w, -(-b * h * w // 128)
+    assert tiles * 128 >= p > (tiles - 1) * 128
+    for cols, col_tiles, grid in ((4 * f, plan.tiles_fwd, plan.grid_fwd),
+                                  (c, plan.tiles_dx, plan.grid_dx)):
+        assert col_tiles * 128 >= cols > (col_tiles - 1) * 128
+        assert grid == (tiles * col_tiles,)
+        # block -> (pixel tile, column tile), the column tiles of a pixel tile adjacent
+        cover = {(blk // col_tiles, blk % col_tiles) for blk in range(grid[0])}
+        assert cover == {(t, j) for t in range(tiles) for j in range(col_tiles)}
+    assert plan.grid_dw == (-(-4 * f // 128), -(-c // 128), plan.splits)
+    kd = 64 if dtype == torch.bfloat16 else 32
+    assert plan.per % kd == 0 and (plan.splits - 1) * plan.per < p <= plan.splits * plan.per
+    out_tiles = plan.grid_dw[0] * plan.grid_dw[1]
+    assert plan.splits == 1 or out_tiles * plan.splits <= 2 * 132 + out_tiles
+    assert max(plan.smem, plan.smem_dw) <= SMEM_MAX == 232448
+
+
+def test_upconcat_plan_by_hand():
+    """dec1 at batch 32 (x 128 px, C = 128, F = 64), bf16: 4096 pixel
+    tiles by two column tiles forward, one for dx; 3 stages of A [128][72]
+    and B [64][136] in bf16 and 128 pixel indices; d_kernel's two 128-column
+    tiles over 131 splits of 4032 pixels (63 chunks of 64), 3 stages of x
+    and dup [64][136], on a card of 132 SMs; on one of 114, 114 splits."""
+    plan = tfu.upconcat_plan(32, 128, 128, 128, 64, torch.bfloat16, 132)
+    assert (plan.tiles_fwd, plan.tiles_dx, plan.grid_fwd, plan.grid_dx) == (2, 1, (8192,), (4096,))
+    assert plan.smem == 2 * (3 * 128 * 72 + 3 * 64 * 136) + 4 * 128 == 108032
+    assert plan.smem_dw == 2 * 3 * 64 * 2 * 136 == 104448
+    assert (plan.splits, plan.per, plan.grid_dw) == (131, 4032, (2, 1, 131))
+    assert tfu.upconcat_plan(32, 128, 128, 128, 64, torch.bfloat16, 114)[3:5] == (114, 4608)
+    # dec4 (C = 1024, F = 512), fp32: 16 and 8 column tiles; d_kernel's 128
+    # tiles take 2 splits, one wave of 256 CTAs
+    deep = tfu.upconcat_plan(32, 16, 16, 1024, 512, torch.float32, 132)
+    assert (deep.tiles_fwd, deep.tiles_dx, deep.splits) == (16, 8, 2)
+    assert deep.smem == 4 * (3 * 128 * 36 + 3 * 32 * 136) + 4 * 128 == 108032
+
+
+def test_upconcat_plan_refuses_what_the_kernels_cannot_launch():
+    with pytest.raises(ValueError, match="empty"):
+        tfu.upconcat_plan(1, 0, 4, 8, 8, torch.float32, 132)
+    with pytest.raises(TypeError, match="float16"):
+        tfu.upconcat_plan(1, 4, 4, 8, 8, torch.float16, 132)
+    with pytest.raises(ValueError, match="output pixels"):
+        tfu.upconcat_plan(2 ** 13, 256, 256, 8, 8, torch.bfloat16, 132)

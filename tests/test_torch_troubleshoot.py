@@ -32,6 +32,7 @@ from unet_image_segmentation_tpu_torch.train.steps import make_train_step
 from unet_image_segmentation_tpu_torch.troubleshoot import (
     check_gpu_benchmark,
     check_install,
+    fp32_split_ab,
     link_floors,
     pair_phases,
     profile_summary,
@@ -219,6 +220,33 @@ def test_pair_phases_needs_a_card(monkeypatch, capsys):
     assert "CUDA card" in capsys.readouterr().err
 
 
+def test_fp32_split_ab_variants_build_from_the_sources():
+    """Each variant of fp32_split_ab applies to the kernels' sources as they
+    are: it changes the files it names, brings its product, and K6's
+    split-A variants re-size the forward/dx stages (a changed source that a
+    variant no longer fits raises)."""
+    from unet_image_segmentation_tpu_torch.ops.kernels import build
+
+    variants = fp32_split_ab.variant_sources()
+    assert ("tree",) + tuple(variants) == fp32_split_ab.VARIANTS
+    for name, files in variants.items():
+        for fname, src in files.items():
+            assert src != (build.CSRC / fname).read_text()
+    for stages in (2, 3):
+        src = variants[f"split{stages}"]["upconcat.cu"]
+        assert f"sizeof(T) == 4 ? {stages} : kStages" in src
+        assert src.count("ab_gemm_presplit<2, 8, LDK, LDN>(") == 1
+    assert all(src.count("ab_gemm_afirst<") == 1 for src in variants["afirst"].values())
+    with pytest.raises(ValueError, match="update the variant"):
+        fp32_split_ab._upconcat_split("namespace unet {\nnamespace {\n", 2)
+
+
+def test_fp32_split_ab_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        fp32_split_ab.main(["--iters", "1"])
+
+
 def test_k2_instruction_count_by_hand():
     """One 8x8 tile, C = 3 (one 64-wide slice), F = 8, no modes, bf16: dm
     on 112 GEMM rows x the first warp column's 16 channels x one k16 step;
@@ -286,11 +314,11 @@ def test_k2_k10_bounds_on_their_route_by_hand():
 
 
 def test_k1_k8_bounds_on_their_route_by_hand():
-    """K1 and K8 at the bottleneck's second block (1024 -> 1024 @ 16),
+    """K1, K8 and K9 at the bottleneck's second block (1024 -> 1024 @ 16),
     batch 32: the pointwise products on the tensor cores (bf16 at 989
     TFLOP/s; fp32 as 3xTF32 at 495) beside the 9*C depthwise on the CUDA
-    cores (67 TFLOP/s fp32), the larger against the bytes; K9 keeps its
-    FMA route, every operation held to the dtype's peak."""
+    cores (67 TFLOP/s fp32), the larger against the bytes. K9 runs K1's
+    body, so it has K1's bound."""
     link = ("bneck.2", 1024, 1024, 16, True, False, True)
     px = 32 * 16 * 16
     gemm, dw = 2 * px * 1024 * 1024, 2 * px * 9 * 1024
@@ -303,23 +331,57 @@ def test_k1_k8_bounds_on_their_route_by_hand():
             pytest.approx((3 * gemm / 495e12 * 1e3, "operations"))
     nbytes32, ops = roofline.work("sepconv_stats", link, "float32", 32)
     assert ops == gemm + dw
+    assert roofline.fwd_ops("sepconv_stats", link, 32) == (gemm, dw)
     assert roofline.bounds_ms("sepconv_stats", link, "float32", 32) == \
-        pytest.approx((ops / 67e12 * 1e3, "operations"))
+        pytest.approx((3 * gemm / 495e12 * 1e3, "operations"))
     # enc1.2 (64 -> 64 @ 256): the bytes bound K1 in both dtypes, and K9 in bf16
     enc = ("enc1.2", 64, 64, 256, True, False, False)
     for dname in ("bfloat16", "float32"):
         nbytes, _ = roofline.work("chain_fwd", enc, dname, 32)
         assert roofline.bounds_ms("chain_fwd", enc, dname, 32) == \
             pytest.approx((nbytes / 3.35e12 * 1e3, "bytes"))
-    # over the 18 links: bf16 bytes-bound (1.272 ms); fp32 3.07 ms, no longer
-    # K9's 5.39 ms of CUDA-core operations
+    # over the 18 links: bf16 bytes-bound (1.272 ms); fp32 3.07 ms, for K9
+    # too (its FMA route was held to 5.39 ms of CUDA-core operations)
     links = link_floors.stage_table()
     bf16 = roofline.sum_bounds("chain_fwd", links, "bfloat16", 32)
     assert bf16[1] == "bytes" and bf16[0] == pytest.approx(1.2722, abs=1e-3)
     fp32 = roofline.sum_bounds("chain_fwd", links, "float32", 32)
     assert fp32[0] == pytest.approx(3.0722, abs=1e-3)
     assert roofline.sum_bounds("sepconv_stats", links, "float32", 32)[0] == \
-        pytest.approx(5.3854, abs=1e-3)
+        pytest.approx(3.0722, abs=1e-3)
+    assert roofline.sum_bounds("sepconv_stats", links, "bfloat16", 32) == bf16
+
+
+def test_k6_bounds_on_their_route_by_hand():
+    """K6 at dec1 (x 128 -> cat 2x64 @ 256 px) and dec4 (1024 -> 2x512 @ 32
+    px), batch 32: its products (C*4F multiply-adds a pixel of x forward,
+    twice that backward) on the tensor cores (bf16 at 989 TFLOP/s; fp32 as
+    3xTF32, three TF32 products each at 495), the larger against the
+    bytes: x, skip and cat (forward), x, g, dx and d_skip (backward)."""
+    dec1, dec4 = ("dec1", 128, 64, 128), ("dec4", 1024, 512, 16)
+    px = 32 * 128 * 128
+    gemm = 2 * px * 128 * 4 * 64
+    assert roofline.feed_ops("upconcat", dec1, 32) == (gemm, 0.0)
+    assert roofline.feed_ops("upconcat_bwd", dec1, 32) == (2 * gemm, 0.0)
+    nbytes = 2 * (px * 128 + 4 * px * 64 + 4 * 128 * 64 + 8 * px * 64)
+    assert roofline.bounds_ms("upconcat", dec1, "bfloat16", 32) == \
+        pytest.approx((nbytes / 3.35e12 * 1e3, "bytes"))
+    assert roofline.bounds_ms("upconcat", dec1, "float32", 32) == \
+        pytest.approx((2 * nbytes / 3.35e12 * 1e3, "bytes"))
+    px4 = 32 * 16 * 16
+    gemm4 = 2 * px4 * 1024 * 4 * 512
+    assert roofline.bounds_ms("upconcat_bwd", dec4, "float32", 32) == \
+        pytest.approx((3 * 2 * gemm4 / 495e12 * 1e3, "operations"))
+    # over the four feeds: bf16 bytes-bound both ways (0.528 and 0.632 ms);
+    # fp32 1.258 forward (dec4 and dec3 on their products), 1.891 backward
+    feeds = roofline.upconcat_shapes(256, (64, 128, 256, 512))
+    fwd, bwd = (roofline.sum_bounds(n, feeds, "bfloat16", 32) for n in ("upconcat", "upconcat_bwd"))
+    assert fwd == pytest.approx((0.5275, "bytes"), abs=1e-4)
+    assert bwd == pytest.approx((0.6316, "bytes"), abs=1e-4)
+    assert roofline.sum_bounds("upconcat", feeds, "float32", 32)[0] == \
+        pytest.approx(1.2580, abs=1e-4)
+    assert roofline.sum_bounds("upconcat_bwd", feeds, "float32", 32) == \
+        pytest.approx((1.8906, "operations"), abs=1e-4)
 
 
 def test_k1_instruction_count_and_model_by_hand():
@@ -340,9 +402,9 @@ def test_k1_instruction_count_and_model_by_hand():
 
 
 def test_forward_entries_map_to_k1_k8_and_k9():
-    """The __global__ entries of the forward kernels are mapped: K8's and
-    K1's on the forward body of sepconv_fwd.cuh, K9's kept FMA body; the
-    body's header defines none of its own."""
+    """The __global__ entries of the forward kernels are mapped: K8's, K1's
+    and K9's, all on the forward body of sepconv_fwd.cuh, each its own
+    entry; the body's header defines none of its own."""
     sites = step_attribution.kernel_sites()
     assert sites["sepconv_block_kernel"].startswith("sepconv_block.cu:")
     assert sites["chain_fwd_kernel"].startswith("chain_fwd.cu:")
@@ -374,8 +436,9 @@ def test_every_kernel_entry_maps_to_a_label():
     for _, src, _ in roofline.KERNELS.values():
         assert os.path.exists(os.path.join(link_floors.ROOT, "unet_image_segmentation_tpu_torch",
                                            "ops", "kernels", "csrc", src))
-    name = "void unet::(anonymous namespace)::upconcat_dx_tc_kernel<4>(__nv_bfloat16 const*)"
-    assert roofline.entry_of(name) == "upconcat_dx_tc_kernel"
+    name = ("void unet::(anonymous namespace)::upconcat_dx_kernel<__nv_bfloat16>"
+            "(unet::(anonymous namespace)::FeedArgs<__nv_bfloat16>)")
+    assert roofline.entry_of(name) == "upconcat_dx_kernel"
     assert roofline.entry_of("void unet::(anonymous namespace)::head_fwd_mc_kernel<float, 3>(f)"
                              ) == "head_fwd_mc_kernel"
     assert roofline.entry_of("void at::native::elementwise_kernel<128, 2>(int)") is None

@@ -21,8 +21,9 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
 * :func:`sepconv_stats` (K9, TPU kernel ``_sepconv_kernel_db_stats``): the
   plain sepconv ``y = (dw3x3(x) -> dtype) . pw`` rounded to the dtype, with
   the per-channel Σy and Σy² of the rounded y. CUDA source: the
-  ``unet_sepconv_stats`` entry of ``kernels/csrc/chain_fwd.cu`` (the first
-  K1's fp32-FMA body with no input transform and no dropout).
+  ``unet_sepconv_stats`` entry of ``kernels/csrc/chain_fwd.cu``: K1's
+  forward body and epilogue with no prologue (no input transform, no
+  dropout), on K1's launch plan :func:`..fused_train.fwd_plan`.
 * :func:`sepconv_bwd` (K10, TPU kernel ``fused_sepconv_bwd.py:_bwd_kernel``):
   ``dx`` (written in the dtype), ``ddw``, ``dpw`` and ``dbias`` of the plain
   sepconv from x and the cotangent g. CUDA source: the ``unet_sepconv_bwd``
@@ -67,8 +68,6 @@ _MAX_BATCH = 65535  # gridDim.y of K7, gridDim.z of the others
 _PAIR_SLICE = 128
 _PAIR_MAX_CLUSTER = 8
 SMEM_MAX = ft.SMEM_MAX
-# (channels of a C chunk, mma depth) per dtype
-_PAIR_CHUNK = {torch.bfloat16: (64, 16), torch.float32: (32, 8)}
 
 
 def reset_launch_counts() -> None:
@@ -245,7 +244,7 @@ def pair_plan(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype,
         raise ValueError(f"sepconv_pair: empty shape H={h} W={w} C={c} F1={f1} F2={f2}")
     if not 0 < batch <= _MAX_BATCH:
         raise ValueError(f"sepconv_pair: batch {batch} outside 1..{_MAX_BATCH}")
-    if dtype not in _PAIR_CHUNK:
+    if dtype not in build.CHUNK:
         raise TypeError(f"sepconv_pair: dtype {dtype} not supported (float32, bfloat16)")
     fmax = max(f1, f2)
     if fmax > _PAIR_SLICE * _PAIR_MAX_CLUSTER:
@@ -257,7 +256,7 @@ def pair_plan(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype,
         n *= 2
     s1, s2 = _round_up(-(-f1 // n), 16), _round_up(-(-f2 // n), 16)
     width = 64 if max(s1, s2) <= 64 else 128
-    kc, _ = _PAIR_CHUNK[dtype]
+    kc, _ = build.CHUNK[dtype]
     e = dtype.itemsize
     ldk, ldn = kc + 16 // e, width + 8
     # block 1: fp32 affines (4 x width), then in T the dw1 taps (2 x 9 x kc)
@@ -284,7 +283,7 @@ def pair_work(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype) -> T
     CTA's padded width, dw2 over the padded widths, GEMM2 for every CTA with
     F2 channels over the chunks of every F1 slice."""
     p = pair_plan(h, w, c, f1, f2, dtype)
-    kc, ks = _PAIR_CHUNK[dtype]
+    kc, ks = build.CHUNK[dtype]
     cpad = sum(min(kc, _round_up(c - c0, ks)) for c0 in range(0, c, kc))
     k2 = sum(min(kc, _round_up(hi - lo - k0, ks))
              for lo, hi in slice_ranges(p.n, p.s1, f1) for k0 in range(0, hi - lo, kc))
@@ -425,6 +424,7 @@ def sepconv_stats(
     b, h, wd, c = x.shape
     f = pw.shape[-1]
     _check_tensors(x, "sepconv_stats", [(dw, (3, 3, c), x.dtype), (pw, (c, f), x.dtype)])
+    plan = ft.fwd_plan(b, h, wd, c, f, x.dtype, build.sm_count(x.device))
     lib = build.load_library()
     y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
     sums = torch.empty((2, f), dtype=torch.float32, device=x.device)
@@ -432,7 +432,8 @@ def sepconv_stats(
                        dtype=torch.float32, device=x.device)
     status = lib.unet_sepconv_stats(
         x.data_ptr(), dw.data_ptr(), pw.data_ptr(), y.data_ptr(), work.data_ptr(),
-        sums.data_ptr(), b, h, wd, c, f, build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+        sums.data_ptr(), b, h, wd, c, f, *ft.fwd_plan_args(plan), build.DTYPE_CODE[x.dtype],
+        build.stream_handle(x.device),
     )
     build.check(status, "sepconv_stats")
     LAUNCHES["sepconv_stats"] += 1

@@ -52,10 +52,9 @@ LAUNCHES: Dict[str, int] = {"chain_fwd": 0, "chain_bwd": 0, "tail_pool": 0, "tai
 
 _MAX_BATCH = 65535  # gridDim.z of K2 and K9; K1 and K8 hold to it too
 
-# K8's and K1's launch plan (kernels/csrc/sepconv_fwd.cuh): per dtype the
-# input channels of a chunk and the mma's depth; a cluster of up to 8 CTAs,
-# each owning a slice of at most 128 channels of F
-_FWD_CHUNK = {torch.bfloat16: (64, 16), torch.float32: (32, 8)}
+# K8's and K1's launch plan (kernels/csrc/sepconv_fwd.cuh): chunks of
+# build.CHUNK input channels; a cluster of up to 8 CTAs, each owning a slice
+# of at most 128 channels of F
 _FWD_SLICE, _FWD_MAX_CLUSTER = 128, 8
 # tiles a cluster takes in turn: at most 8, and no fewer CTAs than 8 waves
 # of two an SM of the card, so the last wave's part stays small
@@ -284,7 +283,7 @@ def _fwd_slicing(b: int, h: int, w: int, c: int, f: int,
         raise ValueError(f"sepconv forward: empty shape B={b} H={h} W={w} C={c} F={f}")
     if b > _MAX_BATCH:
         raise ValueError(f"sepconv forward: batch {b} outside 1..{_MAX_BATCH}")
-    if dtype not in _FWD_CHUNK:
+    if dtype not in build.CHUNK:
         raise TypeError(f"sepconv forward: dtype {dtype} not supported (float32, bfloat16)")
     if f > _FWD_SLICE * _FWD_MAX_CLUSTER:
         raise ValueError(f"sepconv forward: F={f}; at most {_FWD_SLICE * _FWD_MAX_CLUSTER} "
@@ -305,7 +304,7 @@ def fwd_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype, sms: in
     waves of two) where the tiles allow it, at most :data:`_FWD_MAX_PER`
     tiles a cluster."""
     n, s, width = _fwd_slicing(b, h, w, c, f, dtype)
-    kc, _ = _FWD_CHUNK[dtype]
+    kc, _ = build.CHUNK[dtype]
     e = dtype.itemsize
     ldk, ldn = kc + 16 // e, width + 8
     # in T: x halo tiles (2 x 100 px x kc) and taps (2 x 9 x kc), the A
@@ -351,7 +350,7 @@ def fwd_work(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -> FwdW
     products over the 64 rows and the columns of every CTA's active warps
     (a quarter of the width each; the warps wholly past the slice skip)."""
     n, s, width = _fwd_slicing(b, h, w, c, f, dtype)
-    kc, ks = _FWD_CHUNK[dtype]
+    kc, ks = build.CHUNK[dtype]
     cpad = sum(min(kc, _cdiv(c - c0, ks) * ks) for c0 in range(0, c, kc))
     quarter = width // 4
     cols = sum(quarter * min(4, _cdiv(hi - lo, quarter))

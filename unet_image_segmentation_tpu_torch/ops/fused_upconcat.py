@@ -4,9 +4,9 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_upconcat.py`` (K6)
 without its TPU layout machinery (lane packing, row-pair views, the
 permutation and regroup matmuls): on the card the concat is a plain NHWC
 tensor, so every decoder stage takes this path, whatever its skip's width.
-One hand-written CUDA kernel per direction (``kernels/csrc/upconcat.cu``:
-bf16 on the tensor cores, fp32 on FMAs), each beside its plain PyTorch
-version:
+Hand-written CUDA kernels (``kernels/csrc/upconcat.cu``: one tensor-core
+body for both dtypes and every width, bf16 on ``mma.sync``, fp32 as
+3xTF32), each direction beside its plain PyTorch version:
 
 * :func:`upconcat` (TPU ``_fwd_kernel``): ``x (B,H,W,C)`` and the Keras
   transpose kernel ``(2,2,F,C)`` give ``up[2i+di, 2j+dj, f] = Σ_c x[i,j,c]
@@ -19,19 +19,22 @@ version:
   ``d_skip = g[..., F:]``, ``d_kernel = Σ x ⊗ dup`` and ``d_bias = Σ dup``
   (fp32).
 
-The composed feed of the JAX package (``ops/conv.py:conv_transpose_2x2``)
-rounds the product to T before a T-dtype bias add; this one, like the
-Pallas kernel, adds the bias in fp32. In fp32 the two agree. Each wrapper
-runs its plain version on a CPU tensor and its kernel on a CUDA tensor
-(or raises); :data:`LAUNCHES` counts kernel launches and only those.
+:func:`upconcat_plan` is the kernels' launch plan, which the C entries
+check. The composed feed of the JAX package (``ops/conv.py:
+conv_transpose_2x2``) rounds the product to T before a T-dtype bias add;
+this one, like the Pallas kernel, adds the bias in fp32. In fp32 the two
+agree. Each wrapper runs its plain version on a CPU tensor and its kernel
+on a CUDA tensor (or raises); :data:`LAUNCHES` counts kernel launches and
+only those.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from unet_image_segmentation_tpu_torch.ops import fused_train as ft
 from unet_image_segmentation_tpu_torch.ops.kernels import build
 
 LAUNCHES: Dict[str, int] = {"upconcat": 0, "upconcat_bwd": 0}
@@ -53,6 +56,82 @@ def _wt(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     transpose of :func:`_wmat`."""
     c, f = kernel.shape[3], kernel.shape[2]
     return kernel.reshape(4 * f, c).to(dtype).contiguous()
+
+
+# --------------------------------------------------------------------------
+# The kernels' launch plan
+# --------------------------------------------------------------------------
+
+# kernels/csrc/upconcat.cu: the forward and dx take 128 pixels of x by 128
+# GEMM columns a CTA through a 3-stage ring of build.CHUNK-deep chunks;
+# d_kernel takes 128x128 (C, 4F) tiles, pixels in chunks of the same depth
+# through a 3-stage ring, split-K so the grid fills whole waves of
+# _DW_CTAS_PER_SM CTAs an SM of the card, with at least _DW_MIN_SPLIT pixels
+# a split
+_FEED_TILE, _FEED_STAGES = 128, 3
+_DW_TILE, _DW_STAGES = 128, 3
+_DW_CTAS_PER_SM, _DW_MIN_SPLIT = 2, 512
+
+
+class UpconcatPlan(NamedTuple):
+    """K6's launch. Forward: ``tiles_fwd`` column tiles of 128 over 4F for
+    each 128-pixel tile of x, one CTA each, the column tiles of a pixel tile
+    neighbours on the 1-D grid ``grid_fwd``; dx the same over C
+    (``tiles_dx``, ``grid_dx``); ``smem`` bytes of dynamic shared memory a
+    CTA of either. d_kernel: 128x128 tiles of (C, 4F), split-K over
+    ``splits`` runs of ``per`` pixels, on ``grid_dw`` (4F tiles, C tiles,
+    splits), ``smem_dw`` bytes."""
+
+    tiles_fwd: int
+    tiles_dx: int
+    smem: int
+    splits: int
+    per: int
+    smem_dw: int
+    grid_fwd: Tuple[int]
+    grid_dx: Tuple[int]
+    grid_dw: Tuple[int, int, int]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def upconcat_plan(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype,
+                  sms: int) -> UpconcatPlan:
+    """K6's launch plan for x ``(b, h, w, c)`` and ``f`` output channels in
+    ``dtype`` on a card of ``sms`` streaming multiprocessors
+    (:func:`.kernels.build.sm_count`). The layouts are ``FeedSmem`` and
+    ``DwSmem`` of ``upconcat.cu``, which checks the byte counts. Raises on
+    what the kernels cannot launch."""
+    if min(b, h, w, c, f) < 1:
+        raise ValueError(f"upconcat: empty shape B={b} H={h} W={w} C={c} F={f}")
+    if dtype not in build.CHUNK:
+        raise TypeError(f"upconcat: dtype {dtype} not supported (float32, bfloat16)")
+    p = b * h * w
+    if 4 * p >= 2 ** 31:
+        raise ValueError(f"upconcat: {4 * p} output pixels, at most 2^31 - 1")
+    kc, _ = build.CHUNK[dtype]
+    e = dtype.itemsize
+    v = 16 // e
+    # in T: A stages [3][128][kc + v] and B stages [3][kc][128 + 8]; the
+    # output pixels of the tile's rows (128 int)
+    smem = e * (_FEED_STAGES * _FEED_TILE * (kc + v) + _FEED_STAGES * kc * (_FEED_TILE + 8)) \
+        + 4 * _FEED_TILE
+    smem_dw = e * _DW_STAGES * kc * 2 * (_DW_TILE + 8)   # stages of x and dup [kc][128 + 8]
+    for nbytes in (smem, smem_dw):
+        if nbytes > ft.SMEM_MAX:
+            raise ValueError(f"upconcat: {nbytes} bytes of shared memory, at most {ft.SMEM_MAX}")
+    tiles = _cdiv(p, _FEED_TILE)
+    tiles_fwd, tiles_dx = _cdiv(4 * f, _FEED_TILE), _cdiv(c, _FEED_TILE)
+    out_tiles = _cdiv(c, _DW_TILE) * _cdiv(4 * f, _DW_TILE)
+    splits = max(1, min(_DW_CTAS_PER_SM * sms // out_tiles, _cdiv(p, _DW_MIN_SPLIT)))
+    per = _cdiv(_cdiv(p, splits), kc) * kc
+    splits = _cdiv(p, per)
+    if splits > 65535:
+        raise ValueError(f"upconcat: {splits} d_kernel splits, at most 65535")
+    return UpconcatPlan(tiles_fwd, tiles_dx, smem, splits, per, smem_dw, (tiles * tiles_fwd,),
+                        (tiles * tiles_dx,), (_cdiv(4 * f, _DW_TILE), _cdiv(c, _DW_TILE), splits))
 
 
 # --------------------------------------------------------------------------
@@ -118,15 +197,17 @@ def upconcat(
     _check(skip, "upconcat skip", (b, 2 * h, 2 * w, f), x.dtype)
     if tuple(kernel.shape) != (2, 2, f, c):
         raise ValueError(f"upconcat: kernel {tuple(kernel.shape)} does not fit x {tuple(x.shape)}")
-    wt = _wt(kernel, x.dtype)
+    wmat = _wmat(kernel, x.dtype)
     bvec = bias.float().contiguous()
     if bvec.shape != (f,) or bvec.device != x.device:
         raise ValueError(f"upconcat: bias {tuple(bias.shape)} on {bias.device}, expected ({f},)")
+    plan = upconcat_plan(b, h, w, c, f, x.dtype, build.sm_count(x.device))
     lib = build.load_library()
     cat = torch.empty((b, 2 * h, 2 * w, 2 * f), dtype=x.dtype, device=x.device)
     status = lib.unet_upconcat(
-        x.data_ptr(), wt.data_ptr(), bvec.data_ptr(), skip.data_ptr(), cat.data_ptr(),
-        b, h, w, c, f, build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+        x.data_ptr(), wmat.data_ptr(), bvec.data_ptr(), skip.data_ptr(), cat.data_ptr(),
+        b, h, w, c, f, plan.tiles_fwd, plan.smem,
+        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "upconcat")
     LAUNCHES["upconcat"] += 1
@@ -146,17 +227,19 @@ def upconcat_bwd(
     _check(g, "upconcat_bwd g", (b, 2 * h, 2 * w, 2 * f), x.dtype)
     if tuple(kernel.shape) != (2, 2, f, c):
         raise ValueError(f"upconcat_bwd: kernel {tuple(kernel.shape)} does not fit x")
-    wmat = _wmat(kernel, x.dtype)
+    wt = _wt(kernel, x.dtype)
+    plan = upconcat_plan(b, h, w, c, f, x.dtype, build.sm_count(x.device))
     lib = build.load_library()
     dx = torch.empty_like(x)
     d_skip = torch.empty((b, 2 * h, 2 * w, f), dtype=x.dtype, device=x.device)
     dwb = torch.empty((c + 1, 4 * f), dtype=torch.float32, device=x.device)  # d_kernel; d_bias row
-    work = torch.empty(lib.unet_upconcat_bwd_workspace(b, h, w, c, f),
+    work = torch.empty(lib.unet_upconcat_bwd_workspace(b, h, w, c, f, plan.splits),
                        dtype=torch.float32, device=x.device)
     status = lib.unet_upconcat_bwd(
-        x.data_ptr(), wmat.data_ptr(), g.data_ptr(), dx.data_ptr(), d_skip.data_ptr(),
-        work.data_ptr(), dwb.data_ptr(), b, h, w, c, f,
-        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+        x.data_ptr(), wt.data_ptr(), g.data_ptr(), dx.data_ptr(), d_skip.data_ptr(),
+        work.data_ptr(), dwb.data_ptr(), b, h, w, c, f, plan.tiles_dx, plan.smem,
+        plan.splits, plan.per, plan.smem_dw, build.DTYPE_CODE[x.dtype],
+        build.stream_handle(x.device),
     )
     build.check(status, "upconcat_bwd")
     LAUNCHES["upconcat_bwd"] += 1

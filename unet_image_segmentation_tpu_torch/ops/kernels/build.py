@@ -34,6 +34,9 @@ NVCC_FLAGS = [
 
 # the dtype argument of every entry point
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# mma_common.cuh's ChunkCfg<T>: per dtype the depth of a staged GEMM chunk
+# (channels or pixels) and the mma's depth, which the launch plans mirror
+CHUNK = {torch.bfloat16: (64, 16), torch.float32: (32, 8)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (all return int = cudaError_t)
@@ -55,10 +58,11 @@ SIGNATURES = {
     "unet_tail_pool": [_P] * 4 + [_I] * 5 + [_P],
     # y, gs, gp, aff4, dzt, work, st, B, H, W, F, dtype, stream
     "unet_tail_pool_bwd": [_P] * 7 + [_I] * 5 + [_P],
-    # x, wt, bias, skip, cat, B, H, W, C, F, dtype, stream
-    "unet_upconcat": [_P] * 5 + [_I] * 6 + [_P],
-    # x, wmat, g, dx, d_skip, work, dwb, B, H, W, C, F, dtype, stream
-    "unet_upconcat_bwd": [_P] * 7 + [_I] * 6 + [_P],
+    # x, wmat, bias, skip, cat, B, H, W, C, F, tiles_n, smem, dtype, stream
+    "unet_upconcat": [_P] * 5 + [_I] * 8 + [_P],
+    # x, wt, g, dx, d_skip, work, dwb, B, H, W, C, F, tiles_n, smem, splits,
+    # per, smem_dw, dtype, stream
+    "unet_upconcat_bwd": [_P] * 7 + [_I] * 11 + [_P],
     # y, tgt, aff, w, hb, work, sums, B, HW, F, dtype, stream
     "unet_head_fwd": [_P] * 7 + [_I] * 4 + [_P],
     # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, dtype, stream
@@ -67,8 +71,9 @@ SIGNATURES = {
     "unet_head_fwd_mc": [_P] * 7 + [_I] * 5 + [_P],
     # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, NC, dtype, stream
     "unet_head_bwd_mc": [_P] * 9 + [_I] * 5 + [_P],
-    # x, dw, pw, y, work, sums, B, H, W, C, F, dtype, stream
-    "unet_sepconv_stats": [_P] * 6 + [_I] * 6 + [_P],
+    # x, dw, pw, y, work, sums, B, H, W, C, F, n, s, width, per, smem, dtype,
+    # stream
+    "unet_sepconv_stats": [_P] * 6 + [_I] * 11 + [_P],
     # x, g, dw, pw, dx, m, work, sums, dpwb, B, H, W, C, F, wc, tm, tn,
     # splits, per, smem_a, smem_b, dtype, stream
     "unet_sepconv_bwd": [_P] * 9 + [_I] * 13 + [_P],
@@ -85,7 +90,7 @@ WORKSPACE_SIGNATURES = {
     "unet_chain_bwd_workspace": [_I] * 6,
     "unet_sepconv_bwd_workspace": [_I] * 6,
     "unet_tail_pool_bwd_workspace": [_I] * 5,
-    "unet_upconcat_bwd_workspace": [_I] * 5,
+    "unet_upconcat_bwd_workspace": [_I] * 6,
     "unet_head_workspace": [_I] * 5,
     "unet_head_mc_workspace": [_I] * 6,
 }

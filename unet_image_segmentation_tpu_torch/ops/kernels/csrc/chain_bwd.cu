@@ -199,59 +199,6 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[4][NT][4], const float* A
   }
 }
 
-// acc[mi][ni] += A^T[m-tile mt0 + mi] . B[:, n0 + 8ni ..] over ksteps mma
-// depths, m-tiles whose first row is at or past m_end skipped. A is
-// [k][LDA] (rows contiguous), B is [k][LDB] (columns contiguous): both
-// pixel-major, read with ldmatrix.trans.
-template <int MT, int NT, int LDA, int LDB>
-__device__ __forceinline__ void gemm_cols(float (&acc)[MT][NT][4], const bf16* A, const bf16* B,
-                                          int mt0, int m_end, int n0, int ksteps, int lane) {
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t b[NT / 2][4];
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np)
-      ldsm_x4_trans(b[np], B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n0 +
-                               np * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      if ((mt0 + mi) * 16 >= m_end) break;
-      uint32_t a[4];
-      ldsm_x4_trans(a, A + (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDA + (mt0 + mi) * 16 +
-                           ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-        mma_bf16(acc[mi][ni], a, b[ni / 2][2 * (ni & 1)], b[ni / 2][2 * (ni & 1) + 1]);
-    }
-  }
-}
-
-template <int MT, int NT, int LDA, int LDB>
-__device__ __forceinline__ void gemm_cols(float (&acc)[MT][NT][4], const float* A,
-                                          const float* B, int mt0, int m_end, int n0, int ksteps,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[ni][h], bl[ni][h]);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      if ((mt0 + mi) * 16 >= m_end) break;
-      const float* p = A + (ks * 8 + t) * LDA + (mt0 + mi) * 16 + g;
-      uint32_t ah[4], al[4];
-      split_tf32(p[0], ah[0], al[0]);
-      split_tf32(p[8], ah[1], al[1]);
-      split_tf32(p[4 * LDA], ah[2], al[2]);
-      split_tf32(p[4 * LDA + 8], ah[3], al[3]);
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) mma_3xtf32(acc[mi][ni], ah, al, bh[ni], bl[ni]);
-    }
-  }
-}
-
 // Stage rows [0, KC) x columns [0, cols) of a tile into dst (row stride ld,
 // elements of T): element (r, j) is *src(r, j), or 0 where src gives
 // nullptr. With vec, src(r, j) for j a multiple of V is 16-byte aligned and

@@ -34,19 +34,78 @@
 //     per-tile partials [B * tiles][2F] that reduce_rows() sums in a fixed
 //     order: no atomics, bit-reproducible.
 //
-// K9, the per-block training forward (unet_sepconv_stats below), keeps the
-// first K1's body on fp32 FMAs until its own redesign: it replaces the TPU
-// kernel unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py:
+// K9, the per-block training forward (unet_sepconv_stats below), replaces
+// the TPU kernel unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py:
 // _sepconv_kernel_db_stats (launched by _fused_sepconv_stats_impl from
 // sepconv_apply_stats): y = (dw3x3(x) -> T) . pw rounded to T, and Σy, Σy²
-// over the rounded y. One block owns an 8x8 pixel tile and 64 output
-// channels, 256 threads with a 4x4 register tile, and walks C in chunks of
-// 32; the depthwise is redone for every 64-wide F tile.
+// over the rounded y. That is K1's function without a prologue, so its
+// entry sepconv_stats_kernel runs the same body (no prologue) and the same
+// epilogue, and takes the same plan; it keeps an entry of its own so a
+// profile tells it from K1. Bound as K1 (the bytes in bf16: 1.27 ms over
+// the U-Net's 18 blocks at batch 32).
 #include "sepconv_fwd.cuh"
 #include "train_common.cuh"
 
 namespace unet {
 namespace {
+
+// The epilogue of K1 and K9: y rounded to T and stored; each thread's column
+// sums of y and y² over its rows in the image, a fixed-order shuffle sum
+// over the warp's 8 row groups (lanes g), then the two warps of a column
+// (wm) through shared memory (red [2 wm][2][W]), into the tile's row of the
+// per-tile partials [B * tiles][2F].
+template <typename T, int W>
+__device__ __forceinline__ void stats_epilogue(const FwdArgs<T>& a, float (&acc)[2][W / 32][4],
+                                               const FwdTile& t, T* y, float* partials,
+                                               float* red) {
+  constexpr int NT = W / 32;
+  const int H = a.H, Wd = a.W, F = a.F;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wn = warp & 3, wm = warp >> 2, g = lane >> 2, tq = lane & 3;
+  float sum[NT][2] = {}, sq[NT][2] = {};
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) {
+    const int col = wn * 8 * NT + ni * 8 + 2 * tq;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool inside = t.ty0 + 2 * (wm * 2 + mi) + h < H && t.tx0 + g < Wd;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float v = round_to<T>(acc[mi][ni][2 * h + jj]);
+          acc[mi][ni][2 * h + jj] = v;
+          if (inside && col + jj < t.len) {
+            sum[ni][jj] += v;
+            sq[ni][jj] += v * v;
+          }
+        }
+      }
+  }
+  store_tile<T, W>(a, acc, t, y);
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        sum[ni][jj] += __shfl_xor_sync(0xffffffffu, sum[ni][jj], o);
+        sq[ni][jj] += __shfl_xor_sync(0xffffffffu, sq[ni][jj], o);
+      }
+      if (g == 0) {
+        const int col = wn * 8 * NT + ni * 8 + 2 * tq + jj;
+        red[(wm * 2 + 0) * W + col] = sum[ni][jj];
+        red[(wm * 2 + 1) * W + col] = sq[ni][jj];
+      }
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * W; i += kThreads) {
+    const int which = i / W, col = i % W;
+    if (col < t.len)
+      partials[((size_t)t.b * a.tiles + t.tile) * 2 * F + which * F + t.f0 + col] =
+          red[which * W + col] + red[(2 + which) * W + col];
+  }
+}
 
 // K1: the links of the tiles of cluster blockIdx.x / a.n. kPrologue: the
 // dropout (thresh != 0) or the affine (in_aff) runs on the staged x.
@@ -56,8 +115,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                      float* __restrict__ partials, uint32_t seed, uint32_t thresh,
                      float drop_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int NT = W / 32, KC = ChunkCfg<T>::KC, V = ChunkCfg<T>::V, G = KC / V;
-  const int H = a.H, Wd = a.W, C = a.C, F = a.F;
+  constexpr int KC = ChunkCfg<T>::KC, V = ChunkCfg<T>::V, G = KC / V;
+  const int H = a.H, Wd = a.W, C = a.C;
   // z of the staged share in place, once per element: a thread keeps one
   // channel group (its affine in registers) and walks the halo's pixels;
   // bf16 rounds z as it packs it
@@ -90,156 +149,25 @@ __global__ void __launch_bounds__(kThreads, 2)
       *q = pack(z);
     }
   };
-  // y rounded to T and stored; each thread's column sums over its rows in
-  // the image, a fixed-order shuffle sum over the warp's 8 row groups (lanes
-  // g), then the two warps of a column (wm) through shared memory, into the
-  // tile's partial row
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wn = warp & 3, wm = warp >> 2, g = lane >> 2, tq = lane & 3;
-  float* red = reinterpret_cast<float*>(smem + FwdSmem<T, W>::red);  // [2 wm][2][W]
-  auto epilogue = [&](float (&acc)[2][NT][4], const FwdTile& t) {
-    float sum[NT][2] = {}, sq[NT][2] = {};
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const int col = wn * 8 * NT + ni * 8 + 2 * tq;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const bool inside = t.ty0 + 2 * (wm * 2 + mi) + h < H && t.tx0 + g < Wd;
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const float v = round_to<T>(acc[mi][ni][2 * h + jj]);
-            acc[mi][ni][2 * h + jj] = v;
-            if (inside && col + jj < t.len) {
-              sum[ni][jj] += v;
-              sq[ni][jj] += v * v;
-            }
-          }
-        }
-    }
-    store_tile<T, W>(a, acc, t, y);
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          sum[ni][jj] += __shfl_xor_sync(0xffffffffu, sum[ni][jj], o);
-          sq[ni][jj] += __shfl_xor_sync(0xffffffffu, sq[ni][jj], o);
-        }
-        if (g == 0) {
-          const int col = wn * 8 * NT + ni * 8 + 2 * tq + jj;
-          red[(wm * 2 + 0) * W + col] = sum[ni][jj];
-          red[(wm * 2 + 1) * W + col] = sq[ni][jj];
-        }
-      }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * W; i += kThreads) {
-      const int which = i / W, col = i % W;
-      if (col < t.len)
-        partials[((size_t)t.b * a.tiles + t.tile) * 2 * F + which * F + t.f0 + col] =
-            red[which * W + col] + red[(2 + which) * W + col];
-    }
-  };
-  sepconv_fwd_tiles<T, W, kPrologue>(a, smem, prologue, epilogue);
+  float* red = reinterpret_cast<float*>(smem + FwdSmem<T, W>::red);
+  sepconv_fwd_tiles<T, W, kPrologue>(a, smem, prologue,
+                                     [&](float (&acc)[2][W / 32][4], const FwdTile& t) {
+                                       stats_epilogue<T, W>(a, acc, t, y, partials, red);
+                                     });
 }
 
-// K9's block: the tile blockIdx.x, the F tile blockIdx.y, sample
-// blockIdx.z, on fp32 FMAs (the first K1's body without its input transform
-// and dropout; K9 moves onto sepconv_fwd.cuh in its own redesign).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sepconv_stats_kernel(const T* __restrict__ x, const T* __restrict__ dw,
-                         const T* __restrict__ pw, T* __restrict__ y,
-                         float* __restrict__ partials, int H, int W, int C, int F, int tiles_x) {
-  __shared__ __align__(16) float zs[kHaloPx * kKC];   // z chunk over the tile + ring [px][k]
-  __shared__ __align__(16) float dws[kKC * kLdA64];   // depthwise chunk [k][m]
-  __shared__ __align__(16) float pws[kKC * kTileF];   // pointwise chunk [k][f]
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int ty0 = (tile / tiles_x) * kTile;
-  const int tx0 = (tile % tiles_x) * kTile;
-  const int f0 = blockIdx.y * kTileF;
-  const int b = blockIdx.z;
-  const T* xb = x + (size_t)b * H * W * C;
-  const int tm = tid / (kTileF / 4), tn = tid % (kTileF / 4);
-  float acc[4][4] = {};
-
-  // lanes of a warp take 32 neighbouring channels of one pixel (coalesced)
-  const int k = tid % kKC;
-  const int prow = tid / kKC;                  // 0..7
-  constexpr int kRowStep = kThreads / kKC;     // 8
-  for (int c0 = 0; c0 < C; c0 += kKC) {
-    const int kc = min(kKC, C - c0);
-    const int c = c0 + k;
-    for (int p = prow; p < kHaloPx; p += kRowStep) {
-      const int Y = ty0 - 1 + p / kHalo, X = tx0 - 1 + p % kHalo;
-      float v = 0.f;
-      if (k < kc && Y >= 0 && Y < H && X >= 0 && X < W)
-        v = to_f(xb[((size_t)Y * W + X) * C + c]);
-      zs[p * kKC + k] = v;
-    }
-    float taps[9];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) taps[t] = k < kc ? to_f(dw[t * C + c]) : 0.f;
-    __syncthreads();
-#pragma unroll 2
-    for (int i = 0; i < kTilePx / kRowStep; ++i) {
-      const int m = prow + kRowStep * i;
-      int r, cc;
-      tile_px(m, r, cc);
-      float s = 0.f;
-#pragma unroll
-      for (int di = 0; di < 3; ++di)
-#pragma unroll
-        for (int dj = 0; dj < 3; ++dj)
-          s += zs[((r + di) * kHalo + cc + dj) * kKC + k] * taps[di * 3 + dj];
-      dws[k * kLdA64 + m] = round_to<T>(s);
-    }
-    stage_weights<T, kTileF>(pws, pw, C, F, c0, f0);
-    __syncthreads();
-    smem_gemm<kLdA64, kTileF>(acc, dws, pws, kc, tm, tn);
-    __syncthreads();
-  }
-
-  // y rounded to T; the sums are taken over the rounded values
-  float s_loc[4] = {}, q_loc[4] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r, cc;
-    tile_px(tm * 4 + i, r, cc);
-    const int Y = ty0 + r, X = tx0 + cc;
-    if (Y >= H || X >= W) continue;
-    T* o = y + (((size_t)b * H + Y) * W + X) * F;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = f0 + tn * 4 + j;
-      if (f >= F) continue;
-      const T t = from_f<T>(acc[i][j]);
-      o[f] = t;
-      const float v = to_f(t);
-      s_loc[j] += v;
-      q_loc[j] += v * v;
-    }
-  }
-  // fixed-order sum over the 16 thread rows of each channel column
-  float* red = dws;  // 2 x 16 x 64 floats, free after the last GEMM step
-  constexpr int kRowsM = kThreads / (kTileF / 4);  // 16
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[tm * kTileF + tn * 4 + j] = s_loc[j];
-    red[(kRowsM + tm) * kTileF + tn * 4 + j] = q_loc[j];
-  }
-  __syncthreads();
-  if (tid < 2 * kTileF) {
-    const int which = tid / kTileF, fl = tid % kTileF, f = f0 + fl;
-    float t = 0.f;
-    for (int i = 0; i < kRowsM; ++i) t += red[(which * kRowsM + i) * kTileF + fl];
-    if (f < F) partials[((size_t)b * gridDim.x + tile) * 2 * F + which * F + f] = t;
-  }
+// K9: the blocks of the tiles of cluster blockIdx.x / a.n; K1's body and
+// epilogue without a prologue.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    sepconv_stats_kernel(const FwdArgs<T> a, T* __restrict__ y, float* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem + FwdSmem<T, W>::red);
+  sepconv_fwd_tiles<T, W, false>(a, smem, [](T*, int, int, const FwdTile&) {},
+                                 [&](float (&acc)[2][W / 32][4], const FwdTile& t) {
+                                   stats_epilogue<T, W>(a, acc, t, y, partials, red);
+                                 });
 }
-
 
 // Per-tile partial rows of Σy and Σy² (K1 and K9): [B * tiles][2F].
 struct SumRows {
@@ -282,15 +210,17 @@ int launch_chain(const void* x, const void* dw, const void* pw, const void* in_a
 
 template <typename T>
 int launch_stats(const void* x, const void* dw, const void* pw, void* y, float* work,
-                 float* sums, int B, int H, int W, int C, int F, cudaStream_t stream) {
+                 float* sums, int B, int H, int W, int C, int F, int n, int s, int width, int per,
+                 int smem, cudaStream_t stream) {
+  if (!fwd_plan_ok<T>(B, H, W, C, F, n, s, width, per, smem)) return (int)cudaErrorInvalidValue;
   const SumRows rows = sum_rows(B, H, W, F);
   float* partials = work;
   float* scratch = work + rows.rows * rows.cols;
-  const dim3 grid(rows.tiles, (F + kTileF - 1) / kTileF, B);
-  sepconv_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dw), static_cast<const T*>(pw),
-      static_cast<T*>(y), partials, H, W, C, F, rows.tiles_x);
-  const int err = (int)cudaGetLastError();
+  const FwdArgs<T> a = fwd_args<T>(x, dw, pw, B, H, W, C, F, n, s, per);
+  T* out = static_cast<T*>(y);
+  const int err = width == 64
+                      ? launch_fwd(sepconv_stats_kernel<T, 64>, a, smem, stream, out, partials)
+                      : launch_fwd(sepconv_stats_kernel<T, 128>, a, smem, stream, out, partials);
   if (err) return err;
   return reduce_rows(partials, (int)rows.rows, (int)rows.cols, scratch, sums, stream);
 }
@@ -327,16 +257,21 @@ extern "C" int unet_chain_fwd(const void* x, const void* dw, const void* pw, con
 }
 
 // K9: x (B,H,W,C), dw (3,3,C), pw (C,F) in T; y (B,H,W,F) in T; sums (2,F)
-// fp32 = Σy, Σy². Workspace as unet_chain_fwd_workspace. Returns
+// fp32 = Σy, Σy². Workspace as unet_chain_fwd_workspace; (n, s, width, per,
+// smem) the plan of fwd_plan, as unet_chain_fwd takes it. Returns
 // cudaGetLastError().
 extern "C" int unet_sepconv_stats(const void* x, const void* dw, const void* pw, void* y,
                                   void* work, void* sums, int B, int H, int W, int C, int F,
-                                  int dtype, void* stream) {
+                                  int n, int s, int width, int per, int smem, int dtype,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(sums);
-  if (dtype == 0) return unet::launch_stats<float>(x, dw, pw, y, w, o, B, H, W, C, F, st);
+  if (dtype == 0)
+    return unet::launch_stats<float>(x, dw, pw, y, w, o, B, H, W, C, F, n, s, width, per, smem,
+                                     st);
   if (dtype == 1)
-    return unet::launch_stats<__nv_bfloat16>(x, dw, pw, y, w, o, B, H, W, C, F, st);
+    return unet::launch_stats<__nv_bfloat16>(x, dw, pw, y, w, o, B, H, W, C, F, n, s, width,
+                                             per, smem, st);
   return (int)cudaErrorInvalidValue;
 }

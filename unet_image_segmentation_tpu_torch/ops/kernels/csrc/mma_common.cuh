@@ -2,9 +2,9 @@
 // run their products on mma.sync (sepconv_pair.cu, sepconv_fwd.cuh,
 // chain_bwd.cu, upconcat.cu): shared-memory addresses, cp.async, ldmatrix,
 // the bf16 m16n8k16 and TF32 m16n8k8 products, the 3xTF32 split, 16-byte
-// vectors of T unpacked to fp32 and packed back, and the chunk sizes,
-// staging, warp products, paired stores and cluster launch of the sepconv
-// kernels (K7, K8, K1).
+// vectors of T unpacked to fp32 and packed back, the chunk sizes, staging,
+// warp products (A row-major or pixel-major), paired stores and the
+// cluster launch.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k8; g = lane / 4, t = lane
 // % 4): A rows g and g + 8; B column g; C rows g and g + 8, columns 2t and
@@ -229,6 +229,97 @@ __device__ __forceinline__ void warp_gemm_split(float (&acc)[MT][NT][4], const f
       ldsm_x4(al, Al + off);
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni) mma_3xtf32(acc[mi][ni], ah, al, bh[ni], bl[ni]);
+    }
+  }
+}
+
+// acc[mi][ni] += A^T[m-tile mt0 + mi] . B[:, n0 + 8ni ..] over ksteps mma
+// depths, m-tiles whose first row is at or past m_end skipped. A is
+// [k][LDA] (rows contiguous), B is [k][LDB] (columns contiguous): both
+// pixel-major, read with ldmatrix.trans.
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void gemm_cols(float (&acc)[MT][NT][4], const __nv_bfloat16* A,
+                                          const __nv_bfloat16* B, int mt0, int m_end, int n0,
+                                          int ksteps, int lane) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t b[NT / 2][4];
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np)
+      ldsm_x4_trans(b[np], B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n0 +
+                               np * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      if ((mt0 + mi) * 16 >= m_end) break;
+      uint32_t a[4];
+      ldsm_x4_trans(a, A + (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDA + (mt0 + mi) * 16 +
+                           ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+        mma_bf16(acc[mi][ni], a, b[ni / 2][2 * (ni & 1)], b[ni / 2][2 * (ni & 1) + 1]);
+    }
+  }
+}
+
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void gemm_cols(float (&acc)[MT][NT][4], const float* A,
+                                          const float* B, int mt0, int m_end, int n0, int ksteps,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[ni][h], bl[ni][h]);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      if ((mt0 + mi) * 16 >= m_end) break;
+      const float* p = A + (ks * 8 + t) * LDA + (mt0 + mi) * 16 + g;
+      uint32_t ah[4], al[4];
+      split_tf32(p[0], ah[0], al[0]);
+      split_tf32(p[8], ah[1], al[1]);
+      split_tf32(p[4 * LDA], ah[2], al[2]);
+      split_tf32(p[4 * LDA + 8], ah[3], al[3]);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) mma_3xtf32(acc[mi][ni], ah, al, bh[ni], bl[ni]);
+    }
+  }
+}
+
+// acc[mi][ni] += A[m-tile mt0 + mi] . B[:, n0 + 8ni ..] over ksteps k8
+// depths as 3xTF32, A [row][LDA] (k contiguous) and B [k][LDB] (n
+// contiguous), fp32 in shared memory; the results of warp_gemm<float>. It
+// holds the A fragments of a depth (8 registers an m-tile) and splits each B
+// fragment just before its products, where warp_gemm<float> and gemm_cols
+// hold B's (8 an n-tile): for a warp of 2 x 8 tiles this keeps K6 (64
+// accumulators) within 128 registers. Every m-tile is computed (no branch
+// between the products): rows past the caller's edge must hold zeros or be
+// ignored.
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void gemm_3xtf32(float (&acc)[MT][NT][4], const float* A,
+                                            const float* B, int mt0, int n0, int ksteps,
+                                            int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      // fragment a0..a3: (r, k), (r + 8, k), (r, k + 4), (r + 8, k + 4)
+      const float* p = A + ((mt0 + mi) * 16 + g) * LDA + ks * 8 + t;
+      split_tf32(p[0], ah[mi][0], al[mi][0]);
+      split_tf32(p[8 * LDA], ah[mi][1], al[mi][1]);
+      split_tf32(p[4], ah[mi][2], al[mi][2]);
+      split_tf32(p[8 * LDA + 4], ah[mi][3], al[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      uint32_t bh[2], bl[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[h], bl[h]);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh, bl);
     }
   }
 }

@@ -14,539 +14,549 @@
 //             d_kernel = x^T . dup,  d_bias = Σ_p dup     (fp32)
 //
 // What bounds it on the H100: at the U-Net's widths (batch 32, 256 px) the
-// four decoder stages move ~1.8 GB forward and ~2 GB backward in bf16, which
-// is ~0.5 and ~0.6 ms at 3.35 TB/s, while the GEMMs take 34.4 GFLOP per
-// stage and product (~137 GFLOP forward over the four stages, twice that
-// backward): ~0.14 and ~0.28 ms on the bf16 tensor cores, so bytes bound
-// bf16. fp32 stays on FMAs (TF32 would break the fp32 bars), where the
-// operations bound it: ~2 ms forward and ~4 ms backward at 67 TFLOP/s.
+// four feeds move ~1.8 GB forward and ~2.1 GB backward in bf16 (0.53 and
+// 0.63 ms at 3.35 TB/s) for 137 GFLOP of products forward and twice that
+// backward (0.14 and 0.28 ms on the bf16 tensor cores): the bytes bound
+// bf16. fp32 runs its products as 3xTF32 (three TF32 products each, 495
+// TFLOP/s; TF32 alone would break the 1e-4 bar, 3xTF32 holds it as in K7,
+// K8, K1 and K2): 1.26 ms forward (the products bound dec4 and dec3, the
+// bytes dec2 and dec1) and 1.89 ms backward (the products but at dec1).
 //
-// Design, 256 threads a block:
-//  - bf16 (C a multiple of 64, F of 16: every decoder feed of the U-Net):
-//    mma.sync m16n8k16 with fp32 accumulation on 128x64 block tiles, both
-//    operands staged K-major in shared memory (see the *_tc_kernel below).
-//  - otherwise shared-memory tiled fp32-FMA GEMMs: the forward takes 128
-//    pixels x 64 columns of (di,dj,f) a block, K = C in chunks of 32, 8x4
-//    outputs a thread; dx the same shape over (pixels, C) with K = 4F.
-//  - forward epilogue: add the bias, round once, write each value to its
-//    pixel of the 2x upsampled output; the same thread copies the skip
-//    channels that land beside it, so every element of cat is written once
-//    and no concat pass follows.
-//  - dx: the A tile is gathered straight from g (the pixel shuffle is an
-//    index map; the tile's pixel offsets are computed once, in shared
-//    memory, not per element).
-//  - d_kernel: a split-K GEMM over pixels of (C, 4F) tiles, one partial per
-//    split; the blocks of the first C tile also sum the dup columns
-//    (d_bias) and copy g[..., F:] to d_skip. reduce_rows() sums the
-//    partials in a fixed order: no atomics, bit-reproducible runs.
-#include <algorithm>
-#include <type_traits>
-
+// Design (the plan is upconcat_plan in ops/fused_upconcat.py; the entries
+// refuse a plan whose shared-memory bytes differ from FeedSmem / DwSmem):
+//  - One tensor-core body for both dtypes and every shape: mma.sync bf16
+//    m16n8k16 from ldmatrix, fp32 3xTF32 on m16n8k8 (gemm_3xtf32 for the
+//    forward and dx, gemm_cols for d_kernel as in K2/K10's pass (b)), each
+//    warp splitting its fp32 fragments into TF32 hi and lo as it loads
+//    them. Measured on the H100 (troubleshoot/fp32_split_ab.py, fp32,
+//    batch 32, dec4..dec1): splitting A once where its stage lands, as K8
+//    and K1 do, takes the forward from 0.721-0.854 ms to 0.730-0.904 with
+//    the lo buffer in a third stage's place and to 0.883-1.360 with three
+//    stages and the buffer (one CTA an SM): the split pass costs a barrier
+//    a chunk, and its buffer a stage or the second CTA, more than the
+//    warps' repeated splits. gemm_3xtf32's order in d_kernel would take 2%
+//    off the fp32 backward but adds 3% to K2, which shares gemm_cols.
+//    Chunk tails and ragged widths are zero-filled where they are staged,
+//    so odd C and F take the same products; only the 16-byte vectors fall
+//    back to element copies there.
+//  - Forward and dx (feed_gemm): a CTA of 8 warps takes 128 pixels of x by
+//    128 GEMM columns ((di,dj,f) forward, C for dx) and walks the depth (C
+//    forward, 4F for dx) through a 3-stage cp.async ring, one barrier a
+//    chunk, whole chunks unrolled. The column tiles of a pixel tile are
+//    neighbours in the grid, so they run together: the first reads the A
+//    tile from device memory, the others from L2. (A thread-block cluster
+//    over the column tiles that shared each A chunk through distributed
+//    shared memory measured slower at every feed on the H100: its cluster
+//    barrier a chunk cost more than the L2 reads it saved.) dx gathers its
+//    A rows straight from g (the pixel shuffle is an index map, each tile
+//    row's output pixel computed once).
+//  - Forward epilogue: bias added in fp32, rounded once, staged through
+//    shared memory and written as 16-byte vectors; beside each up segment
+//    the CTA copies the skip channels of the same output pixels, so every
+//    [up | skip] row of cat is written once, in whole 16-byte runs, with
+//    the skip loads batched ahead of the stores. dx is written the same
+//    way, and the dx CTAs of the first column tile copy g[..., F:] to
+//    d_skip for their rows.
+//  - d_kernel (upconcat_dw_kernel): a split-K GEMM over pixels of 128x128
+//    (C, 4F) tiles, x and dup pixel-major through a 3-stage cp.async ring
+//    (bf16 read with ldmatrix.trans); one fp32 partial per split, the splits
+//    chosen so the grid fills whole waves of two CTAs an SM. The CTAs of
+//    the first C tile also sum d_bias: every thread a 16-byte column group
+//    over a fixed set of rows of each staged chunk, the row groups added
+//    after the loop in a fixed order. reduce_rows() sums the partials in a
+//    fixed order: no atomics, bit-reproducible runs. The CTAs of one pixel
+//    split are neighbours in the grid, so x and g come from device memory
+//    once and the other output tiles read them from L2.
 #include "mma_common.cuh"
 #include "train_common.cuh"
 
 namespace unet {
 namespace {
 
-constexpr int kBM = 128;          // pixels per forward / dx tile
-constexpr int kBN = 64;           // columns per forward / dx tile
-constexpr int kLdM = kBM + 4;     // row stride of an A tile [k][kBM]
-constexpr int kLdN = kBN + 4;     // row stride of a B tile [k][kBN]
+constexpr int kBM = 128;      // pixels of x a forward / dx tile
+constexpr int kBN = 128;      // GEMM columns a CTA
+constexpr int kStages = 3;    // cp.async ring of the forward / dx
+constexpr int kDwTile = 128;  // d_kernel tile: C rows x (di, dj, f) columns
+constexpr int kDwStages = 3;  // cp.async ring of d_kernel
 
-// Index of output pixel (2i, 2j) of input pixel p = (b, i, j) in the
-// (B, 2H, 2W) upsampled image; tap q = (di, dj) adds up_step(q, W).
-__device__ __forceinline__ int up_pixel(int p, int H, int W) {
-  const int hw = H * W;
-  const int b = p / hw, rem = p % hw;
-  const int i = rem / W, j = rem % W;
-  return (b * 2 * H + 2 * i) * 2 * W + 2 * j;
-}
-
-__device__ __forceinline__ int up_step(int q, int W) { return (q >> 1) * 2 * W + (q & 1); }
-
-// acc[8][4] += A^T B over k < k_len; A [k][kLdM] (8 rows a thread), B [k][kLdN].
-__device__ __forceinline__ void gemm_8x4(float (&acc)[8][4], const float* As, const float* Bs,
-                                         int k_len, int tm, int tn) {
-#pragma unroll 4
-  for (int k = 0; k < k_len; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(As + k * kLdM + tm * 8);
-    const float4 a1 = *reinterpret_cast<const float4*>(As + k * kLdM + tm * 8 + 4);
-    const float4 b = *reinterpret_cast<const float4*>(Bs + k * kLdN + tn * 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Stage columns [k0, k0 + k_len) of rows [n0, n0 + kBN) of the (rows, ld)
-// matrix m, transposed, into Bs [k][n - n0] (zero outside m): the lanes of a
-// warp read 32 consecutive k of one row (coalesced), and the row stride kLdN
-// spreads their stores over 8 banks. This is how the FMA kernels read the
-// weights in the layout the tensor-core kernels take.
+// Shared memory of a forward / dx CTA, in bytes; upconcat_plan mirrors it.
+// In T: the A stages [kStages][kBM][LDK] and B stages [kStages][KC][LDN];
+// then the output pixels of the tile's rows [kBM] (int). After the loop the
+// output tile [kBM][LDC] in T takes the stages' place.
 template <typename T>
-__device__ __forceinline__ void stage_b_transposed(float* Bs, const T* __restrict__ m, int ld,
-                                                   int rows, int n0, int k0, int k_len) {
-  for (int idx = threadIdx.x; idx < kKC * kBN; idx += kThreads) {
-    const int kk = idx % kKC, n = n0 + idx / kKC;
-    Bs[kk * kLdN + idx / kKC] = (kk < k_len && n < rows) ? to_f(m[(size_t)n * ld + k0 + kk]) : 0.f;
-  }
-}
-
-// grid (pixel tiles, column tiles). wt (4F, C) in T, rows (di, dj, f).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    upconcat_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                        const float* __restrict__ bias, const T* __restrict__ skip,
-                        T* __restrict__ cat, int P, int H, int W, int C, int F) {
-  __shared__ __align__(16) float As[kKC * kLdM];  // x tile, [c][px]
-  __shared__ __align__(16) float Bs[kKC * kLdN];  // W tile, [c][col]
-  __shared__ int upix[kBM];                        // up_pixel of the tile's pixels
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int N = 4 * F;
-  const int tn = tid % (kBN / 4), tm = tid / (kBN / 4);
-  if (tid < kBM) upix[tid] = p0 + tid < P ? up_pixel(p0 + tid, H, W) : 0;
-  float acc[8][4] = {};
-  for (int c0 = 0; c0 < C; c0 += kKC) {
-    const int kc = min(kKC, C - c0);
-    for (int idx = tid; idx < kKC * kBM; idx += kThreads) {
-      const int kk = idx % kKC, m = idx / kKC, p = p0 + m;
-      As[kk * kLdM + m] = (p < P && kk < kc) ? to_f(x[(size_t)p * C + c0 + kk]) : 0.f;
-    }
-    stage_b_transposed(Bs, wt, C, N, n0, c0, kc);
-    __syncthreads();
-    gemm_8x4(acc, As, Bs, kc, tm, tn);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + tn * 4 + j;
-    if (col >= N) continue;
-    const int f = col % F, step = up_step(col / F, W);
-    const float bf = bias[f];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (p0 + tm * 8 + i >= P) continue;
-      const size_t px = (size_t)upix[tm * 8 + i] + step;
-      cat[px * 2 * F + f] = from_f<T>(acc[i][j] + bf);
-      cat[px * 2 * F + F + f] = skip[px * F + f];
-    }
-  }
-}
-
-// dx[p][c] = Σ_n dup[p][n] wmat[c][n]. grid (pixel tiles, C tiles). wmat (C, 4F) in T.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    upconcat_dx_kernel(const T* __restrict__ g, const T* __restrict__ wmat, T* __restrict__ dx,
-                       int P, int H, int W, int C, int F) {
-  __shared__ __align__(16) float As[kKC * kLdM];  // dup tile, [n][px]
-  __shared__ __align__(16) float Bs[kKC * kLdN];  // W^T tile, [n][c]
-  __shared__ int upix[kBM];
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kBM, c0 = blockIdx.y * kBN;
-  const int N = 4 * F;
-  const int tn = tid % (kBN / 4), tm = tid / (kBN / 4);
-  if (tid < kBM) upix[tid] = p0 + tid < P ? up_pixel(p0 + tid, H, W) : 0;
-  __syncthreads();
-  float acc[8][4] = {};
-  const int kk = tid % kKC;  // the A row this thread stages, in every chunk
-  for (int k0 = 0; k0 < N; k0 += kKC) {
-    const int kc = min(kKC, N - k0);
-    const int n = k0 + kk, f = n % F, step = up_step(n / F, W);
-    for (int m = tid / kKC; m < kBM; m += kThreads / kKC) {
-      float v = 0.f;
-      if (p0 + m < P && kk < kc) v = to_f(g[((size_t)upix[m] + step) * 2 * F + f]);
-      As[kk * kLdM + m] = v;
-    }
-    stage_b_transposed(Bs, wmat, N, C, c0, k0, kc);
-    __syncthreads();
-    gemm_8x4(acc, As, Bs, kc, tm, tn);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int p = p0 + tm * 8 + i;
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tn * 4 + j;
-      if (c < C) dx[(size_t)p * C + c] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
-// part[split] is a (C+1, 4F) matrix: rows c < C hold Σ x[p][c] dup[p][n] over
-// the split's pixels, row C (written by the first C tile) Σ dup[p][n]. The
-// first C tile's blocks also copy g[..., F:] to d_skip.
-// grid (column tiles, C tiles, splits).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    upconcat_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ d_skip,
-                       float* __restrict__ part, int P, int H, int W, int C, int F,
-                       int px_per_split) {
-  __shared__ __align__(16) float xs[kKC * kLdA64];  // [p][c]
-  __shared__ __align__(16) float gs[kKC * kTileF];  // [p][col]
-  __shared__ int upix[kKC];
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kTileF, c0 = blockIdx.y * kTileF;
-  const bool first_c = blockIdx.y == 0;
-  const int N = 4 * F;
-  const int p_begin = blockIdx.z * px_per_split;
-  const int p_end = min(P, p_begin + px_per_split);
-  const int tm = tid / (kTileF / 4), tn = tid % (kTileF / 4);
-  // the column (and the c of xs) this thread stages, in every chunk
-  const int nl = tid % kTileF, col = n0 + nl, f = col % F, step = up_step(col / F, W);
-  float acc[4][4] = {};
-  float bsum = 0.f;  // d_bias partial of column n0 + tid (tid < kTileF)
-  for (int p0 = p_begin; p0 < p_end; p0 += kKC) {
-    const int kp = min(kKC, p_end - p0);
-    if (tid < kKC) upix[tid] = tid < kp ? up_pixel(p0 + tid, H, W) : 0;
-    __syncthreads();
-    for (int kk = tid / kTileF; kk < kKC; kk += kThreads / kTileF) {
-      const int c = c0 + nl;
-      xs[kk * kLdA64 + nl] = (kk < kp && c < C) ? to_f(x[(size_t)(p0 + kk) * C + c]) : 0.f;
-      float v = 0.f;
-      if (kk < kp && col < N) {
-        const size_t px = (size_t)upix[kk] + step;
-        v = to_f(g[px * 2 * F + f]);
-        if (first_c) d_skip[px * F + f] = g[px * 2 * F + F + f];
-      }
-      gs[kk * kTileF + nl] = v;
-    }
-    __syncthreads();
-    smem_gemm<kLdA64, kTileF>(acc, xs, gs, kp, tm, tn);
-    if (first_c && tid < kTileF)
-      for (int kk = 0; kk < kp; ++kk) bsum += gs[kk * kTileF + tid];
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.z * (C + 1) * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + tm * 4 + i;
-    if (c >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn * 4 + j;
-      if (n < N) out[(size_t)c * N + n] = acc[i][j];
-    }
-  }
-  if (first_c && tid < kTileF && n0 + tid < N) out[(size_t)C * N + n0 + tid] = bsum;
-}
-
-
-// ---- bf16 on the tensor cores: mma.sync m16n8k16, fp32 accumulation ----
-// A block tile is 128 rows x 64 columns, K in chunks of 32; the 8 warps
-// form a 4x2 grid of 32x32 warp tiles. Both operands are staged K-major in
-// shared memory ([row][k], 8 bf16 of padding a row, so the fragment loads
-// hit 32 distinct banks). Products of bf16 values are exact in fp32, so the
-// only difference from the FMA path is the order of the fp32 sums.
-
-constexpr int kTcBM = 128, kTcBN = 64, kTcBK = 32;
-constexpr int kTcLd = kTcBK + 8;  // bf16 row stride of a staged tile
-using bf16 = __nv_bfloat16;
-
-// The shapes the tensor-core path takes (every decoder feed of the U-Net).
-__host__ __device__ inline bool tc_shape(int C, int F) { return C % 64 == 0 && F % 16 == 0; }
-
-// acc += As[warp rows][0, kTcBK) . Bs[warp cols][0, kTcBK)^T for one chunk.
-__device__ __forceinline__ void warp_mma_chunk(float (&acc)[2][4][4], const bf16* As,
-                                               const bf16* Bs, int wm, int wn, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < kTcBK; ks += 16) {
-    uint32_t a[2][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const bf16* p = As + (wm * 32 + mi * 16 + g) * kTcLd + ks + 2 * t;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kTcLd);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kTcLd + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const bf16* p = Bs + (wn * 32 + ni * 8 + g) * kTcLd + ks + 2 * t;
-      b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-      b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-  }
-}
-
-// Forward: rows = pixels, columns = (di, dj, f), K = C. wt (4F, C).
-__global__ void __launch_bounds__(kThreads)
-    upconcat_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-                           const float* __restrict__ bias, const bf16* __restrict__ skip,
-                           bf16* __restrict__ cat, int P, int H, int W, int C, int F) {
-  __shared__ __align__(16) bf16 As[kTcBM * kTcLd];
-  __shared__ __align__(16) bf16 Bs[kTcBN * kTcLd];
-  __shared__ int upix[kTcBM];
-  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) & 3, wn = tid >> 7;
-  const int p0 = blockIdx.x * kTcBM, n0 = blockIdx.y * kTcBN;
-  if (tid < kTcBM) upix[tid] = p0 + tid < P ? up_pixel(p0 + tid, H, W) : 0;
-  float acc[2][4][4] = {};
-  for (int c0 = 0; c0 < C; c0 += kTcBK) {
-    for (int v = tid; v < kTcBM * kTcBK / 8; v += kThreads) {
-      const int m = v >> 2, j = (v & 3) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (p0 + m < P) val = *reinterpret_cast<const uint4*>(x + (size_t)(p0 + m) * C + c0 + j);
-      *reinterpret_cast<uint4*>(As + m * kTcLd + j) = val;
-    }
-    {
-      const int n = tid >> 2, j = (tid & 3) * 8;
-      *reinterpret_cast<uint4*>(Bs + n * kTcLd + j) =
-          *reinterpret_cast<const uint4*>(wt + (size_t)(n0 + n) * C + c0 + j);
-    }
-    __syncthreads();
-    warp_mma_chunk(acc, As, Bs, wm, wn, lane);
-    __syncthreads();
-  }
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int n = n0 + wn * 32 + ni * 8 + 2 * t;  // f and f + 1 share the tap
-    const int f = n % F, step = up_step(n / F, W);
-    const float b0 = bias[f], b1 = bias[f + 1];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = wm * 32 + mi * 16 + g + 8 * h;
-        if (p0 + m >= P) continue;
-        const size_t px = (size_t)upix[m] + step;
-        *reinterpret_cast<__nv_bfloat162*>(cat + px * 2 * F + f) =
-            __floats2bfloat162_rn(acc[mi][ni][2 * h] + b0, acc[mi][ni][2 * h + 1] + b1);
-        *reinterpret_cast<uint32_t*>(cat + px * 2 * F + F + f) =
-            *reinterpret_cast<const uint32_t*>(skip + px * F + f);
-      }
-  }
-}
-
-// dx: rows = pixels, columns = C, K = (di, dj, f) gathered from g. wmat (C, 4F).
-__global__ void __launch_bounds__(kThreads)
-    upconcat_dx_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ wmat,
-                          bf16* __restrict__ dx, int P, int H, int W, int C, int F) {
-  __shared__ __align__(16) bf16 As[kTcBM * kTcLd];
-  __shared__ __align__(16) bf16 Bs[kTcBN * kTcLd];
-  __shared__ int upix[kTcBM];
-  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) & 3, wn = tid >> 7;
-  const int p0 = blockIdx.x * kTcBM, c0 = blockIdx.y * kTcBN, N = 4 * F;
-  if (tid < kTcBM) upix[tid] = p0 + tid < P ? up_pixel(p0 + tid, H, W) : 0;
-  __syncthreads();
-  float acc[2][4][4] = {};
-  for (int k0 = 0; k0 < N; k0 += kTcBK) {
-    for (int v = tid; v < kTcBM * kTcBK / 8; v += kThreads) {
-      const int m = v >> 2, j = (v & 3) * 8, k = k0 + j;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (p0 + m < P)
-        val = *reinterpret_cast<const uint4*>(
-            g + ((size_t)upix[m] + up_step(k / F, W)) * 2 * F + k % F);
-      *reinterpret_cast<uint4*>(As + m * kTcLd + j) = val;
-    }
-    {
-      const int n = tid >> 2, j = (tid & 3) * 8;
-      *reinterpret_cast<uint4*>(Bs + n * kTcLd + j) =
-          *reinterpret_cast<const uint4*>(wmat + (size_t)(c0 + n) * N + k0 + j);
-    }
-    __syncthreads();
-    warp_mma_chunk(acc, As, Bs, wm, wn, lane);
-    __syncthreads();
-  }
-  const int gr = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = wm * 32 + mi * 16 + gr + 8 * h;
-      if (p0 + m >= P) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = c0 + wn * 32 + ni * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(dx + (size_t)(p0 + m) * C + c) =
-            __floats2bfloat162_rn(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-}
-
-// d_kernel partials as upconcat_dw_kernel's: rows = C, columns = (di, dj, f),
-// K = the split's pixels; both operands are staged transposed (pixel-major
-// in device memory, K-major in shared memory).
-__global__ void __launch_bounds__(kThreads)
-    upconcat_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                          bf16* __restrict__ d_skip, float* __restrict__ part, int P, int H,
-                          int W, int C, int F, int px_per_split) {
-  __shared__ __align__(16) bf16 As[kTcBM * kTcLd];
-  __shared__ __align__(16) bf16 Bs[kTcBN * kTcLd];
-  __shared__ int upix[kTcBK];
-  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) & 3, wn = tid >> 7;
-  const int n0 = blockIdx.x * kTcBN, c0 = blockIdx.y * kTcBM, N = 4 * F;
-  const bool first_c = blockIdx.y == 0;
-  const int p_begin = blockIdx.z * px_per_split;
-  const int p_end = min(P, p_begin + px_per_split);
-  // The transposed stores put a warp's 32 lanes on 32 pixels, so they hit
-  // distinct banks. The B vector this thread stages in every chunk: pixel kb,
-  // columns jb..jb+7.
-  const int kb = lane, jb = (tid >> 5) * 8;
-  const int fb = (n0 + jb) % F, stepb = up_step((n0 + jb) / F, W);
-  float acc[2][4][4] = {};
-  float bsum = 0.f;  // d_bias partial of column n0 + tid (tid < kTcBN)
-  for (int p0 = p_begin; p0 < p_end; p0 += kTcBK) {
-    const int kp = min(kTcBK, p_end - p0);
-    if (tid < kTcBK) upix[tid] = tid < kp ? up_pixel(p0 + tid, H, W) : 0;
-    __syncthreads();
-    for (int v = tid; v < kTcBK * kTcBM / 8; v += kThreads) {
-      const int k = v & 31, j = (v >> 5) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k < kp && c0 + j < C)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)(p0 + k) * C + c0 + j);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) As[(j + i) * kTcLd + k] = e[i];
-    }
-    {
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (kb < kp) {
-        const size_t px = (size_t)upix[kb] + stepb;
-        val = *reinterpret_cast<const uint4*>(g + px * 2 * F + fb);
-        if (first_c)
-          *reinterpret_cast<uint4*>(d_skip + px * F + fb) =
-              *reinterpret_cast<const uint4*>(g + px * 2 * F + F + fb);
-      }
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Bs[(jb + i) * kTcLd + kb] = e[i];
-    }
-    __syncthreads();
-    warp_mma_chunk(acc, As, Bs, wm, wn, lane);
-    if (first_c && tid < kTcBN)
-      for (int k = 0; k < kp; ++k) bsum += __bfloat162float(Bs[tid * kTcLd + k]);
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.z * (C + 1) * N;
-  const int gr = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + wm * 32 + mi * 16 + gr + 8 * h;
-      if (c >= C) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn * 32 + ni * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out + (size_t)c * N + n) =
-            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-  if (first_c && tid < kTcBN) out[(size_t)C * N + n0 + tid] = bsum;
-}
-
-struct DwPlan {
-  int splits, px_per_split;
-  long long cols;  // (C+1)*4F
+struct FeedSmem {
+  static constexpr int KC = ChunkCfg<T>::KC, V = ChunkCfg<T>::V, e = sizeof(T);
+  static constexpr int LDK = KC + V, LDN = kBN + 8, LDC = kBN + V;
+  static constexpr int As = 0, Bs = As + e * kStages * kBM * LDK;
+  static constexpr int upix = Bs + e * kStages * KC * LDN;
+  static constexpr int bytes = upix + 4 * kBM;
+  static_assert(e * kBM * LDC <= upix, "the output tile fits over the stages");
 };
 
-DwPlan dw_plan(int B, int H, int W, int C, int F) {
-  const long long P = (long long)B * H * W;
-  const int tiles = ((4 * F + kTileF - 1) / kTileF) * ((C + kTileF - 1) / kTileF);
-  // about 8 blocks per SM of a 132-SM card, at least 256 pixels a split
-  long long splits = (1056 + tiles - 1) / tiles;
-  splits = std::max(1LL, std::min(splits, (P + 255) / 256));
-  long long per = (P + splits - 1) / splits;
-  per = (per + kKC - 1) / kKC * kKC;
-  splits = (P + per - 1) / per;
-  return {(int)splits, (int)per, (long long)(C + 1) * 4 * F};
-}
+// d_kernel's: kDwStages stages of x [KC][LD] and dup [KC][LD] in T, KC
+// pixels a chunk.
+template <typename T>
+struct DwSmem {
+  static constexpr int KC = ChunkCfg<T>::KC, LD = kDwTile + 8;
+  static constexpr int stage = (int)sizeof(T) * KC * 2 * LD;
+  static constexpr int bytes = kDwStages * stage;
+};
 
 template <typename T>
-int launch_fwd(const void* x, const void* wt, const void* bias, const void* skip, void* cat,
-               int B, int H, int W, int C, int F, cudaStream_t stream) {
-  const int P = B * H * W;
-  if (std::is_same<T, bf16>::value && tc_shape(C, F)) {
-    const dim3 grid((P + kTcBM - 1) / kTcBM, 4 * F / kTcBN);
-    upconcat_fwd_tc_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
-        static_cast<const float*>(bias), static_cast<const bf16*>(skip), static_cast<bf16*>(cat),
-        P, H, W, C, F);
-    return (int)cudaGetLastError();
+struct FeedArgs {
+  const T* a;         // forward: x (P, C); dx: g (B, 2H, 2W, 2F)
+  const T* b;         // forward: wmat (C, 4F); dx: wt (4F, C)
+  const float* bias;  // forward: (F,)
+  const T* skip;      // forward: (B, 2H, 2W, F)
+  T* out;             // forward: cat (B, 2H, 2W, 2F); dx: (P, C)
+  T* d_skip;          // dx: (B, 2H, 2W, F)
+  int P, W, C, F, K, N, tiles_n;  // tiles_n: column tiles of kBN
+  // 16-byte vectors: staging of A and of B, the epilogue's stores (and the
+  // forward's skip loads), dx's d_skip copy
+  int vec_a, vec_b, vec_out, vec_skip;
+};
+
+template <typename T>
+struct DwArgs {
+  const T* x;   // (P, C)
+  const T* g;   // (B, 2H, 2W, 2F)
+  float* part;  // [splits][(C + 1) * 4F]
+  int P, W, C, F, per;
+  long long cols;
+  int vec_x, vec_g;
+};
+
+// Output pixel (2i, 2j) of x pixel p = (b, i, j) in the (B, 2H, 2W) image:
+// with bi = b*H + i, (2 bi) * 2W + 2j. Tap q = (di, dj) adds up_step(q, W).
+__device__ __forceinline__ int up_pixel(int p, int W) {
+  const int bi = p / W;
+  return 4 * W * bi + 2 * (p - bi * W);
+}
+__device__ __forceinline__ int up_step(int q, int W) { return (q >> 1) * 2 * W + (q & 1); }
+// the tap of column n < 4F of (di, dj, f)
+__device__ __forceinline__ int tap_of(int n, int F) {
+  return (n >= F) + (n >= 2 * F) + (n >= 3 * F);
+}
+
+__device__ __forceinline__ void put_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void put_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// The forward (kDx false) or dx GEMM of one CTA: pixel tile blockIdx.x /
+// tiles_n, columns [col0, col0 + kBN) of column tile blockIdx.x % tiles_n
+// (the column tiles of a pixel tile are neighbours in the grid, so they run
+// together and read the tile's A from L2 after the first); warp (wm, wn) =
+// (warp % 4, warp / 4) owns rows 32 wm .. and columns 64 wn .. of the tile.
+template <typename T, bool kDx>
+__device__ __forceinline__ void feed_gemm(const FeedArgs<T>& a) {
+  using L = FeedSmem<T>;
+  constexpr int KC = L::KC, KS = ChunkCfg<T>::KS, V = L::V, G = KC / V;
+  constexpr int LDK = L::LDK, LDN = L::LDN, LDC = L::LDC, VR = kBN / V;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem + L::As);
+  T* Bs = reinterpret_cast<T*>(smem + L::Bs);
+  int* upix = reinterpret_cast<int*>(smem + L::upix);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int P = a.P, W = a.W, F = a.F, K = a.K, N = a.N;
+  const int ct = (int)blockIdx.x % a.tiles_n;
+  const int p0 = (int)blockIdx.x / a.tiles_n * kBM, col0 = ct * kBN;
+  const int ncols = min(kBN, N - col0);
+  for (int m = tid; m < kBM; m += kThreads) upix[m] = p0 + m < P ? up_pixel(p0 + m, W) : 0;
+  __syncthreads();
+
+  // element (tile row m, depth k) of A: x[p][k], or dup[p][k] read from g
+  auto a_src = [&](int m, int k) -> const T* {
+    if (p0 + m >= P || k >= K) return nullptr;
+    if constexpr (kDx) {
+      const int q = tap_of(k, F);
+      return a.a + (size_t)(upix[m] + up_step(q, W)) * 2 * F + (k - q * F);
+    } else {
+      return a.a + (size_t)(p0 + m) * K + k;
+    }
+  };
+  // chunk i into stage st: A's rows, and B's rows for this CTA's columns
+  auto stage = [&](int i, int st) {
+    const int k0 = i * KC;
+    stage_tile<VR>(Bs + st * KC * LDN, LDN, KC, VR, a.vec_b, a.b, [&](int k, int j) {
+      return k0 + k < K && j < ncols ? a.b + (size_t)(k0 + k) * N + col0 + j : (const T*)nullptr;
+    });
+    stage_tile<G>(As + st * kBM * LDK, LDK, kBM, G, a.vec_a, a.a,
+                  [&](int m, int j) { return a_src(m, k0 + j); });
+  };
+
+  const int nch = (K + KC - 1) / KC;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nch) stage(s, s);
+    cp_async_commit();
   }
-  const dim3 grid((P + kBM - 1) / kBM, (4 * F + kBN - 1) / kBN);
-  upconcat_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wt), static_cast<const float*>(bias),
-      static_cast<const T*>(skip), static_cast<T*>(cat), P, H, W, C, F);
-  return (int)cudaGetLastError();
-}
+  float acc[2][8][4] = {};
+  const bool active = wn * 64 < ncols;
+  for (int i = 0; i < nch; ++i) {
+    const int st = i % kStages;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk i staged; every warp done with chunk i - 1
+    if (i + kStages - 1 < nch) stage(i + kStages - 1, (i + kStages - 1) % kStages);
+    cp_async_commit();
+    if (active) {
+      const T* A = As + st * kBM * LDK;
+      const T* B = Bs + st * KC * LDN;
+      // whole chunks with a constant depth, so the k-steps unroll
+      auto product = [&](int ksteps) {
+        if constexpr (sizeof(T) == 2) {
+          warp_gemm<2, 8, LDK, LDN>(acc, A, B, wm * 2, kBM / 16, wn * 64, ksteps, lane);
+        } else {
+          gemm_3xtf32<2, 8, LDK, LDN>(acc, A, B, wm * 2, wn * 64, ksteps, lane);
+        }
+      };
+      if (K - i * KC >= KC)
+        product(KC / KS);
+      else
+        product((K - i * KC + KS - 1) / KS);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
-template <typename T>
-int launch_bwd(const void* x, const void* wmat, const void* g, void* dx, void* d_skip,
-               float* work, float* dwb, int B, int H, int W, int C, int F, cudaStream_t stream) {
-  const int P = B * H * W;
-  const DwPlan plan = dw_plan(B, H, W, C, F);
-  if (std::is_same<T, bf16>::value && tc_shape(C, F)) {
-    const dim3 grid_dx((P + kTcBM - 1) / kTcBM, C / kTcBN);
-    upconcat_dx_tc_kernel<<<grid_dx, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(g), static_cast<const bf16*>(wmat), static_cast<bf16*>(dx), P,
-        H, W, C, F);
-    const dim3 grid_dw(4 * F / kTcBN, (C + kTcBM - 1) / kTcBM, plan.splits);
-    upconcat_dw_tc_kernel<<<grid_dw, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<bf16*>(d_skip),
-        work, P, H, W, C, F, plan.px_per_split);
+  // the tile in T (forward: the bias added in fp32 first) into Cs [kBM][LDC]
+  T* Cs = reinterpret_cast<T*>(smem);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int col = wn * 64 + ni * 8 + 2 * t;
+    float b0 = 0.f, b1 = 0.f;
+    if constexpr (!kDx) {
+      if (col < ncols) b0 = a.bias[col0 + col - tap_of(col0 + col, F) * F];
+      if (col + 1 < ncols) b1 = a.bias[col0 + col + 1 - tap_of(col0 + col + 1, F) * F];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        put_pair(Cs + (wm * 32 + mi * 16 + g + 8 * h) * LDC + col, acc[mi][ni][2 * h] + b0,
+                 acc[mi][ni][2 * h + 1] + b1);
+  }
+  __syncthreads();
+
+  if constexpr (!kDx) {
+    // each up segment of the tile and the skip channels beside it in cat
+    const T* skip = a.skip;
+    T* cat = a.out;
+    if (a.vec_out) {
+      constexpr int U = 8;  // skip vectors in flight a thread
+      for (int base = tid; base < kBM * VR; base += kThreads * U) {
+        uint4 sk[U];
+        long long dst[U];  // offset of the up vector in cat, -1 where none
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int idx = base + u * kThreads, m = idx / VR, j = (idx % VR) * V;
+          dst[u] = -1;
+          sk[u] = make_uint4(0, 0, 0, 0);
+          if (idx < kBM * VR && p0 + m < P && j < ncols) {
+            const int q = tap_of(col0 + j, F), f = col0 + j - q * F;
+            const size_t px = (size_t)upix[m] + up_step(q, W);
+            dst[u] = (long long)(px * 2 * F + f);
+            sk[u] = *reinterpret_cast<const uint4*>(skip + px * F + f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (dst[u] < 0) continue;
+          const int idx = base + u * kThreads;
+          *reinterpret_cast<uint4*>(cat + dst[u]) =
+              *reinterpret_cast<const uint4*>(Cs + (idx / VR) * LDC + (idx % VR) * V);
+          *reinterpret_cast<uint4*>(cat + dst[u] + F) = sk[u];
+        }
+      }
+    } else {
+      for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
+        const int m = idx / kBN, j = idx % kBN;
+        if (p0 + m >= P || j >= ncols) continue;
+        const int q = tap_of(col0 + j, F), f = col0 + j - q * F;
+        const size_t px = (size_t)upix[m] + up_step(q, W);
+        cat[px * 2 * F + f] = Cs[m * LDC + j];
+        cat[px * 2 * F + F + f] = skip[px * F + f];
+      }
+    }
   } else {
-    const dim3 grid_dx((P + kBM - 1) / kBM, (C + kBN - 1) / kBN);
-    upconcat_dx_kernel<T><<<grid_dx, kThreads, 0, stream>>>(
-        static_cast<const T*>(g), static_cast<const T*>(wmat), static_cast<T*>(dx), P, H, W, C,
-        F);
-    const dim3 grid_dw((4 * F + kTileF - 1) / kTileF, (C + kTileF - 1) / kTileF, plan.splits);
-    upconcat_dw_kernel<T><<<grid_dw, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(d_skip), work, P, H,
-        W, C, F, plan.px_per_split);
+    const int C = a.C;
+    T* dx = a.out;
+    if (a.vec_out) {
+      for (int idx = tid; idx < kBM * VR; idx += kThreads) {
+        const int m = idx / VR, j = (idx % VR) * V;
+        if (p0 + m < P && j < ncols)
+          *reinterpret_cast<uint4*>(dx + (size_t)(p0 + m) * C + col0 + j) =
+              *reinterpret_cast<const uint4*>(Cs + m * LDC + j);
+      }
+    } else {
+      for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
+        const int m = idx / kBN, j = idx % kBN;
+        if (p0 + m < P && j < ncols) dx[(size_t)(p0 + m) * C + col0 + j] = Cs[m * LDC + j];
+      }
+    }
+    // d_skip = g[..., F:] at the four output pixels of the tile's rows
+    if (ct == 0) {
+      const T* gsrc = a.a;
+      const int rows = min(kBM, P - p0);
+      if (a.vec_skip) {
+        constexpr int U = 4;  // vectors in flight a thread
+        const int FV = F / V, total = rows * 4 * FV;
+        for (int base = tid; base < total; base += kThreads * U) {
+          uint4 v[U];
+          long long o[U];  // offset of the vector in d_skip, -1 where none
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int idx = base + u * kThreads;
+            o[u] = -1;
+            v[u] = make_uint4(0, 0, 0, 0);
+            if (idx < total) {
+              const int m = idx / (4 * FV), rem = idx % (4 * FV), q = rem / FV;
+              const size_t px = (size_t)upix[m] + up_step(q, W);
+              const int f = (rem - q * FV) * V;
+              o[u] = (long long)(px * F + f);
+              v[u] = *reinterpret_cast<const uint4*>(gsrc + px * 2 * F + F + f);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (o[u] >= 0) *reinterpret_cast<uint4*>(a.d_skip + o[u]) = v[u];
+        }
+      } else {
+        const int total = rows * 4 * F;
+        for (int idx = tid; idx < total; idx += kThreads) {
+          const int m = idx / (4 * F), rem = idx % (4 * F), q = rem / F, f = rem - q * F;
+          const size_t px = (size_t)upix[m] + up_step(q, W);
+          a.d_skip[px * F + f] = gsrc[px * 2 * F + F + f];
+        }
+      }
+    }
   }
-  int err = (int)cudaGetLastError();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) upconcat_fwd_kernel(const FeedArgs<T> a) {
+  feed_gemm<T, false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) upconcat_dx_kernel(const FeedArgs<T> a) {
+  feed_gemm<T, true>(a);
+}
+
+// part[split][c * 4F + n] = Σ over the split's pixels of x[p][c] dup[p][n];
+// the CTAs of the first C tile also write part[split][C * 4F + n] = Σ
+// dup[p][n]. grid (4F tiles, C tiles, splits); warp (wm, wn) = (warp % 4,
+// warp / 4) owns rows 32 wm .. and columns 64 wn .. of the tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) upconcat_dw_kernel(const DwArgs<T> a) {
+  using L = DwSmem<T>;
+  constexpr int KC = L::KC, LD = L::LD, KS = ChunkCfg<T>::KS, V = ChunkCfg<T>::V;
+  constexpr int S = kDwStages, VC = kDwTile / V, RG = kThreads / VC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto xs = [&](int st) { return reinterpret_cast<T*>(smem + L::stage * st); };
+  auto gs = [&](int st) { return reinterpret_cast<T*>(smem + L::stage * st) + KC * LD; };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int W = a.W, F = a.F, C = a.C, N = 4 * F;
+  const int n0 = blockIdx.x * kDwTile, c0 = blockIdx.y * kDwTile;
+  const int p_begin = blockIdx.z * a.per, p_end = min(a.P, p_begin + a.per);
+  const int nm = min(kDwTile, C - c0), nn = min(kDwTile, N - n0);
+  auto stage = [&](int p0, int st) {
+    stage_tile<VC>(xs(st), LD, KC, VC, a.vec_x, a.x, [&](int r, int j) {
+      return p0 + r < p_end && j < nm ? a.x + (size_t)(p0 + r) * C + c0 + j : (const T*)nullptr;
+    });
+    stage_tile<VC>(gs(st), LD, KC, VC, a.vec_g, a.g, [&](int r, int j) {
+      if (p0 + r >= p_end || j >= nn) return (const T*)nullptr;
+      const int q = tap_of(n0 + j, F);
+      return a.g + (size_t)(up_pixel(p0 + r, W) + up_step(q, W)) * 2 * F + (n0 + j - q * F);
+    });
+  };
+  const bool sums_bias = blockIdx.y == 0;
+  const bool active = wn * 64 < nn;
+  float acc[2][8][4] = {};
+  float bsum[V] = {};  // d_bias of columns (tid % VC) * V .., rows tid / VC + RG k
+  const int nch = (p_end - p_begin + KC - 1) / KC;
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < nch) stage(p_begin + st * KC, st);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nch; ++i) {
+    const int p0 = p_begin + i * KC, st = i % S;
+    cp_async_wait<S - 2>();
+    __syncthreads();  // chunk i is in stage st; stage (i - 1) % S is free
+    if (i + S - 1 < nch) stage(p0 + (S - 1) * KC, (i + S - 1) % S);
+    cp_async_commit();
+    const T* gb = gs(st);
+    if (sums_bias)
+#pragma unroll
+      for (int k = tid / VC; k < KC; k += RG) {
+        float v[V];
+        unpack(*reinterpret_cast<const uint4*>(gb + k * LD + (tid % VC) * V), v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) bsum[j] += v[j];
+      }
+    if (active)
+      gemm_cols<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, nm, wn * 64,
+                              (min(KC, p_end - p0) + KS - 1) / KS, lane);
+  }
+  cp_async_wait_all();
+  float* out = a.part + (size_t)blockIdx.z * a.cols;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + wm * 32 + mi * 16 + h * 8 + g;
+      if (c >= C) continue;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int col = n0 + wn * 64 + ni * 8 + 2 * t;  // N = 4F is even
+        if (col < N)
+          *reinterpret_cast<float2*>(out + (size_t)c * N + col) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+  if (sums_bias) {
+    __syncthreads();  // every warp done with the stages
+    float* red = reinterpret_cast<float*>(smem);  // [RG][kDwTile]
+#pragma unroll
+    for (int j = 0; j < V; ++j) red[(tid / VC) * kDwTile + (tid % VC) * V + j] = bsum[j];
+    __syncthreads();
+    if (tid < nn) {
+      float s = 0.f;
+      for (int r = 0; r < RG; ++r) s += red[r * kDwTile + tid];
+      out[(size_t)C * N + n0 + tid] = s;
+    }
+  }
+}
+
+// The plan of upconcat_plan (fused_upconcat.py) for a GEMM of P rows and N
+// columns: tiles_n column tiles of kBN, smem bytes of dynamic shared
+// memory, which must be FeedSmem's.
+template <typename T>
+bool feed_plan_ok(long long P, int N, int tiles_n, int smem) {
+  return N > 0 && tiles_n == (N + kBN - 1) / kBN && smem == FeedSmem<T>::bytes && P > 0 &&
+         4 * P < (1LL << 31) && (P + kBM - 1) / kBM * tiles_n < (1LL << 31);
+}
+
+// d_kernel's: splits of per pixels (a multiple of the chunk) that cover P.
+template <typename T>
+bool dw_plan_ok(long long P, int splits, int per, int smem) {
+  return splits > 0 && splits <= 65535 && per > 0 && per % DwSmem<T>::KC == 0 &&
+         (long long)per * (splits - 1) < P && (long long)per * splits >= P &&
+         smem == DwSmem<T>::bytes;
+}
+
+long long dw_cols(int C, int F) { return (long long)(C + 1) * 4 * F; }
+
+template <typename T>
+int launch_fwd(const void* x, const void* wmat, const void* bias, const void* skip, void* cat,
+               int B, int H, int W, int C, int F, int tiles_n, int smem, cudaStream_t stream) {
+  constexpr int V = ChunkCfg<T>::V;
+  const long long P = (long long)B * H * W;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || !feed_plan_ok<T>(P, 4 * F, tiles_n, smem))
+    return (int)cudaErrorInvalidValue;
+  FeedArgs<T> a = {};
+  a.a = static_cast<const T*>(x);
+  a.b = static_cast<const T*>(wmat);
+  a.bias = static_cast<const float*>(bias);
+  a.skip = static_cast<const T*>(skip);
+  a.out = static_cast<T*>(cat);
+  a.P = (int)P, a.W = W, a.C = C, a.F = F, a.K = C, a.N = 4 * F, a.tiles_n = tiles_n;
+  a.vec_a = C % V == 0 && aligned16(x);
+  a.vec_b = (4 * F) % V == 0 && aligned16(wmat);
+  a.vec_out = F % V == 0 && aligned16(cat) && aligned16(skip);
+  const dim3 grid((unsigned)((P + kBM - 1) / kBM * tiles_n), 1, 1);
+  return launch_cluster(upconcat_fwd_kernel<T>, grid, kThreads, smem, 1, stream, a);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* wt, const void* g, void* dx, void* d_skip,
+               float* work, float* dwb, int B, int H, int W, int C, int F, int tiles_n, int smem,
+               int splits, int per, int smem_dw, cudaStream_t stream) {
+  constexpr int V = ChunkCfg<T>::V;
+  const long long P = (long long)B * H * W;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || !feed_plan_ok<T>(P, C, tiles_n, smem) ||
+      !dw_plan_ok<T>(P, splits, per, smem_dw))
+    return (int)cudaErrorInvalidValue;
+  FeedArgs<T> a = {};
+  a.a = static_cast<const T*>(g);
+  a.b = static_cast<const T*>(wt);
+  a.out = static_cast<T*>(dx);
+  a.d_skip = static_cast<T*>(d_skip);
+  a.P = (int)P, a.W = W, a.C = C, a.F = F, a.K = 4 * F, a.N = C, a.tiles_n = tiles_n;
+  a.vec_a = F % V == 0 && aligned16(g);
+  a.vec_b = C % V == 0 && aligned16(wt);
+  a.vec_out = C % V == 0 && aligned16(dx);
+  a.vec_skip = F % V == 0 && aligned16(g) && aligned16(d_skip);
+  const dim3 grid((unsigned)((P + kBM - 1) / kBM * tiles_n), 1, 1);
+  int err = launch_cluster(upconcat_dx_kernel<T>, grid, kThreads, smem, 1, stream, a);
   if (err) return err;
-  float* scratch = work + (long long)plan.splits * plan.cols;
-  return reduce_rows(work, plan.splits, (int)plan.cols, scratch, dwb, stream);
+
+  DwArgs<T> d;
+  d.x = static_cast<const T*>(x);
+  d.g = static_cast<const T*>(g);
+  d.part = work;
+  d.P = (int)P, d.W = W, d.C = C, d.F = F, d.per = per;
+  d.cols = dw_cols(C, F);
+  d.vec_x = C % V == 0 && aligned16(x);
+  d.vec_g = F % V == 0 && aligned16(g);
+  const dim3 grid_dw((4 * F + kDwTile - 1) / kDwTile, (C + kDwTile - 1) / kDwTile, splits);
+  err = launch_cluster(upconcat_dw_kernel<T>, grid_dw, kThreads, smem_dw, 1, stream, d);
+  if (err) return err;
+  float* scratch = work + (long long)splits * d.cols;
+  return reduce_rows(work, splits, (int)d.cols, scratch, dwb, stream);
 }
 
 }  // namespace
 }  // namespace unet
 
-// x (B,H,W,C), skip (B,2H,2W,F), cat (B,2H,2W,2F) in T; the weights wt
-// (4F,C) in T, rows (di, dj, f): the transpose kernel (2,2,F,C) as it lies;
-// bias (F,) fp32. Returns cudaGetLastError().
-extern "C" int unet_upconcat(const void* x, const void* wt, const void* bias, const void* skip,
-                             void* cat, int B, int H, int W, int C, int F, int dtype,
-                             void* stream) {
+// x (B,H,W,C), skip (B,2H,2W,F), cat (B,2H,2W,2F) in T; the weights wmat
+// (C,4F) in T, columns (di, dj, f); bias (F,) fp32. (tiles_n, smem) is
+// the forward's launch plan of upconcat_plan (ops/fused_upconcat.py).
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
+extern "C" int unet_upconcat(const void* x, const void* wmat, const void* bias, const void* skip,
+                             void* cat, int B, int H, int W, int C, int F, int tiles_n, int smem,
+                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return unet::launch_fwd<float>(x, wt, bias, skip, cat, B, H, W, C, F, s);
+  if (dtype == 0)
+    return unet::launch_fwd<float>(x, wmat, bias, skip, cat, B, H, W, C, F, tiles_n, smem, s);
   if (dtype == 1)
-    return unet::launch_fwd<__nv_bfloat16>(x, wt, bias, skip, cat, B, H, W, C, F, s);
+    return unet::launch_fwd<__nv_bfloat16>(x, wmat, bias, skip, cat, B, H, W, C, F, tiles_n,
+                                           smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Floats of workspace unet_upconcat_bwd needs.
-extern "C" long long unet_upconcat_bwd_workspace(int B, int H, int W, int C, int F) {
-  const unet::DwPlan p = unet::dw_plan(B, H, W, C, F);
-  return (long long)p.splits * p.cols + unet::reduce_scratch_floats(p.splits, p.cols);
+// Floats of workspace unet_upconcat_bwd needs with `splits` d_kernel splits.
+extern "C" long long unet_upconcat_bwd_workspace(int B, int H, int W, int C, int F, int splits) {
+  (void)B, (void)H, (void)W;
+  const long long cols = unet::dw_cols(C, F);
+  return (long long)splits * cols + unet::reduce_scratch_floats(splits, cols);
 }
 
-// x, dx (B,H,W,C), g (B,2H,2W,2F), d_skip (B,2H,2W,F) in T; the weights
-// wmat (C,4F) in T, columns (di, dj, f); dwb (C+1, 4F) fp32: rows c < C
-// d_kernel in (C, (di,dj,f)) order, row C the column sums of dup. Returns
+// x, dx (B,H,W,C), g (B,2H,2W,2F), d_skip (B,2H,2W,F) in T; the weights wt
+// (4F,C) in T, rows (di, dj, f): the transpose kernel (2,2,F,C) as it lies;
+// dwb (C+1, 4F) fp32: rows c < C d_kernel in (C, (di,dj,f)) order, row C
+// the column sums of dup. (tiles_n, smem) is dx's launch plan, (splits,
+// per, smem_dw) d_kernel's, both of upconcat_plan. Returns
 // cudaGetLastError().
-extern "C" int unet_upconcat_bwd(const void* x, const void* wmat, const void* g, void* dx,
+extern "C" int unet_upconcat_bwd(const void* x, const void* wt, const void* g, void* dx,
                                  void* d_skip, void* work, void* dwb, int B, int H, int W, int C,
-                                 int F, int dtype, void* stream) {
+                                 int F, int tiles_n, int smem, int splits, int per, int smem_dw,
+                                 int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(dwb);
   if (dtype == 0)
-    return unet::launch_bwd<float>(x, wmat, g, dx, d_skip, w, o, B, H, W, C, F, s);
+    return unet::launch_bwd<float>(x, wt, g, dx, d_skip, w, o, B, H, W, C, F, tiles_n, smem,
+                                   splits, per, smem_dw, s);
   if (dtype == 1)
-    return unet::launch_bwd<__nv_bfloat16>(x, wmat, g, dx, d_skip, w, o, B, H, W, C, F, s);
+    return unet::launch_bwd<__nv_bfloat16>(x, wt, g, dx, d_skip, w, o, B, H, W, C, F, tiles_n,
+                                           smem, splits, per, smem_dw, s);
   return (int)cudaErrorInvalidValue;
 }

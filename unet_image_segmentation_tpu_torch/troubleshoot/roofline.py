@@ -33,8 +33,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # the CUDA cores alone (K12b's elementwise FMAs): fp32 67 TFLOP/s, bf16x2
 # FMAs 133.8 TFLOP/s (Hopper white paper)
 PEAK_CUDA_CORE_OPS_PER_S = {"bfloat16": 133.8e12, "float32": 67e12}
-# TF32 on the tensor cores (K7's, K8's, K1's, K2's and K10's fp32 products
-# run as 3xTF32: three TF32 products for each)
+# TF32 on the tensor cores (the fp32 products of K1, K2, K6, K7, K8, K9 and
+# K10 run as 3xTF32: three TF32 products for each)
 PEAK_TF32_OPS_PER_S = 495e12
 
 # wrapper (its key in an ops module's LAUNCHES) -> (K label, CUDA source
@@ -61,7 +61,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
 
 SUMS = "sums"  # label of reduce_rows' colsum_kernel, which every summing kernel launches
 # __global__ entry -> (wrapper, part). A wrapper call launches each of its
-# parts once, one entry of each (the tensor-core or the FMA variant).
+# parts once.
 ENTRIES: Dict[str, Tuple[Optional[str], str]] = {
     "sepconv_pair_cluster_kernel": ("sepconv_pair", "pair"),
     "sepconv_block_kernel": ("sepconv_block", "block"),
@@ -71,11 +71,8 @@ ENTRIES: Dict[str, Tuple[Optional[str], str]] = {
     "tail_pool_kernel": ("tail_pool", "boundary"),
     "tail_pool_bwd_kernel": ("tail_pool_bwd", "boundary"),
     "upconcat_fwd_kernel": ("upconcat", "feed"),
-    "upconcat_fwd_tc_kernel": ("upconcat", "feed"),
     "upconcat_dx_kernel": ("upconcat_bwd", "dx"),
-    "upconcat_dx_tc_kernel": ("upconcat_bwd", "dx"),
     "upconcat_dw_kernel": ("upconcat_bwd", "dw"),
-    "upconcat_dw_tc_kernel": ("upconcat_bwd", "dw"),
     "head_fwd_kernel": ("head_fwd", "head"),
     "head_bwd_kernel": ("head_bwd", "head"),
     "head_fwd_mc_kernel": ("head_fwd_mc", "head"),
@@ -295,21 +292,32 @@ def fwd_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
     return 2.0 * px * c * f, 2.0 * px * 9 * c
 
 
+def feed_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
+    """(products, elementwise) operations of one K6 call at a decoder feed
+    ``shape`` (name, C, F, H): the forward's GEMM of C*4F multiply-adds a
+    pixel of x, the backward's two (dx and d_kernel); nothing else worth
+    counting (the bias adds and d_bias sums are 1/(2C) of the products)."""
+    _, c, f, h = shape
+    gemm = 2.0 * batch * h * h * c * 4 * f
+    return (gemm if name == "upconcat" else 2 * gemm), 0.0
+
+
 # wrapper -> its (products, elementwise) operations, for the kernels whose
 # products run on the tensor cores and the rest on the CUDA cores
 _SPLIT_OPS = {"sepconv_pair": lambda name, shape, batch: pair_ops(shape, batch),
-              "sepconv_block": fwd_ops, "chain_fwd": fwd_ops,
-              "chain_bwd": bwd_ops, "sepconv_bwd": bwd_ops}
+              "sepconv_block": fwd_ops, "chain_fwd": fwd_ops, "sepconv_stats": fwd_ops,
+              "chain_bwd": bwd_ops, "sepconv_bwd": bwd_ops,
+              "upconcat": feed_ops, "upconcat_bwd": feed_ops}
 
 
 def bounds_ms(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, str]:
     """The least time, in ms, the card could take for one call of wrapper
     ``name`` at ``shape`` in ``dname``, and which of "bytes" and
     "operations" bounds it. K12b's FMAs are held to the CUDA cores' peak.
-    K7's, K8's, K1's, K2's and K10's products run on the tensor cores
+    The products of K1, K2, K6, K7, K8, K9 and K10 run on the tensor cores
     (bf16; fp32 as 3xTF32, three TF32 products each) while their depthwise
-    work runs on the CUDA cores in fp32, the two at once. Every other
-    kernel's operations (K9's FMA products among them) are held to
+    and elementwise work runs on the CUDA cores in fp32, the two at once.
+    Every other kernel's operations (K3-K5, K11, K12a) are held to
     :data:`PEAK_OPS_PER_S`."""
     nbytes, ops = work(name, shape, dname, batch)
     peaks = PEAK_CUDA_CORE_OPS_PER_S if name == "fma_probe" else PEAK_OPS_PER_S
