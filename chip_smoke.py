@@ -55,7 +55,15 @@ exit code and no result line:
    and K6 at other feeds, batch 2 and 3, fp32 and bf16 (``FEED_RAGGED``:
    48 -> 8 at 16 px, C = 96 and 200 with F = 24 and 40 on odd sides
    H x W 9 x 13 and 5 x 3, odd C and F (5 -> 3), and the 512 px model's
-   feeds);
+   feeds), and K4 and K5 at other shapes, batch 2 and 3, fp32 and bf16
+   (``POOL_RAGGED``: H x W 20 x 36 with F = 40 and 200, the 512 px model's
+   boundaries; ``HEAD_RAGGED``: 20 x 36 with F = 8, 24, 40, 200 and the
+   widest width (256 bf16, 128 fp32; a width K5 does not take in a dtype
+   is skipped), F = 40 on 9 x 13 pixels, whose samples' targets are not
+   16-byte aligned, and dec1 of the 512 px model). Everywhere K4's dzt
+   must equal its plain version's bit for bit (ties and the ReLU mask),
+   K5's dzt must be 0 wherever a*y+b is not above 0, and a second launch
+   of K4 and K5 on the same inputs must give the same bits;
 8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
    3 train steps with the kernels against 3 of the composed path in fp32
@@ -71,8 +79,9 @@ exit code and no result line:
    ``fit`` for one epoch whose ``best/`` checkpoint a ``Predictor`` serves;
 9. K1-K6, K9, K10 at batch 32 and K11 at batch 8 of 512 px (the paths'
    batches), whose launch plans differ from batch 2's: each output held
-   against its plain version under phase 7's bars, then both timed, K6 and
-   K9 with their bounds and the share of the bound reached;
+   against its plain version under phase 7's bars (K4 and K5 with phase
+   7's bit checks), then both timed, K3-K6 and K9 with their bounds and
+   the share of the bound reached;
 10. multiclass training at full width (``configs/multiclass_512.json`` with
    ``fused_head`` all: 3 classes, 512 px, batch 8, cce, numpy class-id
    scenes): 3 steps with the kernels against 3 of the composed path in fp32
@@ -263,6 +272,20 @@ LINK_RAGGED = [("20x36", 32, 64, 20, 36, True, False, True),
     (f"512px {name}", c, f, h, h, in_aff, drop, mask)
     for name, c, f, h, in_aff, drop, mask in roofline.chain_links(512, FILTERS)]
 LINK_RAGGED_BATCHES = (2, 3)
+# K4 and K5 beyond the path's shapes (phase 7), at these batches: K4 at
+# (label, F, H, W), widths off the powers of two on ragged rows (20 x 36:
+# strips of a partial last window run) and the 512 px model's boundaries;
+# K5 at (label, F, H, W), the narrowest widths (one and three 16-byte
+# chunks in bf16), widths off the powers of two, the widest each dtype
+# takes (head_supported), targets whose per-sample spans are not 16-byte
+# aligned (9 x 13 pixels), and the 512 px model's dec1
+POOL_RAGGED = [("20x36", 40, 20, 36), ("20x36", 200, 20, 36)] + [
+    (f"512px {name}", f, h, h) for name, f, h in roofline.pool_shapes(512, FILTERS)]
+HEAD_RAGGED = [("20x36", 8, 20, 36), ("20x36", 24, 20, 36), ("20x36", 40, 20, 36),
+               ("20x36", 200, 20, 36), ("20x36 widest", None, 20, 36), ("9x13", 40, 9, 13),
+               ("512px dec1", FILTERS[0], 512, 512)]
+HEAD_WIDEST = {"float32": 128, "bfloat16": 256}   # 32 chunks of 16 bytes
+POOL_HEAD_RAGGED_BATCHES = (2, 3)
 LINKS = roofline.chain_links(IMAGE, FILTERS)
 POOLS = roofline.pool_shapes(IMAGE, FILTERS)
 FEEDS = roofline.upconcat_shapes(IMAGE, FILTERS)
@@ -303,20 +326,20 @@ def upconcat_case(torch, rnd, dev, dtype, batch, c, f, h, w=None):
                 g=rnd(batch, 2 * h, 2 * w, 2 * f).to(dev, dtype))
 
 
-def head_case(torch, rnd, dev, dtype, batch):
-    """Seeded inputs of K5 at dec1 (F = FILTERS[0] at 256 px). y and the
-    affine sit on a grid of quarters (a in {1, 1.5, 2}), so a*y+b is exactly
-    0 on some pixels and the ReLU mask's edge is tested."""
-    f, g = FILTERS[0], rnd.gen
-    y = (torch.randint(-8, 9, (batch, IMAGE, IMAGE, f), generator=g) * 0.25).to(dev, dtype)
+def head_case(torch, rnd, dev, dtype, batch, f=FILTERS[0], h=IMAGE, w=None):
+    """Seeded inputs of K5, at dec1 (F = FILTERS[0] at 256 px) unless given.
+    y and the affine sit on a grid of quarters (a in {1, 1.5, 2}), so a*y+b
+    is exactly 0 on some pixels and the ReLU mask's edge is tested."""
+    g, w = rnd.gen, h if w is None else w
+    y = (torch.randint(-8, 9, (batch, h, w, f), generator=g) * 0.25).to(dev, dtype)
     aff4 = torch.stack([1 + 0.5 * torch.randint(0, 3, (f,), generator=g),
                         0.25 * torch.randint(-2, 3, (f,), generator=g),
                         0.1 * rnd(f), 1 + 0.5 * rnd(f).abs()]).float().to(dev).contiguous()
-    w = (0.1 * rnd(f)).to(dtype).float().to(dev)
+    wv = (0.1 * rnd(f)).to(dtype).float().to(dev)
     hb = (0.1 * rnd(1)).to(dtype).float().to(dev)
-    t = (torch.rand(batch, IMAGE, IMAGE, generator=g) > 0.5).to(torch.uint8).to(dev)
+    t = (torch.rand(y.shape[:3], generator=g) > 0.5).to(torch.uint8).to(dev)
     gsc = rnd(batch, 2).to(dev).contiguous()
-    return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=w, hb=hb, t=t, gsc=gsc)
+    return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=wv, hb=hb, t=t, gsc=gsc)
 
 
 def head_mc_case(torch, rnd, dev, dtype, batch, px, f, nc):
@@ -363,15 +386,24 @@ def kernel_shapes():
     return out
 
 
-def pool_case(torch, rnd, dev, dtype, batch, f, h):
-    """Seeded inputs of one boundary. y takes 9 levels only, so after the
-    ReLU many 2x2 windows hold exact ties (K4's first-max rule)."""
-    y = (torch.randint(-4, 5, (batch, h, h, f), generator=rnd.gen) * 0.25).to(dev, dtype)
+def pool_case(torch, rnd, dev, dtype, batch, f, h, w=None):
+    """Seeded inputs of one boundary, y (batch, h, w, f) with w = h unless
+    given. y takes 9 levels only, so after the ReLU many 2x2 windows hold
+    exact ties (K4's first-max rule)."""
+    w = h if w is None else w
+    y = (torch.randint(-4, 5, (batch, h, w, f), generator=rnd.gen) * 0.25).to(dev, dtype)
     aff4 = torch.stack([1 + 0.5 * rnd(f).abs(), 0.1 * rnd(f), 0.1 * rnd(f),
                         1 + 0.5 * rnd(f).abs()]).to(dev).contiguous()
-    gs = rnd(batch, h, h, f).to(dev, dtype)
-    gp = rnd(batch, h // 2, h // 2, f).to(dev, dtype)
+    gs = rnd(batch, h, w, f).to(dev, dtype)
+    gp = rnd(batch, h // 2, w // 2, f).to(dev, dtype)
     return dict(y=y, aff4=aff4, gs=gs, gp=gp)
+
+
+def same_bits(torch, name, label, dname, first, again):
+    """K4 and K5 sum in a fixed order: a second launch on the same inputs
+    gives the same bits, or the run fails."""
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{name} {label} {dname}: a second launch gave other bits")
 
 
 def judge_feed(fu, tjudge, k, label, dname):
@@ -384,15 +416,23 @@ def judge_feed(fu, tjudge, k, label, dname):
            [(got[1], want[1]), (got[2], want[2])], sums=True)
 
 
-def judge_head(fh, tjudge, k, label, dname):
-    """K5 forward and backward on dec1's inputs, against plain."""
+def judge_head(torch, fh, tjudge, k, label, dname):
+    """K5 forward and backward against plain: dzt exactly 0 wherever the
+    plain version's a*y+b is not above 0 (the ReLU mask bit for bit), and a
+    second launch of each giving the same bits."""
     fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
     bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
-    tjudge("head_fwd", label + " sums", dname,
-           [(fh.head_fwd_sums(*fwd), fh.head_fwd_sums_reference(*fwd))], sums=True)
+    got = fh.head_fwd_sums(*fwd)
+    tjudge("head_fwd", label + " sums", dname, [(got, fh.head_fwd_sums_reference(*fwd))],
+           sums=True)
+    same_bits(torch, "head_fwd", label, dname, [got], [fh.head_fwd_sums(*fwd)])
     got, want = fh.head_bwd(*bwd), fh.head_bwd_reference(*bwd)
     tjudge("head_bwd", label + " dzt", dname, [(got[0], want[0])])
     tjudge("head_bwd", label + " S/T/dw/db", dname, list(zip(got[1:], want[1:])), sums=True)
+    off = (k["y"].float() * k["aff4"][0] + k["aff4"][1]) <= 0
+    if bool((got[0][off] != 0).any()):
+        raise AssertionError(f"head_bwd {label} {dname}: dzt not 0 where a*y+b <= 0")
+    same_bits(torch, "head_bwd", label, dname, got, fh.head_bwd(*bwd))
 
 
 def judge_head_mc(torch, fh, tjudge, k, label, dname):
@@ -468,15 +508,26 @@ def judge_bwd(ft, fs, tjudge, k, label, dname, in_aff, mc):
            sums=True)
 
 
-def judge_pool(ft, tjudge, k, label, dname):
-    """K3 and K4 on one encoder boundary's inputs, against plain."""
+def judge_pool(torch, ft, tjudge, k, label, dname):
+    """K3 and K4 on one encoder boundary's inputs, against plain; K4's dzt
+    bit for bit (the ReLU mask and the first-max rule on the plain
+    version's roundings), and a second K4 launch giving the same bits."""
     a, b = k["aff4"][0], k["aff4"][1]
     tjudge("tail_pool", label, dname,
            list(zip(ft.tail_pool(k["y"], a, b), ft.tail_pool_reference(k["y"], a, b))))
+    judge_pool_bwd(torch, ft, tjudge, k, label, dname)
+
+
+def judge_pool_bwd(torch, ft, tjudge, k, label, dname):
+    """K4 against plain: dzt bit for bit, S and T under the sums' bar, and a
+    second launch giving the same bits."""
     args = (k["y"], k["gs"], k["gp"], k["aff4"])
     got, want = ft.tail_pool_bwd(*args), ft.tail_pool_bwd_reference(*args)
     tjudge("tail_pool_bwd", label + " dzt", dname, [(got[0], want[0])])
     tjudge("tail_pool_bwd", label + " S/T", dname, [(got[1], want[1])], sums=True)
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"tail_pool_bwd {label} {dname}: dzt differs from plain")
+    same_bits(torch, "tail_pool_bwd", label, dname, got, ft.tail_pool_bwd(*args))
 
 
 def link_label(name, c, f, h, in_aff, drop, mc):
@@ -497,7 +548,7 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
             judge_feed(fu, tjudge, k, f"{name} {c}@{h}->{2 * f}@{2 * h}", dname)
         k = head_case(torch, rnd, dev, dtype, BATCH_CHECK)
         zeros = ((k["y"].float() * k["aff4"][0] + k["aff4"][1]) == 0).float().mean().item()
-        judge_head(fh, tjudge, k, f"dec1 F={FILTERS[0]}@{IMAGE} (a*y+b exactly 0 on "
+        judge_head(torch, fh, tjudge, k, f"dec1 F={FILTERS[0]}@{IMAGE} (a*y+b exactly 0 on "
                    f"{zeros:.3f} of the values)", dname)
         for px, f, nc in MC_HEAD_CASES:
             k = head_mc_case(torch, rnd, dev, dtype, BATCH_CHECK, px, f, nc)
@@ -523,7 +574,7 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
             zc = ft.tail_pool_reference(k["y"], k["aff4"][0], k["aff4"][1])[0].float()
             win = zc.reshape(BATCH_CHECK, h // 2, 2, h // 2, 2, f)
             ties = ((win == win.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4)) > 1)
-            judge_pool(ft, tjudge, k, f"{name} F={f}@{h} (windows with a tied max "
+            judge_pool(torch, ft, tjudge, k, f"{name} F={f}@{h} (windows with a tied max "
                        f"{ties.float().mean().item():.2f})", dname)
 
     print(f"K1/K9 and K2/K10 vs plain at other shapes, batch "
@@ -552,6 +603,25 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
                 judge_feed(fu, tjudge, k, f"{name} {c}@{h}x{w}->{2 * f} batch {batch}, "
                            f"{plan.tiles_fwd}/{plan.tiles_dx} column tiles, {plan.splits} "
                            "d_kernel splits", dname)
+    batches = " and ".join(map(str, POOL_HEAD_RAGGED_BATCHES))
+    print(f"K4 and K5 vs plain at other shapes, batch {batches}, TF32 off:")
+    for dname, dtype in dtypes.items():
+        for batch in POOL_HEAD_RAGGED_BATCHES:
+            for name, f, h, w in POOL_RAGGED:
+                k = pool_case(torch, rnd, dev, dtype, batch, f, h, w)
+                plan = ft.pool_bwd_plan(batch, h, w, f, dtype, sms)
+                judge_pool_bwd(torch, ft, tjudge, k, f"{name} F={f}@{h}x{w} batch {batch}, "
+                               f"{plan.strips} strips of {plan.n} windows on {plan.ctas} CTAs",
+                               dname)
+            for name, f, h, w in HEAD_RAGGED:
+                f = HEAD_WIDEST[dname] if f is None else f
+                if not fh.head_supported(f, dtype):
+                    continue
+                k = head_case(torch, rnd, dev, dtype, batch, f, h, w)
+                plan = fh.head_plan(batch, h * w, f, dtype, sms)
+                judge_head(torch, fh, tjudge, k, f"{name} F={f}@{h}x{w} batch {batch}, "
+                           f"{plan.runs} runs of {plan.pixels} px in groups of {plan.lanes} "
+                           f"lanes on {plan.ctas} CTAs", dname)
     rnd.gen.set_state(stream)
 
 
@@ -1536,10 +1606,10 @@ def main() -> int:
         for name, f, h in POOLS:
             k = pool_case(torch, rnd, dev, dtype, BATCH_SERVE, f, h)
             label = f"{name} boundary F={f}@{h}"
-            judge_pool(ft, tjudge, k, label, dname)
+            judge_pool(torch, ft, tjudge, k, label, dname)
             a, b = k["aff4"][0], k["aff4"][1]
             bwd = (k["y"], k["gs"], k["gp"], k["aff4"])
-            cases.append((label, "K3", "K4", None, timed({
+            cases.append((label, "K3", "K4", (name, f, h), timed({
                 "tail_pool": (lambda: ft.tail_pool(k["y"], a, b),
                               lambda: ft.tail_pool_reference(k["y"], a, b)),
                 "tail_pool_bwd": (lambda: ft.tail_pool_bwd(*bwd),
@@ -1559,10 +1629,10 @@ def main() -> int:
             del k, fwd, bwd
         k = head_case(torch, rnd, dev, dtype, BATCH_SERVE)
         label = f"dec1 head F={FILTERS[0]}@{IMAGE}"
-        judge_head(fh, tjudge, k, label, dname)
+        judge_head(torch, fh, tjudge, k, label, dname)
         fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
         bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
-        cases.append((label, "K5", "K5 bwd", None, timed({
+        cases.append((label, "K5", "K5 bwd", (FILTERS[0], IMAGE), timed({
             "head_fwd": (lambda: fh.head_fwd_sums(*fwd), lambda: fh.head_fwd_sums_reference(*fwd)),
             "head_bwd": (lambda: fh.head_bwd(*bwd), lambda: fh.head_bwd_reference(*bwd)),
         })))
@@ -1590,14 +1660,16 @@ def main() -> int:
             "head_bwd_mc": (lambda: fh.head_bwd_mc(*bwd), lambda: fh.head_bwd_mc_reference(*bwd)),
         })))
         del k, fwd, bwd
-        bound_tot = {"upconcat": 0.0, "upconcat_bwd": 0.0, "sepconv_stats": 0.0}
+        bound_tot = {name: 0.0 for name in ("tail_pool", "tail_pool_bwd", "upconcat",
+                                             "upconcat_bwd", "head_fwd", "head_bwd",
+                                             "sepconv_stats")}
         for label, k1, k2, shape, times in cases:
             text = []
             for (kname, (t_k, t_p)), klabel in zip(times.items(), (k1, k2)):
                 tot[kname][0] += t_k
                 tot[kname][1] += t_p
                 text.append(f"{klabel} {t_k:.3f} / {t_p:.3f}")
-                if shape is not None and kname in bound_tot:   # K6 and K9: the bound beside
+                if shape is not None and kname in bound_tot:   # K3-K6, K9: the bound beside
                     bound, by = roofline.bounds_ms(kname, shape, dname, BATCH_SERVE)
                     bound_tot[kname] += bound
                     text[-1] += f", bound {bound:.4f} ({by}, {100 * bound / t_k:.1f}%)"

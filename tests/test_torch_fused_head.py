@@ -170,3 +170,106 @@ def test_head_supported_widths():
     assert tfh.head_supported(64, torch.bfloat16) and tfh.head_supported(64, torch.float32)
     assert tfh.head_supported(8, torch.float32) and not tfh.head_supported(4, torch.bfloat16)
     assert not tfh.head_supported(512, torch.bfloat16) and tfh.head_supported(256, torch.bfloat16)
+
+
+# K5's plan (the streaming body): dec1 of the 256 px and 512 px models at
+# their batches, the narrowest and widest widths each dtype takes, widths
+# off the powers of two, and samples whose pixels are no whole number of
+# runs (ragged last runs)
+_HEAD_PLAN_SHAPES = [
+    pytest.param(32, 256 * 256, 64, id="dec1-256px-b32"),
+    pytest.param(8, 512 * 512, 64, id="dec1-512px-b8"),
+    pytest.param(2, 20 * 36, 8, id="20x36-f8"),
+    pytest.param(3, 20 * 36, 24, id="20x36-f24"),
+    pytest.param(3, 20 * 36, 40, id="20x36-f40"),
+    pytest.param(2, 9 * 13, 40, id="9x13-f40"),
+    pytest.param(3, 20 * 36, 128, id="20x36-f128"),
+    pytest.param(2, 20 * 36, 256, id="20x36-f256"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,hw,f", _HEAD_PLAN_SHAPES)
+def test_head_plan(b, hw, f, dtype):
+    """Groups of L lanes (the power of two at or above F/V) take L pixels
+    at a time, at most one pixel a thread of 512; runs of a whole number of
+    groups, about 64 KB of y; the CTAs' contiguous run ranges cover every
+    pixel of every sample exactly once; the ring's 3 stages in shared
+    memory; at most one CTA an SM of a 132-SM card (__launch_bounds__(512,
+    1))."""
+    if not tfh.head_supported(f, dtype):
+        with pytest.raises(ValueError):
+            tfh.head_plan(b, hw, f, dtype, 132)
+        return
+    sms = 132
+    plan = tfh.head_plan(b, hw, f, dtype, sms)
+    e = dtype.itemsize
+    g = f // (16 // e)
+    assert plan.lanes >= g and plan.lanes < 2 * max(g, 1) and plan.lanes & (plan.lanes - 1) == 0
+    assert plan.lanes <= plan.pixels <= 512 and plan.pixels % plan.lanes == 0
+    assert plan.pixels * f * e <= 65536 or plan.pixels == plan.lanes
+    assert plan.pixels == 512 or (plan.pixels + plan.lanes) * f * e > 65536
+    runs = -(-hw // plan.pixels)
+    assert plan.runs == b * runs and 1 <= plan.ctas == min(sms, plan.runs)
+    assert plan.stage == plan.pixels * f * e + -(-plan.pixels // 16) * 16 + 32
+    ring = 3 * (-(-plan.stage // 128) * 128)
+    assert plan.smem_fwd == 64 + max(ring, 512 * 16)
+    assert plan.smem_bwd == 64 + max(ring, 512 * 12 * (16 // e))
+    assert max(plan.smem_fwd, plan.smem_bwd) <= tft.SMEM_MAX
+    assert (plan.ld_fwd, plan.ld_bwd) == (-(-9 * b // 4) * 4, -(-(3 * f + 1) // 4) * 4)
+    covered = np.zeros(b * hw, np.int32)
+    for lo, hi in tft.stream_ranges(plan.runs, plan.ctas):
+        for u in range(lo, hi):
+            s, k = divmod(u, runs)
+            p0 = k * plan.pixels
+            covered[s * hw + p0:s * hw + min(hw, p0 + plan.pixels)] += 1
+    assert (covered == 1).all()
+
+
+def _jax_head_kernels(y, t, aff4, w, hb, gsc, p):
+    """The JAX head kernels (head_fwd_sums, head_bwd) at pack p on fp32
+    numpy inputs, their panels folded as _head_core's VJP folds them:
+    ``(sums (B, 9), dzt, S, T, dw, db)``."""
+    b, h, wd, f = y.shape
+    y_p = jnp.asarray(y.reshape(b, h, wd // p, p * f))
+    t_exp = jfh.expand_targets(jnp.asarray(t.astype(np.float32)), p)
+    wsel, bvec = jfh._head_mats(jnp.asarray(w), jnp.asarray(hb[0]), p, f, jnp.float32)
+    aff4 = jnp.asarray(aff4)
+    panel = jfh.head_fwd_sums(y_p, t_exp, aff4[:2], wsel, bvec, p)
+    sums = np.stack([np.asarray(panel[:, row, :].sum(axis=-1)) for row in jfh._SUM_ROWS], 1)
+    g = np.zeros((b, 8, jfh.COLS), np.float32)
+    g[:, 0, :], g[:, 1, :] = gsc[:, :1], gsc[:, 1:]
+    dzt, st, dw_panel, db_row = jfh.head_bwd(y_p, t_exp, aff4, wsel, bvec, jnp.asarray(g), p)
+    st = np.asarray(st)[:2].reshape(2, p, f).sum(axis=1)
+    dwp = np.asarray(dw_panel).reshape(p, f, jfh.COLS)
+    dw = sum(dwp[j, :, j] for j in range(p))
+    db = np.asarray(jnp.sum(db_row[0] * bvec[1])).reshape(1)
+    return sums, np.asarray(dzt).reshape(b, h, wd, f), st[0], st[1], dw, db
+
+
+@pytest.mark.parametrize("b,h,wd,f,p", [
+    pytest.param(2, 20, 32, 8, 16, id="b2-20x32-f8-p16"),
+    pytest.param(3, 4, 32, 24, 16, id="b3-4x32-f24-p16"),
+    pytest.param(2, 4, 32, 40, 16, id="b2-4x32-f40-p16"),
+    pytest.param(3, 4, 16, 200, 16, id="b3-4x16-f200-p16"),
+    pytest.param(2, 20, 36, 128, 1, id="b2-20x36-f128-p1"),
+    pytest.param(3, 4, 6, 256, 1, id="b3-4x6-f256-p1"),
+])
+def test_head_kernels_match_jax_at_ragged_widths(b, h, wd, f, p):
+    """Plain K5 (forward sums and backward) against the JAX head kernels in
+    fp32 at the narrowest widths, widths off the powers of two, the widest,
+    and ragged rows, on quarter-step inputs where a*y+b is exactly 0 on
+    many values: the sums to 1e-5 relative (the bar of
+    test_fused_head_matches_jax), dzt to an fp32 rounding, S, T, dw, db as
+    sums over B*H*W values."""
+    y, aff4, w, hb, t = _head_case(b * 100 + f, b, h, wd, f)
+    gsc = torch.from_numpy(np.random.RandomState(f).randn(b, 2).astype(np.float32))
+    assert ((y * aff4[0] + aff4[1]) == 0).float().mean() > 0.02
+    sums = tfh.head_fwd_sums(y, t, aff4[:2].contiguous(), w, hb)
+    port = tfh.head_bwd(y, t, aff4, w, hb, gsc)
+    want = _jax_head_kernels(y.numpy(), t.numpy(), aff4.numpy(), w.numpy(), hb.numpy(),
+                             gsc.numpy(), p)
+    np.testing.assert_allclose(sums.numpy(), want[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(port[0].numpy(), want[1], rtol=1e-5, atol=1e-6)
+    for got, ref in zip(port[1:], want[2:]):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)

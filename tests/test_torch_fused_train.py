@@ -399,3 +399,115 @@ def test_fwd_work_on_the_unet_links(dtype):
                                               abs=5e-4)
     assert useful == 32 * sum(h * h * (9 * c + c * f) for _, c, f, h, *_ in
                               roofline.chain_links(256, (64, 128, 256, 512)))
+
+
+# K4's plan (the streaming body): the 256 px and 512 px steps' boundaries at
+# batch 32, ragged rows and widths off the powers of two (strips of a
+# partial last run), one window a row, and the widest F the wrapper takes
+# in fp32 (1024; bf16 2048)
+_POOL_PLAN_SHAPES = (
+    [pytest.param(32, h, h, f, id=f"{px}px-{name}")
+     for px in (256, 512) for name, f, h in roofline.pool_shapes(px, (64, 128, 256, 512))]
+    + [pytest.param(2, 20, 36, 40, id="ragged-20x36-f40"),
+       pytest.param(3, 20, 36, 200, id="ragged-20x36-f200"),
+       pytest.param(3, 6, 2, 16, id="one-window-rows"),
+       pytest.param(2, 4, 34, 1024, id="widest-fp32"),
+       pytest.param(2, 4, 34, 2048, id="widest-bf16")]
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,w,f", _POOL_PLAN_SHAPES)
+def test_pool_bwd_plan(b, h, w, f, dtype):
+    """Strips of n windows of one pooled row, n * F/4 threads at work (at
+    most the CTA's 512, 4 channels each); the CTAs' contiguous strip ranges
+    cover every window of the batch exactly once, a row's last strip taking
+    what is left; the ring's 3 stages in shared memory; at most one CTA an
+    SM of a 132-SM card (the kernel's occupancy: __launch_bounds__(512,
+    1))."""
+    sms = 132
+    plan = tft.pool_bwd_plan(b, h, w, f, dtype, sms)
+    e = dtype.itemsize
+    g = f // 4
+    h2, w2 = h // 2, w // 2
+    assert 1 <= plan.n <= w2 and plan.n * g <= 512
+    assert plan.n == w2 or (plan.n + 1) * g > 512
+    per_row = -(-w2 // plan.n)
+    assert plan.strips == b * h2 * per_row
+    assert 1 <= plan.ctas <= sms and plan.ctas == min(sms, plan.strips)
+    assert plan.stage == 9 * plan.n * f * e
+    assert plan.smem == 64 + max(3 * (-(-plan.stage // 128) * 128), 512 * 2 * 4 * 4)
+    assert plan.smem <= tft.SMEM_MAX
+    covered = np.zeros((b * h2, w2), np.int32)
+    ranges = tft.stream_ranges(plan.strips, plan.ctas)
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.strips
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+    for lo, hi in ranges:
+        for u in range(lo, hi):
+            row, px0 = divmod(u, per_row)
+            px0 *= plan.n
+            covered[row, px0:px0 + min(plan.n, w2 - px0)] += 1
+    assert (covered == 1).all()
+
+
+def test_pool_bwd_plan_by_hand():
+    """bf16 enc1 of the 256 px step at batch 32: 16 groups of 4 channels,
+    so 32 windows a strip (512 threads), 4 strips a pooled row, 16384
+    strips on 132 CTAs; a stage holds 2 x 64 pixels of y and of gs and 32
+    of gp."""
+    plan = tft.pool_bwd_plan(32, 256, 256, 64, torch.bfloat16, 132)
+    assert (plan.n, plan.strips, plan.ctas) == (32, 32 * 128 * 4, 132)
+    assert plan.stage == (2 * 64 * 2 + 32) * 64 * 2 == 36864
+    assert plan.smem == 64 + 3 * 36864
+    deep = tft.pool_bwd_plan(32, 32, 32, 512, torch.float32, 132)
+    assert (deep.n, deep.strips, deep.stage) == (4, 32 * 16 * 4, 9 * 4 * 512 * 4)
+    ragged = tft.pool_bwd_plan(3, 20, 36, 200, torch.bfloat16, 132)
+    assert (ragged.n, ragged.strips, ragged.ctas) == (10, 3 * 10 * 2, 60)
+
+
+def test_pool_bwd_plan_refuses_what_the_kernel_cannot_launch():
+    with pytest.raises(ValueError, match="even"):
+        tft.pool_bwd_plan(1, 5, 8, 64, torch.bfloat16, 132)
+    with pytest.raises(ValueError, match="multiple"):
+        tft.pool_bwd_plan(1, 4, 8, 60, torch.bfloat16, 132)
+    with pytest.raises(ValueError, match="at most"):
+        tft.pool_bwd_plan(1, 4, 8, 2056, torch.float32, 132)
+    with pytest.raises(TypeError):
+        tft.pool_bwd_plan(1, 4, 8, 64, torch.float16, 132)
+
+
+def _pack_rows(a, p):
+    """(B, H, W, F) -> the JAX kernels' (B, H, W/p, p*F)."""
+    b, h, w, f = a.shape
+    return a.reshape(b, h, w // p, p * f)
+
+
+@pytest.mark.parametrize("b,h,w,f,p", [
+    pytest.param(3, 20, 36, 128, 1, id="b3-20x36-f128-p1"),
+    pytest.param(2, 20, 36, 256, 1, id="b2-20x36-f256-p1"),
+    pytest.param(2, 20, 32, 40, 16, id="b2-20x32-f40-p16"),
+    pytest.param(3, 20, 32, 200, 16, id="b3-20x32-f200-p16"),
+])
+def test_tail_pool_bwd_matches_jax_at_ragged_shapes(b, h, w, f, p):
+    """Plain K4 against the JAX kernels at ragged rows and widths off the
+    powers of two, on inputs with ties: ``_tail_pool_bwd_p1`` where F is a
+    multiple of 128, else ``_tail_pool_bwd_packed`` at the pack the JAX
+    chain uses (16 windows' worth of lanes). dzt to an fp32 rounding, S and
+    T as sums over B*H*W values (the bars of the tied test above)."""
+    rng = np.random.RandomState(b * 1000 + f)
+    y = (rng.randint(-4, 5, (b, h, w, f)) * 0.25).astype(np.float32)
+    aff4 = np.stack([1.0 + 0.5 * np.abs(rng.randn(f)), 0.1 * rng.randn(f),
+                     0.1 * rng.randn(f), 1.0 + 0.5 * np.abs(rng.randn(f))]).astype(np.float32)
+    gs = rng.randn(b, h, w, f).astype(np.float32)
+    gp = rng.randn(b, h // 2, w // 2, f).astype(np.float32)
+    dt, stt = tft.tail_pool_bwd(*map(torch.from_numpy, (y, gs, gp, aff4)))
+    if p == 1:
+        dj, stj = jft._tail_pool_bwd_p1(*map(jnp.asarray, (y, gs, gp, aff4)))
+    else:
+        dj, stj = jft._tail_pool_bwd_packed(
+            jnp.asarray(_pack_rows(y, p)), jnp.asarray(_pack_rows(gs, p)),
+            jnp.asarray(_pack_rows(gp, p // 2)), jnp.asarray(aff4), p, f)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj).reshape(b, h, w, f), atol=1e-6,
+                               rtol=1e-6)
+    np.testing.assert_allclose(stt.numpy(), np.asarray(stj)[:2], atol=1e-4, rtol=1e-5)

@@ -21,9 +21,11 @@ the sigmoid head, or ``i``/``p``/``t`` (B, C), ``cce`` (B,) and ``cm``
   :func:`head_bwd_mc` (K11, TPU ``_head_fwd_kernel_mc`` /
   ``_head_bwd_kernel_mc``) do the same for the softmax head, with the
   clipped CCE sum and the argmax confusion matrix. All four are
-  hand-written CUDA (``kernels/csrc/head.cu``) beside plain PyTorch
-  versions; a wrapper runs the plain version on a CPU tensor and the kernel
-  on a CUDA tensor, or raises. :data:`LAUNCHES` counts kernel launches.
+  hand-written CUDA (``kernels/csrc/head.cu``; K5 on the streaming body of
+  ``stream_sums.cuh`` with the launch plan :func:`head_plan`) beside plain
+  PyTorch versions; a wrapper runs the plain version on a CPU tensor and
+  the kernel on a CUDA tensor, or raises. :data:`LAUNCHES` counts kernel
+  launches.
 
 Rounding points are the Pallas kernels' (compute dtype T): z rounds to T,
 a logit is ``T(T(Σ z w_T) + T(bias))`` with the dot in fp32, the sigmoid
@@ -37,7 +39,7 @@ panels have no counterpart here.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -298,6 +300,62 @@ def head_bwd_mc_reference(
 
 
 # --------------------------------------------------------------------------
+# K5's launch plan (the streaming body of kernels/csrc/stream_sums.cuh)
+# --------------------------------------------------------------------------
+
+# bytes of y a stage of K5's ring aims at
+_HEAD_STAGE_BYTES = 65536
+
+
+class HeadPlan(NamedTuple):
+    """K5's launch: runs of ``pixels`` consecutive pixels of one sample (the
+    last run of a sample may be shorter), ``runs`` of them in all; ``ctas``
+    CTAs of :data:`..kernels.build.STREAM_THREADS` threads, one an SM, CTA
+    c taking the runs of :func:`.fused_train.stream_ranges`; groups of ``lanes``
+    threads (the power of two at or above F/V, V channels of 16 bytes) take
+    ``lanes`` pixels at a time, a lane one 16-byte channel chunk of each; a
+    stage of ``stage`` bytes holds a run's y and targets; ``smem_fwd`` and
+    ``smem_bwd`` bytes of dynamic shared memory a CTA of the forward and
+    the backward (``head_smem`` of ``head.cu``, which checks them); ``ld_fwd``
+    and ``ld_bwd`` floats a CTA's row of partial sums (B*9 and 3F+1, rounded
+    up to 4)."""
+
+    lanes: int
+    pixels: int
+    runs: int
+    ctas: int
+    stage: int
+    smem_fwd: int
+    smem_bwd: int
+    ld_fwd: int
+    ld_bwd: int
+
+
+def head_plan(b: int, hw: int, f: int, dtype: torch.dtype, sms: int) -> HeadPlan:
+    """K5's plan for ``b`` samples of ``hw`` pixels of F channels in
+    ``dtype`` on a card of ``sms`` streaming multiprocessors: runs of about
+    :data:`_HEAD_STAGE_BYTES` of y, a whole number of lane groups, at most
+    one pixel a thread. Raises on a width :func:`head_supported` refuses."""
+    if dtype not in build.DTYPE_CODE or min(b, hw) < 1 or not head_supported(f, dtype):
+        raise ValueError(f"head_plan: no K5 launch for B={b} HW={hw} F={f} in {dtype}")
+    e = dtype.itemsize
+    vec = 16 // e
+    lanes = 1
+    while lanes < f // vec:
+        lanes *= 2
+    pixels = min(build.STREAM_THREADS,
+                 max(lanes, _HEAD_STAGE_BYTES // (f * e) // lanes * lanes))
+    runs = b * -(-hw // pixels)
+    # y [pixels][F], then the targets' 16-byte aligned span around the run
+    stage = pixels * f * e + -(-pixels // 16) * 16 + 32
+    # the backward's block sums: S, T and dw, 3V floats a thread
+    smem_fwd = build.stream_smem(stage, build.STREAM_THREADS * 16)
+    smem_bwd = build.stream_smem(stage, build.STREAM_THREADS * 12 * vec)
+    return HeadPlan(lanes, pixels, runs, min(runs, sms), stage, smem_fwd, smem_bwd,
+                    -(-9 * b // 4) * 4, -(-(3 * f + 1) // 4) * 4)
+
+
+# --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -313,8 +371,10 @@ def _check_inputs(y, targets, aff, w, hb, rows: int, name: str, nc: int = 1) -> 
     if not head_supported(f, y.dtype):
         raise ValueError(f"{name}: F={f} in {y.dtype} is not a head kernel width")
     if tuple(targets.shape) != (b, h, w_) or targets.dtype != torch.uint8 or \
-            not targets.is_contiguous() or targets.device != y.device:
-        raise ValueError(f"{name}: targets must be contiguous uint8 ({b}, {h}, {w_}) on {y.device}")
+            not targets.is_contiguous() or targets.device != y.device or \
+            targets.data_ptr() % 16:
+        raise ValueError(f"{name}: targets must be contiguous, 16-byte aligned uint8 "
+                         f"({b}, {h}, {w_}) on {y.device}")
     w_shape = (f,) if nc == 1 else (f, nc)
     for t, shape, tname in ((aff, (rows, f), "aff"), (w, w_shape, "w"), (hb, (nc,), "hb")):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != y.device or \
@@ -330,14 +390,15 @@ def head_fwd_sums(
         return head_fwd_sums_reference(y, targets, aff, w, hb)
     _check_inputs(y, targets, aff, w, hb, 2, "head_fwd_sums")
     b, h, wd, f = y.shape
-    code = build.DTYPE_CODE[y.dtype]
+    plan = head_plan(b, h * wd, f, y.dtype, build.sm_count(y.device))
     lib = build.load_library()
     sums = torch.empty((b, len(SUM_KEYS)), dtype=torch.float32, device=y.device)
-    work = torch.empty(lib.unet_head_workspace(b, h * wd, f, code, 0),
-                       dtype=torch.float32, device=y.device)
+    work = torch.empty((plan.ctas, plan.ld_fwd), dtype=torch.float32, device=y.device)
     status = lib.unet_head_fwd(
         y.data_ptr(), targets.data_ptr(), aff.data_ptr(), w.data_ptr(), hb.data_ptr(),
-        work.data_ptr(), sums.data_ptr(), b, h * wd, f, code, build.stream_handle(y.device),
+        work.data_ptr(), sums.data_ptr(), build.arrival_counter(y.device).data_ptr(), b,
+        h * wd, f, plan.pixels, plan.ctas, plan.smem_fwd, build.DTYPE_CODE[y.dtype],
+        build.stream_handle(y.device),
     )
     build.check(status, "head_fwd_sums")
     LAUNCHES["head_fwd"] += 1
@@ -354,18 +415,19 @@ def head_bwd(
         return head_bwd_reference(y, targets, aff4, w, hb, gsc)
     _check_inputs(y, targets, aff4, w, hb, 4, "head_bwd")
     b, h, wd, f = y.shape
-    if tuple(gsc.shape) != (b, 2) or gsc.dtype != torch.float32 or not gsc.is_contiguous():
+    if tuple(gsc.shape) != (b, 2) or gsc.dtype != torch.float32 or not gsc.is_contiguous() \
+            or gsc.device != y.device:
         raise ValueError(f"head_bwd: gsc must be a contiguous fp32 ({b}, 2)")
-    code = build.DTYPE_CODE[y.dtype]
+    plan = head_plan(b, h * wd, f, y.dtype, build.sm_count(y.device))
     lib = build.load_library()
     dzt = torch.empty_like(y)
     out = torch.empty(3 * f + 1, dtype=torch.float32, device=y.device)
-    work = torch.empty(lib.unet_head_workspace(b, h * wd, f, code, 1),
-                       dtype=torch.float32, device=y.device)
+    work = torch.empty((plan.ctas, plan.ld_bwd), dtype=torch.float32, device=y.device)
     status = lib.unet_head_bwd(
         y.data_ptr(), targets.data_ptr(), aff4.data_ptr(), w.data_ptr(), hb.data_ptr(),
-        gsc.data_ptr(), dzt.data_ptr(), work.data_ptr(), out.data_ptr(), b, h * wd, f, code,
-        build.stream_handle(y.device),
+        gsc.data_ptr(), dzt.data_ptr(), work.data_ptr(), out.data_ptr(),
+        build.arrival_counter(y.device).data_ptr(), b, h * wd, f, plan.pixels, plan.ctas,
+        plan.smem_bwd, build.DTYPE_CODE[y.dtype], build.stream_handle(y.device),
     )
     build.check(status, "head_bwd")
     LAUNCHES["head_bwd"] += 1

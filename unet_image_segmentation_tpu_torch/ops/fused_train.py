@@ -17,8 +17,9 @@ version (``*_reference``):
 * :func:`tail_pool` (K3, ``kernels/csrc/tail_pool.cu``): the encoder
   boundary, skip ``z = relu(a*y+b)`` and its 2x2 max pool
   (``_tail_pool_kernel*``);
-* :func:`tail_pool_bwd` (K4, same file): its backward, first-max pool
-  routing, ReLU mask, S and T (``_tail_pool_bwd_kernel*``).
+* :func:`tail_pool_bwd` (K4, same file, on the streaming body of
+  ``stream_sums.cuh``; launch plan :func:`pool_bwd_plan`): its backward,
+  first-max pool routing, ReLU mask, S and T (``_tail_pool_bwd_kernel*``).
 
 :func:`fused_chain_train` and :func:`fused_chain_train_pool` run a chain
 through one ``torch.autograd.Function`` (the counterpart of the JAX
@@ -472,6 +473,59 @@ def chain_bwd_work(b: int, h: int, w: int, c: int, f: int, dtype: torch.dtype) -
 
 
 # --------------------------------------------------------------------------
+# K4's launch plan (the streaming body of kernels/csrc/stream_sums.cuh)
+# --------------------------------------------------------------------------
+
+
+# channels a K4 thread takes (kPoolCh of tail_pool.cu)
+_POOL_CH = 4
+
+
+class PoolBwdPlan(NamedTuple):
+    """K4's launch: strips of ``n`` windows of one pooled row (the last strip
+    of a row may be shorter), ``strips`` of them in all; ``ctas`` CTAs of
+    :data:`..kernels.build.STREAM_THREADS` threads, one an SM, CTA c taking
+    the strips of :func:`stream_ranges`; a stage holds a strip's two rows of y
+    and of gs and its segment of gp, ``stage`` bytes; ``smem`` bytes of
+    dynamic shared memory a CTA (``pool_bwd_smem`` of ``tail_pool.cu``,
+    which checks it). Each thread takes one window x 4 channels of a strip,
+    so ``n * F / 4`` threads work."""
+
+    n: int
+    strips: int
+    ctas: int
+    stage: int
+    smem: int
+
+
+def pool_bwd_plan(b: int, h: int, w: int, f: int, dtype: torch.dtype, sms: int) -> PoolBwdPlan:
+    """K4's plan for ``b`` (H, W) images of F channels in ``dtype`` on a card
+    of ``sms`` streaming multiprocessors: as many windows a strip as the
+    CTA's threads take at once (one window x 4 channels each), at most a
+    pooled row. Raises on what the kernel cannot launch."""
+    if dtype not in build.DTYPE_CODE:
+        raise TypeError(f"tail_pool_bwd: dtype {dtype} not supported (float32, bfloat16)")
+    if min(b, h, w, f) < 1 or h % 2 or w % 2:
+        raise ValueError(f"tail_pool_bwd: B={b} H={h} W={w} F={f}; H and W even and positive")
+    e = dtype.itemsize
+    vec = 16 // e
+    if f % vec or f // _POOL_CH > build.STREAM_THREADS:
+        raise ValueError(f"tail_pool_bwd: F={f} must be a multiple of {vec} and at most "
+                         f"{build.STREAM_THREADS * _POOL_CH}")
+    n = max(1, min(build.STREAM_THREADS // (f // _POOL_CH), w // 2))
+    strips = b * (h // 2) * _cdiv(w // 2, n)
+    stage = 9 * n * f * e   # y and gs: 2 rows x 2n pixels each; gp: n pixels
+    smem = build.stream_smem(stage, build.STREAM_THREADS * 2 * _POOL_CH * 4)
+    return PoolBwdPlan(n, strips, min(strips, sms), stage, smem)
+
+
+def stream_ranges(units: int, ctas: int) -> List[Tuple[int, int]]:
+    """The contiguous ``[begin, end)`` of ``units`` that each of ``ctas``
+    CTAs of the streaming body takes (``unit_range`` of stream_sums.cuh)."""
+    return [(units * c // ctas, units * (c + 1) // ctas) for c in range(ctas)]
+
+
+# --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -674,15 +728,16 @@ def tail_pool_bwd(
     _check_aligned(gs, "tail_pool_bwd gs")
     _check_aligned(gp, "tail_pool_bwd gp")
     _check_small(aff4, "tail_pool_bwd aff4", (4, f), torch.float32, y.device)
+    plan = pool_bwd_plan(bsz, h, w, f, y.dtype, build.sm_count(y.device))
     lib = build.load_library()
     dzt = torch.empty_like(y)
     st = torch.empty((2, f), dtype=torch.float32, device=y.device)
-    code = build.DTYPE_CODE[y.dtype]
-    work = torch.empty(lib.unet_tail_pool_bwd_workspace(bsz, h, w, f, code),
-                       dtype=torch.float32, device=y.device)
+    work = torch.empty((plan.ctas, 2 * f), dtype=torch.float32, device=y.device)
     status = lib.unet_tail_pool_bwd(
         y.data_ptr(), gs.data_ptr(), gp.data_ptr(), aff4.data_ptr(), dzt.data_ptr(),
-        work.data_ptr(), st.data_ptr(), bsz, h, w, f, code, build.stream_handle(y.device),
+        work.data_ptr(), st.data_ptr(), build.arrival_counter(y.device).data_ptr(), bsz, h, w,
+        f, plan.n, plan.ctas, plan.smem, build.DTYPE_CODE[y.dtype],
+        build.stream_handle(y.device),
     )
     build.check(status, "tail_pool_bwd")
     LAUNCHES["tail_pool_bwd"] += 1

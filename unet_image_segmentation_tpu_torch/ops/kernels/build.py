@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,17 +56,20 @@ SIGNATURES = {
     "unet_chain_bwd": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 8 + [_P],
     # y, aff, z, pooled, B, H, W, F, dtype, stream
     "unet_tail_pool": [_P] * 4 + [_I] * 5 + [_P],
-    # y, gs, gp, aff4, dzt, work, st, B, H, W, F, dtype, stream
-    "unet_tail_pool_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # y, gs, gp, aff4, dzt, work, st, counter, B, H, W, F, n, ctas, smem,
+    # dtype, stream
+    "unet_tail_pool_bwd": [_P] * 8 + [_I] * 8 + [_P],
     # x, wmat, bias, skip, cat, B, H, W, C, F, tiles_n, smem, dtype, stream
     "unet_upconcat": [_P] * 5 + [_I] * 8 + [_P],
     # x, wt, g, dx, d_skip, work, dwb, B, H, W, C, F, tiles_n, smem, splits,
     # per, smem_dw, dtype, stream
     "unet_upconcat_bwd": [_P] * 7 + [_I] * 11 + [_P],
-    # y, tgt, aff, w, hb, work, sums, B, HW, F, dtype, stream
-    "unet_head_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, dtype, stream
-    "unet_head_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    # y, tgt, aff, w, hb, work, sums, counter, B, HW, F, pixels, ctas, smem,
+    # dtype, stream
+    "unet_head_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    # y, tgt, aff4, w, hb, gsc, dzt, work, out, counter, B, HW, F, pixels,
+    # ctas, smem, dtype, stream
+    "unet_head_bwd": [_P] * 10 + [_I] * 7 + [_P],
     # y, tgt, aff, w, hb, work, sums, B, HW, F, NC, dtype, stream
     "unet_head_fwd_mc": [_P] * 7 + [_I] * 5 + [_P],
     # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, NC, dtype, stream
@@ -82,18 +85,32 @@ SIGNATURES = {
     # x, out, n, k, one_eps, dtype, stream
     "unet_fma_probe": [_P] * 2 + [_I] * 2 + [_F, _I, _P],
 }
-# Workspace sizes in floats (return long long): B, H, W, C, F / B, H, W, C,
-# F, splits / B, H, W, F, dtype / B, HW, F, dtype, which / B, HW, F, NC,
-# dtype, which
+# Workspace sizes in floats (return long long): B, H, W, C, F (K1) / B, H,
+# W, C, F, splits (K2, K10, K6) / B, HW, F, NC, dtype, which (K11). K4's and
+# K5's are a row of partial sums a CTA of their plans.
 WORKSPACE_SIGNATURES = {
     "unet_chain_fwd_workspace": [_I] * 5,
     "unet_chain_bwd_workspace": [_I] * 6,
     "unet_sepconv_bwd_workspace": [_I] * 6,
-    "unet_tail_pool_bwd_workspace": [_I] * 5,
     "unet_upconcat_bwd_workspace": [_I] * 6,
-    "unet_head_workspace": [_I] * 5,
     "unet_head_mc_workspace": [_I] * 6,
 }
+
+# stream_sums.cuh, the streaming body of K4 and K5: threads a CTA
+# (kStreamThreads), stages of the ring, bytes of its mbarriers ahead of
+# the stages, and the stages' alignment
+STREAM_THREADS = 512
+STREAM_STAGES, STREAM_BAR_BYTES, STAGE_ALIGN = 3, 64, 128
+
+
+def stream_smem(stage: int, red: int) -> int:
+    """Shared-memory bytes of the streaming body (``stream_smem`` of
+    stream_sums.cuh): the mbarriers, then the ring of :data:`STREAM_STAGES`
+    stages of ``stage`` bytes (each on a :data:`STAGE_ALIGN` boundary), or
+    the ``red`` bytes of block sums that reuse its space, the larger."""
+    ring = -(-stage // STAGE_ALIGN) * STAGE_ALIGN * STREAM_STAGES
+    return STREAM_BAR_BYTES + max(ring, red)
+
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of the nvcc run, None if cached
@@ -211,6 +228,21 @@ def check(status: int, name: str) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counter(device: torch.device) -> torch.Tensor:
+    """The zeroed 32-bit cell through which the CTAs of one K4 or K5 launch
+    find the last of them to arrive (``last_cta_sums`` of stream_sums.cuh),
+    one per stream of each card, so launches on two streams never share
+    one; every launch leaves it 0 again."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, stream_handle(device))
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
 
 
 def sm_count(device: torch.device) -> int:

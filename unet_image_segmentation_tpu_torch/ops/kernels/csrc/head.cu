@@ -24,25 +24,37 @@
 // ms at 3.35 TB/s); the backward also writes dzt (539 MB, ~0.16 ms). The
 // arithmetic is ~10 flops per element.
 //
-// Design: a pixel is handled by a group of L threads (L the power of two at
-// or above F/V, V = 16 bytes of channels), so each thread loads one 16-byte
-// vector of y and its dot partial is summed over the group by xor shuffles.
-// Blocks cover a fixed range of one sample's pixels (grid (blocks per
-// sample, B)); all threads of a block walk the same rounds, so the shuffles
-// never diverge. Each thread keeps its channels' S, T and dw in registers; a
-// block sums its threads in a fixed order into one row of partials, and
-// reduce_rows() sums the rows in a fixed order: no atomics anywhere. The
-// ReLU mask is decided on a*y+b with separate roundings (affine_rn), as the
-// plain version computes it, and the sigmoid uses expf.
+// The first K5 split a pixel over a group of L lanes (one 16-byte vector
+// each), summed its dot with log2(L) xor shuffles, and left the sigmoid and
+// the nine sums to one lane of the group, on a grid fixed at ~4 blocks an SM
+// of a 132-SM card, each thread waiting on its own 16-byte loads, with a
+// second launch for the row sums: 29% and 32% of its bound in bf16.
+//
+// Design: the streaming body of stream_sums.cuh. A CTA an SM
+// (ops/fused_head.head_plan) walks runs of consecutive pixels of one sample;
+// one thread copies each run's y and targets into a 3-stage ring with
+// cp.async.bulk. A group of L lanes (the power of two at or above F/V) takes
+// L pixels at a time from shared memory, lane g reading its 16-byte channel
+// chunk of each (a group's reads of a pixel are one contiguous span, so the
+// banks do not conflict), and a transposing xor reduction (group_dots: L - 1
+// shuffles for L pixels) leaves lane g with pixel g's dot, so the logit, the
+// sigmoid, the sums and the backward's dl run in every lane. The backward
+// broadcasts each pixel's dl to its group, recomputes the chunk from shared
+// memory and writes dzt as 16-byte vectors. Each thread keeps its channels'
+// S, T and dw (and its pixels' sums) in registers; the CTA sums its threads
+// in a fixed order into one row, and the last CTA to arrive sums the rows in
+// row order inside the same launch: no atomics on values. The ReLU mask is
+// decided on a*y+b with separate roundings (affine_rn), as the plain version
+// computes it, and the sigmoid uses expf.
 #include <algorithm>
 
+#include "stream_sums.cuh"
 #include "train_common.cuh"
 
 namespace unet {
 namespace {
 
 constexpr int kHeadSums = 9;      // i, p, t, it, pt, tt, ir, pr, tr
-constexpr int kMaxV = 8;          // channels of one 16-byte vector, bf16
 
 template <typename T>
 __host__ __device__ constexpr int head_vec() { return 16 / (int)sizeof(T); }
@@ -64,55 +76,195 @@ __device__ __forceinline__ void store_vec16(T* p, const float (&in)[V]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// The logit of one pixel from its group's vectors: every lane of the group
-// gets the full dot. wl and z are the thread's channels' affine and z.
-template <typename T, int V>
-__device__ __forceinline__ float head_logit(const float (&yv)[V], const float (&a)[V],
-                                            const float (&sh)[V], const float (&w)[V],
-                                            float hb, int L, float (&wl)[V], float (&z)[V]) {
-  float dot = 0.f;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    wl[j] = affine_rn(yv[j], a[j], sh[j]);
-    z[j] = round_to<T>(fmaxf(wl[j], 0.f));
-    dot = fmaf(z[j], w[j], dot);
-  }
-  for (int off = L / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-  return round_to<T>(round_to<T>(dot) + hb);
+// K5's work unit, a run: `pixels` consecutive pixels of one sample (the last
+// run of a sample may be shorter). A stage holds the run's y ([pixels][F]
+// in T) and then its targets: the 16-byte aligned span around them, copied
+// by cp.async.bulk, whose last partial 16 bytes of the whole target tensor
+// (when B*H*W is not a multiple of 16) the issuing thread copies itself.
+template <typename T>
+__host__ __device__ constexpr long long head_stage_bytes(int pixels, int F) {
+  return (long long)pixels * F * sizeof(T) + round_up(pixels, 16) + 32;
 }
 
-// partials[blockIdx.x][b * 9 + k]: the block's share of sample b's sums.
+// Shared memory of K5's forward (which = 0) and backward (which = 1) with
+// runs of `pixels`: the ring, or after it the block sums (the backward's
+// S, T and dw, 3V floats a thread; last_cta_sums' 16 bytes a thread).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    head_fwd_kernel(const T* __restrict__ y, const uint8_t* __restrict__ tgt,
-                    const float* __restrict__ aff, const float* __restrict__ w,
-                    const float* __restrict__ hb_p, float* __restrict__ partials, int B, int HW,
-                    int F, int L) {
-  constexpr int V = head_vec<T>();
-  __shared__ float red[kThreads * kHeadSums];
-  const int G = F / V, R = kThreads / L;
-  const int lane = threadIdx.x % L, r = threadIdx.x / L;
-  const bool act = lane < G;
-  const int f0 = lane * V, b = blockIdx.y;
-  float a[V], sh[V], wv[V];
+__host__ __device__ constexpr long long head_smem(int pixels, int F, int which) {
+  return stream_smem(head_stage_bytes<T>(pixels, F),
+                     (long long)kStreamThreads * (which ? 12 * head_vec<T>() : 16));
+}
+
+// Lane l of a group of L (a power of two) holds v[k], its 16-byte channel
+// chunk's share of pixel k's dot (k < L). Afterwards v[0] of lane l holds
+// pixel l's whole dot: log2(L) rounds of xor shuffles, each halving the
+// pixels a lane holds (L - 1 shuffles for L pixels, in a fixed order). A
+// round is a template instance, so every index of v is a constant and v
+// stays in registers.
+template <int L, int OFF>
+struct GroupDots {
+  static __device__ __forceinline__ void run(float (&v)[L], int lane) {
+    const bool upper = lane & OFF;
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    a[j] = act ? aff[f0 + j] : 0.f;
-    sh[j] = act ? aff[F + f0 + j] : 0.f;
-    wv[j] = act ? w[f0 + j] : 0.f;
+    for (int i = 0; i < OFF; ++i) {
+      const float send = upper ? v[i] : v[i + OFF];
+      const float keep = upper ? v[i + OFF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    GroupDots<L, OFF / 2>::run(v, lane);
   }
-  const float hb = hb_p[0];
-  float s[kHeadSums] = {};
-  const T* yb = y + (size_t)b * HW * F;
-  for (int base = blockIdx.x * R; base < HW; base += gridDim.x * R) {
-    const int px = base + r;
-    const bool valid = px < HW;
-    float yv[V] = {}, wl[V], z[V];
-    if (valid && act) load_vec16<T, V>(yb + (size_t)px * F + f0, yv);
-    const float l = head_logit<T, V>(yv, a, sh, wv, hb, L, wl, z);
-    if (valid && lane == 0) {
+};
+
+template <int L>
+struct GroupDots<L, 0> {
+  static __device__ __forceinline__ void run(float (&)[L], int) {}
+};
+
+template <int L>
+__device__ __forceinline__ float group_dots(float (&v)[L], int lane) {
+  GroupDots<L, L / 2>::run(v, lane);
+  return v[0];
+}
+
+// What K5's forward and backward share: the run's place, its copies into a
+// stage, and each lane's pixel logit. A group of L lanes (L the power of two
+// at or above F/V) takes L pixels at a time: lane g reads its channel chunk
+// of each pixel from shared memory (a group's reads of a pixel are one
+// contiguous span), and group_dots leaves lane g with pixel g's logit, so
+// the sigmoid and everything after it run in every lane.
+template <typename T, int L>
+struct HeadRun {
+  static constexpr int V = head_vec<T>();
+  const T* y;
+  const uint8_t* tgt;
+  int HW, F, pixels, runs;  // runs: per sample
+  long long total;          // B * HW, the targets' bytes
+  float a[V], sh[V], w[V], hb;
+  int lane, grp;            // lane of the group, group of the CTA
+
+  __device__ void place(long long unit, int& b, size_t& q0, int& np) const {
+    b = (int)(unit / runs);
+    const int p0 = (int)(unit % runs) * pixels;
+    np = min(pixels, HW - p0);
+    q0 = (size_t)b * HW + p0;
+  }
+
+  __device__ int tgt_skew(size_t q0) const {
+    return (int)(reinterpret_cast<uintptr_t>(tgt + q0) & 15);
+  }
+
+  __device__ void load(long long unit, char* stage, uint64_t* bar) const {
+    int b, np;
+    size_t q0;
+    place(unit, b, q0, np);
+    uint8_t* ts = reinterpret_cast<uint8_t*>(stage) + (size_t)pixels * F * sizeof(T);
+    const uintptr_t src = reinterpret_cast<uintptr_t>(tgt + q0);
+    const uintptr_t a0 = src & ~(uintptr_t)15, a1 = (src + np + 15) & ~(uintptr_t)15;
+    const uintptr_t tail = reinterpret_cast<uintptr_t>(tgt + total) & ~(uintptr_t)15;
+    const uintptr_t bulk_end = a1 < tail ? a1 : tail;
+    for (uintptr_t p = src > tail ? src : tail; p < src + np; ++p)
+      ts[p - a0] = *reinterpret_cast<const uint8_t*>(p);
+    const uint32_t ybytes = (uint32_t)((size_t)np * F * sizeof(T));
+    const uint32_t tbytes = bulk_end > a0 ? (uint32_t)(bulk_end - a0) : 0u;
+    mbar_expect_tx(bar, ybytes + tbytes);
+    bulk_load(stage, y + q0 * F, ybytes, bar);
+    if (tbytes) bulk_load(ts, reinterpret_cast<const void*>(a0), tbytes, bar);
+  }
+
+  // This lane's chunk of pixel px of the stage: a*y+b, z (rounded to T), y.
+  __device__ float chunk(const T* ys, int px, float (&yv)[V], float (&wl)[V],
+                         float (&z)[V]) const {
+    load_vec16<T, V>(ys + (size_t)px * F + lane * V, yv);
+    float dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      wl[k] = affine_rn(yv[k], a[k], sh[k]);
+      z[k] = round_to<T>(fmaxf(wl[k], 0.f));
+      dot = fmaf(z[k], w[k], dot);
+    }
+    return dot;
+  }
+
+  // The logit of pixel pb + lane (pixel group pb of the run's np pixels).
+  __device__ float logit(const T* ys, int pb, int np) const {
+    float v[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      float yv[V], wl[V], z[V];
+      v[k] = pb + k < np && lane < F / V ? chunk(ys, pb + k, yv, wl, z) : 0.f;
+    }
+    return round_to<T>(round_to<T>(group_dots<L>(v, lane)) + hb);
+  }
+};
+
+template <typename T, int L>
+__device__ void head_run_init(HeadRun<T, L>& r, const T* y, const uint8_t* tgt,
+                              const float* aff, const float* w, const float* hb, int B,
+                              int HW, int F, int pixels) {
+  constexpr int V = head_vec<T>();
+  r.y = y;
+  r.tgt = tgt;
+  r.HW = HW;
+  r.F = F;
+  r.pixels = pixels;
+  r.runs = (HW + pixels - 1) / pixels;
+  r.total = (long long)B * HW;
+  r.lane = threadIdx.x % L;
+  r.grp = threadIdx.x / L;
+  const bool act = r.lane < F / V;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    r.a[k] = act ? aff[r.lane * V + k] : 0.f;
+    r.sh[k] = act ? aff[F + r.lane * V + k] : 0.f;
+    r.w[k] = act ? w[r.lane * V + k] : 0.f;
+  }
+  r.hb = hb[0];
+}
+
+template <typename T, int L>
+struct HeadFwdOp : HeadRun<T, L> {
+  float s[kHeadSums];
+  int cur;           // the sample whose sums s holds
+  float* row;        // this CTA's partial row, (B, 9)
+  float (*wred)[kHeadSums];
+
+  // the CTA's sums of sample cur into its row (once a sample: a CTA's runs
+  // are contiguous); every thread calls it
+  __device__ void flush() {
+#pragma unroll
+    for (int k = 0; k < kHeadSums; ++k) {
+      const float v = warp_sum(s[k]);
+      if (threadIdx.x % 32 == 0) wred[threadIdx.x / 32][k] = v;
+      s[k] = 0.f;
+    }
+    __syncthreads();
+    if (threadIdx.x < kHeadSums) {
+      float acc = 0.f;
+      for (int wp = 0; wp < kStreamThreads / 32; ++wp) acc += wred[wp][threadIdx.x];
+      row[cur * kHeadSums + threadIdx.x] = acc;
+    }
+    __syncthreads();
+  }
+
+  __device__ void consume(long long unit, const char* stage) {
+    int b, np;
+    size_t q0;
+    this->place(unit, b, q0, np);
+    if (b != cur) {
+      if (cur >= 0) flush();
+      cur = b;
+    }
+    const T* ys = reinterpret_cast<const T*>(stage);
+    const uint8_t* ts = reinterpret_cast<const uint8_t*>(stage) +
+                        (size_t)this->pixels * this->F * sizeof(T) + this->tgt_skew(q0);
+    const int groups = (np + L - 1) / L;
+    for (int g0 = 0; g0 < groups; g0 += kStreamThreads / L) {
+      const int pb = (g0 + this->grp) * L;
+      const float l = this->logit(ys, pb, np);
+      const int px = pb + this->lane;
+      if (px >= np) continue;
       const float p = 1.f / (1.f + expf(-l));
-      const float t = tgt[(size_t)b * HW + px] ? 1.f : 0.f;
+      const float t = ts[px] ? 1.f : 0.f;
       const float pred = p > 0.5f ? 1.f : 0.f, pr = p >= 1.f ? 1.f : 0.f;
       s[0] += p * t;
       s[1] += p;
@@ -125,89 +277,147 @@ __global__ void __launch_bounds__(kThreads)
       s[8] += t;
     }
   }
+};
+
+// partials[blockIdx.x]: the CTA's (B, 9) sums (ld floats a row); the last
+// CTA to arrive sums the rows into sums (B, 9).
+template <typename T, int L>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    head_fwd_kernel(const T* __restrict__ y, const uint8_t* __restrict__ tgt,
+                    const float* __restrict__ aff, const float* __restrict__ w,
+                    const float* __restrict__ hb, float* __restrict__ partials,
+                    float* __restrict__ sums, unsigned* counter, int B, int HW, int F,
+                    int pixels, int ld) {
+  extern __shared__ __align__(128) char smem[];
+  __shared__ float wred[kStreamThreads / 32][kHeadSums];
+  HeadFwdOp<T, L> op;
+  head_run_init<T, L>(op, y, tgt, aff, w, hb, B, HW, F, pixels);
 #pragma unroll
-  for (int k = 0; k < kHeadSums; ++k) red[threadIdx.x * kHeadSums + k] = s[k];
-  __syncthreads();
-  if (threadIdx.x < kHeadSums) {
-    float acc = 0.f;
-    for (int rr = 0; rr < R; ++rr) acc += red[rr * L * kHeadSums + threadIdx.x];
-    partials[(size_t)blockIdx.x * B * kHeadSums + b * kHeadSums + threadIdx.x] = acc;
-  }
+  for (int k = 0; k < kHeadSums; ++k) op.s[k] = 0.f;
+  op.cur = -1;
+  op.row = partials + (size_t)blockIdx.x * ld;
+  op.wred = wred;
+  for (int c = threadIdx.x; c < ld; c += kStreamThreads) op.row[c] = 0.f;  // samples not taken
+  long long begin, end;
+  unit_range((long long)B * op.runs, gridDim.x, blockIdx.x, begin, end);
+  stream_units(op, smem, head_stage_bytes<T>(pixels, F), begin, end);
+  if (op.cur >= 0) op.flush();
+  last_cta_sums(partials, ld, B * kHeadSums, sums, counter,
+                reinterpret_cast<float4*>(smem + kStreamBarBytes));
 }
 
-// partials[blockIdx.y * gridDim.x + blockIdx.x] rows of 3F+1: S | T | dw | db.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int L>
+struct HeadBwdOp : HeadRun<T, L> {
+  static constexpr int V = head_vec<T>();
+  const float* gsc;
+  T* dzt;
+  float mean[V], rstd[V], st[V], tt[V], dw[V], db, dI, dP;
+  int cur;  // the sample whose dI, dP are held
+
+  __device__ void consume(long long unit, const char* stage) {
+    int b, np;
+    size_t q0;
+    this->place(unit, b, q0, np);
+    if (b != cur) {
+      dI = gsc[2 * b];
+      dP = gsc[2 * b + 1];
+      cur = b;
+    }
+    const T* ys = reinterpret_cast<const T*>(stage);
+    const uint8_t* ts = reinterpret_cast<const uint8_t*>(stage) +
+                        (size_t)this->pixels * this->F * sizeof(T) + this->tgt_skew(q0);
+    const int F = this->F, lane = this->lane;
+    const bool act = lane < F / V;
+    const int groups = (np + L - 1) / L;
+    for (int g0 = 0; g0 < groups; g0 += kStreamThreads / L) {
+      const int pb = (g0 + this->grp) * L;
+      const float l = this->logit(ys, pb, np);
+      float dl = 0.f;
+      if (pb + lane < np) {
+        const float p = 1.f / (1.f + expf(-l));
+        const float t = ts[pb + lane] ? 1.f : 0.f;
+        const float dlog = (dI * t + dP) * p * (1.f - p);
+        dl = round_to<T>(dlog);
+        db += dlog;
+      }
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        const float dlk = __shfl_sync(0xffffffffu, dl, k, L);
+        if (pb + k >= np || !act) continue;
+        float yv[V], wl[V], z[V], d[V];
+        this->chunk(ys, pb + k, yv, wl, z);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          d[j] = wl[j] > 0.f ? __fmul_rn(dlk, this->w[j]) : 0.f;
+          st[j] += d[j];
+          tt[j] += d[j] * ((yv[j] - mean[j]) * rstd[j]);
+          dw[j] += z[j] * dlk;
+        }
+        store_vec16<T, V>(dzt + (q0 + pb + k) * F + lane * V, d);
+      }
+    }
+  }
+};
+
+// partials[blockIdx.x]: the CTA's S (F) | T (F) | dw (F) | db (1), ld floats
+// a row; the last CTA to arrive sums the rows into out (3F + 1).
+template <typename T, int L>
+__global__ void __launch_bounds__(kStreamThreads, 1)
     head_bwd_kernel(const T* __restrict__ y, const uint8_t* __restrict__ tgt,
                     const float* __restrict__ aff4, const float* __restrict__ w,
-                    const float* __restrict__ hb_p, const float* __restrict__ gsc,
-                    T* __restrict__ dzt, float* __restrict__ partials, int HW, int F, int L) {
+                    const float* __restrict__ hb, const float* __restrict__ gsc,
+                    T* __restrict__ dzt, float* __restrict__ partials, float* __restrict__ out,
+                    unsigned* counter, int B, int HW, int F, int pixels, int ld) {
+  extern __shared__ __align__(128) char smem[];
+  __shared__ float wred[kStreamThreads / 32];
   constexpr int V = head_vec<T>();
-  constexpr int NS = 3 * V + 1;
-  __shared__ float red[kThreads * (3 * kMaxV + 1)];
-  const int G = F / V, R = kThreads / L;
-  const int lane = threadIdx.x % L, r = threadIdx.x / L;
-  const bool act = lane < G;
-  const int f0 = lane * V, b = blockIdx.y;
-  float a[V], sh[V], mean[V], rstd[V], wv[V];
+  HeadBwdOp<T, L> op;
+  head_run_init<T, L>(op, y, tgt, aff4, w, hb, B, HW, F, pixels);
+  op.gsc = gsc;
+  op.dzt = dzt;
+  const bool act = op.lane < F / V;
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    a[j] = act ? aff4[f0 + j] : 0.f;
-    sh[j] = act ? aff4[F + f0 + j] : 0.f;
-    mean[j] = act ? aff4[2 * F + f0 + j] : 0.f;
-    rstd[j] = act ? aff4[3 * F + f0 + j] : 0.f;
-    wv[j] = act ? w[f0 + j] : 0.f;
+  for (int k = 0; k < V; ++k) {
+    op.mean[k] = act ? aff4[2 * F + op.lane * V + k] : 0.f;
+    op.rstd[k] = act ? aff4[3 * F + op.lane * V + k] : 0.f;
+    op.st[k] = op.tt[k] = op.dw[k] = 0.f;
   }
-  const float hb = hb_p[0], dI = gsc[2 * b], dP = gsc[2 * b + 1];
-  float st[V] = {}, tt[V] = {}, dw[V] = {}, db = 0.f;
-  const size_t img = (size_t)b * HW;
-  for (int base = blockIdx.x * R; base < HW; base += gridDim.x * R) {
-    const int px = base + r;
-    const bool valid = px < HW;
-    float yv[V] = {}, wl[V], z[V];
-    if (valid && act) load_vec16<T, V>(y + (img + px) * F + f0, yv);
-    const float l = head_logit<T, V>(yv, a, sh, wv, hb, L, wl, z);
-    if (!valid) continue;
-    const float p = 1.f / (1.f + expf(-l));
-    const float t = tgt[img + px] ? 1.f : 0.f;
-    const float dlog = (dI * t + dP) * p * (1.f - p);
-    const float dl = round_to<T>(dlog);
-    if (lane == 0) db += dlog;
-    if (!act) continue;
-    float d[V];
+  op.db = op.dI = op.dP = 0.f;
+  op.cur = -1;
+  long long begin, end;
+  unit_range((long long)B * op.runs, gridDim.x, blockIdx.x, begin, end);
+  stream_units(op, smem, head_stage_bytes<T>(pixels, F), begin, end);
+
+  // the CTA's S, T, dw: channel f sums the groups' lanes that hold it, in
+  // group order; db over the warps in order
+  float* red = reinterpret_cast<float*>(smem + kStreamBarBytes);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      d[j] = wl[j] > 0.f ? __fmul_rn(dl, wv[j]) : 0.f;
-      st[j] += d[j];
-      tt[j] += d[j] * ((yv[j] - mean[j]) * rstd[j]);
-      dw[j] += z[j] * dl;
-    }
-    store_vec16<T, V>(dzt + (img + px) * F + f0, d);
+  for (int k = 0; k < V; ++k) {
+    red[threadIdx.x * 3 * V + k] = op.st[k];
+    red[threadIdx.x * 3 * V + V + k] = op.tt[k];
+    red[threadIdx.x * 3 * V + 2 * V + k] = op.dw[k];
   }
-  float* mine = red + threadIdx.x * NS;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    mine[j] = st[j];
-    mine[V + j] = tt[j];
-    mine[2 * V + j] = dw[j];
-  }
-  mine[3 * V] = db;
+  const float db = warp_sum(op.db);
+  if (threadIdx.x % 32 == 0) wred[threadIdx.x / 32] = db;
   __syncthreads();
-  if (r == 0 && act) {
-    float* row = partials + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (3 * F + 1);
-    for (int k = 0; k < 3 * V; ++k) {
-      float acc = 0.f;
-      for (int rr = 0; rr < R; ++rr) acc += red[(rr * L + lane) * NS + k];
-      row[(k / V) * F + f0 + k % V] = acc;
-    }
-    if (lane == 0) {
-      float acc = 0.f;
-      for (int rr = 0; rr < R; ++rr) acc += red[(rr * L) * NS + 3 * V];
-      row[3 * F] = acc;
-    }
+  float* row = partials + (size_t)blockIdx.x * ld;
+  for (int c = threadIdx.x; c < 3 * F; c += kStreamThreads) {
+    const int f = c % F, part = c / F;
+    const float* col = red + (f / V) * 3 * V + part * V + f % V;
+    float acc = 0.f;
+    for (int g = 0; g < kStreamThreads / L; ++g) acc += col[(size_t)g * L * 3 * V];
+    row[c] = acc;
   }
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int wp = 0; wp < kStreamThreads / 32; ++wp) acc += wred[wp];
+    row[3 * F] = acc;
+  }
+  last_cta_sums(partials, ld, 3 * F + 1, out, counter,
+                reinterpret_cast<float4*>(smem + kStreamBarBytes));
 }
 
+// K5's L: the power of two at or above F / V (at most 32).
 int group_lanes(int F, int elem) {
   const int G = F / (16 / elem);
   int L = 1;
@@ -215,42 +425,96 @@ int group_lanes(int F, int elem) {
   return L;
 }
 
-// Blocks per sample: about 4 blocks per SM of a 132-SM card in all.
-int blocks_per_sample(int B, int HW, int F, int elem) {
-  const int R = kThreads / group_lanes(F, elem);
-  const int want = (528 + B - 1) / B;
-  return std::max(1, std::min(want, (HW + R - 1) / R));
+// The checks of K5's plan (runs of `pixels`, ctas, smem) against the
+// kernel's layout: cudaErrorInvalidValue for a plan it does not lay out so.
+template <typename T>
+int check_head_plan(int B, int HW, int F, int pixels, int ctas, int smem, int which) {
+  const int L = group_lanes(F, (int)sizeof(T));
+  const long long units = (long long)B * ((HW + pixels - 1) / pixels);
+  if (F % head_vec<T>() || L > 32 || pixels < L || pixels % L || ctas < 1 || ctas > units ||
+      smem != head_smem<T>(pixels, F, which))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <typename T, int L>
+int launch_fwd_l(const void* y, const void* tgt, const void* aff, const void* w, const void* hb,
+                 float* work, float* sums, unsigned* counter, int B, int HW, int F, int pixels,
+                 int ctas, int smem, int ld, cudaStream_t stream) {
+  const int err = (int)cudaFuncSetAttribute(head_fwd_kernel<T, L>,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  head_fwd_kernel<T, L><<<ctas, kStreamThreads, smem, stream>>>(
+      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff),
+      static_cast<const float*>(w), static_cast<const float*>(hb), work, sums, counter, B, HW, F,
+      pixels, ld);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int L>
+int launch_bwd_l(const void* y, const void* tgt, const void* aff4, const void* w, const void* hb,
+                 const void* gsc, void* dzt, float* work, float* out, unsigned* counter, int B,
+                 int HW, int F, int pixels, int ctas, int smem, int ld, cudaStream_t stream) {
+  const int err = (int)cudaFuncSetAttribute(head_bwd_kernel<T, L>,
+                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  head_bwd_kernel<T, L><<<ctas, kStreamThreads, smem, stream>>>(
+      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt),
+      static_cast<const float*>(aff4), static_cast<const float*>(w),
+      static_cast<const float*>(hb), static_cast<const float*>(gsc), static_cast<T*>(dzt), work,
+      out, counter, B, HW, F, pixels, ld);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_fwd(const void* y, const void* tgt, const void* aff, const void* w, const void* hb,
-               float* work, float* sums, int B, int HW, int F, cudaStream_t stream) {
-  const int L = group_lanes(F, (int)sizeof(T));
-  const int bps = blocks_per_sample(B, HW, F, (int)sizeof(T));
-  head_fwd_kernel<T><<<dim3(bps, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff),
-      static_cast<const float*>(w), static_cast<const float*>(hb), work, B, HW, F, L);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  float* scratch = work + (long long)bps * B * kHeadSums;
-  return reduce_rows(work, bps, B * kHeadSums, scratch, sums, stream);
+               float* work, float* sums, unsigned* counter, int B, int HW, int F, int pixels,
+               int ctas, int smem, cudaStream_t s) {
+  if (const int err = check_head_plan<T>(B, HW, F, pixels, ctas, smem, 0)) return err;
+  const int ld = (int)round_up(9LL * B, 4);
+#define UNET_HEAD_FWD(L)                                                                  \
+  case L:                                                                                 \
+    return launch_fwd_l<T, L>(y, tgt, aff, w, hb, work, sums, counter, B, HW, F, pixels, \
+                              ctas, smem, ld, s);
+  switch (group_lanes(F, (int)sizeof(T))) {
+    UNET_HEAD_FWD(1)
+    UNET_HEAD_FWD(2)
+    UNET_HEAD_FWD(4)
+    UNET_HEAD_FWD(8)
+    UNET_HEAD_FWD(16)
+    UNET_HEAD_FWD(32)
+  }
+#undef UNET_HEAD_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch_bwd(const void* y, const void* tgt, const void* aff4, const void* w, const void* hb,
-               const void* gsc, void* dzt, float* work, float* out, int B, int HW, int F,
-               cudaStream_t stream) {
-  const int L = group_lanes(F, (int)sizeof(T));
-  const int bps = blocks_per_sample(B, HW, F, (int)sizeof(T));
-  head_bwd_kernel<T><<<dim3(bps, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff4),
-      static_cast<const float*>(w), static_cast<const float*>(hb),
-      static_cast<const float*>(gsc), static_cast<T*>(dzt), work, HW, F, L);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  const long long rows = (long long)bps * B;
-  float* scratch = work + rows * (3 * F + 1);
-  return reduce_rows(work, (int)rows, 3 * F + 1, scratch, out, stream);
+               const void* gsc, void* dzt, float* work, float* out, unsigned* counter, int B,
+               int HW, int F, int pixels, int ctas, int smem, cudaStream_t s) {
+  if (const int err = check_head_plan<T>(B, HW, F, pixels, ctas, smem, 1)) return err;
+  const int ld = (int)round_up(3LL * F + 1, 4);
+#define UNET_HEAD_BWD(L)                                                                    \
+  case L:                                                                                   \
+    return launch_bwd_l<T, L>(y, tgt, aff4, w, hb, gsc, dzt, work, out, counter, B, HW, F, \
+                              pixels, ctas, smem, ld, s);
+  switch (group_lanes(F, (int)sizeof(T))) {
+    UNET_HEAD_BWD(1)
+    UNET_HEAD_BWD(2)
+    UNET_HEAD_BWD(4)
+    UNET_HEAD_BWD(8)
+    UNET_HEAD_BWD(16)
+    UNET_HEAD_BWD(32)
+  }
+#undef UNET_HEAD_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11's blocks per sample: about 4 blocks per SM of a 132-SM card in all.
+int blocks_per_sample(int B, int HW, int F, int elem) {
+  const int R = kThreads / group_lanes(F, elem);
+  const int want = (528 + B - 1) / B;
+  return std::max(1, std::min(want, (HW + R - 1) / R));
 }
 
 // ---------------------------------------------------------------------------
@@ -276,14 +540,18 @@ int launch_bwd(const void* y, const void* tgt, const void* aff4, const void* w, 
 // Bound on the H100 as K5's: device memory (y read once per direction, dzt
 // written by the backward; 2 * NC + 10 flops per channel a pixel).
 //
-// Design: K5's plan. The NC dot products, the softmax and the backward's
-// class sums are computed with separately rounded products and sums (no FMA
-// contraction) in the order the plain version uses: the thread's channels in
-// sequence, then the xor butterfly over the pixel's group, then the classes
-// in sequence. Logits, probabilities and the argmax therefore agree with the
-// plain version bit for bit on the card, and the confusion-matrix counts come
-// out equal. Per-sample partial rows and the fixed-order reduce_rows() sum
-// them as in K5; the counts are exact in fp32 (under 2^24 pixels a sample).
+// Design (the first K5's, which K11 keeps until it moves onto K5's
+// streaming body): a pixel is split over a group of L lanes (L the power of
+// two at or above F/V), one 16-byte vector of y each, on a grid of
+// (blocks_per_sample, B). The NC dot products, the softmax and the
+// backward's class sums are computed with separately rounded products and
+// sums (no FMA contraction) in the order the plain version uses: the
+// thread's channels in sequence, then the xor butterfly over the pixel's
+// group, then the classes in sequence. Logits, probabilities and the argmax
+// therefore agree with the plain version bit for bit on the card, and the
+// confusion-matrix counts come out equal. Per-sample partial rows are
+// summed by the fixed-order reduce_rows(); the counts are exact in fp32
+// (under 2^24 pixels a sample).
 // ---------------------------------------------------------------------------
 
 constexpr float kClipEps = 1e-7f;
@@ -568,43 +836,47 @@ int bwd_mc(int NC, const void* y, const void* tgt, const void* aff4, const void*
 }  // namespace
 }  // namespace unet
 
-// Floats of workspace unet_head_fwd (which = 0) or unet_head_bwd (which = 1)
-// needs. F/(16/sizeof(T)) must be at most 32.
-extern "C" long long unet_head_workspace(int B, int HW, int F, int dtype, int which) {
-  const int elem = dtype == 0 ? 4 : 2;
-  const long long rows = unet::blocks_per_sample(B, HW, F, elem) * (which ? (long long)B : 1LL);
-  const long long cols = which ? 3LL * F + 1 : (long long)B * unet::kHeadSums;
-  return rows * cols + unet::reduce_scratch_floats(rows, cols);
-}
-
-// y (B,H,W,F) in T, HW = H*W; tgt (B,H,W) uint8 0/1; aff (2,F) fp32 = a, b;
-// w (F,) and hb (1,) fp32, rounded to T; sums (B,9) fp32 in the order
-// i, p, t, it, pt, tt, ir, pr, tr. Returns cudaGetLastError().
+// y (B,H,W,F) in T, HW = H*W, 16-byte aligned; tgt (B,H,W) uint8 0/1; aff
+// (2,F) fp32 = a, b; w (F,) and hb (1,) fp32, rounded to T; sums (B,9) fp32
+// in the order i, p, t, it, pt, tt, ir, pr, tr; work (ctas, round_up(9B, 4))
+// fp32 rows; counter an unsigned int that is 0 and is left 0; the plan of
+// ops/fused_head.head_plan: runs of `pixels`, ctas, smem bytes. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan the kernel does
+// not lay out so.
 extern "C" int unet_head_fwd(const void* y, const void* tgt, const void* aff, const void* w,
-                             const void* hb, void* work, void* sums, int B, int HW, int F,
-                             int dtype, void* stream) {
+                             const void* hb, void* work, void* sums, void* counter, int B,
+                             int HW, int F, int pixels, int ctas, int smem, int dtype,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wk = static_cast<float*>(work);
   float* o = static_cast<float*>(sums);
-  if (dtype == 0) return unet::launch_fwd<float>(y, tgt, aff, w, hb, wk, o, B, HW, F, s);
+  unsigned* c = static_cast<unsigned*>(counter);
+  if (dtype == 0)
+    return unet::launch_fwd<float>(y, tgt, aff, w, hb, wk, o, c, B, HW, F, pixels, ctas, smem, s);
   if (dtype == 1)
-    return unet::launch_fwd<__nv_bfloat16>(y, tgt, aff, w, hb, wk, o, B, HW, F, s);
+    return unet::launch_fwd<__nv_bfloat16>(y, tgt, aff, w, hb, wk, o, c, B, HW, F, pixels, ctas,
+                                           smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // As unet_head_fwd, plus aff4 (4,F) fp32 = a, b, mean, rstd; gsc (B,2) fp32
-// = dI, dP; dzt (B,H,W,F) in T; out (3F+1) fp32 = S | T | dw | db.
-// Returns cudaGetLastError().
+// = dI, dP; dzt (B,H,W,F) in T; out (3F+1) fp32 = S | T | dw | db; work
+// (ctas, round_up(3F+1, 4)) fp32 rows. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan the kernel does not lay out so.
 extern "C" int unet_head_bwd(const void* y, const void* tgt, const void* aff4, const void* w,
                              const void* hb, const void* gsc, void* dzt, void* work, void* out,
-                             int B, int HW, int F, int dtype, void* stream) {
+                             void* counter, int B, int HW, int F, int pixels, int ctas, int smem,
+                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wk = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
+  unsigned* c = static_cast<unsigned*>(counter);
   if (dtype == 0)
-    return unet::launch_bwd<float>(y, tgt, aff4, w, hb, gsc, dzt, wk, o, B, HW, F, s);
+    return unet::launch_bwd<float>(y, tgt, aff4, w, hb, gsc, dzt, wk, o, c, B, HW, F, pixels,
+                                   ctas, smem, s);
   if (dtype == 1)
-    return unet::launch_bwd<__nv_bfloat16>(y, tgt, aff4, w, hb, gsc, dzt, wk, o, B, HW, F, s);
+    return unet::launch_bwd<__nv_bfloat16>(y, tgt, aff4, w, hb, gsc, dzt, wk, o, c, B, HW, F,
+                                           pixels, ctas, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
