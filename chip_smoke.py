@@ -43,9 +43,9 @@ exit code and no result line:
    decoder stages, K5 (the fused head, forward and backward) at dec1 on
    inputs where the ReLU's argument is exactly 0 on some pixels, K11 (the
    softmax head) at dec1 of the 512 px model with 3 classes and at another
-   width with 4, on such inputs and with two classes' logits tied
-   everywhere (the confusion
-   matrix must match exactly), K9/K10 (per-block training) at the 18 block
+   width with 4, on such inputs, with class ids of NC (in no class) and two
+   classes' logits tied everywhere (the confusion matrix must match
+   exactly), K9/K10 (per-block training) at the 18 block
    shapes of the 256 px model; then K1, K9, K2 and K10 at other shapes, batch
    2 and 3 (``LINK_RAGGED``: H x W 20 x 36, 3 input channels with F = 48, C = 5
    with F = 33 off the mma's depth, C = 200 with F = 72 so the last C
@@ -55,15 +55,16 @@ exit code and no result line:
    and K6 at other feeds, batch 2 and 3, fp32 and bf16 (``FEED_RAGGED``:
    48 -> 8 at 16 px, C = 96 and 200 with F = 24 and 40 on odd sides
    H x W 9 x 13 and 5 x 3, odd C and F (5 -> 3), and the 512 px model's
-   feeds), and K4 and K5 at other shapes, batch 2 and 3, fp32 and bf16
-   (``POOL_RAGGED``: H x W 20 x 36 with F = 40 and 200, the 512 px model's
-   boundaries; ``HEAD_RAGGED``: 20 x 36 with F = 8, 24, 40, 200 and the
-   widest width (256 bf16, 128 fp32; a width K5 does not take in a dtype
-   is skipped), F = 40 on 9 x 13 pixels, whose samples' targets are not
-   16-byte aligned, and dec1 of the 512 px model). Everywhere K4's dzt
-   must equal its plain version's bit for bit (ties and the ReLU mask),
-   K5's dzt must be 0 wherever a*y+b is not above 0, and a second launch
-   of K4 and K5 on the same inputs must give the same bits;
+   feeds), and K4, K5 and K11 at other shapes, batch 2 and 3, fp32 and
+   bf16 (``POOL_RAGGED``: H x W 20 x 36 with F = 40 and 200, the 512 px
+   model's boundaries; ``HEAD_RAGGED``: 20 x 36 with F = 8, 24, 40, 200 and
+   the widest width (256 bf16, 128 fp32; a width the heads do not take in
+   a dtype is skipped), F = 40 on 9 x 13 pixels, whose samples' targets are
+   not 16-byte aligned, and dec1 of the 512 px model; K11 with 2, 3 and 4
+   classes at each). Everywhere K4's dzt must equal its plain version's bit
+   for bit (ties and the ReLU mask), K5's and K11's dzt must be 0 wherever
+   a*y+b is not above 0, K11's confusion matrix must be exact, and a second
+   launch of K4, K5 and K11 on the same inputs must give the same bits;
 8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
    3 train steps with the kernels against 3 of the composed path in fp32
@@ -79,16 +80,19 @@ exit code and no result line:
    ``fit`` for one epoch whose ``best/`` checkpoint a ``Predictor`` serves;
 9. K1-K6, K9, K10 at batch 32 and K11 at batch 8 of 512 px (the paths'
    batches), whose launch plans differ from batch 2's: each output held
-   against its plain version under phase 7's bars (K4 and K5 with phase
-   7's bit checks), then both timed, K3-K6 and K9 with their bounds and
+   against its plain version under phase 7's bars (K4, K5 and K11 with
+   phase 7's bit checks), then both timed, K3-K6 and K9 with their bounds and
    the share of the bound reached;
 10. multiclass training at full width (``configs/multiclass_512.json`` with
    ``fused_head`` all: 3 classes, 512 px, batch 8, cce, numpy class-id
    scenes): 3 steps with the kernels against 3 of the composed path in fp32
    and bf16 under phase 8's bars, 18/18/4/4 K1-K4, 4/4 K6 and 1/1 K11
-   launches a step, images/s, peak memory and a profiled step; then the
-   config's own 'auto' (K11 off, the composed sums) for one step, and its
-   images/s against 'all' in turns (the A/B that decides the default);
+   launches a step, images/s, peak memory and a profiled step (K11's device
+   ms with every launch it makes); then the config's own 'auto' (K11 off,
+   the composed sums) for one step, and its images/s against 'all' in turns
+   (the A/B that decides the default); then K11's forward and backward
+   traced alone at the path's shape: one launch of each kernel, no row-sum
+   launch;
 11. per-block training at full width: each of the 18 ConvBlocks of the
    256 px model at batch 32 with BatchNorm and ``use_pallas`` (one K9 and
    one K10 launch a block) against the composed block (output, every
@@ -342,22 +346,23 @@ def head_case(torch, rnd, dev, dtype, batch, f=FILTERS[0], h=IMAGE, w=None):
     return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=wv, hb=hb, t=t, gsc=gsc)
 
 
-def head_mc_case(torch, rnd, dev, dtype, batch, px, f, nc):
-    """Seeded inputs of K11: y and the affine on quarters as in head_case,
-    class-id targets, and head weights whose classes 0 and 1 share a column
-    and a bias, so their logits tie on every pixel (the first wins)."""
-    g = rnd.gen
-    y = (torch.randint(-8, 9, (batch, px, px, f), generator=g) * 0.25).to(dev, dtype)
+def head_mc_case(torch, rnd, dev, dtype, batch, h, f, nc, w=None):
+    """Seeded inputs of K11, y (batch, h, w, f) with w = h unless given: y
+    and the affine on quarters as in head_case, class ids 0..nc (an id of
+    nc counts in no class), and head weights whose classes 0 and 1 share a
+    column and a bias, so their logits tie on every pixel (the first wins)."""
+    g, w = rnd.gen, h if w is None else w
+    y = (torch.randint(-8, 9, (batch, h, w, f), generator=g) * 0.25).to(dev, dtype)
     aff4 = torch.stack([1 + 0.5 * torch.randint(0, 3, (f,), generator=g),
                         0.25 * torch.randint(-2, 3, (f,), generator=g),
                         0.1 * rnd(f), 1 + 0.5 * rnd(f).abs()]).float().to(dev).contiguous()
-    w = (0.1 * rnd(f, nc)).to(dtype).float()
-    w[:, 1] = w[:, 0]
+    wt = (0.1 * rnd(f, nc)).to(dtype).float()
+    wt[:, 1] = wt[:, 0]
     hb = (0.1 * rnd(nc)).to(dtype).float()
     hb[1] = hb[0]
-    t = torch.randint(0, nc, (batch, px, px), generator=g).to(torch.uint8).to(dev)
+    t = torch.randint(0, nc + 1, (batch, h, w), generator=g).to(torch.uint8).to(dev)
     gsc = rnd(batch, 2 * nc + 1).to(dev).contiguous()
-    return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=w.to(dev).contiguous(),
+    return dict(y=y, aff4=aff4, aff2=aff4[:2].contiguous(), w=wt.to(dev).contiguous(),
                 hb=hb.to(dev).contiguous(), t=t, gsc=gsc)
 
 
@@ -400,8 +405,8 @@ def pool_case(torch, rnd, dev, dtype, batch, f, h, w=None):
 
 
 def same_bits(torch, name, label, dname, first, again):
-    """K4 and K5 sum in a fixed order: a second launch on the same inputs
-    gives the same bits, or the run fails."""
+    """K4, K5 and K11 sum in a fixed order: a second launch on the same
+    inputs gives the same bits, or the run fails."""
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         raise AssertionError(f"{name} {label} {dname}: a second launch gave other bits")
 
@@ -436,7 +441,9 @@ def judge_head(torch, fh, tjudge, k, label, dname):
 
 
 def judge_head_mc(torch, fh, tjudge, k, label, dname):
-    """K11 forward and backward against plain; the confusion matrix exactly."""
+    """K11 forward and backward against plain: the confusion matrix
+    exactly, dzt exactly 0 wherever the plain version's a*y+b is not above
+    0, and a second launch of each giving the same bits."""
     fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
     bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
     got, want = fh.head_fwd_sums_mc(*fwd), fh.head_fwd_sums_mc_reference(*fwd)
@@ -449,9 +456,14 @@ def judge_head_mc(torch, fh, tjudge, k, label, dname):
           "predicted as the tied second class)")
     if not same:
         raise AssertionError(f"head_fwd_mc {label} {dname}: confusion matrix differs")
+    same_bits(torch, "head_fwd_mc", label, dname, [got], [fh.head_fwd_sums_mc(*fwd)])
     got, want = fh.head_bwd_mc(*bwd), fh.head_bwd_mc_reference(*bwd)
     tjudge("head_bwd_mc", label + " dzt", dname, [(got[0], want[0])])
     tjudge("head_bwd_mc", label + " S/T/dw/db", dname, list(zip(got[1:], want[1:])), sums=True)
+    off = (k["y"].float() * k["aff4"][0] + k["aff4"][1]) <= 0
+    if bool((got[0][off] != 0).any()):
+        raise AssertionError(f"head_bwd_mc {label} {dname}: dzt not 0 where a*y+b <= 0")
+    same_bits(torch, "head_bwd_mc", label, dname, got, fh.head_bwd_mc(*bwd))
 
 
 def judge_k9(fs, tjudge, k, label, dname):
@@ -604,7 +616,7 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
                            f"{plan.tiles_fwd}/{plan.tiles_dx} column tiles, {plan.splits} "
                            "d_kernel splits", dname)
     batches = " and ".join(map(str, POOL_HEAD_RAGGED_BATCHES))
-    print(f"K4 and K5 vs plain at other shapes, batch {batches}, TF32 off:")
+    print(f"K4, K5 and K11 vs plain at other shapes, batch {batches}, TF32 off:")
     for dname, dtype in dtypes.items():
         for batch in POOL_HEAD_RAGGED_BATCHES:
             for name, f, h, w in POOL_RAGGED:
@@ -622,6 +634,12 @@ def check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge):
                 judge_head(torch, fh, tjudge, k, f"{name} F={f}@{h}x{w} batch {batch}, "
                            f"{plan.runs} runs of {plan.pixels} px in groups of {plan.lanes} "
                            f"lanes on {plan.ctas} CTAs", dname)
+                for nc in range(2, fh.MAX_MC_CLASSES + 1):
+                    k = head_mc_case(torch, rnd, dev, dtype, batch, h, f, nc, w)
+                    plan = fh.head_plan(batch, h * w, f, dtype, sms, nc)
+                    judge_head_mc(torch, fh, tjudge, k, f"softmax {nc} classes {name} F={f}@{h}x"
+                                  f"{w} batch {batch}, {plan.runs} runs of {plan.pixels} px in "
+                                  f"groups of {plan.lanes} lanes on {plan.ctas} CTAs", dname)
     rnd.gen.set_state(stream)
 
 
@@ -959,7 +977,7 @@ def train_path(torch, dev, smi, report, launches):
         report["train"]["fit_best"] = res.best_score
 
 
-def multiclass_path(torch, dev, smi, report, launches):
+def multiclass_path(torch, dev, smi, report, launches, rnd):
     """Phase 10: multiclass training at full width through K11."""
     with open(os.path.join(ROOT, MC_CONFIG)) as f:
         base = json.load(f)
@@ -980,6 +998,54 @@ def multiclass_path(torch, dev, smi, report, launches):
         torch, dev, smi, base, x, m, launches, MC_STEP_LAUNCHES,
         variant=(f"fused_head {config_head}", {"fused_head": config_head},
                  STEP_LAUNCHES_HEAD_OFF))
+    for dname, rec in report["multiclass"].items():
+        rows = rec["profile"]["per_kernel"]
+        print(f"  {dname} K11 in the profiled step, device ms a step with every launch it makes: "
+              + ", ".join(f"{name} {rows[name]['ms']:.4f} ms in {rows[name]['launches']:g} "
+                          "launch(es)" for name in ("head_fwd_mc", "head_bwd_mc")))
+    report["multiclass"]["k11_alone"] = k11_alone_launches(torch, dev, rnd)
+
+
+def k11_alone_launches(torch, dev, rnd):
+    """Phase 10: K11's forward and backward at the path's shape (batch 8 of
+    512 px, dec1, 3 classes, bf16), traced alone: each launches its own
+    kernel once and nothing else, no row-sum kernel in particular."""
+    from unet_image_segmentation_tpu_torch.ops import fused_head as fh
+    from unet_image_segmentation_tpu_torch.troubleshoot import profile_summary
+    from unet_image_segmentation_tpu_torch.utils.profiling import trace
+
+    stream = rnd.gen.get_state()  # the later phases' seeded inputs stay as they were
+    k = head_mc_case(torch, rnd, dev, torch.bfloat16, MC_BATCH, MC_IMAGE, FILTERS[0], 3)
+    rnd.gen.set_state(stream)
+    fwd = (k["y"], k["t"], k["aff2"], k["w"], k["hb"])
+    bwd = (k["y"], k["t"], k["aff4"], k["w"], k["hb"], k["gsc"])
+    fh.head_fwd_sums_mc(*fwd), fh.head_bwd_mc(*bwd)   # warm
+    torch.cuda.synchronize()
+    span = "chip_smoke.k11"
+    with tempfile.TemporaryDirectory(prefix="unet_k11_") as tmp:
+        with trace(tmp, dev):
+            # a lead-in pair, as step_attribution leads in with a step: a
+            # trace of the two kernels alone has come back without device
+            # time on the card; only the span's launches are counted
+            fh.head_fwd_sums_mc(*fwd), fh.head_bwd_mc(*bwd)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(span):
+                fh.head_fwd_sums_mc(*fwd)
+                fh.head_bwd_mc(*bwd)
+            torch.cuda.synchronize()
+        summary = profile_summary.summarize(tmp, within=span)
+    profile_summary.check_complete(summary, "K11 traced alone")
+    seen = {}
+    for name, n in summary["launches"].items():   # kernels and copies
+        entry = roofline.entry_of(name) or name
+        seen[entry] = seen.get(entry, 0) + n
+    want = {"head_fwd_mc_kernel": 1, "head_bwd_mc_kernel": 1}
+    print(f"  K11 forward and backward traced alone (bf16, batch {MC_BATCH} of {MC_IMAGE} px): "
+          f"kernels launched {seen}")
+    if seen != want:
+        raise AssertionError(f"K11 launched {seen}, expected {want} (no row-sum launch)")
+    return {"launches": seen, "kernel_ms": {roofline.entry_of(n) or n: t
+                                            for n, t in summary["kernels"].items()}}
 
 
 @contextlib.contextmanager
@@ -1682,7 +1748,7 @@ def main() -> int:
                 if kname in bound_tot else "") for kname, t in tot.items()))
 
     # ---- 10. multiclass training through K11 ---------------------------------
-    multiclass_path(torch, dev, smi, report, launches)
+    multiclass_path(torch, dev, smi, report, launches, rnd)
 
     # ---- 11. per-block training through K9/K10, BatchNorm-free U-Net ---------
     block_train_path(torch, dev, smi, report, launches, dtypes)

@@ -188,21 +188,26 @@ _HEAD_PLAN_SHAPES = [
 ]
 
 
+@pytest.mark.parametrize("nc", [1, 2, 3, 4], ids=["k5", "k11-2", "k11-3", "k11-4"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b,hw,f", _HEAD_PLAN_SHAPES)
-def test_head_plan(b, hw, f, dtype):
-    """Groups of L lanes (the power of two at or above F/V) take L pixels
-    at a time, at most one pixel a thread of 512; runs of a whole number of
-    groups, about 64 KB of y; the CTAs' contiguous run ranges cover every
-    pixel of every sample exactly once; the ring's 3 stages in shared
-    memory; at most one CTA an SM of a 132-SM card (__launch_bounds__(512,
-    1))."""
+def test_head_plan(b, hw, f, dtype, nc):
+    """K5 (nc = 1) and K11 (nc classes) share the plan: groups of L lanes
+    (the power of two at or above F/V) take L pixels at a time, at most one
+    pixel a thread of 512; runs of a whole number of groups, about 64 KB of
+    y; the CTAs' contiguous run ranges cover every pixel of every sample
+    exactly once; the ring's 3 stages in shared memory; at most one CTA an
+    SM of a 132-SM card (__launch_bounds__(512, 1)). The rows of partial
+    sums and the shared memory follow each kernel's layout (head_smem of
+    head.cu, head_mc_smem of head_mc.cu): K11's backward holds S, T and dw of 4
+    channels a thread, then a table of a, b, mean, rstd and w ((4+NC) F
+    floats) and hb (4 floats), and the run's dlb (16 bytes a pixel)."""
     if not tfh.head_supported(f, dtype):
         with pytest.raises(ValueError):
-            tfh.head_plan(b, hw, f, dtype, 132)
+            tfh.head_plan(b, hw, f, dtype, 132, nc)
         return
     sms = 132
-    plan = tfh.head_plan(b, hw, f, dtype, sms)
+    plan = tfh.head_plan(b, hw, f, dtype, sms, nc)
     e = dtype.itemsize
     g = f // (16 // e)
     assert plan.lanes >= g and plan.lanes < 2 * max(g, 1) and plan.lanes & (plan.lanes - 1) == 0
@@ -214,9 +219,17 @@ def test_head_plan(b, hw, f, dtype):
     assert plan.stage == plan.pixels * f * e + -(-plan.pixels // 16) * 16 + 32
     ring = 3 * (-(-plan.stage // 128) * 128)
     assert plan.smem_fwd == 64 + max(ring, 512 * 16)
-    assert plan.smem_bwd == 64 + max(ring, 512 * 12 * (16 // e))
+    if nc == 1:
+        assert plan.smem_bwd == 64 + max(ring, 512 * 12 * (16 // e))
+        sums = 9
+    else:
+        assert plan.smem_bwd == (64 + max(ring, 512 * 16 * (2 + nc)) + ((4 + nc) * f + 4) * 4 +
+                                 512 * 16)
+        sums = 3 * nc + 1 + nc * nc
+        assert tfh.mc_sum_count(nc) == sums
     assert max(plan.smem_fwd, plan.smem_bwd) <= tft.SMEM_MAX
-    assert (plan.ld_fwd, plan.ld_bwd) == (-(-9 * b // 4) * 4, -(-(3 * f + 1) // 4) * 4)
+    assert (plan.ld_fwd, plan.ld_bwd) == (-(-sums * b // 4) * 4,
+                                          -(-((2 + nc) * f + nc) // 4) * 4)
     covered = np.zeros(b * hw, np.int32)
     for lo, hi in tft.stream_ranges(plan.runs, plan.ctas):
         for u in range(lo, hi):
@@ -224,6 +237,13 @@ def test_head_plan(b, hw, f, dtype):
             p0 = k * plan.pixels
             covered[s * hw + p0:s * hw + min(hw, p0 + plan.pixels)] += 1
     assert (covered == 1).all()
+
+
+def test_head_plan_refuses_class_counts_outside_the_kernels():
+    with pytest.raises(ValueError):
+        tfh.head_plan(2, 64, 64, torch.bfloat16, 132, 0)
+    with pytest.raises(ValueError):
+        tfh.head_plan(2, 64, 64, torch.bfloat16, 132, tfh.MAX_MC_CLASSES + 1)
 
 
 def _jax_head_kernels(y, t, aff4, w, hb, gsc, p):

@@ -18,6 +18,7 @@ from unet_image_segmentation_tpu.ops.losses import loss_from_sums as jax_loss_fr
 from unet_image_segmentation_tpu.ops.pallas import fused_head as jfh
 from unet_image_segmentation_tpu_torch.models.unet import UNet
 from unet_image_segmentation_tpu_torch.ops import fused_head as tfh
+from unet_image_segmentation_tpu_torch.ops.kernels import build
 from unet_image_segmentation_tpu_torch.ops.losses import loss_from_sums
 
 SUMS_TOL = dict(rtol=1e-5, atol=1e-4)   # tests/test_fused_head.py's multiclass bar
@@ -239,3 +240,139 @@ def test_five_classes_take_the_composed_sums(monkeypatch):
     for k in tfh.MC_KEYS:
         assert torch.equal(out["all"][k], out["off"][k]), k
     assert out["all"]["cm"].shape == (2, nc, nc)
+
+
+def _transposed_dots(z, w, v, lanes):
+    """fp32 emulation of the card's K11 logit reduction for one group of
+    ``lanes`` lanes and as many pixels (z (lanes, F), w (F, NC)): lane g
+    sums the products of its chunk of V channels of each pixel in channel
+    order, then McDot::node's tree, evaluated depth first, pairs the lanes
+    by the xor bits lanes/2, ..., 1, each lane keeping the pixels whose bit
+    matches its own. Returns (lanes, NC): row g the sum lane g holds, that
+    of pixel g. Lanes past F/V hold zeros."""
+    f, nc = w.shape
+    g = f // v
+    ids = np.arange(lanes)
+
+    def leaf(i):
+        d = np.zeros((lanes, nc), np.float32)
+        for lane in range(g):
+            for j in range(v):
+                prod = (z[i, lane * v + j] * w[lane * v + j]).astype(np.float32)
+                d[lane] = prod if j == 0 else (d[lane] + prod).astype(np.float32)
+        return d
+
+    def node(off, i):
+        if off == lanes:
+            return leaf(i)
+        lo, hi = node(2 * off, i), node(2 * off, i + off)
+        upper = (ids & off).astype(bool)[:, None]
+        send, keep = np.where(upper, lo, hi), np.where(upper, hi, lo)
+        return (keep + send[ids ^ off]).astype(np.float32)
+
+    return node(1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("nc", [2, 3, 4])
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 25, 32])
+def test_transposed_group_dots_equal_the_butterfly_bit_for_bit(chunks, nc, dtype):
+    """K11's kernels leave lane g of a group with pixel g's dots through a
+    transposing reduction; the plain version (_group_dot) emulates an xor
+    butterfly that leaves every lane with the whole sum. fp32 addition is
+    commutative, so the two are equal bit for bit, for groups of 1 to 32
+    lanes, narrower chunks counts than lanes (zero lanes) included, on data
+    spread over many magnitudes so that any other order of the sums shows."""
+    v = 16 // dtype.itemsize
+    f = chunks * v
+    lanes = 1
+    while lanes < chunks:
+        lanes *= 2
+    rng = np.random.RandomState(chunks * 10 + nc)
+    scale = 10.0 ** rng.uniform(-3, 3, (lanes, f))
+    z = torch.from_numpy((rng.randn(lanes, f) * scale).astype(np.float32)).to(dtype).float()
+    w = torch.from_numpy(rng.randn(f, nc).astype(np.float32)).to(dtype).float()
+    want = tfh._group_dot(z, w, dtype).numpy()
+    got = _transposed_dots(z.numpy(), w.numpy(), v, lanes)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if chunks > 1:   # the check can see an order: one sequential sum differs
+        seq = np.zeros((lanes, nc), np.float32)
+        zn, wn = z.numpy(), w.numpy()
+        for j in range(f):
+            seq = (seq + (zn[:, j:j + 1] * wn[j]).astype(np.float32)).astype(np.float32)
+        assert (seq != want).any()
+
+
+def _jax_head_kernels_mc(y, t, aff4, w, hb, gsc, p):
+    """The JAX softmax head kernels (head_fwd_sums_mc, head_bwd_mc) at pack
+    p on fp32 numpy inputs, their panels folded as _head_core's VJP folds
+    them: ``(sums (B, 3NC+1+NC^2), dzt, S, T, dw (F, NC), db (NC,))``."""
+    b, h, wd, f = y.shape
+    nc = w.shape[1]
+    y_p = jnp.asarray(y.reshape(b, h, wd // p, p * f))
+    t_exp = jfh.expand_target_ids(jnp.asarray(t.astype(np.float32)), p)
+    wsel, bvec = jfh._head_mats_mc(jnp.asarray(w), jnp.asarray(hb), p, f, nc, jnp.float32)
+    aff4 = jnp.asarray(aff4)
+    panel = np.asarray(jfh.head_fwd_sums_mc(y_p, t_exp, aff4[:2], wsel, bvec, p, nc))
+    sums = panel[:, :tfh.mc_sum_count(nc), :].sum(axis=-1)
+    g = np.zeros((b, jfh.N_ROWS_MC, jfh.COLS), np.float32)
+    g[:, :2 * nc, :] = gsc[:, :2 * nc, None]
+    g[:, 3 * nc, :] = gsc[:, 2 * nc, None]
+    dzt, st, dw_panel, db_row = jfh.head_bwd_mc(y_p, t_exp, aff4, wsel, bvec, jnp.asarray(g),
+                                                p, nc)
+    st = np.asarray(st)[:2].reshape(2, p, f).sum(axis=1)
+    dwp = np.asarray(dw_panel).reshape(nc, p, f, jfh.COLS)
+    dw = np.stack([sum(dwp[c, j, :, j] for j in range(p)) for c in range(nc)], axis=-1)
+    db = np.asarray(db_row)[:nc].sum(axis=-1)
+    return sums, np.asarray(dzt).reshape(b, h, wd, f), st[0], st[1], dw, db
+
+
+@pytest.mark.parametrize("b,h,wd,f,p,nc,tied", [
+    pytest.param(2, 20, 32, 8, 16, 2, False, id="b2-20x32-f8-p16-nc2"),
+    pytest.param(3, 4, 32, 24, 16, 3, True, id="b3-4x32-f24-p16-nc3-tied"),
+    pytest.param(2, 4, 32, 40, 16, 4, False, id="b2-4x32-f40-p16-nc4"),
+    pytest.param(3, 4, 16, 200, 16, 3, False, id="b3-4x16-f200-p16-nc3"),
+    pytest.param(2, 20, 36, 128, 1, 4, True, id="b2-20x36-f128-p1-nc4-tied"),
+    pytest.param(3, 4, 6, 256, 1, 2, False, id="b3-4x6-f256-p1-nc2"),
+])
+def test_head_mc_kernels_match_jax_at_ragged_widths(b, h, wd, f, p, nc, tied):
+    """Plain K11 (forward sums and backward) against the JAX softmax head
+    kernels in fp32 at the narrowest widths, widths off the powers of two,
+    the widest, and ragged rows, on quarter-step inputs where a*y+b is
+    exactly 0 on many values, with class ids of NC + 1 (in no class) on
+    some pixels and, in the tied cases, classes 0 and 1 sharing their head
+    column and bias: the sums to 1e-5 relative (the bar of
+    test_fused_head_mc_matches_jax), the confusion matrix exactly, dzt to
+    an fp32 rounding, S, T, dw and db as sums over B*H*W values."""
+    y, aff4, w, hb, t, gsc = _head_case(b * 100 + f + nc, nc, b, h, wd, f)
+    if tied:
+        w[:, 1], hb[1] = w[:, 0], hb[0]
+    t[:, ::3, ::5] = nc + 1
+    assert ((y * aff4[0] + aff4[1]) == 0).float().mean() > 0.02
+    sums = tfh.head_fwd_sums_mc(y, t, aff4[:2].contiguous(), w, hb)
+    port = tfh.head_bwd_mc(y, t, aff4, w, hb, gsc)
+    want = _jax_head_kernels_mc(y.numpy(), t.numpy(), aff4.numpy(), w.numpy(), hb.numpy(),
+                                gsc.numpy(), p)
+    cm0 = 3 * nc + 1
+    np.testing.assert_allclose(sums[:, :cm0].numpy(), want[0][:, :cm0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(sums[:, cm0:].numpy(), want[0][:, cm0:])
+    assert sums[:, cm0:].sum() == b * h * wd - int((t > nc).sum())
+    if tied:   # class 1 ties class 0 everywhere, and the first wins
+        assert sums[:, cm0:].reshape(b, nc, nc)[:, :, 1].sum() == 0
+    np.testing.assert_allclose(port[0].numpy(), want[1], rtol=1e-5, atol=1e-6)
+    for got, ref in zip(port[1:], want[2:]):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+def test_k11_runs_on_the_streaming_body():
+    """K11's kernels stream runs through stream_sums.cuh's ring and sum
+    their CTAs' rows inside the launch (last_cta_sums): no second launch
+    for the row sums, no grid sized for one card, and no workspace entry;
+    their C entries take head_plan's (pixels, ctas, smem) and the arrival
+    counter (test_c_entries_match_their_ctypes_signatures holds their rows)."""
+    src = (build.CSRC / "head_mc.cu").read_text()
+    assert "stream_units(" in src and "last_cta_sums(" in src
+    for gone in ("reduce_rows", "blocks_per_sample", "528", "unet_head_mc_workspace"):
+        assert gone not in src, gone
+    assert "reduce_rows" not in (build.CSRC / "head.cu").read_text()
+    assert not any("head_mc" in name for name in build.WORKSPACE_SIGNATURES)

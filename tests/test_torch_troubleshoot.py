@@ -439,8 +439,8 @@ def test_every_kernel_entry_maps_to_a_label():
     name = ("void unet::(anonymous namespace)::upconcat_dx_kernel<__nv_bfloat16>"
             "(unet::(anonymous namespace)::FeedArgs<__nv_bfloat16>)")
     assert roofline.entry_of(name) == "upconcat_dx_kernel"
-    assert roofline.entry_of("void unet::(anonymous namespace)::head_fwd_mc_kernel<float, 3>(f)"
-                             ) == "head_fwd_mc_kernel"
+    assert roofline.entry_of("void unet::(anonymous namespace)::head_fwd_mc_kernel<float, 16, 3>"
+                             "(f)") == "head_fwd_mc_kernel"
     assert roofline.entry_of("void at::native::elementwise_kernel<128, 2>(int)") is None
     assert roofline.entry_of("_ZN4unet12_GLOBAL__N_121chain_bwd_tile_kernelI13__nv_bfloat16EEvPKT_"
                              ) == "chain_bwd_tile_kernel"   # mangled, as some profilers name it
@@ -624,3 +624,45 @@ def test_tools_refuse_to_run_without_a_card(tool, monkeypatch, capsys):
     assert tool.main([]) != 0
     out = capsys.readouterr()
     assert "no CUDA device" in out.out + out.err
+
+
+def _ptxas_lines(mangled, frame, regs):
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {frame[0]} bytes stack frame, {frame[1]} bytes spill stores, {frame[2]} bytes "
+            f"spill loads\nptxas info    : Used {regs} registers, used 1 barriers, 452 bytes "
+            "cmem[0]\n")
+
+
+_HEAD_MC = "_ZN4unet39_GLOBAL__N__a9798811_10_head_mc_cu_9a09901418"
+_PTXAS_LOG = (
+    _ptxas_lines(_HEAD_MC + "head_bwd_mc_kernelI13__nv_bfloat16Li8ELi3EEEvPKT_PKhPKfS9_S9_S9_PS3_"
+                 "PfSB_Pjiiiiii", (0, 0, 0), 120) +
+    _ptxas_lines(_HEAD_MC + "head_fwd_mc_kernelIfLi0ELi4EEEvPKT_PKhPKfS8_S8_PfS9_Pjiiiiii",
+                 (24, 32, 32), 128) +
+    _ptxas_lines("_ZN4unet39_GLOBAL__N__a9798811_7_head_cu_1d4213c513colsum_kernelEPKfiiPf",
+                 (0, 0, 0), 26))
+
+
+def test_ptxas_report_reads_each_instance():
+    """ptxas_report names each __global__ instance by its entry and template
+    arguments and reads its registers, stack frame and spills."""
+    from unet_image_segmentation_tpu_torch.troubleshoot import ptxas_report
+
+    got = [(i["entry"], i["args"], i["registers"], i["stack"], i["spill_stores"],
+            i["spill_loads"]) for i in ptxas_report.parse(_PTXAS_LOG)]
+    assert got == [("head_bwd_mc_kernel", ["bf16", "8", "3"], 120, 0, 0, 0),
+                   ("head_fwd_mc_kernel", ["fp32", "0", "4"], 128, 24, 32, 32),
+                   ("colsum_kernel", [], 26, 0, 0, 0)]
+
+
+def test_ptxas_report_needs_nvcc(monkeypatch, capsys):
+    from unet_image_segmentation_tpu_torch.ops.kernels import build
+    from unet_image_segmentation_tpu_torch.troubleshoot import ptxas_report
+
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_nvcc", missing)
+    assert ptxas_report.main(["head_mc.cu"]) == 1
+    assert "needs the CUDA toolkit" in capsys.readouterr().out

@@ -21,11 +21,11 @@ the sigmoid head, or ``i``/``p``/``t`` (B, C), ``cce`` (B,) and ``cm``
   :func:`head_bwd_mc` (K11, TPU ``_head_fwd_kernel_mc`` /
   ``_head_bwd_kernel_mc``) do the same for the softmax head, with the
   clipped CCE sum and the argmax confusion matrix. All four are
-  hand-written CUDA (``kernels/csrc/head.cu``; K5 on the streaming body of
-  ``stream_sums.cuh`` with the launch plan :func:`head_plan`) beside plain
-  PyTorch versions; a wrapper runs the plain version on a CPU tensor and
-  the kernel on a CUDA tensor, or raises. :data:`LAUNCHES` counts kernel
-  launches.
+  hand-written CUDA (``kernels/csrc/head.cu`` and ``head_mc.cu``, on the
+  streaming body of ``stream_sums.cuh`` with the launch plan
+  :func:`head_plan`) beside plain PyTorch versions; a wrapper runs the
+  plain version on a CPU tensor and the kernel on a CUDA tensor, or
+  raises. :data:`LAUNCHES` counts kernel launches.
 
 Rounding points are the Pallas kernels' (compute dtype T): z rounds to T,
 a logit is ``T(T(Σ z w_T) + T(bias))`` with the dot in fp32, the sigmoid
@@ -300,25 +300,26 @@ def head_bwd_mc_reference(
 
 
 # --------------------------------------------------------------------------
-# K5's launch plan (the streaming body of kernels/csrc/stream_sums.cuh)
+# K5's and K11's launch plan (the streaming body of kernels/csrc/stream_sums.cuh)
 # --------------------------------------------------------------------------
 
-# bytes of y a stage of K5's ring aims at
+# bytes of y a stage of the heads' ring aims at
 _HEAD_STAGE_BYTES = 65536
 
 
 class HeadPlan(NamedTuple):
-    """K5's launch: runs of ``pixels`` consecutive pixels of one sample (the
-    last run of a sample may be shorter), ``runs`` of them in all; ``ctas``
-    CTAs of :data:`..kernels.build.STREAM_THREADS` threads, one an SM, CTA
-    c taking the runs of :func:`.fused_train.stream_ranges`; groups of ``lanes``
-    threads (the power of two at or above F/V, V channels of 16 bytes) take
-    ``lanes`` pixels at a time, a lane one 16-byte channel chunk of each; a
-    stage of ``stage`` bytes holds a run's y and targets; ``smem_fwd`` and
-    ``smem_bwd`` bytes of dynamic shared memory a CTA of the forward and
-    the backward (``head_smem`` of ``head.cu``, which checks them); ``ld_fwd``
-    and ``ld_bwd`` floats a CTA's row of partial sums (B*9 and 3F+1, rounded
-    up to 4)."""
+    """K5's or K11's launch: runs of ``pixels`` consecutive pixels of one
+    sample (the last run of a sample may be shorter), ``runs`` of them in
+    all; ``ctas`` CTAs of :data:`..kernels.build.STREAM_THREADS` threads,
+    one an SM, CTA c taking the runs of :func:`.fused_train.stream_ranges`;
+    groups of ``lanes`` threads (the power of two at or above F/V, V
+    channels of 16 bytes) take ``lanes`` pixels at a time, a lane one
+    16-byte channel chunk of each; a stage of ``stage`` bytes holds a run's
+    y and targets; ``smem_fwd`` and ``smem_bwd`` bytes of dynamic shared
+    memory a CTA of the forward and the backward (``head_smem`` of
+    ``head.cu``, ``head_mc_smem`` of ``head_mc.cu``, which check them); ``ld_fwd`` and
+    ``ld_bwd`` floats a CTA's row of partial sums (K5: B*9 and 3F+1; K11:
+    B*(3NC+1+NC^2) and (2+NC)F+NC; rounded up to 4)."""
 
     lanes: int
     pixels: int
@@ -331,28 +332,42 @@ class HeadPlan(NamedTuple):
     ld_bwd: int
 
 
-def head_plan(b: int, hw: int, f: int, dtype: torch.dtype, sms: int) -> HeadPlan:
-    """K5's plan for ``b`` samples of ``hw`` pixels of F channels in
-    ``dtype`` on a card of ``sms`` streaming multiprocessors: runs of about
-    :data:`_HEAD_STAGE_BYTES` of y, a whole number of lane groups, at most
-    one pixel a thread. Raises on a width :func:`head_supported` refuses."""
-    if dtype not in build.DTYPE_CODE or min(b, hw) < 1 or not head_supported(f, dtype):
-        raise ValueError(f"head_plan: no K5 launch for B={b} HW={hw} F={f} in {dtype}")
+def head_plan(b: int, hw: int, f: int, dtype: torch.dtype, sms: int, nc: int = 1) -> HeadPlan:
+    """The plan of K5 (``nc`` = 1) or K11 (``nc`` classes, 2 to
+    :data:`MAX_MC_CLASSES`) for ``b`` samples of ``hw`` pixels of F channels
+    in ``dtype`` on a card of ``sms`` streaming multiprocessors: runs of
+    about :data:`_HEAD_STAGE_BYTES` of y, a whole number of lane groups, at
+    most one pixel a thread. Raises on a width :func:`head_supported`
+    refuses."""
+    if dtype not in build.DTYPE_CODE or min(b, hw) < 1 or not head_supported(f, dtype) or \
+            not (nc == 1 or 2 <= nc <= MAX_MC_CLASSES):
+        raise ValueError(f"head_plan: no head launch for B={b} HW={hw} F={f} NC={nc} "
+                         f"in {dtype}")
     e = dtype.itemsize
     vec = 16 // e
     lanes = 1
     while lanes < f // vec:
         lanes *= 2
-    pixels = min(build.STREAM_THREADS,
-                 max(lanes, _HEAD_STAGE_BYTES // (f * e) // lanes * lanes))
+    threads = build.STREAM_THREADS
+    pixels = min(threads, max(lanes, _HEAD_STAGE_BYTES // (f * e) // lanes * lanes))
     runs = b * -(-hw // pixels)
     # y [pixels][F], then the targets' 16-byte aligned span around the run
     stage = pixels * f * e + -(-pixels // 16) * 16 + 32
-    # the backward's block sums: S, T and dw, 3V floats a thread
-    smem_fwd = build.stream_smem(stage, build.STREAM_THREADS * 16)
-    smem_bwd = build.stream_smem(stage, build.STREAM_THREADS * 12 * vec)
+    if nc == 1:
+        # the backward's block sums: S, T and dw, 3V floats a thread
+        smem_fwd = build.stream_smem(stage, threads * 16)
+        smem_bwd = build.stream_smem(stage, threads * 12 * vec)
+        sums = 9
+    else:
+        # the backward's block sums: S, T and dw of 4 channels, (2+NC) 16
+        # bytes a thread; then its table of a, b, mean, rstd and w ((4+NC)F
+        # floats) and hb (4), and the run's dlb (16 bytes a pixel)
+        smem_fwd = build.stream_smem(stage, threads * 16)
+        smem_bwd = build.stream_smem(stage, threads * 16 * (2 + nc)) + \
+            ((4 + nc) * f + 4) * 4 + threads * 16
+        sums = mc_sum_count(nc)
     return HeadPlan(lanes, pixels, runs, min(runs, sms), stage, smem_fwd, smem_bwd,
-                    -(-9 * b // 4) * 4, -(-(3 * f + 1) // 4) * 4)
+                    -(-sums * b // 4) * 4, -(-((2 + nc) * f + nc) // 4) * 4)
 
 
 # --------------------------------------------------------------------------
@@ -452,14 +467,15 @@ def head_fwd_sums_mc(
     nc = _check_mc(w, "head_fwd_sums_mc")
     _check_inputs(y, targets, aff, w, hb, 2, "head_fwd_sums_mc", nc)
     b, h, wd, f = y.shape
-    code = build.DTYPE_CODE[y.dtype]
+    plan = head_plan(b, h * wd, f, y.dtype, build.sm_count(y.device), nc)
     lib = build.load_library()
     sums = torch.empty((b, mc_sum_count(nc)), dtype=torch.float32, device=y.device)
-    work = torch.empty(lib.unet_head_mc_workspace(b, h * wd, f, nc, code, 0),
-                       dtype=torch.float32, device=y.device)
+    work = torch.empty((plan.ctas, plan.ld_fwd), dtype=torch.float32, device=y.device)
     status = lib.unet_head_fwd_mc(
         y.data_ptr(), targets.data_ptr(), aff.data_ptr(), w.data_ptr(), hb.data_ptr(),
-        work.data_ptr(), sums.data_ptr(), b, h * wd, f, nc, code, build.stream_handle(y.device),
+        work.data_ptr(), sums.data_ptr(), build.arrival_counter(y.device).data_ptr(), b,
+        h * wd, f, nc, plan.pixels, plan.ctas, plan.smem_fwd, build.DTYPE_CODE[y.dtype],
+        build.stream_handle(y.device),
     )
     build.check(status, "head_fwd_sums_mc")
     LAUNCHES["head_fwd_mc"] += 1
@@ -480,16 +496,16 @@ def head_bwd_mc(
     if tuple(gsc.shape) != (b, 2 * nc + 1) or gsc.dtype != torch.float32 or \
             not gsc.is_contiguous() or gsc.device != y.device:
         raise ValueError(f"head_bwd_mc: gsc must be a contiguous fp32 ({b}, {2 * nc + 1})")
-    code = build.DTYPE_CODE[y.dtype]
+    plan = head_plan(b, h * wd, f, y.dtype, build.sm_count(y.device), nc)
     lib = build.load_library()
     dzt = torch.empty_like(y)
     out = torch.empty((2 + nc) * f + nc, dtype=torch.float32, device=y.device)
-    work = torch.empty(lib.unet_head_mc_workspace(b, h * wd, f, nc, code, 1),
-                       dtype=torch.float32, device=y.device)
+    work = torch.empty((plan.ctas, plan.ld_bwd), dtype=torch.float32, device=y.device)
     status = lib.unet_head_bwd_mc(
         y.data_ptr(), targets.data_ptr(), aff4.data_ptr(), w.data_ptr(), hb.data_ptr(),
-        gsc.data_ptr(), dzt.data_ptr(), work.data_ptr(), out.data_ptr(), b, h * wd, f, nc, code,
-        build.stream_handle(y.device),
+        gsc.data_ptr(), dzt.data_ptr(), work.data_ptr(), out.data_ptr(),
+        build.arrival_counter(y.device).data_ptr(), b, h * wd, f, nc, plan.pixels, plan.ctas,
+        plan.smem_bwd, build.DTYPE_CODE[y.dtype], build.stream_handle(y.device),
     )
     build.check(status, "head_bwd_mc")
     LAUNCHES["head_bwd_mc"] += 1

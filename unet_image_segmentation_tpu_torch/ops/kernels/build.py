@@ -70,10 +70,12 @@ SIGNATURES = {
     # y, tgt, aff4, w, hb, gsc, dzt, work, out, counter, B, HW, F, pixels,
     # ctas, smem, dtype, stream
     "unet_head_bwd": [_P] * 10 + [_I] * 7 + [_P],
-    # y, tgt, aff, w, hb, work, sums, B, HW, F, NC, dtype, stream
-    "unet_head_fwd_mc": [_P] * 7 + [_I] * 5 + [_P],
-    # y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, NC, dtype, stream
-    "unet_head_bwd_mc": [_P] * 9 + [_I] * 5 + [_P],
+    # y, tgt, aff, w, hb, work, sums, counter, B, HW, F, NC, pixels, ctas,
+    # smem, dtype, stream
+    "unet_head_fwd_mc": [_P] * 8 + [_I] * 8 + [_P],
+    # y, tgt, aff4, w, hb, gsc, dzt, work, out, counter, B, HW, F, NC, pixels,
+    # ctas, smem, dtype, stream
+    "unet_head_bwd_mc": [_P] * 10 + [_I] * 8 + [_P],
     # x, dw, pw, y, work, sums, B, H, W, C, F, n, s, width, per, smem, dtype,
     # stream
     "unet_sepconv_stats": [_P] * 6 + [_I] * 11 + [_P],
@@ -86,17 +88,16 @@ SIGNATURES = {
     "unet_fma_probe": [_P] * 2 + [_I] * 2 + [_F, _I, _P],
 }
 # Workspace sizes in floats (return long long): B, H, W, C, F (K1) / B, H,
-# W, C, F, splits (K2, K10, K6) / B, HW, F, NC, dtype, which (K11). K4's and
-# K5's are a row of partial sums a CTA of their plans.
+# W, C, F, splits (K2, K10, K6). K4's, K5's and K11's are a row of partial
+# sums a CTA of their plans.
 WORKSPACE_SIGNATURES = {
     "unet_chain_fwd_workspace": [_I] * 5,
     "unet_chain_bwd_workspace": [_I] * 6,
     "unet_sepconv_bwd_workspace": [_I] * 6,
     "unet_upconcat_bwd_workspace": [_I] * 6,
-    "unet_head_mc_workspace": [_I] * 6,
 }
 
-# stream_sums.cuh, the streaming body of K4 and K5: threads a CTA
+# stream_sums.cuh, the streaming body of K4, K5 and K11: threads a CTA
 # (kStreamThreads), stages of the ring, bytes of its mbarriers ahead of
 # the stages, and the stages' alignment
 STREAM_THREADS = 512
@@ -234,7 +235,7 @@ _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def arrival_counter(device: torch.device) -> torch.Tensor:
-    """The zeroed 32-bit cell through which the CTAs of one K4 or K5 launch
+    """The zeroed 32-bit cell through which the CTAs of one K4, K5 or K11 launch
     find the last of them to arrive (``last_cta_sums`` of stream_sums.cuh),
     one per stream of each card, so launches on two streams never share
     one; every launch leaves it 0 again."""

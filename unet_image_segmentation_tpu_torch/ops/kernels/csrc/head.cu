@@ -1,5 +1,5 @@
-// K5: the segmentation head fused into the last decoder chain's exit (its
-// softmax sibling K11 follows K5 in this file).
+// K5: the sigmoid segmentation head fused into the last decoder chain's
+// exit (its softmax sibling K11 is head_mc.cu).
 //
 // Replaces the TPU kernels unet_image_segmentation_tpu/ops/pallas/
 // fused_head.py:_head_fwd_kernel and _head_bwd_kernel (launched by
@@ -46,45 +46,12 @@
 // row order inside the same launch: no atomics on values. The ReLU mask is
 // decided on a*y+b with separate roundings (affine_rn), as the plain version
 // computes it, and the sigmoid uses expf.
-#include <algorithm>
-
-#include "stream_sums.cuh"
-#include "train_common.cuh"
+#include "head_common.cuh"
 
 namespace unet {
 namespace {
 
 constexpr int kHeadSums = 9;      // i, p, t, it, pt, tt, ir, pr, tr
-
-template <typename T>
-__host__ __device__ constexpr int head_vec() { return 16 / (int)sizeof(T); }
-
-template <typename T, int V>
-__device__ __forceinline__ void load_vec16(const T* p, float (&out)[V]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int j = 0; j < V; ++j) out[j] = to_f(e[j]);
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_vec16(T* p, const float (&in)[V]) {
-  uint4 raw;
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int j = 0; j < V; ++j) e[j] = from_f<T>(in[j]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-// K5's work unit, a run: `pixels` consecutive pixels of one sample (the last
-// run of a sample may be shorter). A stage holds the run's y ([pixels][F]
-// in T) and then its targets: the 16-byte aligned span around them, copied
-// by cp.async.bulk, whose last partial 16 bytes of the whole target tensor
-// (when B*H*W is not a multiple of 16) the issuing thread copies itself.
-template <typename T>
-__host__ __device__ constexpr long long head_stage_bytes(int pixels, int F) {
-  return (long long)pixels * F * sizeof(T) + round_up(pixels, 16) + 32;
-}
 
 // Shared memory of K5's forward (which = 0) and backward (which = 1) with
 // runs of `pixels`: the ring, or after it the block sums (the backward's
@@ -126,55 +93,22 @@ __device__ __forceinline__ float group_dots(float (&v)[L], int lane) {
   return v[0];
 }
 
-// What K5's forward and backward share: the run's place, its copies into a
-// stage, and each lane's pixel logit. A group of L lanes (L the power of two
-// at or above F/V) takes L pixels at a time: lane g reads its channel chunk
-// of each pixel from shared memory (a group's reads of a pixel are one
-// contiguous span), and group_dots leaves lane g with pixel g's logit, so
-// the sigmoid and everything after it run in every lane.
+// What K5's forward and backward share: the run, and each lane's pixel
+// logit. A group of L lanes (L the power of two at or above F/V) takes L
+// pixels at a time: lane g reads its channel chunk of each pixel from shared
+// memory (a group's reads of a pixel are one contiguous span), and
+// group_dots leaves lane g with pixel g's logit, so the sigmoid and
+// everything after it run in every lane.
 template <typename T, int L>
-struct HeadRun {
+struct HeadRun : RunSpan<T> {
   static constexpr int V = head_vec<T>();
-  const T* y;
-  const uint8_t* tgt;
-  int HW, F, pixels, runs;  // runs: per sample
-  long long total;          // B * HW, the targets' bytes
   float a[V], sh[V], w[V], hb;
   int lane, grp;            // lane of the group, group of the CTA
-
-  __device__ void place(long long unit, int& b, size_t& q0, int& np) const {
-    b = (int)(unit / runs);
-    const int p0 = (int)(unit % runs) * pixels;
-    np = min(pixels, HW - p0);
-    q0 = (size_t)b * HW + p0;
-  }
-
-  __device__ int tgt_skew(size_t q0) const {
-    return (int)(reinterpret_cast<uintptr_t>(tgt + q0) & 15);
-  }
-
-  __device__ void load(long long unit, char* stage, uint64_t* bar) const {
-    int b, np;
-    size_t q0;
-    place(unit, b, q0, np);
-    uint8_t* ts = reinterpret_cast<uint8_t*>(stage) + (size_t)pixels * F * sizeof(T);
-    const uintptr_t src = reinterpret_cast<uintptr_t>(tgt + q0);
-    const uintptr_t a0 = src & ~(uintptr_t)15, a1 = (src + np + 15) & ~(uintptr_t)15;
-    const uintptr_t tail = reinterpret_cast<uintptr_t>(tgt + total) & ~(uintptr_t)15;
-    const uintptr_t bulk_end = a1 < tail ? a1 : tail;
-    for (uintptr_t p = src > tail ? src : tail; p < src + np; ++p)
-      ts[p - a0] = *reinterpret_cast<const uint8_t*>(p);
-    const uint32_t ybytes = (uint32_t)((size_t)np * F * sizeof(T));
-    const uint32_t tbytes = bulk_end > a0 ? (uint32_t)(bulk_end - a0) : 0u;
-    mbar_expect_tx(bar, ybytes + tbytes);
-    bulk_load(stage, y + q0 * F, ybytes, bar);
-    if (tbytes) bulk_load(ts, reinterpret_cast<const void*>(a0), tbytes, bar);
-  }
 
   // This lane's chunk of pixel px of the stage: a*y+b, z (rounded to T), y.
   __device__ float chunk(const T* ys, int px, float (&yv)[V], float (&wl)[V],
                          float (&z)[V]) const {
-    load_vec16<T, V>(ys + (size_t)px * F + lane * V, yv);
+    load_vec<T, V>(ys + (size_t)px * this->F + lane * V, yv);
     float dot = 0.f;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -191,7 +125,7 @@ struct HeadRun {
 #pragma unroll
     for (int k = 0; k < L; ++k) {
       float yv[V], wl[V], z[V];
-      v[k] = pb + k < np && lane < F / V ? chunk(ys, pb + k, yv, wl, z) : 0.f;
+      v[k] = pb + k < np && lane < this->F / V ? chunk(ys, pb + k, yv, wl, z) : 0.f;
     }
     return round_to<T>(round_to<T>(group_dots<L>(v, lane)) + hb);
   }
@@ -202,13 +136,7 @@ __device__ void head_run_init(HeadRun<T, L>& r, const T* y, const uint8_t* tgt,
                               const float* aff, const float* w, const float* hb, int B,
                               int HW, int F, int pixels) {
   constexpr int V = head_vec<T>();
-  r.y = y;
-  r.tgt = tgt;
-  r.HW = HW;
-  r.F = F;
-  r.pixels = pixels;
-  r.runs = (HW + pixels - 1) / pixels;
-  r.total = (long long)B * HW;
+  r.init(y, tgt, B, HW, F, pixels);
   r.lane = threadIdx.x % L;
   r.grp = threadIdx.x / L;
   const bool act = r.lane < F / V;
@@ -254,9 +182,8 @@ struct HeadFwdOp : HeadRun<T, L> {
       if (cur >= 0) flush();
       cur = b;
     }
-    const T* ys = reinterpret_cast<const T*>(stage);
-    const uint8_t* ts = reinterpret_cast<const uint8_t*>(stage) +
-                        (size_t)this->pixels * this->F * sizeof(T) + this->tgt_skew(q0);
+    const T* ys = this->stage_y(stage);
+    const uint8_t* ts = this->stage_t(stage, q0);
     const int groups = (np + L - 1) / L;
     for (int g0 = 0; g0 < groups; g0 += kStreamThreads / L) {
       const int pb = (g0 + this->grp) * L;
@@ -323,9 +250,8 @@ struct HeadBwdOp : HeadRun<T, L> {
       dP = gsc[2 * b + 1];
       cur = b;
     }
-    const T* ys = reinterpret_cast<const T*>(stage);
-    const uint8_t* ts = reinterpret_cast<const uint8_t*>(stage) +
-                        (size_t)this->pixels * this->F * sizeof(T) + this->tgt_skew(q0);
+    const T* ys = this->stage_y(stage);
+    const uint8_t* ts = this->stage_t(stage, q0);
     const int F = this->F, lane = this->lane;
     const bool act = lane < F / V;
     const int groups = (np + L - 1) / L;
@@ -353,7 +279,7 @@ struct HeadBwdOp : HeadRun<T, L> {
           tt[j] += d[j] * ((yv[j] - mean[j]) * rstd[j]);
           dw[j] += z[j] * dlk;
         }
-        store_vec16<T, V>(dzt + (q0 + pb + k) * F + lane * V, d);
+        store_vec<T, V>(dzt + (q0 + pb + k) * F + lane * V, d);
       }
     }
   }
@@ -417,53 +343,12 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
                 reinterpret_cast<float4*>(smem + kStreamBarBytes));
 }
 
-// K5's L: the power of two at or above F / V (at most 32).
-int group_lanes(int F, int elem) {
-  const int G = F / (16 / elem);
-  int L = 1;
-  while (L < G) L *= 2;
-  return L;
-}
-
 // The checks of K5's plan (runs of `pixels`, ctas, smem) against the
 // kernel's layout: cudaErrorInvalidValue for a plan it does not lay out so.
 template <typename T>
 int check_head_plan(int B, int HW, int F, int pixels, int ctas, int smem, int which) {
-  const int L = group_lanes(F, (int)sizeof(T));
-  const long long units = (long long)B * ((HW + pixels - 1) / pixels);
-  if (F % head_vec<T>() || L > 32 || pixels < L || pixels % L || ctas < 1 || ctas > units ||
-      smem != head_smem<T>(pixels, F, which))
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-template <typename T, int L>
-int launch_fwd_l(const void* y, const void* tgt, const void* aff, const void* w, const void* hb,
-                 float* work, float* sums, unsigned* counter, int B, int HW, int F, int pixels,
-                 int ctas, int smem, int ld, cudaStream_t stream) {
-  const int err = (int)cudaFuncSetAttribute(head_fwd_kernel<T, L>,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  head_fwd_kernel<T, L><<<ctas, kStreamThreads, smem, stream>>>(
-      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff),
-      static_cast<const float*>(w), static_cast<const float*>(hb), work, sums, counter, B, HW, F,
-      pixels, ld);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int L>
-int launch_bwd_l(const void* y, const void* tgt, const void* aff4, const void* w, const void* hb,
-                 const void* gsc, void* dzt, float* work, float* out, unsigned* counter, int B,
-                 int HW, int F, int pixels, int ctas, int smem, int ld, cudaStream_t stream) {
-  const int err = (int)cudaFuncSetAttribute(head_bwd_kernel<T, L>,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  head_bwd_kernel<T, L><<<ctas, kStreamThreads, smem, stream>>>(
-      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt),
-      static_cast<const float*>(aff4), static_cast<const float*>(w),
-      static_cast<const float*>(hb), static_cast<const float*>(gsc), static_cast<T*>(dzt), work,
-      out, counter, B, HW, F, pixels, ld);
-  return (int)cudaGetLastError();
+  if (const int err = check_run_plan<T>(B, HW, F, pixels, ctas)) return err;
+  return smem != head_smem<T>(pixels, F, which) ? (int)cudaErrorInvalidValue : 0;
 }
 
 template <typename T>
@@ -472,10 +357,12 @@ int launch_fwd(const void* y, const void* tgt, const void* aff, const void* w, c
                int ctas, int smem, cudaStream_t s) {
   if (const int err = check_head_plan<T>(B, HW, F, pixels, ctas, smem, 0)) return err;
   const int ld = (int)round_up(9LL * B, 4);
-#define UNET_HEAD_FWD(L)                                                                  \
-  case L:                                                                                 \
-    return launch_fwd_l<T, L>(y, tgt, aff, w, hb, work, sums, counter, B, HW, F, pixels, \
-                              ctas, smem, ld, s);
+#define UNET_HEAD_FWD(L)                                                                 \
+  case L:                                                                                \
+    return launch_stream(head_fwd_kernel<T, L>, ctas, smem, s, static_cast<const T*>(y),   \
+                         static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff), \
+                         static_cast<const float*>(w), static_cast<const float*>(hb), work,  \
+                         sums, counter, B, HW, F, pixels, ld);
   switch (group_lanes(F, (int)sizeof(T))) {
     UNET_HEAD_FWD(1)
     UNET_HEAD_FWD(2)
@@ -494,10 +381,13 @@ int launch_bwd(const void* y, const void* tgt, const void* aff4, const void* w, 
                int HW, int F, int pixels, int ctas, int smem, cudaStream_t s) {
   if (const int err = check_head_plan<T>(B, HW, F, pixels, ctas, smem, 1)) return err;
   const int ld = (int)round_up(3LL * F + 1, 4);
-#define UNET_HEAD_BWD(L)                                                                    \
-  case L:                                                                                   \
-    return launch_bwd_l<T, L>(y, tgt, aff4, w, hb, gsc, dzt, work, out, counter, B, HW, F, \
-                              pixels, ctas, smem, ld, s);
+#define UNET_HEAD_BWD(L)                                                                   \
+  case L:                                                                                  \
+    return launch_stream(head_bwd_kernel<T, L>, ctas, smem, s, static_cast<const T*>(y),     \
+                         static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff4),  \
+                         static_cast<const float*>(w), static_cast<const float*>(hb),        \
+                         static_cast<const float*>(gsc), static_cast<T*>(dzt), work, out,    \
+                         counter, B, HW, F, pixels, ld);
   switch (group_lanes(F, (int)sizeof(T))) {
     UNET_HEAD_BWD(1)
     UNET_HEAD_BWD(2)
@@ -507,329 +397,6 @@ int launch_bwd(const void* y, const void* tgt, const void* aff4, const void* w, 
     UNET_HEAD_BWD(32)
   }
 #undef UNET_HEAD_BWD
-  return (int)cudaErrorInvalidValue;
-}
-
-// K11's blocks per sample: about 4 blocks per SM of a 132-SM card in all.
-int blocks_per_sample(int B, int HW, int F, int elem) {
-  const int R = kThreads / group_lanes(F, elem);
-  const int want = (528 + B - 1) / B;
-  return std::max(1, std::min(want, (HW + R - 1) / R));
-}
-
-// ---------------------------------------------------------------------------
-// K11: the softmax head, NC = 2..4 classes.
-//
-// Replaces the TPU kernels unet_image_segmentation_tpu/ops/pallas/
-// fused_head.py:_head_fwd_kernel_mc and _head_bwd_kernel_mc (launched by
-// head_fwd_sums_mc and head_bwd_mc). Per pixel, with the head weights w
-// (F, NC) and biases hb (NC,) rounded to T and class-id targets t:
-//
-//   z   = relu(a*y + b) -> T
-//   l_c = T(T(Σ_f z_f w_fc) + hb_c);  p = softmax(l) in fp32 (max-subtracted
-//         exp, normalised);  pred = the first class of maximal p
-//   forward: per-sample fp32 sums I_c = Σ p_c [t=c], P_c = Σ p_c,
-//            T_c = Σ [t=c], CCE = Σ -log(max(p_t, 1e-7)), CM[t][pred] += 1
-//            (a target id >= NC counts in no class)
-//   backward: dy_c = dI_c [t=c] + dP_c + dCCE (p_c >= eps ? -[t=c]/max(p_c, eps) : 0),
-//             dl_c = p_c (dy_c - Σ_k p_k dy_k), dlb_c = T(dl_c),
-//             dzt_f = (a y + b > 0) ? Σ_c dlb_c w_fc : 0   (written in T),
-//             S = Σ dzt, T = Σ dzt (y - mean) rstd, dw_fc = Σ z_f dlb_c,
-//             db_c = Σ dl_c (the unrounded dl).
-//
-// Bound on the H100 as K5's: device memory (y read once per direction, dzt
-// written by the backward; 2 * NC + 10 flops per channel a pixel).
-//
-// Design (the first K5's, which K11 keeps until it moves onto K5's
-// streaming body): a pixel is split over a group of L lanes (L the power of
-// two at or above F/V), one 16-byte vector of y each, on a grid of
-// (blocks_per_sample, B). The NC dot products, the softmax and the
-// backward's class sums are computed with separately rounded products and
-// sums (no FMA contraction) in the order the plain version uses: the
-// thread's channels in sequence, then the xor butterfly over the pixel's
-// group, then the classes in sequence. Logits, probabilities and the argmax
-// therefore agree with the plain version bit for bit on the card, and the
-// confusion-matrix counts come out equal. Per-sample partial rows are
-// summed by the fixed-order reduce_rows(); the counts are exact in fp32
-// (under 2^24 pixels a sample).
-// ---------------------------------------------------------------------------
-
-constexpr float kClipEps = 1e-7f;
-
-template <int NC>
-__host__ __device__ constexpr int mc_sums() { return 3 * NC + 1 + NC * NC; }
-
-template <typename T, int V, int NC>
-__device__ __forceinline__ void mc_logits(const float (&yv)[V], const float (&a)[V],
-                                          const float (&sh)[V], const float (&w)[NC][V],
-                                          const float (&hb)[NC], int L, float (&wl)[V],
-                                          float (&z)[V], float (&l)[NC]) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    wl[j] = affine_rn(yv[j], a[j], sh[j]);
-    z[j] = round_to<T>(fmaxf(wl[j], 0.f));
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    float d = __fmul_rn(z[0], w[c][0]);
-#pragma unroll
-    for (int j = 1; j < V; ++j) d = __fadd_rn(d, __fmul_rn(z[j], w[c][j]));
-    for (int off = L / 2; off > 0; off >>= 1)
-      d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, off));
-    l[c] = round_to<T>(__fadd_rn(round_to<T>(d), hb[c]));
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void mc_softmax(const float (&l)[NC], float (&p)[NC]) {
-  float m = l[0];
-#pragma unroll
-  for (int c = 1; c < NC; ++c) m = fmaxf(m, l[c]);
-  float e[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) e[c] = expf(__fsub_rn(l[c], m));
-  float s = e[0];
-#pragma unroll
-  for (int c = 1; c < NC; ++c) s = __fadd_rn(s, e[c]);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) p[c] = __fdiv_rn(e[c], s);
-}
-
-// the first class whose probability is maximal
-template <int NC>
-__device__ __forceinline__ int mc_argmax(const float (&p)[NC]) {
-  float m = p[0];
-#pragma unroll
-  for (int c = 1; c < NC; ++c) m = fmaxf(m, p[c]);
-  int pred = NC - 1;
-#pragma unroll
-  for (int c = NC - 1; c >= 0; --c)
-    if (p[c] == m) pred = c;
-  return pred;
-}
-
-// partials[blockIdx.x][b * NS + k]: the block's share of sample b's sums in
-// the order I (NC) | P (NC) | T (NC) | CCE | CM (NC x NC, row = target).
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-    head_fwd_mc_kernel(const T* __restrict__ y, const uint8_t* __restrict__ tgt,
-                       const float* __restrict__ aff, const float* __restrict__ w,
-                       const float* __restrict__ hb_p, float* __restrict__ partials, int B,
-                       int HW, int F, int L) {
-  constexpr int V = head_vec<T>();
-  constexpr int NS = mc_sums<NC>();
-  __shared__ float red[kThreads * NS];
-  const int G = F / V, R = kThreads / L;
-  const int lane = threadIdx.x % L, r = threadIdx.x / L;
-  const bool act = lane < G;
-  const int f0 = lane * V, b = blockIdx.y;
-  float a[V], sh[V], wv[NC][V], hb[NC];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    a[j] = act ? aff[f0 + j] : 0.f;
-    sh[j] = act ? aff[F + f0 + j] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) wv[c][j] = act ? w[(f0 + j) * NC + c] : 0.f;
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) hb[c] = hb_p[c];
-  float s[NS] = {};
-  const T* yb = y + (size_t)b * HW * F;
-  for (int base = blockIdx.x * R; base < HW; base += gridDim.x * R) {
-    const int px = base + r;
-    const bool valid = px < HW;
-    float yv[V] = {}, wl[V], z[V], l[NC];
-    if (valid && act) load_vec16<T, V>(yb + (size_t)px * F + f0, yv);
-    mc_logits<T, V, NC>(yv, a, sh, wv, hb, L, wl, z, l);
-    if (valid && lane == 0) {
-      float p[NC];
-      mc_softmax<NC>(l, p);
-      const int pred = mc_argmax<NC>(p);
-      const int t = tgt[(size_t)b * HW + px];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        s[NC + c] += p[c];
-        if (c != t) continue;
-        s[c] += p[c];
-        s[2 * NC + c] += 1.f;
-        s[3 * NC] -= logf(fmaxf(p[c], kClipEps));
-#pragma unroll
-        for (int k = 0; k < NC; ++k)
-          if (k == pred) s[3 * NC + 1 + c * NC + k] += 1.f;
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < NS; ++k) red[threadIdx.x * NS + k] = s[k];
-  __syncthreads();
-  if (threadIdx.x < NS) {
-    float acc = 0.f;
-    for (int rr = 0; rr < R; ++rr) acc += red[rr * L * NS + threadIdx.x];
-    partials[(size_t)blockIdx.x * B * NS + b * NS + threadIdx.x] = acc;
-  }
-}
-
-// partials[blockIdx.y * gridDim.x + blockIdx.x] rows of (2 + NC) F + NC:
-// S (F) | T (F) | dw (F x NC) | db (NC).
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-    head_bwd_mc_kernel(const T* __restrict__ y, const uint8_t* __restrict__ tgt,
-                       const float* __restrict__ aff4, const float* __restrict__ w,
-                       const float* __restrict__ hb_p, const float* __restrict__ gsc,
-                       T* __restrict__ dzt, float* __restrict__ partials, int HW, int F, int L) {
-  constexpr int V = head_vec<T>();
-  constexpr int NS = (2 + NC) * V + NC;
-  extern __shared__ float red[];  // [kThreads][NS]
-  const int G = F / V, R = kThreads / L;
-  const int lane = threadIdx.x % L, r = threadIdx.x / L;
-  const bool act = lane < G;
-  const int f0 = lane * V, b = blockIdx.y;
-  float a[V], sh[V], mean[V], rstd[V], wv[NC][V], hb[NC], gi[NC], gp[NC];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    a[j] = act ? aff4[f0 + j] : 0.f;
-    sh[j] = act ? aff4[F + f0 + j] : 0.f;
-    mean[j] = act ? aff4[2 * F + f0 + j] : 0.f;
-    rstd[j] = act ? aff4[3 * F + f0 + j] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) wv[c][j] = act ? w[(f0 + j) * NC + c] : 0.f;
-  }
-  const float* g = gsc + b * (2 * NC + 1);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    hb[c] = hb_p[c];
-    gi[c] = g[c];
-    gp[c] = g[NC + c];
-  }
-  const float gc = g[2 * NC];
-  float st[V] = {}, tt[V] = {}, dw[NC][V] = {}, db[NC] = {};
-  const size_t img = (size_t)b * HW;
-  for (int base = blockIdx.x * R; base < HW; base += gridDim.x * R) {
-    const int px = base + r;
-    const bool valid = px < HW;
-    float yv[V] = {}, wl[V], z[V], l[NC];
-    if (valid && act) load_vec16<T, V>(y + (img + px) * F + f0, yv);
-    mc_logits<T, V, NC>(yv, a, sh, wv, hb, L, wl, z, l);
-    if (!valid) continue;
-    float p[NC], dy[NC], dlb[NC];
-    mc_softmax<NC>(l, p);
-    const int t = tgt[img + px];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float tc = c == t ? 1.f : 0.f;
-      const float q = p[c] >= kClipEps ? __fdiv_rn(-tc, fmaxf(p[c], kClipEps)) : 0.f;
-      dy[c] = __fadd_rn(__fadd_rn(__fmul_rn(gi[c], tc), gp[c]), __fmul_rn(gc, q));
-    }
-    float ydot = __fmul_rn(p[0], dy[0]);
-#pragma unroll
-    for (int c = 1; c < NC; ++c) ydot = __fadd_rn(ydot, __fmul_rn(p[c], dy[c]));
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float dl = __fmul_rn(p[c], __fsub_rn(dy[c], ydot));
-      dlb[c] = round_to<T>(dl);
-      if (lane == 0) db[c] += dl;
-    }
-    if (!act) continue;
-    float d[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float v = __fmul_rn(dlb[0], wv[0][j]);
-#pragma unroll
-      for (int c = 1; c < NC; ++c) v = __fadd_rn(v, __fmul_rn(dlb[c], wv[c][j]));
-      d[j] = wl[j] > 0.f ? v : 0.f;
-      st[j] += d[j];
-      tt[j] += d[j] * ((yv[j] - mean[j]) * rstd[j]);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) dw[c][j] += z[j] * dlb[c];
-    }
-    store_vec16<T, V>(dzt + (img + px) * F + f0, d);
-  }
-  float* mine = red + threadIdx.x * NS;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    mine[j] = st[j];
-    mine[V + j] = tt[j];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) mine[(2 + c) * V + j] = dw[c][j];
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) mine[(2 + NC) * V + c] = db[c];
-  __syncthreads();
-  if (r == 0 && act) {
-    float* row = partials + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ((2 + NC) * F + NC);
-    for (int k = 0; k < (2 + NC) * V; ++k) {
-      float acc = 0.f;
-      for (int rr = 0; rr < R; ++rr) acc += red[(rr * L + lane) * NS + k];
-      const int part = k / V, f = f0 + k % V;
-      row[part < 2 ? part * F + f : 2 * F + f * NC + (part - 2)] = acc;
-    }
-    if (lane == 0) {
-      for (int c = 0; c < NC; ++c) {
-        float acc = 0.f;
-        for (int rr = 0; rr < R; ++rr) acc += red[(rr * L) * NS + (2 + NC) * V + c];
-        row[(2 + NC) * F + c] = acc;
-      }
-    }
-  }
-}
-
-template <typename T, int NC>
-int launch_fwd_mc(const void* y, const void* tgt, const void* aff, const void* w, const void* hb,
-                  float* work, float* sums, int B, int HW, int F, cudaStream_t stream) {
-  constexpr int NS = mc_sums<NC>();
-  const int L = group_lanes(F, (int)sizeof(T));
-  const int bps = blocks_per_sample(B, HW, F, (int)sizeof(T));
-  head_fwd_mc_kernel<T, NC><<<dim3(bps, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff),
-      static_cast<const float*>(w), static_cast<const float*>(hb), work, B, HW, F, L);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  float* scratch = work + (long long)bps * B * NS;
-  return reduce_rows(work, bps, B * NS, scratch, sums, stream);
-}
-
-template <typename T, int NC>
-int launch_bwd_mc(const void* y, const void* tgt, const void* aff4, const void* w,
-                  const void* hb, const void* gsc, void* dzt, float* work, float* out, int B,
-                  int HW, int F, cudaStream_t stream) {
-  constexpr int NS = (2 + NC) * head_vec<T>() + NC;
-  const int smem = kThreads * NS * (int)sizeof(float);
-  int err = (int)cudaFuncSetAttribute(head_bwd_mc_kernel<T, NC>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  const int L = group_lanes(F, (int)sizeof(T));
-  const int bps = blocks_per_sample(B, HW, F, (int)sizeof(T));
-  head_bwd_mc_kernel<T, NC><<<dim3(bps, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(y), static_cast<const uint8_t*>(tgt), static_cast<const float*>(aff4),
-      static_cast<const float*>(w), static_cast<const float*>(hb),
-      static_cast<const float*>(gsc), static_cast<T*>(dzt), work, HW, F, L);
-  if ((err = (int)cudaGetLastError())) return err;
-  const long long rows = (long long)bps * B;
-  const int cols = (2 + NC) * F + NC;
-  float* scratch = work + rows * cols;
-  return reduce_rows(work, (int)rows, cols, scratch, out, stream);
-}
-
-template <typename T>
-int fwd_mc(int NC, const void* y, const void* tgt, const void* aff, const void* w, const void* hb,
-           float* work, float* sums, int B, int HW, int F, cudaStream_t s) {
-  switch (NC) {
-    case 2: return launch_fwd_mc<T, 2>(y, tgt, aff, w, hb, work, sums, B, HW, F, s);
-    case 3: return launch_fwd_mc<T, 3>(y, tgt, aff, w, hb, work, sums, B, HW, F, s);
-    case 4: return launch_fwd_mc<T, 4>(y, tgt, aff, w, hb, work, sums, B, HW, F, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int bwd_mc(int NC, const void* y, const void* tgt, const void* aff4, const void* w,
-           const void* hb, const void* gsc, void* dzt, float* work, float* out, int B, int HW,
-           int F, cudaStream_t s) {
-  switch (NC) {
-    case 2: return launch_bwd_mc<T, 2>(y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, s);
-    case 3: return launch_bwd_mc<T, 3>(y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, s);
-    case 4: return launch_bwd_mc<T, 4>(y, tgt, aff4, w, hb, gsc, dzt, work, out, B, HW, F, s);
-  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -880,44 +447,3 @@ extern "C" int unet_head_bwd(const void* y, const void* tgt, const void* aff4, c
   return (int)cudaErrorInvalidValue;
 }
 
-// Floats of workspace unet_head_fwd_mc (which = 0) or unet_head_bwd_mc
-// (which = 1) needs for NC classes.
-extern "C" long long unet_head_mc_workspace(int B, int HW, int F, int NC, int dtype, int which) {
-  const int elem = dtype == 0 ? 4 : 2;
-  const long long rows = unet::blocks_per_sample(B, HW, F, elem) * (which ? (long long)B : 1LL);
-  const long long cols = which ? (2LL + NC) * F + NC : (long long)B * (3 * NC + 1 + NC * NC);
-  return rows * cols + unet::reduce_scratch_floats(rows, cols);
-}
-
-// K11 forward. y (B,H,W,F) in T, HW = H*W; tgt (B,H,W) uint8 class ids;
-// aff (2,F) fp32 = a, b; w (F,NC) and hb (NC,) fp32, rounded to T; sums
-// (B, 3NC+1+NC*NC) fp32 = I | P | T | CCE | CM. NC in 2..4. Returns
-// cudaGetLastError().
-extern "C" int unet_head_fwd_mc(const void* y, const void* tgt, const void* aff, const void* w,
-                                const void* hb, void* work, void* sums, int B, int HW, int F,
-                                int NC, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* wk = static_cast<float*>(work);
-  float* o = static_cast<float*>(sums);
-  if (dtype == 0) return unet::fwd_mc<float>(NC, y, tgt, aff, w, hb, wk, o, B, HW, F, s);
-  if (dtype == 1)
-    return unet::fwd_mc<__nv_bfloat16>(NC, y, tgt, aff, w, hb, wk, o, B, HW, F, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// K11 backward: as unet_head_fwd_mc, plus aff4 (4,F) fp32 = a, b, mean,
-// rstd; gsc (B, 2NC+1) fp32 = dI (NC) | dP (NC) | dCCE; dzt (B,H,W,F) in T;
-// out ((2+NC)F + NC) fp32 = S | T | dw (F,NC) | db (NC). Returns
-// cudaGetLastError().
-extern "C" int unet_head_bwd_mc(const void* y, const void* tgt, const void* aff4, const void* w,
-                                const void* hb, const void* gsc, void* dzt, void* work, void* out,
-                                int B, int HW, int F, int NC, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* wk = static_cast<float*>(work);
-  float* o = static_cast<float*>(out);
-  if (dtype == 0)
-    return unet::bwd_mc<float>(NC, y, tgt, aff4, w, hb, gsc, dzt, wk, o, B, HW, F, s);
-  if (dtype == 1)
-    return unet::bwd_mc<__nv_bfloat16>(NC, y, tgt, aff4, w, hb, gsc, dzt, wk, o, B, HW, F, s);
-  return (int)cudaErrorInvalidValue;
-}

@@ -1,9 +1,9 @@
-// The memory-streaming body of K4 (tail_pool.cu) and K5 (head.cu): a ring of
-// shared-memory stages filled by TMA bulk copies, persistent CTAs, and
-// per-CTA partial sums that the last CTA to arrive adds up in a fixed order
-// inside the same launch.
+// The memory-streaming body of K4 (tail_pool.cu), K5 (head.cu) and K11
+// (head_mc.cu): a ring of shared-memory stages filled by TMA bulk copies,
+// persistent CTAs, and per-CTA partial sums that the last CTA to arrive adds
+// up in a fixed order inside the same launch.
 //
-// Both kernels read a few bytes per operation, so device memory bounds
+// These kernels read a few bytes per operation, so device memory bounds
 // them; what keeps such a kernel below the memory's rate on Hopper is too
 // few bytes in flight per SM (every thread waiting on its own 16-byte loads)
 // and the second launch that sums the blocks' rows. Here:

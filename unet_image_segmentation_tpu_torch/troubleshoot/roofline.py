@@ -51,15 +51,15 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "upconcat_bwd": ("K6", "upconcat.cu", "ops/pallas/fused_upconcat.py:203"),
     "head_fwd": ("K5", "head.cu", "ops/pallas/fused_head.py:119"),
     "head_bwd": ("K5", "head.cu", "ops/pallas/fused_head.py:433"),
-    "head_fwd_mc": ("K11", "head.cu", "ops/pallas/fused_head.py:303"),
-    "head_bwd_mc": ("K11", "head.cu", "ops/pallas/fused_head.py:635"),
+    "head_fwd_mc": ("K11", "head_mc.cu", "ops/pallas/fused_head.py:303"),
+    "head_bwd_mc": ("K11", "head_mc.cu", "ops/pallas/fused_head.py:635"),
     "sepconv_stats": ("K9", "chain_fwd.cu", "ops/pallas/fused_sepconv.py:631"),
     "sepconv_bwd": ("K10", "chain_bwd.cu", "ops/pallas/fused_sepconv_bwd.py:40"),
     "dispatch_probe": ("K12a", "probes.cu", "troubleshoot/link_floors.py:56"),
     "fma_probe": ("K12b", "probes.cu", "troubleshoot/link_floors.py:87"),
 }
 
-SUMS = "sums"  # label of reduce_rows' colsum_kernel, which every summing kernel launches
+SUMS = "sums"  # label of reduce_rows' colsum_kernel (K1, K2, K6, K9, K10's row sums)
 # __global__ entry -> (wrapper, part). A wrapper call launches each of its
 # parts once.
 ENTRIES: Dict[str, Tuple[Optional[str], str]] = {
