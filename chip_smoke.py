@@ -31,7 +31,8 @@ exit code and no result line:
    path with ``use_pallas=True`` (K8 in every ConvBlock) likewise; the
    launch counters of that run; images/s at batch 32, kernels on and off;
    one bf16 batch-32 ``predict`` under ``torch.profiler`` (device busy, idle
-   share, K7's share of the busy time, the host copies);
+   share, K7's share of the busy time, the host copies), and one of phase
+   13's int8 ``Predictor`` (its warm-up calibrates it on that batch);
 6. K7 and K8 at batch 32, each output held against its plain version under
    phase 4's and phase 3's bars, then timed beside it, with its bound and
    its executed over useful multiply-adds a stage or block; both summed
@@ -65,6 +66,8 @@ exit code and no result line:
    for bit (ties and the ReLU mask), K5's and K11's dzt must be 0 wherever
    a*y+b is not above 0, K11's confusion matrix must be exact, and a second
    launch of K4, K5 and K11 on the same inputs must give the same bits;
+   then K11's forward and backward traced alone at the multiclass path's
+   shape: one launch of each kernel, no row-sum launch;
 8. the training path at full width (``configs/tpu_train_256_bf16.json`` as
    it is: ``fused_head`` auto, batch 32, seeded weights, in-memory scenes):
    3 train steps with the kernels against 3 of the composed path in fp32
@@ -90,9 +93,7 @@ exit code and no result line:
    launches a step, images/s, peak memory and a profiled step (K11's device
    ms with every launch it makes); then the config's own 'auto' (K11 off,
    the composed sums) for one step, and its images/s against 'all' in turns
-   (the A/B that decides the default); then K11's forward and backward
-   traced alone at the path's shape: one launch of each kernel, no row-sum
-   launch;
+   (the A/B that decides the default);
 11. per-block training at full width: each of the 18 ConvBlocks of the
    256 px model at batch 32 with BatchNorm and ``use_pallas`` (one K9 and
    one K10 launch a block) against the composed block (output, every
@@ -116,12 +117,31 @@ exit code and no result line:
    device's busy time within 2%, 18/18/4/4 K1-K4, 4/4 K6 and 1/1 K5
    launches a step; ``build/step_attribution.json``); ``check_install`` and
    ``check_gpu_benchmark`` (one run of three trials on the CPU leg), both
-   exiting 0; then the sixteen kernels' JSON line (with each kernel's bound,
-   and K12a's library time) and the result line.
+   exiting 0;
+13. int8 serving at full width, on phase 5's checkpoint, fp32 and bf16: K7's
+   int8 I/O mode against its plain int8 version at the nine stage shapes
+   at batch 2 and 32, and at ragged shapes at batch 2 and 3
+   (``INT8_RAGGED``: 20 x 36, the 3-channel input, ``x2`` with 80 + 80 and
+   with 5 + 3 channels, F 300 -> 270 over a partial cluster, ``pool`` at
+   18 x 18), to 1 + phase 4's relative bar x max|plain| quanta, with the
+   share of elements that differ; in fp32 also bit for bit against
+   quantizing the float K7's output on the dequantized input;
+   ``Predictor(use_pallas=True, quantize='int8')`` answering batches of 32
+   (the calibration batch), 1 and 5 (9 int8 K7 launches and no float one a
+   forward), each of the nine K7 int8 calls of a batch-32 forward held to
+   its plain version on the same inputs under the bar above, and the
+   answers printed beside the same graph with K7's plain int8 version and
+   beside the float kernel graph; ``evaluate``'s batched core on seeded
+   scenes with masks (batch 32, a ragged last batch), int8 against float
+   MeanIoU within 0.01; K7 int8 timed at batch 32 beside its plain version
+   and its bound, and images/s int8 against float in turns; then the
+   seventeen kernels' JSON line (with each kernel's bound, and K12a's
+   library time) and the result line.
 
-TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN), so the
-plain versions compute in full fp32 like the kernels. Relative errors are
-``max|kernel - plain| / max|plain|``.
+A profile whose trace lost device activity (no device time, or kernels the
+host launched missing) is taken again, at most four times (``traced``). TF32 is off throughout (``allow_tf32 = False`` for
+matmul and cuDNN), so the plain versions compute in full fp32 like the
+kernels. Relative errors are ``max|kernel - plain| / max|plain|``.
 """
 
 import contextlib
@@ -155,6 +175,8 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PROB_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
 MASK_MIN_AGREE = {"float32": 0.999, "bfloat16": 0.98}
 PAIR_LAUNCHES_PER_FORWARD = 9
+TRACE_ATTEMPTS = 4       # a profile whose trace lost device activity is taken again
+INT8_LAUNCHES_PER_FORWARD = 9
 BLOCK_LAUNCHES_PER_FORWARD = 18
 # K1-K4 vs plain, relative to max|plain|. Elementwise outputs (y, dx, z,
 # pooled, dzt) take the K7/K8 bars. Reductions over B*H*W pixels (Σy, Σy²,
@@ -226,7 +248,8 @@ BLOCK_GRAD_TOL = 5e-4
 # where the composed block is 1.8e-6 off).
 RELU_APART_MAX = 64
 FP64_FACTOR = 16.0
-BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 1, "sepconv_bwd": 1}
+BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0, "sepconv_stats": 1,
+                  "sepconv_bwd": 1}
 BN_OFF_K8_LAUNCHES = 18
 # phase 12: K12b at its full shape, and the counts the troubleshoot tools run
 FMA_PROBE_K = 2048
@@ -236,6 +259,24 @@ ATTRIBUTION_ARGS = ["--warmup", "3", "--steps", "3"]
 GPU_BENCHMARK_ARGS = ["--cpu-runs", "1", "--cpu-trials", "3"]
 # the shapes of the kernels' calls on the paths (troubleshoot/roofline.py)
 STAGES = roofline.stage_shapes(IMAGE, FILTERS)
+# phase 13: K7's int8 I/O mode at the stage shapes at these batches, and
+# beyond them (label, Cx, Cx2, F1, F2, H, W, mode) at these batches: ragged
+# edges, the 3-channel input and 5 + 3 channels (plain loads), 80 + 80
+# (vectors of V int8 channels), a partial last slice of a cluster of 4, the
+# pool on an odd number of 8x8 tiles
+INT8_BATCHES = (BATCH_CHECK, BATCH_SERVE)
+INT8_RAGGED = [("20x36", 32, 0, 64, 64, 20, 36, "plain"),
+               ("cx3 f48", 3, 0, 48, 48, 24, 24, "pool"),
+               ("x2 80|80 f80", 80, 80, 80, 80, 16, 16, "x2"),
+               ("x2 5|3 f33 f7", 5, 3, 33, 7, 10, 14, "x2"),
+               ("cluster f300 f270", 12, 0, 300, 270, 9, 9, "plain"),
+               ("pool 18x18 f200", 64, 0, 200, 200, 18, 18, "pool")]
+INT8_RAGGED_BATCHES = (2, 3)
+INT8_SCALES = (2.0 ** -7, 2.0 ** -6)   # of x (int8 in [-127, 127]) and x2 ([0, 127])
+INT8_REQUESTS = (BATCH_SERVE, 1, 5)    # the first calibrates the graph
+# int8 against float MeanIoU of evaluate's core (the JAX package's IoU bar)
+INT8_MEAN_IOU_TOL = 0.01
+EVAL_SCENES = 72                        # batches of 32, 32 and a ragged 8
 # K7 beyond the path's shapes (phase 4): (label, Cx, Cx2, F1, F2, H, W, mode)
 # at these batches; ragged edges, a partial last slice of the cluster, and
 # the 512 px model's stages
@@ -381,7 +422,7 @@ def kernel_shapes():
     mc = roofline.train_step_shapes(MC_IMAGE, FILTERS, 3)
     out = {name: (BATCH_SERVE, shapes) for name, shapes in train.items()}
     out.update(
-        sepconv_pair=(BATCH_SERVE, STAGES),
+        sepconv_pair=(BATCH_SERVE, STAGES), sepconv_pair_int8=(BATCH_SERVE, STAGES),
         sepconv_block=(BATCH_SERVE, [(cx + cx2, f1, h) for _, cx, cx2, f1, _, h, _ in STAGES] +
                        [(f1, f2, h) for _, _, _, f1, f2, h, _ in STAGES]),
         sepconv_stats=(BATCH_SERVE, LINKS), sepconv_bwd=(BATCH_SERVE, LINKS),
@@ -977,7 +1018,7 @@ def train_path(torch, dev, smi, report, launches):
         report["train"]["fit_best"] = res.best_score
 
 
-def multiclass_path(torch, dev, smi, report, launches, rnd):
+def multiclass_path(torch, dev, smi, report, launches):
     """Phase 10: multiclass training at full width through K11."""
     with open(os.path.join(ROOT, MC_CONFIG)) as f:
         base = json.load(f)
@@ -1003,13 +1044,35 @@ def multiclass_path(torch, dev, smi, report, launches, rnd):
         print(f"  {dname} K11 in the profiled step, device ms a step with every launch it makes: "
               + ", ".join(f"{name} {rows[name]['ms']:.4f} ms in {rows[name]['launches']:g} "
                           "launch(es)" for name in ("head_fwd_mc", "head_bwd_mc")))
-    report["multiclass"]["k11_alone"] = k11_alone_launches(torch, dev, rnd)
+
+
+# what utils/profiling.trace and profile_summary.check_complete say of a
+# trace that lost device activity
+LOST_TRACE = ("recorded no device time", "the trace lacks")
+
+
+def traced(fn, label, attempts=TRACE_ATTEMPTS):
+    """``fn(attempt)``, again up to ``attempts`` times while its trace lost
+    device activity: on an H100 (PyTorch 2.11) torch.profiler has returned
+    traces with no device time, or without a run of the kernels the host
+    launched, more often the more profiler sessions the process had run
+    before; the same traces came back whole in a fresh process."""
+    for attempt in range(attempts):
+        try:
+            return fn(attempt)
+        except (RuntimeError, AssertionError) as e:
+            if not any(m in str(e) for m in LOST_TRACE) or attempt + 1 == attempts:
+                raise
+            print(f"  {label}: {e}; tracing again")
 
 
 def k11_alone_launches(torch, dev, rnd):
-    """Phase 10: K11's forward and backward at the path's shape (batch 8 of
-    512 px, dec1, 3 classes, bf16), traced alone: each launches its own
-    kernel once and nothing else, no row-sum kernel in particular."""
+    """Phase 7: K11's forward and backward at the multiclass path's shape
+    (batch 8 of 512 px, dec1, 3 classes, bf16), traced alone: each launches
+    its own kernel once and nothing else, no row-sum kernel in particular.
+    Only the span's launches are counted; the lead-in (and lead-out)
+    launches around it grow tenfold with each :func:`traced` attempt, up
+    to a hundred."""
     from unet_image_segmentation_tpu_torch.ops import fused_head as fh
     from unet_image_segmentation_tpu_torch.troubleshoot import profile_summary
     from unet_image_segmentation_tpu_torch.utils.profiling import trace
@@ -1022,18 +1085,24 @@ def k11_alone_launches(torch, dev, rnd):
     fh.head_fwd_sums_mc(*fwd), fh.head_bwd_mc(*bwd)   # warm
     torch.cuda.synchronize()
     span = "chip_smoke.k11"
-    with tempfile.TemporaryDirectory(prefix="unet_k11_") as tmp:
-        with trace(tmp, dev):
-            # a lead-in pair, as step_attribution leads in with a step: a
-            # trace of the two kernels alone has come back without device
-            # time on the card; only the span's launches are counted
-            fh.head_fwd_sums_mc(*fwd), fh.head_bwd_mc(*bwd)
-            torch.cuda.synchronize()
-            with torch.profiler.record_function(span):
-                fh.head_fwd_sums_mc(*fwd)
-                fh.head_bwd_mc(*bwd)
-            torch.cuda.synchronize()
-        summary = profile_summary.summarize(tmp, within=span)
+
+    def summarize(attempt):
+        lead = 10 ** min(attempt, 2)
+        with tempfile.TemporaryDirectory(prefix="unet_k11_") as tmp:
+            with trace(tmp, dev):
+                # a lead-in, as step_attribution leads in with a step
+                for _ in range(lead):
+                    fh.head_fwd_sums_mc(*fwd), fh.head_bwd_mc(*bwd)
+                torch.cuda.synchronize()
+                with torch.profiler.record_function(span):
+                    fh.head_fwd_sums_mc(*fwd)
+                    fh.head_bwd_mc(*bwd)
+                torch.cuda.synchronize()
+                for _ in range(lead - 1):
+                    fh.head_fwd_sums_mc(*fwd), fh.head_bwd_mc(*bwd)
+            return profile_summary.summarize(tmp, within=span)
+
+    summary = traced(summarize, "K11 traced alone")
     profile_summary.check_complete(summary, "K11 traced alone")
     seen = {}
     for name, n in summary["launches"].items():   # kernels and copies
@@ -1337,6 +1406,207 @@ def troubleshoot_path(torch, dev, smi, report, launches, worst_abs, totals):
     return {"dispatch_probe": k12a["library_ms"]}
 
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` is ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def int8_case(torch, fs, sq, rnd, weights, dev, dtype, batch, cx, cx2, f1, f2, h, w, mode):
+    """Seeded inputs of one K7 int8 call: int8 x in [-127, 127] and x2 in
+    [0, 127] at INT8_SCALES, random blocks in ``dtype`` folded for an output
+    scale that covers the plain float pair's output on the dequantized x."""
+    w1, w2 = weights(cx + cx2, f1, dtype), weights(f1, f2, dtype)
+    q = torch.randint(-127, 128, (batch, h, w, cx), generator=rnd.gen, dtype=torch.int8).to(dev)
+    q2 = (torch.randint(0, 128, (batch, h, w, cx2), generator=rnd.gen, dtype=torch.int8).to(dev)
+          if cx2 else None)
+    s_x, s_x2 = INT8_SCALES
+    xf = sq.dequantize(q, s_x, dtype)
+    x2f = sq.dequantize(q2, s_x2, dtype) if cx2 else None
+    s_out = sq.pow2_scale(fs.sepconv_pair_reference(xf, w1, w2, x2=x2f).float().max().item())
+    return {"q": q, "q2": q2, "xf": xf, "x2f": x2f, "w": (w1, w2), "s_out": s_out,
+            "fw": fs.fold_int8(w1, w2, (s_x, s_x2) if cx2 else s_x, s_out, cx),
+            "pool": mode == "pool"}
+
+
+def hold_int8(torch, got, want, label, dname, worst_abs):
+    """K7 int8's outputs (y, or (y, pooled)) against its plain int8
+    version's, in quanta: at most 1 + KERNEL_TOL x max|plain| apart."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    torch.cuda.synchronize()
+    for part, g, r in zip(("y", "pooled"), got, want):
+        if g.shape != r.shape or g.dtype != torch.int8:
+            raise AssertionError(f"K7 int8 {label} {dname}: bad output {tuple(g.shape)} {g.dtype}")
+        d = (g.int() - r.int()).abs()
+        err, share = d.max().item(), (d > 0).float().mean().item()
+        bar = 1 + KERNEL_TOL[dname] * r.int().abs().max().item()
+        worst_abs["sepconv_pair_int8"] = max(worst_abs["sepconv_pair_int8"], err)
+        print(f"  K7 int8 {label} {part} {dname}: max |kernel - plain| {err} quanta (bar "
+              f"{bar:.2f}), {share:.2e} of elements differ {'ok' if err <= bar else 'FAIL'}")
+        if not err <= bar:
+            raise AssertionError(f"K7 int8 {label} {dname}: {err} quanta > {bar}")
+
+
+def judge_int8(torch, fs, sq, k, label, dname, worst_abs):
+    """K7 int8 against its plain int8 version (:func:`hold_int8`); in fp32
+    also bit for bit equal to quantizing the float K7's output on the
+    dequantized input."""
+    kw = {"pool": k["pool"], "x2": k["q2"]}
+    got = fs.sepconv_pair_int8(k["q"], *k["fw"], **kw)
+    hold_int8(torch, got, fs.sepconv_pair_int8_reference(k["q"], *k["fw"], **kw), label, dname,
+              worst_abs)
+    got = got if k["pool"] else (got,)
+    if dname == "float32":
+        yf = fs.sepconv_pair(k["xf"], *k["w"], pool=k["pool"], x2=k["x2f"])
+        for g, f in zip(got, yf if k["pool"] else (yf,)):
+            if not torch.equal(g, sq.quantize(f, k["s_out"])):
+                raise AssertionError(f"K7 int8 {label} fp32: not bit for bit quantize(float K7 "
+                                     "on the dequantized input)")
+        print(f"  K7 int8 {label} fp32: bit for bit quantize(float K7 on the dequantized input)")
+
+
+def int8_path(torch, dev, smi, report, launches, worst_abs, totals, rnd, weights, dtypes,
+              scenes, on, on8):
+    """Phase 13: K7's int8 I/O mode against its plain version, the int8
+    ``Predictor``s ``on8`` (phase 5's checkpoint; the bf16 one calibrated
+    and profiled in phase 5) beside the float ones ``on``, ``evaluate``'s
+    batched core, and their times."""
+    from unet_image_segmentation_tpu_torch import serving_quant as sq
+    from unet_image_segmentation_tpu_torch.evaluation import evaluate_batches
+    from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+
+    print("K7 int8 I/O vs its plain int8 version (in quanta), fp32 and bf16:")
+    cases = {}
+    for dname, dtype in dtypes.items():
+        for batch in INT8_BATCHES:
+            for stage in STAGES:
+                name, cx, cx2, f1, f2, h, mode = stage
+                k = int8_case(torch, fs, sq, rnd, weights, dev, dtype, batch, cx, cx2, f1, f2, h,
+                              h, mode)
+                judge_int8(torch, fs, sq, k, f"{name} batch {batch}", dname, worst_abs)
+                if batch == BATCH_SERVE:   # kept for the timings
+                    cases[(dname, name)] = {key: k[key] for key in ("q", "q2", "fw", "pool")}
+                del k
+        stream = rnd.gen.get_state()   # the later steps' seeded inputs stay as they were
+        for batch in INT8_RAGGED_BATCHES:
+            for name, cx, cx2, f1, f2, h, w, mode in INT8_RAGGED:
+                k = int8_case(torch, fs, sq, rnd, weights, dev, dtype, batch, cx, cx2, f1, f2, h,
+                              w, mode)
+                plan = fs.pair_plan(h, w, cx + cx2, f1, f2, dtype, batch, int8=True)
+                judge_int8(torch, fs, sq, k, f"{name} ({cx}{'|%d' % cx2 if cx2 else ''})->{f1}->"
+                           f"{f2}@{h}x{w} {mode} batch {batch}, cluster {plan.n}", dname,
+                           worst_abs)
+                del k
+        rnd.gen.set_state(stream)
+
+    # the int8 Predictor: the run whose launches are counted
+    fs.reset_launch_counts()
+    outputs = {(d, n): on8[d].predict(scenes[:n]) for d in dtypes for n in INT8_REQUESTS}
+    torch.cuda.synchronize()
+    counts = dict(fs.LAUNCHES)
+    forwards = len(INT8_REQUESTS) * len(dtypes)
+    print(f"int8 Predictor: launches {counts} over {forwards} forwards")
+    if (counts["sepconv_pair_int8"] != INT8_LAUNCHES_PER_FORWARD * forwards
+            or counts["sepconv_pair"] != 0):
+        raise AssertionError(f"expected {INT8_LAUNCHES_PER_FORWARD} int8 K7 launches and no "
+                             f"float one a forward, got {counts}")
+    launches["sepconv_pair_int8"] = counts["sepconv_pair_int8"]
+    report["int8"] = {"scales": {d: on8[d].quant_scales for d in dtypes}}
+    for dname in dtypes:
+        pred = on8[dname]
+        # each K7 int8 call of a batch-32 forward against its plain version on
+        # the same inputs: the path's own activations
+        names = iter(stage[0] for stage in STAGES)
+
+        def held(xq, w1, w2, pool=False, x2=None):
+            got = fs.sepconv_pair_int8(xq, w1, w2, pool=pool, x2=x2)
+            hold_int8(torch, got, fs.sepconv_pair_int8_reference(xq, w1, w2, pool=pool, x2=x2),
+                      f"{next(names)} in the int8 Predictor's forward", dname, worst_abs)
+            return got
+
+        with patched(sq, "sepconv_pair_int8", held):
+            pred.predict(scenes[:BATCH_SERVE])
+        # end to end: the same graph with the plain int8 version. A sum in
+        # another order rounds to another quantum now and then, and each such
+        # difference spreads to the next stage's roundings, so with random
+        # weights the two graphs differ like int8 and float do: printed
+        with patched(sq, "sepconv_pair_int8", fs.sepconv_pair_int8_reference):
+            plain = sq.build_serving_forward_quant(pred.variables, pred.quant_scales,
+                                                   **pred.serving_kwargs, device=dev)
+            want = {n: plain(torch.from_numpy(scenes[:n]).to(dev)).cpu().numpy()
+                    for n in INT8_REQUESTS}
+        for n in INT8_REQUESTS:
+            got = outputs[(dname, n)]
+            if got.shape != (n, IMAGE, IMAGE, 1) or not np.isfinite(got).all():
+                raise AssertionError(f"int8 Predictor {dname} batch {n}: bad output {got.shape}")
+            err = float(np.abs(got - want[n]).max())
+            agree = float(((got > 0.5) == (want[n] > 0.5)).mean())
+            fl = on[dname].predict(scenes[:n])
+            f_err = float(np.abs(got - fl).max())
+            f_agree = float(((got > 0.5) == (fl > 0.5)).mean())
+            print(f"  int8 Predictor {dname} batch {n}: against the graph with K7's plain int8 "
+                  f"version prob max_abs_diff {err:.3e}, mask agreement {agree:.6f}; against the "
+                  f"float kernel graph prob max_abs_diff {f_err:.3e}, mask agreement "
+                  f"{f_agree:.6f} (printed, no bar)")
+            report["int8"][f"{dname} batch {n}"] = {
+                "plain_max_abs_diff": err, "plain_mask_agree": agree,
+                "float_max_abs_diff": f_err, "float_mask_agree": f_agree}
+
+    images, masks = synthetic_scenes(EVAL_SCENES, IMAGE, SEED + 7, with_masks=True)
+
+    def batches():
+        for i in range(0, EVAL_SCENES, BATCH_SERVE):
+            yield ([f"scene{j}" for j in range(i, min(i + BATCH_SERVE, EVAL_SCENES))],
+                   images[i:i + BATCH_SERVE], masks[i:i + BATCH_SERVE, ..., 0])
+
+    for dname in dtypes:
+        r8 = evaluate_batches(on8[dname], batches(), batch_size=BATCH_SERVE)
+        rf = evaluate_batches(on[dname], batches(), batch_size=BATCH_SERVE)
+        delta = abs(r8.mean_iou - rf.mean_iou)
+        ok = r8.n_evaluated == rf.n_evaluated == EVAL_SCENES and delta <= INT8_MEAN_IOU_TOL
+        print(f"  evaluate_batches {dname}, {EVAL_SCENES} scenes at batch {BATCH_SERVE}: MeanIoU "
+              f"int8 {r8.mean_iou:.6f}, float {rf.mean_iou:.6f}, |delta| {delta:.2e} (tol "
+              f"{INT8_MEAN_IOU_TOL}) {'ok' if ok else 'FAIL'}")
+        report["int8"][f"{dname} mean_iou"] = {"int8": r8.mean_iou, "float": rf.mean_iou}
+        if not ok:
+            raise AssertionError(f"evaluate {dname}: int8 MeanIoU {r8.mean_iou} against float "
+                                 f"{rf.mean_iou}")
+
+    print(f"K7 int8 at batch {BATCH_SERVE}, ms (kernel / plain, its bound) [{smi}]:")
+    for dname in dtypes:
+        t_k = t_p = b_sum = 0.0
+        for stage in STAGES:
+            k = cases.pop((dname, stage[0]))
+            kw = {"pool": k["pool"], "x2": k["q2"]}
+            tk = time_ms(lambda: fs.sepconv_pair_int8(k["q"], *k["fw"], **kw), torch)
+            tp = time_ms(lambda: fs.sepconv_pair_int8_reference(k["q"], *k["fw"], **kw), torch)
+            bound, by = roofline.bounds_ms("sepconv_pair_int8", stage, dname, BATCH_SERVE)
+            t_k, t_p, b_sum = t_k + tk, t_p + tp, b_sum + bound
+            print(f"  K7 int8 {stage[0]} {dtype_label(dname)}: {tk:.3f} / {tp:.3f}, bound "
+                  f"{bound:.4f} ({by}, {100 * bound / tk:.1f}%)")
+            report["stages"][f"{stage[0]} int8 {dname}"] = {
+                "ms": tk, "plain_ms": tp, "bound_ms": bound, "bound_by": by}
+            del k, kw
+        totals[dname]["sepconv_pair_int8"] = (t_k, t_p)
+        print(f"  {dname} K7 int8 over the path: {t_k:.3f} / {t_p:.3f}, bound {b_sum:.4f} "
+              f"({100 * b_sum / t_k:.1f}%); float K7 {totals[dname]['sepconv_pair'][0]:.3f}")
+
+    batch = scenes[:BATCH_SERVE]
+    for dname in dtypes:
+        rates = {}
+        for label, pred in (("int8", on8[dname]), ("float", on[dname]),
+                            ("int8", on8[dname]), ("float", on[dname])):
+            rates.setdefault(label, []).append(images_per_second(pred, batch, torch))
+        print(f"  Predictor {dname} batch {BATCH_SERVE} images/s: " + ", ".join(
+            f"{k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) + f" [{smi}]")
+        report["int8"][f"{dname} images_per_s"] = rates
+
+
 def reset_train_counts():
     from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
 
@@ -1523,6 +1793,9 @@ def main() -> int:
               for d in dtypes}
         off = {d: Predictor(tmp, (IMAGE, IMAGE), compute_dtype=d, use_pallas=False, device=dev)
                for d in dtypes}
+        # phase 13's int8 Predictors, built here for the profile below
+        on8 = {d: Predictor(tmp, (IMAGE, IMAGE), compute_dtype=d, use_pallas=True,
+                            quantize="int8", device=dev) for d in dtypes}
     modules = {}
     for dname, dtype in dtypes.items():
         m = UNet(filters=FILTERS, dtype=dtype, use_pallas=True)
@@ -1580,7 +1853,14 @@ def main() -> int:
                         for k, v in rates.items())
         print(f"  Predictor {dname} batch {BATCH_SERVE} images/s: {msg} [{smi}]")
         report["predictor"][f"{dname} images_per_s"] = rates
-    report["predictor"]["profile"] = profile_predict(torch, dev, on["bfloat16"], batch, smi)
+    report["predictor"]["profile"] = traced(
+        lambda _: profile_predict(torch, dev, on["bfloat16"], batch, smi), "Predictor profile")
+    # the int8 Predictor's profile, early in the process, where traces lose
+    # least (its warm-up predict calibrates it on this batch, phase 13's
+    # first request)
+    report["int8_profile"] = traced(
+        lambda _: profile_predict(torch, dev, on8["bfloat16"], batch, smi, "bf16 int8"),
+        "int8 Predictor profile")
 
     # ---- 6. kernel timings --------------------------------------------------
     # K7's and K8's launch plans depend on the batch (the grid), so each
@@ -1636,6 +1916,7 @@ def main() -> int:
 
     # ---- 7. K1-K6, K9-K11 vs plain ---------------------------------------
     check_train_kernels(torch, ft, fu, fh, fs, rnd, dev, dtypes, tjudge)
+    report["k11_alone"] = k11_alone_launches(torch, dev, rnd)
 
     # ---- 8. the training path at full width ----------------------------------
     train_path(torch, dev, smi, report, launches)
@@ -1748,13 +2029,17 @@ def main() -> int:
                 if kname in bound_tot else "") for kname, t in tot.items()))
 
     # ---- 10. multiclass training through K11 ---------------------------------
-    multiclass_path(torch, dev, smi, report, launches, rnd)
+    multiclass_path(torch, dev, smi, report, launches)
 
     # ---- 11. per-block training through K9/K10, BatchNorm-free U-Net ---------
     block_train_path(torch, dev, smi, report, launches, dtypes)
 
     # ---- 12. the troubleshoot tools: K12, K2 link by link, the step's attribution
     library_ms = troubleshoot_path(torch, dev, smi, report, launches, worst_abs, totals)
+
+    # ---- 13. int8 serving: K7's int8 I/O mode, the int8 Predictor, evaluate
+    int8_path(torch, dev, smi, report, launches, worst_abs, totals, rnd, weights, dtypes,
+              scenes, on, on8)
 
     kernels, report["bounds"] = [], {}
     shapes = kernel_shapes()
@@ -1798,7 +2083,8 @@ def main() -> int:
           "path's shapes (9 pair and 18 block shapes; 18 chain links; 4 encoder boundaries; 4 "
           "decoder feeds; the head; 18 per-block sepconvs); K12a: fp32 (8, 128), ms a launch; "
           f"K12b: bf16 {FMA_PROBE_SHAPE} at K = {FMA_PROBE_K}; launches: K7/K8 over phase 5's "
-          f"forwards (K8 also phase 8's eval steps), K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
+          "forwards (K8 also phase 8's eval steps), K7 int8 over phase 13's int8 Predictor "
+          f"forwards, K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
           "A/B step) in each dtype, K11 over phase 10's, K9/K10 over phase 11's 18 blocks in each "
           "dtype, K12 over phase 12's link_floors run")
     print(smi)
@@ -1836,7 +2122,7 @@ def images_per_second(predictor, batch, torch, reps=5):
     return reps * len(batch) / (time.perf_counter() - t0)
 
 
-def profile_predict(torch, dev, predictor, batch, smi):
+def profile_predict(torch, dev, predictor, batch, smi, label="bf16"):
     """Phase 5: one ``predict`` of ``batch`` under ``torch.profiler``
     (``utils/profiling.trace``, read by ``troubleshoot/profile_summary``):
     the device's busy time and idle share over the call, K7's share of the
@@ -1867,7 +2153,7 @@ def profile_predict(torch, dev, predictor, batch, smi):
            "other_kernels": {name: ms for name, ms in sorted(
                s["kernels"].items(), key=lambda kv: -kv[1])
                if roofline.entry_of(name) is None}}
-    print(f"  bf16 predict of {len(batch)} under torch.profiler: {s['window_ms']:.2f} ms, device "
+    print(f"  {label} predict of {len(batch)} under torch.profiler: {s['window_ms']:.2f} ms, device "
           f"busy {s['busy_ms']:.2f} ms (idle share {s['idle_share']:.3f}); K7 {k7:.2f} ms in "
           f"{k7_n} launches ({100 * k7 / s['busy_ms']:.1f}% of busy); host copies " + ", ".join(
               f"{name} {v['ms']:.3f} ms x{v['n']}" for name, v in out["copies"].items()) +

@@ -182,6 +182,28 @@ def test_pair_plan_refuses_what_the_kernel_cannot_launch():
         tfs.pair_plan(16, 16, 64, 64, 64, torch.float16)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("h,w,c,f1,f2,batch", _PLAN_SHAPES)
+def test_pair_plan_int8(h, w, c, f1, f2, batch, dtype):
+    """The int8 I/O mode takes the float plan's cluster, slices and grid;
+    its x tiles hold a byte a value, so its shared memory is the float
+    plan's less the tiles' other bytes where block 2's buffers still fit,
+    and never more: an SM holds as many of its CTAs."""
+    plan = tfs.pair_plan(h, w, c, f1, f2, dtype, batch)
+    q = tfs.pair_plan(h, w, c, f1, f2, dtype, batch, int8=True)
+    assert q._replace(smem=plan.smem) == plan
+    kc, _ = build.CHUNK[dtype]
+    e = dtype.itemsize
+    ldk, ldn = kc + 16 // e, plan.width + 8
+    # affines, taps and weight chunks; then the x tiles and dw1 chunks, or
+    # block 2's y1, d2 and pulled d2 chunks in their place, the larger
+    front = 16 * plan.width + e * (18 * kc + 9 * plan.width + 2 * kc * ldn)
+    block2 = e * (164 * ldn + 128 * ldk)
+    assert plan.smem == front + max(e * 288 * kc + e * 224 * ldk, block2)
+    assert q.smem == front + max(288 * kc + e * 224 * ldk, block2) <= plan.smem
+    assert (2 * (q.smem + 1024) <= 228 * 1024) >= (2 * (plan.smem + 1024) <= 228 * 1024)
+
+
 def test_pair_work_by_hand():
     """One 8x8 tile, C = 3, F1 = F2 = 16, bf16: one cluster of one CTA,
     width 64; C pads to one k16 step; GEMM2 runs one 16-deep chunk."""
@@ -237,8 +259,10 @@ def test_cpu_path_launches_nothing():
     y, s, q = tfs.sepconv_apply_stats(xg, b1["depthwise_kernel"], b1["pointwise_kernel"])
     (y.sum() + s.sum() + q.sum() + tfs.sepconv_apply(xg, b2["depthwise_kernel"][:, :, :3],
                                                      b1["pointwise_kernel"]).sum()).backward()
-    assert tfs.LAUNCHES == {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 0,
-                            "sepconv_bwd": 0}
+    tfs.fused_sepconv_pair(torch.round(x * 20).clamp(-127, 127).to(torch.int8), b1, b2,
+                           pool=True, in_scale=0.0625, out_scale=0.125)
+    assert tfs.LAUNCHES == {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0,
+                            "sepconv_stats": 0, "sepconv_bwd": 0}
 
 
 def test_kernel_build_refuses_without_cuda(monkeypatch):

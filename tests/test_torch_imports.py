@@ -34,7 +34,7 @@ def test_port_modules_import_no_jax():
                  "troubleshoot.profile_summary", "troubleshoot.roofline",
                  "troubleshoot.step_attribution", "troubleshoot.link_floors",
                  "troubleshoot.check_install", "troubleshoot.check_gpu_benchmark",
-                 "troubleshoot.pair_phases"):
+                 "troubleshoot.pair_phases", "serving_quant", "evaluation", "cli.benchmark"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

@@ -139,7 +139,7 @@ def test_predictor_bucketed_batch(model_files):
 
 def test_predictor_refuses_what_it_cannot_run(model_files, monkeypatch):
     _, ckpt, _ = model_files
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs use_pallas=True"):
         Predictor(ckpt, quantize="int8", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -159,6 +159,19 @@ def test_cli_runs_on_cpu(model_files, tmp_path, crop_mode):
     assert os.path.exists(tmp_path / "m.png")
 
 
+def test_cli_int8_runs_on_cpu(model_files, tmp_path):
+    """--pallas --quant int8 on the CPU: the int8 graph on the kernels'
+    plain versions."""
+    h5, _, _ = model_files
+    rc = infer_main([
+        _scene(tmp_path, seed=8), "--model", h5, "--image-size", str(HW),
+        "--output_mask", str(tmp_path / "m.png"), "--output_cropped", str(tmp_path / "c.png"),
+        "--min_area", "20", "--device", "cpu", "--pallas", "--quant", "int8",
+    ])
+    assert rc == 0
+    assert cv2.imread(str(tmp_path / "m.png"), cv2.IMREAD_GRAYSCALE).shape == (48, 40)
+
+
 @pytest.mark.parametrize(
     "extra,message",
     [
@@ -167,7 +180,7 @@ def test_cli_runs_on_cpu(model_files, tmp_path, crop_mode):
         (["--pallas"], "no CUDA device"),
         (["--pallas", "--device", "cpu"], "needs --device cuda"),
         ([], "no CUDA device"),
-        (["--quant", "int8", "--device", "cpu"], "not ported yet"),
+        (["--quant", "int8", "--device", "cpu"], "needs --pallas"),
     ],
 )
 def test_cli_error_probes(model_files, tmp_path, capsys, monkeypatch, extra, message):

@@ -203,6 +203,35 @@ def test_k7_bound_by_hand():
         pytest.approx((nbytes32 / 3.35e12 * 1e3, "bytes"))
 
 
+def test_k7_int8_bound_by_hand():
+    """K7's int8 I/O mode moves 1-byte x, x2, y and pooled values beside
+    its weights in the compute dtype, with the float mode's operations: the
+    nine stages' bytes bound at batch 32 in bf16 is the float one less the
+    activations' second byte; in fp32 the stages the float mode's bytes
+    bound (enc1, dec1) fall to their 3xTF32 products' bound."""
+    dec1 = ("dec1", 64, 64, 64, 64, 256, "x2")
+    px = 32 * 256 * 256
+    weights = 9 * 128 + 128 * 64 + 9 * 64 + 64 * 64
+    for dname, e in (("bfloat16", 2), ("float32", 4)):
+        nbytes = px * (128 + 64) + e * weights
+        assert roofline.work("sepconv_pair_int8", dec1, dname, 32) == (
+            nbytes, sum(roofline.pair_ops(dec1, 32)))
+        assert roofline.work("sepconv_pair", dec1, dname, 32)[0] == e * px * (128 + 64) + \
+            e * weights
+    stages = roofline.stage_shapes(256, (64, 128, 256, 512))
+    t8, by8 = roofline.sum_bounds("sepconv_pair_int8", stages, "bfloat16", 32)
+    t16, by16 = roofline.sum_bounds("sepconv_pair", stages, "bfloat16", 32)
+    assert by8 == by16 == "bytes" and 0.44 < t8 < 0.46 < 0.73 < t16 < 0.74
+    for stage in stages:   # fewer bytes, the same operations
+        t8, by8 = roofline.bounds_ms("sepconv_pair_int8", stage, "float32", 32)
+        t32, by32 = roofline.bounds_ms("sepconv_pair", stage, "float32", 32)
+        assert t8 <= t32 and (by32 == "bytes" or (t8, by8) == (t32, by32))
+    name = ("void unet::(anonymous namespace)::sepconv_pair_cluster_kernel<__nv_bfloat16, 128, 1>"
+            "(unet::(anonymous namespace)::PairArgs<__nv_bfloat16, signed char>)")
+    assert roofline.entry_of(name) == "sepconv_pair_cluster_kernel"
+    assert roofline.KERNELS["sepconv_pair_int8"][1:] == roofline.KERNELS["sepconv_pair"][1:]
+
+
 def test_pair_phases_marks_match_the_kernel():
     """Every PAIR_PHASE mark of sepconv_pair.cu names one of the tool's
     phases, in order, and the kernel's buffer holds as many a CTA."""

@@ -2,8 +2,10 @@
 
 Same flags and checks as ``unet_image_segmentation_tpu.cli.inference``, plus
 ``--device`` (default ``cuda``). ``--pallas`` runs the hand-written CUDA
-kernels and needs a CUDA device. Nothing falls back to the CPU unasked: the
-CPU is used only with ``--device cpu``.
+kernels and needs a CUDA device; ``--pallas --quant int8`` runs the int8
+graph, on the CPU (``--device cpu``) with the kernels' plain versions.
+Nothing falls back to the CPU unasked: the CPU is used only with
+``--device cpu``.
 
 Usage:
   python -m unet_image_segmentation_tpu_torch.cli.inference IMG [options]
@@ -44,7 +46,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations for the forward pass.")
     p.add_argument("--quant", type=str, default=None, choices=["int8"],
-                   help="int8-quantized serving graph (not ported yet).")
+                   help="int8-quantized serving graph (needs --pallas).")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="Device for the forward pass.")
     return p.parse_args(argv)
@@ -64,29 +66,31 @@ def main(argv=None) -> int:
 
     import torch
 
-    if args.pallas and args.device != "cuda":
-        print("Error: --pallas runs CUDA kernels and needs --device cuda")
+    if args.quant and not args.pallas:
+        print("Error: --quant int8 runs the int8 kernel graph and needs --pallas")
+        return 1
+    # the float kernel graph on the CPU would only repeat the module path;
+    # the int8 graph has no such twin, so its plain versions run there
+    if args.pallas and args.device != "cuda" and not args.quant:
+        print("Error: --pallas runs CUDA kernels and needs --device cuda (on the CPU only "
+              "with --quant int8, which runs the kernels' plain versions)")
         return 1
     if args.device == "cuda" and not torch.cuda.is_available():
         print("Error: no CUDA device is available; pass --device cpu to run "
-              "on the CPU" + (" (without --pallas)" if args.pallas else ""))
+              "on the CPU" + (" (without --pallas)" if args.pallas and not args.quant else ""))
         return 1
 
     from unet_image_segmentation_tpu_torch.inference import Predictor, run_inference
 
     print(f"Loading model from {args.model} ...")
-    try:
-        predictor = Predictor(
-            args.model,
-            image_size=(args.image_size, args.image_size),
-            compute_dtype="bfloat16" if args.bf16 else "float32",
-            use_pallas=args.pallas,
-            quantize=args.quant,
-            device=args.device,
-        )
-    except NotImplementedError as e:
-        print(f"Error: {e}")
-        return 1
+    predictor = Predictor(
+        args.model,
+        image_size=(args.image_size, args.image_size),
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        use_pallas=args.pallas,
+        quantize=args.quant,
+        device=args.device,
+    )
     result = run_inference(
         predictor,
         args.input,

@@ -5,8 +5,9 @@ re-implemented here:
 
 * preprocess: BGR image -> float32/255 -> bilinear resize to the model size
   (normalize, then resize);
-* forward: the serving graph of fused kernels (``use_pallas=True``) or the
-  module path;
+* forward: the serving graph of fused kernels (``use_pallas=True``), its
+  int8 twin (``quantize='int8'``, :mod:`.serving_quant`) or the module
+  path;
 * postprocess: bilinear-resize the probabilities to the original size, then
   threshold; bbox or quad-warp crop through :mod:`.utils.image`.
 
@@ -29,6 +30,10 @@ from unet_image_segmentation_tpu_torch.utils.image import (
 )
 from unet_image_segmentation_tpu_torch.models.unet import UNet
 from unet_image_segmentation_tpu_torch.serving import build_serving_forward
+from unet_image_segmentation_tpu_torch.serving_quant import (
+    build_serving_forward_quant,
+    calibrate_chained,
+)
 from unet_image_segmentation_tpu_torch.train.checkpoint import load_inference_variables
 from unet_image_segmentation_tpu_torch.weights import flax_from_state_dict
 
@@ -40,6 +45,16 @@ class Predictor:
 
     ``predict`` pads a ragged batch up to the next power of two, so a
     dataset's last partial batch runs at a shape already seen.
+
+    ``quantize='int8'`` serves the int8 graph (:mod:`.serving_quant`): the
+    first ``predict`` batch, after the bucket padding, is the calibration
+    sample (``quant_scales``); the graph is built then, once, and later
+    batches reuse it. ``serving_kwargs`` holds the graph's ``num_classes``,
+    ``depth`` and ``compute_dtype``. Two departures from the JAX
+    ``Predictor``, both so that nothing hides the kernel: ``quantize``
+    without ``use_pallas=True`` raises ``ValueError`` (JAX warns and ignores
+    it), and a failure while building or running the int8 graph raises
+    (JAX warns and serves the float graph).
     """
 
     def __init__(
@@ -51,11 +66,10 @@ class Predictor:
         quantize: Optional[str] = None,
         device: Union[str, torch.device] = "cuda",
     ):
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: int8 serving is not ported yet "
-                "(ROADMAP queue 1, 'Int8 serving: serving_quant.py')"
-            )
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
+        if quantize and not use_pallas:
+            raise ValueError("quantize='int8' runs the int8 kernel graph and needs use_pallas=True")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is available")
@@ -65,16 +79,18 @@ class Predictor:
         self.model = UNet(dtype=dtype, **kwargs)
         self.model.load_state_dict(state_dict)
         self.image_size = image_size
+        self.serving_kwargs: Optional[Dict[str, Any]] = None
+        self.quant_scales: Optional[Dict[str, float]] = None
+        self._quantize = quantize
         if use_pallas:
             if kwargs.get("conv_type", "separable") != "separable":
                 raise ValueError("use_pallas=True needs a separable-conv model")
-            self._forward = build_serving_forward(
-                flax_from_state_dict(state_dict),
-                num_classes=self.model.num_classes,
-                depth=len(self.model.filters),
-                compute_dtype=dtype,
-                device=self.device,
-            )
+            self.variables = flax_from_state_dict(state_dict)
+            self.serving_kwargs = dict(num_classes=self.model.num_classes,
+                                       depth=len(self.model.filters), compute_dtype=dtype)
+            if not quantize:
+                self._forward = build_serving_forward(
+                    self.variables, **self.serving_kwargs, device=self.device)
         else:
             self.model.to(self.device)
             self._forward = torch.no_grad()(self.model)
@@ -91,6 +107,12 @@ class Predictor:
             pad = np.zeros((bucket - b, *images.shape[1:]), dtype=images.dtype)
             images = np.concatenate([np.asarray(images), pad], axis=0)
         x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).to(self.device)
+        if self._quantize == "int8":
+            # the first batch is the calibration sample; built once
+            self.quant_scales = calibrate_chained(self.variables, x, **self.serving_kwargs)
+            self._forward = build_serving_forward_quant(
+                self.variables, self.quant_scales, **self.serving_kwargs, device=self.device)
+            self._quantize = None
         out = self._forward(x)
         return out[:b].float().cpu().numpy()
 

@@ -17,7 +17,10 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
   two-stream input ``[x | x2]`` (``x2=``). CUDA source:
   ``kernels/csrc/sepconv_pair.cu``, one thread-block cluster per 8x8 tile;
   :func:`pair_plan` chooses its launch and :func:`pair_work` counts the
-  multiply-adds it executes.
+  multiply-adds it executes. Its int8 I/O mode (:func:`sepconv_pair_int8`,
+  the TPU kernel's ``quant_out`` with int8 input): int8 x (and x2) in,
+  int8 y (and pooled) out, the compute in the weights' dtype, the scales
+  folded into the weights beforehand (:func:`fold_int8`).
 * :func:`sepconv_stats` (K9, TPU kernel ``_sepconv_kernel_db_stats``): the
   plain sepconv ``y = (dw3x3(x) -> dtype) . pw`` rounded to the dtype, with
   the per-channel Σy and Σy² of the rounded y. CUDA source: the
@@ -57,8 +60,8 @@ from unet_image_segmentation_tpu_torch.ops import fused_train as ft
 from unet_image_segmentation_tpu_torch.ops.conv import max_pool_2x2
 from unet_image_segmentation_tpu_torch.ops.kernels import build
 
-LAUNCHES: Dict[str, int] = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_stats": 0,
-                            "sepconv_bwd": 0}
+LAUNCHES: Dict[str, int] = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0,
+                            "sepconv_stats": 0, "sepconv_bwd": 0}
 
 _MAX_BATCH = 65535  # gridDim.y of K7, gridDim.z of the others
 
@@ -166,6 +169,53 @@ def sepconv_pair_reference(
     return y
 
 
+def fold_int8(
+    w1: BlockWeights,
+    w2: BlockWeights,
+    in_scale: Union[float, Tuple[float, float]],
+    out_scale: float,
+    cx: int,
+) -> Tuple[BlockWeights, BlockWeights]:
+    """K7's int8 folds, in the JAX wrapper's order: block 1's taps times the
+    input scale in the compute dtype (per channel for a two-stream call, the
+    first ``cx`` channels by ``s_x`` of ``in_scale = (s_x, s_x2)``, the rest
+    by ``s_x2``), block 2's scale and shift times ``float32(1 / out_scale)``.
+    With power-of-two scales both folds are exact."""
+    t, c = w1.dw.dtype, w1.dw.shape[-1]
+    if isinstance(in_scale, (tuple, list)):
+        s_x, s_x2 = in_scale
+        vec = torch.cat([torch.full((cx,), s_x, dtype=t), torch.full((c - cx,), s_x2, dtype=t)])
+    else:
+        vec = torch.tensor(in_scale, dtype=t)
+    inv = torch.tensor(1.0 / out_scale, dtype=torch.float32, device=w2.scale.device)
+    return (w1._replace(dw=(w1.dw * vec.to(w1.dw.device)).contiguous()),
+            w2._replace(scale=(w2.scale * inv).contiguous(), shift=(w2.shift * inv).contiguous()))
+
+
+def sepconv_pair_int8_reference(
+    xq: torch.Tensor,
+    w1: BlockWeights,
+    w2: BlockWeights,
+    pool: bool = False,
+    x2: Optional[torch.Tensor] = None,
+):
+    """Plain version of K7's int8 I/O mode on weights folded by
+    :func:`fold_int8`: int8 x (and x2) cast to the compute dtype (nothing
+    dequantized), block 1 as in :func:`sepconv_pair_reference`, block 2's
+    affine and ReLU in fp32, then ``round(min(y2, 127))`` straight from fp32
+    (round half to even; no rounding to the compute dtype before it, as the
+    TPU kernel does), stored as int8; the pool takes the rounded values."""
+    t = w1.dw.dtype
+    xin = torch.cat([xq, x2], dim=-1) if x2 is not None else xq
+    y1 = sepconv_block_reference(xin.to(t), w1)
+    d = ft._depthwise(y1, w2.dw).to(t)
+    y = torch.matmul(d.float(), w2.pw.float()) * w2.scale + w2.shift
+    q = y.clamp_min(0.0).clamp_max(127.0).round().to(torch.int8)
+    if pool:
+        return q, max_pool_2x2(q)
+    return q
+
+
 def sepconv_stats_reference(
     x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -235,11 +285,11 @@ def slice_ranges(n: int, s: int, f: int) -> list:
 
 
 def pair_plan(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype,
-              batch: int = 1) -> PairPlan:
+              batch: int = 1, int8: bool = False) -> PairPlan:
     """K7's launch plan for ``batch`` (H, W) images with C input channels (x
-    and x2 together) and widths F1, F2 in ``dtype``. The shared-memory
-    layout is ``PairSmem`` of ``sepconv_pair.cu``, which checks the byte
-    count."""
+    and x2 together) and widths F1, F2 in the compute ``dtype``; with
+    ``int8`` the x tiles hold 1-byte values. The shared-memory layout is
+    ``PairSmem`` of ``sepconv_pair.cu``, which checks the byte count."""
     if min(h, w, c, f1, f2) < 1:
         raise ValueError(f"sepconv_pair: empty shape H={h} W={w} C={c} F1={f1} F2={f2}")
     if not 0 < batch <= _MAX_BATCH:
@@ -258,16 +308,17 @@ def pair_plan(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype,
     width = 64 if max(s1, s2) <= 64 else 128
     kc, _ = build.CHUNK[dtype]
     e = dtype.itemsize
+    xb = 1 if int8 else e
     ldk, ldn = kc + 16 // e, width + 8
-    # block 1: fp32 affines (4 x width), then in T the dw1 taps (2 x 9 x kc)
-    # and dw2 taps (9 x width), x halo tiles (2 x 144 px x kc), dw1 chunks
-    # (2 x 112 x ldk) and weight chunks (2 x kc x ldn); block 2: y1 (100 x
-    # ldn), d2 (64 x ldn) and pulled d2 chunks (2 x 64 x ldk), in the x tiles'
-    # and dw1 chunks' place where they fit
-    front = 16 * width + e * (2 * 9 * kc + 9 * width)
-    tiles = e * (2 * 144 * kc + 2 * 112 * ldk)
+    # fp32 affines (4 x width), then in T the dw1 taps (2 x 9 x kc), dw2
+    # taps (9 x width) and weight chunks (2 x kc x ldn); then block 1's x
+    # halo tiles (2 x 144 px x kc, in int8 or T) and dw1 chunks (2 x 112 x
+    # ldk), whose place block 2's y1 (100 x ldn), d2 (64 x ldn) and pulled d2
+    # chunks (2 x 64 x ldk) take, the larger of the two
+    front = 16 * width + e * (2 * 9 * kc + 9 * width + 2 * kc * ldn)
+    tiles = xb * 2 * 144 * kc + e * 2 * 112 * ldk
     block2 = e * ((100 + 64) * ldn + 2 * 64 * ldk)
-    smem = front + tiles + e * 2 * kc * ldn + (block2 if block2 > tiles else 0)
+    smem = front + max(tiles, block2)
     if smem > SMEM_MAX:
         raise ValueError(f"sepconv_pair: {smem} bytes of shared memory, at most {SMEM_MAX}")
     ty, tx = -(-h // 8), -(-w // 8)
@@ -298,22 +349,25 @@ def pair_work(h: int, w: int, c: int, f1: int, f2: int, dtype: torch.dtype) -> T
 # --------------------------------------------------------------------------
 
 
-def _check_cuda_input(x: torch.Tensor, name: str) -> None:
+def _check_cuda_input(x: torch.Tensor, name: str, dtypes=tuple(build.DTYPE_CODE)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
-    if x.dtype not in build.DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported ({', '.join(map(str, dtypes))})")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous NHWC tensor, got {tuple(x.shape)}")
     if not 0 < x.shape[0] <= _MAX_BATCH:
         raise ValueError(f"{name}: batch {x.shape[0]} outside 1..{_MAX_BATCH}")
 
 
-def _check_weights(w: BlockWeights, c: int, x: torch.Tensor, name: str) -> int:
+def _check_weights(w: BlockWeights, c: int, x: torch.Tensor, name: str,
+                   dtype: Optional[torch.dtype] = None) -> int:
+    """The block's width; its taps and pointwise in ``dtype`` (x's by default)."""
     f = w.pw.shape[-1]
+    dtype = dtype or x.dtype
     _check_tensors(x, name, [
-        (w.dw, (3, 3, c), x.dtype),
-        (w.pw, (c, f), x.dtype),
+        (w.dw, (3, 3, c), dtype),
+        (w.pw, (c, f), dtype),
         (w.scale, (f,), torch.float32),
         (w.shift, (f,), torch.float32),
     ])
@@ -372,27 +426,54 @@ def sepconv_pair(
     return (out, pooled) if pool else out
 
 
+def sepconv_pair_int8(
+    xq: torch.Tensor,
+    w1: BlockWeights,
+    w2: BlockWeights,
+    pool: bool = False,
+    x2: Optional[torch.Tensor] = None,
+):
+    """K7's int8 I/O mode on a CUDA tensor, its plain version
+    (:func:`sepconv_pair_int8_reference`) on a CPU tensor.
+
+    ``xq`` (and ``x2``) int8; the weights in the compute dtype, folded by
+    :func:`fold_int8`. Returns int8 ``y`` or, with ``pool=True``, ``(y,
+    max_pool_2x2(y))``.
+    """
+    if xq.device.type == "cpu":
+        return sepconv_pair_int8_reference(xq, w1, w2, pool=pool, x2=x2)
+    out, pooled = pair_launch(build.load_library(), xq, w1, w2, pool, x2, int8=True)
+    LAUNCHES["sepconv_pair_int8"] += 1
+    return (out, pooled) if pool else out
+
+
 def pair_launch(lib, x: torch.Tensor, w1: BlockWeights, w2: BlockWeights, pool: bool,
-                x2: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                x2: Optional[torch.Tensor], int8: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Check K7's inputs, launch ``lib``'s ``unet_sepconv_pair`` on them
     (the kernel library, or an instrumented build of ``sepconv_pair.cu``)
-    and return ``(y, pooled or None)``. Counts nothing."""
-    _check_cuda_input(x, "sepconv_pair")
+    and return ``(y, pooled or None)``. With ``int8`` x, x2, y and pooled
+    are int8 and the compute dtype is the weights'. Counts nothing."""
+    dtypes = (torch.int8,) if int8 else tuple(build.DTYPE_CODE)
+    _check_cuda_input(x, "sepconv_pair", dtypes)
+    t = w1.dw.dtype if int8 else x.dtype
+    if t not in build.DTYPE_CODE:
+        raise TypeError(f"sepconv_pair: compute dtype {t} not supported (float32, bfloat16)")
     b, h, wd, cx = x.shape
     cx2 = 0
     if x2 is not None:
-        _check_cuda_input(x2, "sepconv_pair x2")
+        _check_cuda_input(x2, "sepconv_pair x2", dtypes)
         if x2.shape[:3] != x.shape[:3] or x2.dtype != x.dtype or x2.device != x.device:
             raise ValueError(
                 f"sepconv_pair: x2 {tuple(x2.shape)} {x2.dtype} does not match "
                 f"x {tuple(x.shape)} {x.dtype}"
             )
         cx2 = x2.shape[-1]
-    f1 = _check_weights(w1, cx + cx2, x, "sepconv_pair block1")
-    f2 = _check_weights(w2, f1, x, "sepconv_pair block2")
+    f1 = _check_weights(w1, cx + cx2, x, "sepconv_pair block1", t)
+    f2 = _check_weights(w2, f1, x, "sepconv_pair block2", t)
     if pool and (h % 2 or wd % 2):
         raise ValueError(f"sepconv_pair: pool needs even H and W, got {h}x{wd}")
-    plan = pair_plan(h, wd, cx + cx2, f1, f2, x.dtype, b)
+    plan = pair_plan(h, wd, cx + cx2, f1, f2, t, b, int8=int8)
     out = torch.empty((b, h, wd, f2), dtype=x.dtype, device=x.device)
     pooled = (
         torch.empty((b, h // 2, wd // 2, f2), dtype=x.dtype, device=x.device)
@@ -404,7 +485,7 @@ def pair_launch(lib, x: torch.Tensor, w1: BlockWeights, w2: BlockWeights, pool: 
         w2.dw.data_ptr(), w2.pw.data_ptr(), w2.scale.data_ptr(), w2.shift.data_ptr(),
         out.data_ptr(), pooled.data_ptr() if pooled is not None else None,
         b, h, wd, cx, cx2, f1, f2, plan.n, plan.s1, plan.s2, plan.width, plan.smem,
-        build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
+        build.DTYPE_CODE[t], int(int8), build.stream_handle(x.device),
     )
     build.check(status, "sepconv_pair")
     return out, pooled
@@ -605,13 +686,31 @@ def fused_sepconv_pair(
     eps: float = 1e-3,
     pool: bool = False,
     x2: Optional[torch.Tensor] = None,
+    in_scale: Optional[Union[float, Tuple[float, float]]] = None,
+    out_scale: Optional[float] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ):
     """Inference ConvBlock pair (sepconv+BN+ReLU twice) in one kernel, K7.
 
     ``block1``/``block2`` are dicts as in :func:`prepare_block`. With
     ``x2`` block 1 reads the channel concat ``[x | x2]`` from both tensors;
     with ``pool`` the result is ``(y, pooled)``.
+
+    Int8 I/O: int8 ``x`` (and ``x2``) worth ``q * in_scale`` (a pair
+    ``(s_x, s_x2)`` for two streams), y (and pooled) returned as int8 in
+    units of ``out_scale``, computed in ``compute_dtype`` (bf16 unless
+    given); the scales fold into the weights (:func:`fold_int8`). Int8 in
+    and int8 out go together: the kernel has no mixed mode.
     """
-    w1 = prepare_block(block1, x.dtype, eps, x.device)
-    w2 = prepare_block(block2, x.dtype, eps, x.device)
-    return sepconv_pair(x, w1, w2, pool=pool, x2=x2)
+    int8 = x.dtype == torch.int8
+    if int8 != (in_scale is not None) or int8 != (out_scale is not None):
+        raise ValueError("fused_sepconv_pair: int8 I/O takes an int8 x with both in_scale and "
+                         "out_scale; a float x takes neither")
+    dtype = compute_dtype or (torch.bfloat16 if int8 else x.dtype)
+    w1 = prepare_block(block1, dtype, eps, x.device)
+    w2 = prepare_block(block2, dtype, eps, x.device)
+    if not int8:
+        return sepconv_pair(x.to(dtype), w1, w2, pool=pool,
+                            x2=x2.to(dtype) if x2 is not None else None)
+    w1, w2 = fold_int8(w1, w2, in_scale, out_scale, x.shape[-1])
+    return sepconv_pair_int8(x, w1, w2, pool=pool, x2=x2)

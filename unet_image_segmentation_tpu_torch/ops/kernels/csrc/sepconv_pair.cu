@@ -5,7 +5,9 @@
 // :_sepconv_pair_kernel_db (launched by fused_sepconv_pair), in its float
 // modes: plain, pool=True (the encoder's 2x2 max pool of the dtype-cast y2
 // written beside y2) and two-stream (block 1's input is the channel concat
-// [x | x2], read from two pointers, so the decoder's concat is never stored).
+// [x | x2], read from two pointers, so the decoder's concat is never stored);
+// and in its int8 I/O mode (quant_out with int8 input), where x, x2, y2 and
+// the pool are int8 and the compute stays in T.
 // Semantics kept: the dw1 result is rounded to the compute dtype T before
 // pw1; y1 = relu(affine) rounded to T; y1 is ZERO outside the image, so block
 // 2's 'same' padding sees zeros and not block 1 evaluated past the edge; the
@@ -26,7 +28,10 @@
 // x); at the deep stages block 1 (the depthwise, a cluster barrier and the
 // staged x and weights a chunk, GEMM1) takes 55-80% and GEMM2 10-32% in
 // bf16; in fp32 block 1 and GEMM2 (their 3xTF32 products) take 67-96% of
-// a CTA at every stage but enc1.
+// a CTA at every stage but enc1. The int8 I/O mode reads and writes a byte a
+// value, which lowers the bf16 bound to 0.45 ms (troubleshoot/roofline.py)
+// and leaves the kernel's time where the float mode's is: the same issue and
+// latency bound it (chip_smoke.py phase 13).
 //
 // Design (the plan is pair_plan in ops/fused_sepconv.py, which must agree
 // with PairSmem below):
@@ -73,10 +78,18 @@
 //     dw2 keeps its taps in registers.
 //   * The 64 output pixels follow tile_px2's order along M, so a thread's
 //     accumulator rows hold whole 2x2 windows and the fused pool is local.
-// Room for the int8 I/O mode: in_scale folds into the dw1 taps as they are
-// staged, 1/out_scale into scale2/shift2; only the staging of x and the
-// epilogue's rounding change.
+//   * Int8 I/O (the template's XB = 1): the wrapper folds in_scale into the
+//     dw1 taps and 1/out_scale into scale2/shift2 (ops/fused_sepconv.py
+//     fold_int8). x stays int8 in shared memory, its tiles a half (bf16) or
+//     a quarter (fp32) of T's, in the same column groups of V channels, each
+//     one V-byte cp.async (so a cluster share of 8 channels still stages as
+//     vectors); dw1 converts the values to fp32 as it reads them, exactly,
+//     so with pow2 scales the sums equal the float kernel's on the
+//     dequantized input. The epilogue stores rint(min(y2, 127)) from fp32
+//     (half to even, no rounding to T first) as int8 and pools those values.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "mma_common.cuh"
 #include "sepconv_common.cuh"
@@ -114,34 +127,32 @@ constexpr int kXs = kTile + 4;          // side of the staged x tile
 constexpr int kXsPx = kXs * kXs;        // 144 x pixels
 
 // Shared-memory layout of one CTA, in bytes; pair_plan (fused_sepconv.py)
-// mirrors it. Block 1's buffers: the fp32 affines [4][W] (scale1, shift1 of
-// the F1 slice, scale2, shift2 of the F2 slice), then in T the dw1 taps
-// [2][9][KC] and dw2 taps [9][W], the x halo tiles [2][144][KC], the dw1
-// chunks [2][112][LDK] and the weight chunks [2][KC][LDN]. Block 2's
-// buffers, y1 [100][LDN], d2 [64][LDN] and the pulled d2 chunks [2][64][LDK],
-// reuse the x tiles and dw1 chunks where they fit (block 1 is done with them
-// by then), else follow the weight chunks.
-template <typename T, int W>
+// mirrors it. The fp32 affines [4][W] (scale1, shift1 of the F1 slice,
+// scale2, shift2 of the F2 slice), then in T the dw1 taps [2][9][KC], dw2
+// taps [9][W] and weight chunks [2][KC][LDN]; then block 1's x halo tiles
+// [2][144][KC] (XB bytes a value: int8 or T) and dw1 chunks [2][112][LDK],
+// whose place block 2's buffers, y1 [100][LDN], d2 [64][LDN] and the pulled
+// d2 chunks [2][64][LDK], take (block 1 is done with them by then).
+template <typename T, int W, int XB>
 struct PairSmem {
   static constexpr int KC = ChunkCfg<T>::KC, LDK = KC + ChunkCfg<T>::V, LDN = W + 8;
   static constexpr int e = sizeof(T);
   static constexpr int aff = 0, taps1 = 4 * 4 * W, taps2 = taps1 + e * 2 * 9 * KC;
-  static constexpr int xs = taps2 + e * 9 * W, As = xs + e * 2 * kXsPx * KC;
-  static constexpr int Bs = As + e * 2 * kM1 * LDK, block1_end = Bs + e * 2 * KC * LDN;
-  static constexpr int block2 = e * ((kHaloPx + kTilePx) * LDN + 2 * kTilePx * LDK);
-  static constexpr bool reuse = block2 <= Bs - xs;
-  static constexpr int y1s = reuse ? xs : block1_end, d2s = y1s + e * kHaloPx * LDN;
-  static constexpr int A2s = d2s + e * kTilePx * LDN;
-  static constexpr int bytes = reuse ? block1_end : block1_end + block2;
+  static constexpr int Bs = taps2 + e * 9 * W, xs = Bs + e * 2 * KC * LDN;
+  static constexpr int As = xs + XB * 2 * kXsPx * KC, block1_end = As + e * 2 * kM1 * LDK;
+  static constexpr int y1s = xs, d2s = y1s + e * kHaloPx * LDN;
+  static constexpr int A2s = d2s + e * kTilePx * LDN, block2_end = A2s + e * 2 * kTilePx * LDK;
+  static constexpr int bytes = block1_end > block2_end ? block1_end : block2_end;
   // two CTAs an SM where their shared memory fits (228 KB an SM, 1 KB of it
   // reserved a CTA); the registers are then held to 128 a thread
   static constexpr int min_blocks = 2 * (bytes + 1024) <= 228 * 1024 ? 2 : 1;
 };
 
-template <typename T>
+// XT: the type of x, x2, out and pooled (T, or int8_t in the int8 I/O mode)
+template <typename T, typename XT>
 struct PairArgs {
-  const T* x;
-  const T* x2;
+  const XT* x;
+  const XT* x2;
   const T* dw1;
   const T* pw1;
   const float* scale1;
@@ -150,8 +161,8 @@ struct PairArgs {
   const T* pw2;
   const float* scale2;
   const float* shift2;
-  T* out;
-  T* pooled;
+  XT* out;
+  XT* pooled;
   int H, W, Cx, Cx2, F1, F2, tiles_x, n, s1, s2;
   int vec_x, vec_w1, vec_w2;  // 16-byte staging allowed (widths and pointers aligned)
 };
@@ -172,10 +183,95 @@ __device__ __forceinline__ float affine_relu(float v, float sc, float sh) {
   return fmaxf(__fadd_rn(__fmul_rn(v, sc), sh), 0.f);
 }
 
-template <typename T, int W>
-__global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
-    sepconv_pair_cluster_kernel(const PairArgs<T> a) {
-  using L = PairSmem<T, W>;
+// N bytes global -> shared (N = 4, 8 or 16), zero-filled when !ok
+template <int N>
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "n"(N), "r"(ok ? N : 0)
+               : "memory");
+}
+
+// The x halo tile: stage_tile's copy in T; in int8 the same column groups of
+// V channels, each one V-byte cp.async, or plain loads as stage_tile's.
+template <int G, int V, typename XT, typename Src>
+__device__ __forceinline__ void stage_x_tile(XT* dst, int lds, int rows, int groups, bool vec,
+                                             const XT* any, Src src) {
+  if constexpr (sizeof(XT) > 1) {
+    stage_tile<G>(dst, lds, rows, groups, vec, any, src);
+  } else {
+    if (vec) {
+      const int j = (threadIdx.x % G) * V;
+      if (j >= groups * V) return;
+      for (int r = threadIdx.x / G; r < rows; r += kPairThreads / G) {
+        const XT* p = src(r, j);
+        cp_async_bytes<V>(dst + r * lds + j, p ? p : any, p != nullptr);
+      }
+      return;
+    }
+    constexpr int CB = 16, RS = kPairThreads / CB;  // columns, rows of a pass
+    for (int c = threadIdx.x % CB; c < groups * V; c += CB) {
+      for (int r0 = threadIdx.x / CB; r0 < rows; r0 += 8 * RS) {
+        XT v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int r = r0 + u * RS;
+          const XT* p = r < rows ? src(r, c) : nullptr;
+          v[u] = p ? *p : XT(0);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (r0 + u * RS < rows) dst[(r0 + u * RS) * lds + c] = v[u];
+      }
+    }
+  }
+}
+
+// V staged x values as fp32: one 16-byte vector of T, or V bytes of int8
+// (exact: |q| <= 127)
+__device__ __forceinline__ void load_x(const bf16* p, float (&f)[8]) {
+  unpack(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void load_x(const float* p, float (&f)[4]) {
+  unpack(*reinterpret_cast<const uint4*>(p), f);
+}
+template <int N>
+__device__ __forceinline__ void int8x4(uint32_t w, float (&f)[N], int o) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[o + i] = (float)((int)(w << (24 - 8 * i)) >> 24);
+}
+__device__ __forceinline__ void load_x(const int8_t* p, float (&f)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  int8x4(u.x, f, 0);
+  int8x4(u.y, f, 4);
+}
+__device__ __forceinline__ void load_x(const int8_t* p, float (&f)[4]) {
+  int8x4(*reinterpret_cast<const uint32_t*>(p), f, 0);
+}
+
+// Store columns f, f+1 of an output row: in T (store_pair), or as int8 values
+// already rounded to integers in [0, 127]
+template <typename T>
+__device__ __forceinline__ void store_out(T* row, int f, int F, bool second, float v0, float v1) {
+  store_pair(row, f, F, second, v0, v1);
+}
+__device__ __forceinline__ void store_out(int8_t* row, int f, int F, bool second, float v0,
+                                          float v1) {
+  const signed char q0 = (signed char)__float2int_rn(v0), q1 = (signed char)__float2int_rn(v1);
+  if (second && (F & 1) == 0) {
+    *reinterpret_cast<char2*>(row + f) = make_char2(q0, q1);
+    return;
+  }
+  row[f] = q0;
+  if (second) row[f + 1] = q1;
+}
+
+// XB: the bytes of an x (and y) value, sizeof(T), or 1 in the int8 I/O mode
+template <typename T, int W, int XB>
+__global__ void __launch_bounds__(kPairThreads, PairSmem<T, W, XB>::min_blocks)
+    sepconv_pair_cluster_kernel(const PairArgs<T, std::conditional_t<XB == 1, int8_t, T>> a) {
+  using XT = std::conditional_t<XB == 1, int8_t, T>;
+  constexpr bool Q = XB == 1;
+  using L = PairSmem<T, W, XB>;
   constexpr int KC = ChunkCfg<T>::KC, KS = ChunkCfg<T>::KS, V = ChunkCfg<T>::V;
   constexpr int LDK = L::LDK, LDN = L::LDN;
   // 8 warps, 2 along M by 4 along N: a warp owns NT n8 tiles (W / 4 columns)
@@ -185,7 +281,7 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
   float* aff = reinterpret_cast<float*>(smem + L::aff);  // [4][W] scale1, shift1, scale2, shift2
   T* taps1 = reinterpret_cast<T*>(smem + L::taps1);      // [2][9][KC] dw1 taps of the share
   T* taps2 = reinterpret_cast<T*>(smem + L::taps2);      // [9][W] dw2 taps of the F1 slice
-  T* xs = reinterpret_cast<T*>(smem + L::xs);            // [2][144][KC] x halo tile of the share
+  XT* xs = reinterpret_cast<XT*>(smem + L::xs);          // [2][144][KC] x halo tile of the share
   T* As = reinterpret_cast<T*>(smem + L::As);            // [2][112][LDK] dw1 of the chunk
   T* Bs = reinterpret_cast<T*>(smem + L::Bs);            // [2][KC][LDN] pw1 / pw2 chunk
   T* y1s = reinterpret_cast<T*>(smem + L::y1s);          // [100][LDN] y1 slice on the ring
@@ -221,19 +317,20 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
   // x halo tile and dw1 taps of this CTA's share of chunk c0 into buffer buf
   auto stage_x = [&](int c0, int buf) {
     const int cs = c0 + rank * sh, groups = share_len(c0) / V;
-    stage_tile<KC / V>(xs + buf * kXsPx * KC, KC, kXsPx, groups, a.vec_x, a.x, [&](int q, int k) {
+    stage_x_tile<KC / V, V>(xs + buf * kXsPx * KC, KC, kXsPx, groups, a.vec_x, a.x,
+                            [&](int q, int k) {
       const int Y = ty0 - 2 + q / kXs, X = tx0 - 2 + q % kXs, c = cs + k;
-      if (Y < 0 || Y >= H || X < 0 || X >= Wd || c >= C) return (const T*)nullptr;
+      if (Y < 0 || Y >= H || X < 0 || X >= Wd || c >= C) return (const XT*)nullptr;
       const size_t pix = ((size_t)b * H + Y) * Wd + X;
       return c < Cx ? a.x + pix * Cx + c : a.x2 + pix * a.Cx2 + (c - Cx);
     });
-    stage_tile<KC / V>(taps1 + buf * 9 * KC, KC, 9, groups, a.vec_x, a.x, [&](int tap, int k) {
+    stage_tile<KC / V>(taps1 + buf * 9 * KC, KC, 9, groups, a.vec_x, a.dw1, [&](int tap, int k) {
       return cs + k < C ? a.dw1 + tap * C + cs + k : (const T*)nullptr;
     });
   };
   // Bs[buf][k][j] = w[r0 + k][c0 + j] for k < rows, j < cols, else 0
   auto stage_w = [&](const T* w, int ld, int r0, int rows, int c0, int cols, int vec, int buf) {
-    stage_tile<W / V>(Bs + buf * KC * LDN, LDN, KC, W / V, vec, a.x, [&](int k, int j) {
+    stage_tile<W / V>(Bs + buf * KC * LDN, LDN, KC, W / V, vec, w, [&](int k, int j) {
       return k < rows && j < cols ? w + (size_t)(r0 + k) * ld + c0 + j : (const T*)nullptr;
     });
   };
@@ -243,7 +340,7 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
   // takes two horizontally neighbouring ring pixels at a time, so the four
   // x columns and three taps of each row it loads serve both.
   auto dw1_push = [&](int c0, int buf) {
-    const T* src = xs + buf * kXsPx * KC;
+    const XT* src = xs + buf * kXsPx * KC;
     const T* tp = taps1 + buf * 9 * KC;
     constexpr int G = KC / V;
     const int v = tid % G;
@@ -261,8 +358,7 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
 #pragma unroll
         for (int dx = 0; dx < 4; ++dx) {
           float xv[V];
-          unpack(*reinterpret_cast<const uint4*>(src + ((py + di) * kXs + px + dx) * KC + v * V),
-                 xv);
+          load_x(src + ((py + di) * kXs + px + dx) * KC + v * V, xv);
 #pragma unroll
           for (int j = 0; j < V; ++j) {
             if (dx < 3) s0[j] = fmaf(xv[j], tv[dx][j], s0[j]);
@@ -294,7 +390,7 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
                                                                                    : a.shift2;
     cp_async4(aff + i, ok ? src + f : a.scale1, ok);
   }
-  stage_tile<W / V>(taps2, W, 9, W / V, a.vec_w1, a.x, [&](int tap, int j) {
+  stage_tile<W / V>(taps2, W, 9, W / V, a.vec_w1, a.dw2, [&](int tap, int j) {
     return j < len1 ? a.dw2 + tap * F1 + f1_0 + j : (const T*)nullptr;
   });
   PAIR_PHASE(0)
@@ -461,8 +557,9 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
   }
 
   PAIR_PHASE(6)
-  // y2 = relu(affine) in T. A thread's rows of its two m-tiles are one 2x2
-  // window (tile_px2), so the pool is the max over its own four values.
+  // y2 = relu(affine) in T, or in int8 rint(min(y2, 127)) from fp32. A
+  // thread's rows of its two m-tiles are one 2x2 window (tile_px2), so the
+  // pool is the max over its own four values.
   const size_t img = (size_t)b * H * Wd;
 #pragma unroll
   for (int ni = 0; ni < NT; ++ni) {
@@ -481,17 +578,18 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
         float v[2];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
-          v[jj] = round_to<T>(affine_relu(acc2[e][ni][2 * h + jj], sc[jj], shf[jj]));
+          const float y = affine_relu(acc2[e][ni][2 * h + jj], sc[jj], shf[jj]);
+          v[jj] = Q ? rintf(fminf(y, 127.f)) : round_to<T>(y);
           mx[jj] = fmaxf(mx[jj], v[jj]);
         }
         const int Y = ty0 + r, X = tx0 + c;
         if (Y < H && X < Wd)
-          store_pair(a.out + (img + (size_t)Y * Wd + X) * F2, f2_0 + col, F2, second, v[0], v[1]);
+          store_out(a.out + (img + (size_t)Y * Wd + X) * F2, f2_0 + col, F2, second, v[0], v[1]);
       }
     const int Yq = ty0 + (r & ~1), Xq = tx0 + (c & ~1);
     if (a.pooled != nullptr && Yq < H && Xq < Wd)
-      store_pair(a.pooled + (((size_t)b * (H / 2) + Yq / 2) * (Wd / 2) + Xq / 2) * F2,
-                 f2_0 + col, F2, second, mx[0], mx[1]);
+      store_out(a.pooled + (((size_t)b * (H / 2) + Yq / 2) * (Wd / 2) + Xq / 2) * F2,
+                f2_0 + col, F2, second, mx[0], mx[1]);
   }
   PAIR_PHASE(7)
   // no CTA leaves while another may still read its d2; the arrival releases
@@ -502,14 +600,16 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W>::min_blocks)
   }
 }
 
-template <typename T, int W>
-int launch(PairArgs<T> a, int B, int tiles, int smem, cudaStream_t stream) {
-  if (smem != PairSmem<T, W>::bytes) return (int)cudaErrorInvalidValue;
-  return launch_cluster(sepconv_pair_cluster_kernel<T, W>, dim3(a.n * tiles, B, 1),
-                        kPairThreads, smem, a.n, stream, a);
+template <typename T, int W, typename XT>
+int launch(PairArgs<T, XT> a, int B, int tiles, int smem, cudaStream_t stream) {
+  if (smem != PairSmem<T, W, (int)sizeof(XT)>::bytes) return (int)cudaErrorInvalidValue;
+  return launch_cluster(sepconv_pair_cluster_kernel<T, W, (int)sizeof(XT)>,
+                        dim3(a.n * tiles, B, 1), kPairThreads, smem, a.n, stream, a);
 }
 
-template <typename T>
+inline bool aligned_to(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
+
+template <typename T, typename XT>
 int launch_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
                 const void* scale1, const void* shift1, const void* dw2, const void* pw2,
                 const void* scale2, const void* shift2, void* out, void* pooled, int B, int H,
@@ -521,9 +621,9 @@ int launch_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
                        n * s1 >= F1 && n * s2 >= F2 && Cx > 0 && Cx2 >= 0 && B > 0 &&
                        B <= 65535 && H > 0 && W > 0;
   if (!plan_ok || (Cx2 > 0 && x2 == nullptr)) return (int)cudaErrorInvalidValue;
-  PairArgs<T> a;
-  a.x = static_cast<const T*>(x);
-  a.x2 = static_cast<const T*>(x2);
+  PairArgs<T, XT> a;
+  a.x = static_cast<const XT*>(x);
+  a.x2 = static_cast<const XT*>(x2);
   a.dw1 = static_cast<const T*>(dw1);
   a.pw1 = static_cast<const T*>(pw1);
   a.scale1 = static_cast<const float*>(scale1);
@@ -532,13 +632,15 @@ int launch_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
   a.pw2 = static_cast<const T*>(pw2);
   a.scale2 = static_cast<const float*>(scale2);
   a.shift2 = static_cast<const float*>(shift2);
-  a.out = static_cast<T*>(out);
-  a.pooled = static_cast<T*>(pooled);
+  a.out = static_cast<XT*>(out);
+  a.pooled = static_cast<XT*>(pooled);
   a.H = H, a.W = W, a.Cx = Cx, a.Cx2 = Cx2, a.F1 = F1, a.F2 = F2;
   a.tiles_x = (W + kTile - 1) / kTile;
   a.n = n, a.s1 = s1, a.s2 = s2;
-  a.vec_x = Cx % V == 0 && Cx2 % V == 0 && aligned16(x) && (Cx2 == 0 || aligned16(x2)) &&
-            aligned16(dw1);
+  // x's vectors: V channels, 16 bytes in T, V bytes in int8
+  constexpr int xvb = V * sizeof(XT);
+  a.vec_x = Cx % V == 0 && Cx2 % V == 0 && aligned_to(x, xvb) &&
+            (Cx2 == 0 || aligned_to(x2, xvb)) && aligned16(dw1);
   a.vec_w1 = F1 % V == 0 && aligned16(pw1) && aligned16(dw2);
   a.vec_w2 = F2 % V == 0 && aligned16(pw2);
   const int tiles = a.tiles_x * ((H + kTile - 1) / kTile);
@@ -561,22 +663,25 @@ extern "C" int unet_pair_phases_buffer(void* buf) {
 // must be even when it is given). (n, s1, s2, width, smem) is the launch plan
 // of pair_plan (fused_sepconv.py): n CTAs a cluster, F1 and F2 slices of s1
 // and s2 channels, the slice width 64 or 128, the dynamic shared memory in
-// bytes (checked against this file's layout). dtype: 0 = float32, 1 =
-// bfloat16. Returns cudaGetLastError() after the launch.
+// bytes (checked against this file's layout). dtype: the compute dtype, 0 =
+// float32, 1 = bfloat16 (the weights'). int8: 0 = x, x2, out and pooled in
+// the compute dtype, 1 = all four int8 (the scales folded into the weights).
+// Returns cudaGetLastError() after the launch.
 extern "C" int unet_sepconv_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
                                  const void* scale1, const void* shift1, const void* dw2,
                                  const void* pw2, const void* scale2, const void* shift2,
                                  void* out, void* pooled, int B, int H, int W, int Cx, int Cx2,
                                  int F1, int F2, int n, int s1, int s2, int width, int smem,
-                                 int dtype, void* stream) {
+                                 int dtype, int int8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return unet::launch_pair<float>(x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2,
-                                    out, pooled, B, H, W, Cx, Cx2, F1, F2, n, s1, s2, width,
-                                    smem, s);
-  if (dtype == 1)
-    return unet::launch_pair<__nv_bfloat16>(x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2,
-                                            shift2, out, pooled, B, H, W, Cx, Cx2, F1, F2, n, s1,
-                                            s2, width, smem, s);
+#define UNET_PAIR_ARGS                                                                       \
+  x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out, pooled, B, H, W, Cx, Cx2, \
+      F1, F2, n, s1, s2, width, smem, s
+  if (dtype == 0 && int8 == 0) return unet::launch_pair<float, float>(UNET_PAIR_ARGS);
+  if (dtype == 0 && int8 == 1) return unet::launch_pair<float, int8_t>(UNET_PAIR_ARGS);
+  if (dtype == 1 && int8 == 0)
+    return unet::launch_pair<__nv_bfloat16, __nv_bfloat16>(UNET_PAIR_ARGS);
+  if (dtype == 1 && int8 == 1) return unet::launch_pair<__nv_bfloat16, int8_t>(UNET_PAIR_ARGS);
+#undef UNET_PAIR_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -7,11 +7,14 @@
   class 0), or a binarization at ``threshold`` first. Counts are exact:
   they are taken with ``bincount`` on int64.
 * :func:`mean_iou_from_cm` / :func:`per_class_iou_from_cm`.
+* :class:`MeanIoUState` and :func:`mean_iou_init` / :func:`mean_iou_update`
+  / :func:`mean_iou_result`: a confusion matrix accumulated over batches.
+* :func:`sample_iou`: one smoothed IoU per sample of binarized masks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -72,3 +75,39 @@ def mean_iou_from_cm(cm: torch.Tensor) -> torch.Tensor:
 def per_class_iou_from_cm(cm: torch.Tensor) -> torch.Tensor:
     """Per-class IoU vector (classes with no pixels report 0)."""
     return _iou_per_class(cm)
+
+
+class MeanIoUState(NamedTuple):
+    """Confusion-matrix counts accumulated over batches."""
+
+    cm: torch.Tensor
+
+
+def mean_iou_init(num_classes: int = 2) -> MeanIoUState:
+    return MeanIoUState(cm=torch.zeros((num_classes, num_classes), dtype=torch.float32))
+
+
+def mean_iou_update(
+    state: MeanIoUState,
+    y_true: torch.Tensor,
+    y_pred: torch.Tensor,
+    threshold: Optional[float] = None,
+) -> MeanIoUState:
+    num_classes = state.cm.shape[0]
+    cm = confusion_matrix(y_true, y_pred, num_classes, threshold)
+    return MeanIoUState(cm=state.cm + cm.to(state.cm.device))
+
+
+def mean_iou_result(state: MeanIoUState) -> torch.Tensor:
+    return mean_iou_from_cm(state.cm)
+
+
+def sample_iou(y_true: torch.Tensor, y_pred: torch.Tensor, smooth: float = SMOOTH) -> torch.Tensor:
+    """Per-sample IoU of already-binarized masks: ``(I + s) / (|T| + |P| - I
+    + s)`` over every axis but the batch axis, or over all of a 2-D mask (a
+    scalar)."""
+    y_true, y_pred = y_true.float(), y_pred.float()
+    axes = tuple(range(1, y_true.dim())) if y_true.dim() > 2 else tuple(range(y_true.dim()))
+    inter = (y_true * y_pred).sum(dim=axes)
+    union = y_true.sum(dim=axes) + y_pred.sum(dim=axes) - inter
+    return (inter + smooth) / (union + smooth)

@@ -14,13 +14,14 @@ runs
   softmax in fp32.
 
 Weights are cast, BN-folded and moved to the device once, when the forward
-is built. On a CUDA device the pair calls launch the kernel; on the CPU
-they run its plain version.
+is built (:func:`serving_weights`, which the int8 graph of
+:mod:`.serving_quant` shares). On a CUDA device the pair calls launch the
+kernel; on the CPU they run its plain version.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +56,56 @@ def _block(params: Dict, stats: Dict, name: str, dtype, device) -> BlockWeights:
     return prepare_block(block, dtype, device=device)
 
 
+Pair = Tuple[BlockWeights, BlockWeights]
+
+
+class ServingWeights(NamedTuple):
+    """A U-Net's serving weights on the device: a K7 pair (block 1, block 2)
+    in the compute dtype per encoder stage and for the bottleneck; per
+    decoder stage ``(kernel (2,2,F,C), bias (F,), pair)`` of its transpose-up
+    (fp32) and its K7 pair; the head's ``(kernel (1,1,F,NC), bias (NC,))``
+    in fp32."""
+
+    enc: List[Pair]
+    bneck: Pair
+    dec: Dict[int, Tuple[torch.Tensor, torch.Tensor, Pair]]
+    head: Tuple[torch.Tensor, torch.Tensor]
+
+
+def serving_weights(
+    variables: Dict[str, Any],
+    depth: int,
+    compute_dtype: torch.dtype,
+    device: Union[str, torch.device],
+) -> ServingWeights:
+    """The weights both serving graphs read, from a Flax-layout tree
+    (``params`` and, with BatchNorm, ``batch_stats``) of a separable-conv
+    U-Net: the blocks BN-folded (:func:`.ops.fused_sepconv.prepare_block`)."""
+    device = torch.device(device)
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    if "sepconv" not in params["enc1_block1"]:
+        raise ValueError("the serving graph needs a separable-conv model")
+
+    def pair(prefix: str) -> Pair:
+        return (
+            _block(params, stats, f"{prefix}_block1", compute_dtype, device),
+            _block(params, stats, f"{prefix}_block2", compute_dtype, device),
+        )
+
+    dec = {}
+    for s in range(depth, 0, -1):
+        up = params[f"dec{s}_upsample"]
+        dec[s] = (_tensor(up["kernel"], device), _tensor(up["bias"], device), pair(f"dec{s}"))
+    head = params["output_mask"]
+    return ServingWeights(
+        enc=[pair(f"enc{s}") for s in range(1, depth + 1)],
+        bneck=pair("bneck"),
+        dec=dec,
+        head=(_tensor(head["kernel"], device), _tensor(head["bias"], device)),
+    )
+
+
 def build_serving_forward(
     variables: Dict[str, Any],
     num_classes: int = 1,
@@ -70,30 +121,11 @@ def build_serving_forward(
     (B, H, W, num_classes).
     """
     device = torch.device(device)
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    if "sepconv" not in params["enc1_block1"]:
-        raise ValueError("the serving graph needs a separable-conv model")
-
-    def pair(prefix: str):
-        return (
-            _block(params, stats, f"{prefix}_block1", compute_dtype, device),
-            _block(params, stats, f"{prefix}_block2", compute_dtype, device),
-        )
-
-    enc = [pair(f"enc{s}") for s in range(1, depth + 1)]
-    bneck = pair("bneck")
-    dec = {}
-    for s in range(depth, 0, -1):
-        up = params[f"dec{s}_upsample"]
-        dec[s] = (
-            _tensor(up["kernel"], device).to(compute_dtype),
-            _tensor(up["bias"], device).to(compute_dtype),
-            pair(f"dec{s}"),
-        )
-    head = params["output_mask"]
-    head_k = _tensor(head["kernel"], device).to(compute_dtype)
-    head_b = _tensor(head["bias"], device).to(compute_dtype)
+    weights = serving_weights(variables, depth, compute_dtype, device)
+    enc, bneck = weights.enc, weights.bneck
+    dec = {s: (k.to(compute_dtype), b.to(compute_dtype), blocks)
+           for s, (k, b, blocks) in weights.dec.items()}
+    head_k, head_b = (t.to(compute_dtype) for t in weights.head)
 
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:

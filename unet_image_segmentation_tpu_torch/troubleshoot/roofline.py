@@ -42,6 +42,8 @@ PEAK_TF32_OPS_PER_S = 495e12
 # unet_image_segmentation_tpu/, file:line of the function reaching pallas_call)
 KERNELS: Dict[str, Tuple[str, str, str]] = {
     "sepconv_pair": ("K7", "sepconv_pair.cu", "ops/pallas/fused_sepconv.py:903"),
+    # K7's int8 I/O mode: the same kernel, other template instances
+    "sepconv_pair_int8": ("K7 int8", "sepconv_pair.cu", "ops/pallas/fused_sepconv.py:903"),
     "sepconv_block": ("K8", "sepconv_block.cu", "ops/pallas/fused_sepconv.py:300"),
     "chain_fwd": ("K1", "chain_fwd.cu", "ops/pallas/fused_train.py:93"),
     "chain_bwd": ("K2", "chain_bwd.cu", "ops/pallas/fused_train.py:1422"),
@@ -61,7 +63,8 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
 
 SUMS = "sums"  # label of reduce_rows' colsum_kernel (K1, K2, K6, K9, K10's row sums)
 # __global__ entry -> (wrapper, part). A wrapper call launches each of its
-# parts once.
+# parts once. K7's int8 instances share the entry of its float ones, so a
+# trace counts both under sepconv_pair.
 ENTRIES: Dict[str, Tuple[Optional[str], str]] = {
     "sepconv_pair_cluster_kernel": ("sepconv_pair", "pair"),
     "sepconv_block_kernel": ("sepconv_block", "block"),
@@ -205,11 +208,12 @@ def work(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, fl
     ``dname`` at ``batch``: each input read once, each output written once;
     2 operations per multiply-add."""
     e = 4 if dname == "float32" else 2
-    if name == "sepconv_pair":
+    if name in ("sepconv_pair", "sepconv_pair_int8"):
         _, cx, cx2, f1, f2, h, mode = shape
         c, px = cx + cx2, batch * h * h
         out = px * f2 * (1.25 if mode == "pool" else 1.0)
-        nbytes = e * (px * c + out + 9 * c + c * f1 + 9 * f1 + f1 * f2)
+        io = 1 if name == "sepconv_pair_int8" else e   # x, x2, y, pooled: int8 or T
+        nbytes = io * (px * c + out) + e * (9 * c + c * f1 + 9 * f1 + f1 * f2)
         ops = sum(pair_ops(shape, batch))
     elif name == "sepconv_block":
         c, f, h = shape
@@ -305,6 +309,7 @@ def feed_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
 # wrapper -> its (products, elementwise) operations, for the kernels whose
 # products run on the tensor cores and the rest on the CUDA cores
 _SPLIT_OPS = {"sepconv_pair": lambda name, shape, batch: pair_ops(shape, batch),
+              "sepconv_pair_int8": lambda name, shape, batch: pair_ops(shape, batch),
               "sepconv_block": fwd_ops, "chain_fwd": fwd_ops, "sepconv_stats": fwd_ops,
               "chain_bwd": bwd_ops, "sepconv_bwd": bwd_ops,
               "upconcat": feed_ops, "upconcat_bwd": feed_ops}
