@@ -134,12 +134,38 @@ exit code and no result line:
    beside the float kernel graph; ``evaluate``'s batched core on seeded
    scenes with masks (batch 32, a ragged last batch), int8 against float
    MeanIoU within 0.01; K7 int8 timed at batch 32 beside its plain version
-   and its bound, and images/s int8 against float in turns; then the
-   seventeen kernels' JSON line (with each kernel's bound, and K12a's
+   and its bound, and images/s int8 against float in turns;
+14. 1080p streaming and row-sharded serving of the 1024 px model
+   (``configs/highres_1024.json``'s U-Net, seeded weights, BatchNorm
+   recalibrated as in phase 5): first ``StreamingPredictor`` on 8 seeded
+   1080x1920 uint8 frames, bf16 profiled in a process of this script of its
+   own (``--profile-stream``; device busy, idle share, K7's share, the
+   resize products' spans, host copies), bf16 and fp32 held to
+   the module path's stream under phase 5's bars with 9 K7 launches a
+   forward, the int8 stream (9 int8 K7 launches and nothing else a forward,
+   printed beside the float stream), frames/s in turns; then K7 with edge
+   flags against its plain version (float under phase 4's bars, int8 I/O
+   under phase 13's quanta) on the H / 2 + 4-row slabs of the nine stages of
+   the 256 and 1024 px models, all four flag pairs, batch 2, and at
+   ``EDGE_RAGGED`` at batch 2 and 3; every stage input of both models cut
+   into 2 and 4 row shards, padded, run with the flags and stitched, against
+   the unsharded K7 (bit for bit on the same launch plan); K7
+   float-in/int8-out against its plain version at the decoder stages of
+   both models, batch 2 and 3 (fp32 also bit for bit quantize(float K7));
+   both modes timed at the dry run's slabs with their bounds; then the dry
+   run: two processes of this script (``--rank``) on the one card, gloo, a
+   (data=1, spatial=2) mesh, each serving its rows of 2 images through the
+   sharded float graph (bf16, fp32), the sharded int8 graph (bf16) and the
+   sharded stream, their launches counted and asserted (45 edge-flag and 4
+   float-in/int8-out a rank), the gathered outputs held to the unsharded
+   ones on the card (fp32 2e-5, bf16 phase 5's bars, int8 at most 0.1% of
+   the elements over 1e-5); a rank that fails or hangs fails the run; then
+   the nineteen kernels' JSON line (with each kernel's bound, and K12a's
    library time) and the result line.
 
 A profile whose trace lost device activity (no device time, or kernels the
-host launched missing) is taken again, at most four times (``traced``). TF32 is off throughout (``allow_tf32 = False`` for
+host launched missing) is taken again, at most four times (``traced``); the
+stream's, each time in a fresh process. TF32 is off throughout (``allow_tf32 = False`` for
 matmul and cuDNN), so the plain versions compute in full fp32 like the
 kernels. Relative errors are ``max|kernel - plain| / max|plain|``.
 """
@@ -147,6 +173,7 @@ kernels. Relative errors are ``max|kernel - plain| / max|plain|``.
 import contextlib
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -173,6 +200,8 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # op (depthwise, pointwise, BN) where the kernels round only where the JAX
 # serving graph does, so the two bf16 answers differ by more than bf16 noise.
 PROB_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+MODEL_KWARGS = {"num_classes": 1, "filters": list(FILTERS), "use_batch_norm": True,
+                "conv_type": "separable"}
 MASK_MIN_AGREE = {"float32": 0.999, "bfloat16": 0.98}
 PAIR_LAUNCHES_PER_FORWARD = 9
 TRACE_ATTEMPTS = 4       # a profile whose trace lost device activity is taken again
@@ -248,7 +277,8 @@ BLOCK_GRAD_TOL = 5e-4
 # where the composed block is 1.8e-6 off).
 RELU_APART_MAX = 64
 FP64_FACTOR = 16.0
-BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0, "sepconv_stats": 1,
+BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0,
+                  "sepconv_pair_quant_out": 0, "sepconv_pair_edge": 0, "sepconv_stats": 1,
                   "sepconv_bwd": 1}
 BN_OFF_K8_LAUNCHES = 18
 # phase 12: K12b at its full shape, and the counts the troubleshoot tools run
@@ -277,6 +307,36 @@ INT8_REQUESTS = (BATCH_SERVE, 1, 5)    # the first calibrates the graph
 # int8 against float MeanIoU of evaluate's core (the JAX package's IoU bar)
 INT8_MEAN_IOU_TOL = 0.01
 EVAL_SCENES = 72                        # batches of 32, 32 and a ragged 8
+# phase 14: the 1024 px model (configs/highres_1024.json: filters 64..512,
+# bottleneck 1024) streamed from 1080p frames, and served over row shards
+STREAM_IMAGE, STREAM_FRAME, STREAM_BATCH = 1024, (1080, 1920), 8
+STAGES_1024 = roofline.stage_shapes(STREAM_IMAGE, FILTERS)
+EDGE_FLAGS = ((0, 0), (1, 0), (0, 1), (1, 1))
+SHARDS = (2, 4)                  # the stitching's row shards
+DRY_RANKS, DRY_BATCH = 2, 2      # two ranks on the one card, each its half of the rows
+RANK_TIMEOUT = 300               # seconds a rank of the dry run may take
+PROFILE_TIMEOUT = 180            # seconds the stream profile's process may take
+# K7 with edge flags beyond the stage shapes: (label, Cx, Cx2, F1, F2, H, W,
+# mode) slabs, each with the flags of a first, a last and a single shard
+EDGE_RAGGED = [("20x36", 32, 0, 64, 64, 20, 36, "plain"), ("odd x2", 5, 3, 33, 7, 9, 13, "x2"),
+               ("pool", 3, 0, 48, 48, 20, 36, "pool")]
+EDGE_RAGGED_FLAGS = ((1, 0), (0, 1), (1, 1))
+STREAM_LAUNCHES_EDGE = 9         # K7 launches with edge flags, a rank a sharded forward
+STREAM_LAUNCHES_QUANT_OUT = 4    # float-in/int8-out launches (the decoder) a rank a forward
+STREAM_REPS = 3
+
+
+def slab_shapes(stages, n):
+    """The K7 calls of one rank of ``n`` row shards: each stage's slab, its
+    H / n rows and 2 halo rows each side, by its full width."""
+    return [(name, cx, cx2, f1, f2, h // n + 4, mode, h)
+            for name, cx, cx2, f1, f2, h, mode in stages]
+
+
+SHARD_STAGES = slab_shapes(STAGES_1024, DRY_RANKS)
+SHARD_DECODER = [stage for stage in SHARD_STAGES if stage[6] == "x2"]
+
+
 # K7 beyond the path's shapes (phase 4): (label, Cx, Cx2, F1, F2, H, W, mode)
 # at these batches; ragged edges, a partial last slice of the cluster, and
 # the 512 px model's stages
@@ -423,6 +483,8 @@ def kernel_shapes():
     out = {name: (BATCH_SERVE, shapes) for name, shapes in train.items()}
     out.update(
         sepconv_pair=(BATCH_SERVE, STAGES), sepconv_pair_int8=(BATCH_SERVE, STAGES),
+        sepconv_pair_edge=(DRY_BATCH, SHARD_STAGES),
+        sepconv_pair_quant_out=(DRY_BATCH, SHARD_DECODER),
         sepconv_block=(BATCH_SERVE, [(cx + cx2, f1, h) for _, cx, cx2, f1, _, h, _ in STAGES] +
                        [(f1, f2, h) for _, _, _, f1, f2, h, _ in STAGES]),
         sepconv_stats=(BATCH_SERVE, LINKS), sepconv_bwd=(BATCH_SERVE, LINKS),
@@ -1607,6 +1669,586 @@ def int8_path(torch, dev, smi, report, launches, worst_abs, totals, rnd, weights
         report["int8"][f"{dname} images_per_s"] = rates
 
 
+def hold_pairs(torch, worst_abs, name, label, dname, pairs, tol):
+    """K7 outputs against their plain versions, relative to max|plain|, the
+    worst of ``pairs`` printed on one line."""
+    worst = 0.0
+    for got, want in pairs:
+        if got.shape != want.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name} {label} {dname}: bad output {tuple(got.shape)}")
+        err = (got.float() - want.float()).abs().max().item()
+        worst_abs[name] = max(worst_abs[name], err)
+        worst = max(worst, err / max(want.float().abs().max().item(), 1e-30))
+    print(f"  {name} {label} {dname}: worst rel err {worst:.3e} (tol {tol:g}) "
+          f"{'ok' if worst <= tol else 'FAIL'}")
+    if not worst <= tol:
+        raise AssertionError(f"{name} {label} {dname}: rel err {worst} > {tol}")
+
+
+def hold_quanta(torch, worst_abs, name, label, dname, pairs):
+    """int8 K7 outputs against their plain versions, in quanta: at most
+    1 + KERNEL_TOL x max|plain| apart (phase 13's bar); the worst printed."""
+    worst, share, bar = 0, 0.0, 0.0
+    for got, want in pairs:
+        if got.shape != want.shape or got.dtype != torch.int8:
+            raise AssertionError(f"{name} {label} {dname}: bad output {tuple(got.shape)}")
+        d = (got.int() - want.int()).abs()
+        err, b = d.max().item(), 1 + KERNEL_TOL[dname] * want.int().abs().max().item()
+        worst_abs[name] = max(worst_abs[name], err)
+        if err > b:
+            raise AssertionError(f"{name} {label} {dname}: {err} quanta > {b}")
+        worst, share, bar = max(worst, err), max(share, (d > 0).float().mean().item()), max(bar, b)
+    print(f"  {name} {label} {dname}: max {worst} quanta (bar {bar:.2f}), at most {share:.2e} of "
+          "elements differ ok")
+
+
+def pair_outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def edge_checks(torch, fs, sq, rnd, weights, dev, dtypes, pair_case, worst_abs):
+    """Phase 14: K7 with edge flags against its plain version: float and
+    int8 I/O at the stage shapes of the 256 and 1024 px models on the slab
+    of one of two row shards, all four flag pairs, and at EDGE_RAGGED."""
+    print(f"K7 with edge flags vs plain, batch {BATCH_CHECK}, all four flag pairs, on a slab of "
+          "H / 2 + 4 rows of each stage of the 256 and 1024 px models:")
+    for dname, dtype in dtypes.items():
+        shapes = [(s, BATCH_CHECK, EDGE_FLAGS) for s in slab_shapes(STAGES, 2) +
+                  slab_shapes(STAGES_1024, 2)]
+        shapes += [((name, cx, cx2, f1, f2, h, mode, w), batch, EDGE_RAGGED_FLAGS)
+                   for batch in (2, 3) for name, cx, cx2, f1, f2, h, w, mode in EDGE_RAGGED]
+        stream = rnd.gen.get_state()
+        for (name, cx, cx2, f1, f2, h, mode, w), batch, flag_set in shapes:
+            label = (f"{name} ({cx}{'|%d' % cx2 if cx2 else ''})->{f1}->{f2}@{h}x{w} {mode} "
+                     f"batch {batch}")
+            args, kw = pair_case(batch, cx, cx2, f1, f2, h, w, mode, dtype)
+            pairs = []
+            for flags in flag_set:
+                got = fs.sepconv_pair(*args, **kw, edge_flags=flags)
+                want = fs.sepconv_pair_reference(*args, **kw, edge_flags=flags)
+                pairs += zip(pair_outputs(got), pair_outputs(want))
+            torch.cuda.synchronize()
+            hold_pairs(torch, worst_abs, "sepconv_pair_edge", label, dname, pairs,
+                       KERNEL_TOL[dname])
+            del args, kw, pairs
+            k = int8_case(torch, fs, sq, rnd, weights, dev, dtype, batch, cx, cx2, f1, f2, h, w,
+                          mode)
+            pairs = []
+            for flags in flag_set:
+                kw8 = {"pool": k["pool"], "x2": k["q2"], "edge_flags": flags}
+                pairs += zip(pair_outputs(fs.sepconv_pair_int8(k["q"], *k["fw"], **kw8)),
+                             pair_outputs(fs.sepconv_pair_int8_reference(k["q"], *k["fw"], **kw8)))
+            torch.cuda.synchronize()
+            hold_quanta(torch, worst_abs, "sepconv_pair_edge", f"int8 I/O {label}", dname, pairs)
+            del k, pairs
+        rnd.gen.set_state(stream)
+
+
+def launch_shape(plan):
+    """What of K7's plan decides a pixel's arithmetic: the cluster, the
+    slices, their width and the shared-memory layout (not the tile count)."""
+    return plan.n, plan.s1, plan.s2, plan.width, plan.smem
+
+
+def stitch_checks(torch, fs, dtypes, pair_case, worst_abs, report):
+    """Phase 14: each batch-2 stage input of the 256 and 1024 px models cut
+    into n row shards, each padded with its neighbours' 2 rows (zeros at the
+    image edges), K7 with its edge flags, trimmed and stitched, against the
+    unsharded K7: bit for bit where the shard's launch plan (cluster, slices,
+    width, shared memory) is the whole image's, else under phase 4's bars."""
+    import torch.nn.functional as F
+
+    print(f"stitched row shards (n in {SHARDS}) vs the unsharded K7, batch {BATCH_CHECK}:")
+    apart = []
+    for dname, dtype in dtypes.items():
+        for stage in STAGES + STAGES_1024:
+            name, cx, cx2, f1, f2, h, mode = stage
+            (x, w1, w2), kw = pair_case(BATCH_CHECK, cx, cx2, f1, f2, h, h, mode, dtype)
+            whole = pair_outputs(fs.sepconv_pair(x, w1, w2, **kw))
+            plan = launch_shape(fs.pair_plan(h, h, cx + cx2, f1, f2, dtype, BATCH_CHECK))
+            pad = [F.pad(t, (0, 0, 0, 0, 2, 2)) if t is not None else None for t in (x, kw["x2"])]
+            for n in SHARDS:
+                rows = h // n
+                parts = [pair_outputs(fs.sepconv_pair(
+                    pad[0][:, i * rows:(i + 1) * rows + 4].contiguous(), w1, w2, pool=kw["pool"],
+                    x2=None if pad[1] is None else pad[1][:, i * rows:(i + 1) * rows + 4]
+                    .contiguous(), edge_flags=(int(i == 0), int(i == n - 1)))) for i in range(n)]
+                stitched = [torch.cat([p[0][:, 2:-2] for p in parts], 1)]
+                if kw["pool"]:
+                    stitched.append(torch.cat([p[1][:, 1:-1] for p in parts], 1))
+                same_plan = launch_shape(fs.pair_plan(rows + 4, h, cx + cx2, f1, f2, dtype,
+                                                      BATCH_CHECK)) == plan
+                bits = all(torch.equal(a, b) for a, b in zip(stitched, whole))
+                label = f"{name}@{h} in {n} shards"
+                if bits:
+                    print(f"  {label} {dname}: bit for bit (same plan: {same_plan})")
+                else:
+                    apart.append(f"{label} {dname} (same plan: {same_plan})")
+                    hold_pairs(torch, worst_abs, "sepconv_pair_edge", label, dname,
+                               list(zip(stitched, whole)), KERNEL_TOL[dname])
+                    if same_plan:
+                        raise AssertionError(f"{label} {dname}: not bit for bit on the same plan")
+                del parts, stitched
+            del x, w1, w2, kw, whole, pad
+    print(f"  stitched shards not bit for bit: {apart or 'none'}")
+    report["stitch_not_bitwise"] = apart
+
+
+def quant_out_checks(torch, fs, sq, dtypes, pair_case, worst_abs):
+    """Phase 14: K7's float-in/int8-out mode against its plain version, in
+    quanta: at the decoder stages of the 256 and 1024 px models, two
+    streams, batch 2 and 3, and on their slabs of one of two row shards
+    (the sharded int8 graph's decoder calls, the 1024 px ones the dry
+    run's), batch 2, all four flag pairs; in fp32 also bit for bit
+    quantize(float K7) with the same flags."""
+    cases = [((name, cx, cx2, f1, f2, h, mode, h), batch, (None,))
+             for name, cx, cx2, f1, f2, h, mode in STAGES + STAGES_1024 if mode == "x2"
+             for batch in (2, 3)]
+    cases += [(stage, BATCH_CHECK, EDGE_FLAGS) for stage in slab_shapes(STAGES, 2) + SHARD_DECODER
+              if stage[6] == "x2"]
+    print("K7 float-in/int8-out vs plain (in quanta), decoder stages of the 256 and 1024 px "
+          f"models at batch 2 and 3, and their slabs of H / 2 + 4 rows at batch {BATCH_CHECK} "
+          "with all four flag pairs:")
+    for dname, dtype in dtypes.items():
+        for (name, cx, cx2, f1, f2, h, mode, w), batch, flag_set in cases:
+            (x, w1, w2), kw = pair_case(batch, cx, cx2, f1, f2, h, w, mode, dtype)
+            s_out = sq.pow2_scale(fs.sepconv_pair(x, w1, w2, **kw).float().max().item())
+            q1, q2 = fs.fold_int8(w1, w2, None, s_out, cx)
+            label = f"{name}@{h}x{w} batch {batch}"
+            pairs = []
+            for flags in flag_set:
+                got = fs.sepconv_pair_quant_out(x, q1, q2, **kw, edge_flags=flags)
+                pairs.append((got, fs.sepconv_pair_quant_out_reference(x, q1, q2, **kw,
+                                                                      edge_flags=flags)))
+                if dname == "float32" and not torch.equal(got, sq.quantize(
+                        fs.sepconv_pair(x, w1, w2, **kw, edge_flags=flags), s_out)):
+                    raise AssertionError(f"K7 float-in/int8-out {label} flags {flags} fp32: not "
+                                         "bit for bit quantize(float K7)")
+            torch.cuda.synchronize()
+            flagged = "no flags" if flag_set == (None,) else \
+                f"flags {', '.join(map(str, flag_set))}"
+            hold_quanta(torch, worst_abs, "sepconv_pair_quant_out", f"{label} {flagged}", dname,
+                        pairs)
+            if dname == "float32":
+                print(f"  sepconv_pair_quant_out {label} fp32: bit for bit quantize(float K7) "
+                      "with the same flags")
+            del x, w1, w2, kw, pairs
+
+
+def time_shard_kernels(torch, fs, dtypes, pair_case, totals, report, smi):
+    """Phase 14: K7 with edge flags (the first shard's) at the dry run's
+    nine slab shapes and K7 float-in/int8-out at its four decoder slabs,
+    each beside its plain version, its bound and the same K7 call without
+    flags (float) or the float mode (float-in/int8-out)."""
+    print(f"K7 at the dry run's slabs (1024 px over {DRY_RANKS} row shards, batch {DRY_BATCH}), "
+          f"ms (kernel / plain, bound; the same call in the float mode without flags) [{smi}]:")
+    for dname, dtype in dtypes.items():
+        t_edge, t_qo = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+        for stage in SHARD_STAGES:
+            name, cx, cx2, f1, f2, hs, mode, w = stage
+            (x, w1, w2), kw = pair_case(DRY_BATCH, cx, cx2, f1, f2, hs, w, mode, dtype)
+            tk = time_ms(lambda: fs.sepconv_pair(x, w1, w2, **kw, edge_flags=(1, 0)), torch)
+            tp = time_ms(lambda: fs.sepconv_pair_reference(x, w1, w2, **kw, edge_flags=(1, 0)),
+                         torch)
+            t0 = time_ms(lambda: fs.sepconv_pair(x, w1, w2, **kw), torch)
+            bound, by = roofline.bounds_ms("sepconv_pair_edge", stage, dname, DRY_BATCH)
+            t_edge = [t_edge[0] + tk, t_edge[1] + tp, t_edge[2] + t0]
+            line = f"  {name} slab {hs}x{w} {dtype_label(dname)}: edge {tk:.3f} / {tp:.3f}, " \
+                   f"bound {bound:.4f} ({by}); no flags {t0:.3f}"
+            rec = {"ms": tk, "plain_ms": tp, "bound_ms": bound, "bound_by": by, "no_flags_ms": t0}
+            if mode == "x2":
+                s_out = 2.0 ** -3
+                q1, q2 = fs.fold_int8(w1, w2, None, s_out, cx)
+                tq = time_ms(lambda: fs.sepconv_pair_quant_out(x, q1, q2, **kw, edge_flags=(1, 0)),
+                             torch)
+                tqp = time_ms(lambda: fs.sepconv_pair_quant_out_reference(
+                    x, q1, q2, **kw, edge_flags=(1, 0)), torch)
+                qb, qby = roofline.bounds_ms("sepconv_pair_quant_out", stage, dname, DRY_BATCH)
+                t_qo = [t_qo[0] + tq, t_qo[1] + tqp, t_qo[2] + tk]
+                line += f"; float-in/int8-out {tq:.3f} / {tqp:.3f}, bound {qb:.4f} ({qby})"
+                rec["quant_out"] = {"ms": tq, "plain_ms": tqp, "bound_ms": qb, "bound_by": qby}
+            print(line)
+            report["shard_stages"][f"{name} {dname}"] = rec
+            del x, w1, w2, kw
+        totals[dname]["sepconv_pair_edge"] = (t_edge[0], t_edge[1])
+        totals[dname]["sepconv_pair_quant_out"] = (t_qo[0], t_qo[1])
+        print(f"  {dname} over the slabs: edge {t_edge[0]:.3f} / {t_edge[1]:.3f} (no flags "
+              f"{t_edge[2]:.3f}); float-in/int8-out over the decoder {t_qo[0]:.3f} / "
+              f"{t_qo[1]:.3f} (float mode with flags {t_qo[2]:.3f})")
+
+
+def frames_per_second(stream, frames, torch, reps=STREAM_REPS):
+    """Host-clock rate of ``run_device`` on frames already on the card."""
+    stream.run_device(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        stream.run_device(frames)
+    torch.cuda.synchronize()
+    return reps * frames.shape[0] / (time.perf_counter() - t0)
+
+
+def profile_stream(torch, dev, stream, frames, smi):
+    """Phase 14: one ``run_device`` of the bf16 1024 px stream under
+    ``torch.profiler``: the device's busy time and idle share, K7's share of
+    the busy time, the device time of the resize products (the
+    ``stream.preprocess`` and ``stream.postprocess`` spans) and of the
+    forward, the host copies."""
+    from torch.profiler import record_function
+
+    from unet_image_segmentation_tpu_torch.troubleshoot import profile_summary
+    from unet_image_segmentation_tpu_torch.utils import profiling
+
+    stream.run_device(frames)
+    with tempfile.TemporaryDirectory() as tdir:
+        with profiling.trace(tdir, dev):
+            with record_function("stream"):
+                stream.run_device(frames)
+        s = profile_summary.summarize(tdir, within="stream")
+        parts = {name: profile_summary.summarize(tdir, within=f"stream.{name}")["busy_ms"]
+                 for name in ("preprocess", "forward", "postprocess")}
+    profile_summary.check_complete(s, "stream profile")
+    k7 = sum(ms for name, ms in s["kernels"].items()
+             if roofline.entry_of(name) == "sepconv_pair_cluster_kernel")
+    k7_n = sum(n for name, n in s["launches"].items()
+               if roofline.entry_of(name) == "sepconv_pair_cluster_kernel")
+    if k7_n != PAIR_LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"stream profile: {k7_n} K7 launches, expected "
+                             f"{PAIR_LAUNCHES_PER_FORWARD}")
+    out = {"window_ms": s["window_ms"], "busy_ms": s["busy_ms"], "idle_share": s["idle_share"],
+           "k7_ms": k7, "k7_share_of_busy": k7 / s["busy_ms"], "span_busy_ms": parts,
+           "copies": {name: {"ms": ms, "n": s["launches"][name]}
+                      for name, ms in s["copies"].items()}}
+    print(f"  bf16 stream of {frames.shape[0]} frames under torch.profiler: {s['window_ms']:.2f} ms,"
+          f" device busy {s['busy_ms']:.2f} ms (idle share {s['idle_share']:.3f}); K7 {k7:.2f} ms "
+          f"in {k7_n} launches ({100 * k7 / s['busy_ms']:.1f}% of busy); device busy by span: "
+          f"resize in {parts['preprocess']:.2f} ms, forward {parts['forward']:.2f} ms, resize "
+          f"back and threshold {parts['postprocess']:.2f} ms; host copies " + ", ".join(
+              f"{name} {v['ms']:.3f} ms x{v['n']}" for name, v in out["copies"].items()) +
+          f" [{smi}]")
+    return out
+
+
+def wait_children(procs, timeout):
+    """Wait until every process is done, one fails, or ``timeout`` seconds
+    are up; then kill what is left, so that none outlives the call."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline and \
+                not any(p.returncode for p in procs):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def profile_in_child(phase_dir):
+    """Phase 14: :func:`profile_stream` in a process of this script of its
+    own (``--profile-stream``), on the checkpoint and frames under
+    ``phase_dir``. In this script's long process, after the earlier phases'
+    profiler sessions, torch.profiler lost the first 26 of the stream's 40
+    kernels in most traces on an H100 (PyTorch 2.11), in one run in all
+    four tries; a fresh process's first trace is the case that came back
+    whole. The child's error, a lost trace's included, is raised here."""
+    import subprocess
+
+    path = os.path.join(phase_dir, "stream_profile.json")
+    if os.path.exists(path):
+        os.remove(path)
+    with open(os.path.join(phase_dir, "profile.log"), "w+") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--profile-stream",
+                                 phase_dir], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        wait_children([proc], PROFILE_TIMEOUT)
+        log.seek(0)
+        lines = log.read().strip().splitlines()
+    for line in lines[-30:]:
+        print(f"  profile process: {line}")
+    if proc.returncode != 0 or not lines or lines[-1] != "PROFILE_OK":
+        raise AssertionError(f"stream profile: its process exited {proc.returncode} (killed "
+                             f"after {PROFILE_TIMEOUT} s if still running): "
+                             f"{lines[-1] if lines else 'no output'}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def profile_main(phase_dir):
+    """The stream profile's process (``chip_smoke.py --profile-stream DIR``):
+    the bf16 1024 px stream of DIR's checkpoint on DIR's frames, one
+    :func:`profile_stream`; writes DIR/stream_profile.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from unet_image_segmentation_tpu_torch.inference import Predictor
+    from unet_image_segmentation_tpu_torch.streaming import StreamingPredictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    pred = Predictor(os.path.join(phase_dir, "ckpt"), (STREAM_IMAGE, STREAM_IMAGE),
+                     compute_dtype="bfloat16", use_pallas=True, device=dev)
+    frames = torch.from_numpy(np.load(os.path.join(phase_dir, "frames.npy"))).to(dev)
+    stream = StreamingPredictor(pred, STREAM_FRAME, STREAM_BATCH, threshold=None)
+    out = profile_stream(torch, dev, stream, frames, roofline.card())
+    with open(os.path.join(phase_dir, "stream_profile.json"), "w") as f:
+        json.dump(out, f)
+    print("PROFILE_OK", flush=True)
+    return 0
+
+
+def stream_path(torch, dev, smi, report, rnd, dtypes, phase_dir):
+    """Phase 14: the unsharded 1024 px stream from 1080p frames, bf16 and
+    fp32 (the kernel graph against the module path) and int8; returns the
+    model's checkpoint, the float Predictors and the frames on the card."""
+    from unet_image_segmentation_tpu_torch.inference import Predictor
+    from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+    from unet_image_segmentation_tpu_torch.streaming import StreamingPredictor
+    from unet_image_segmentation_tpu_torch.train.checkpoint import save_inference_variables
+
+    print(f"1024 px stream: U-Net filters {FILTERS} at {STREAM_IMAGE} px (configs/highres_1024."
+          f"json), seeded weights, {STREAM_BATCH} frames of {STREAM_FRAME[0]}x{STREAM_FRAME[1]}")
+    ckpt = os.path.join(phase_dir, "ckpt")
+    save_inference_variables(ckpt, seeded_state(torch, dev, rnd, synthetic_scenes(
+        4, STREAM_IMAGE, SEED + 14)), MODEL_KWARGS)
+    size = (STREAM_IMAGE, STREAM_IMAGE)
+    on = {d: Predictor(ckpt, size, compute_dtype=d, use_pallas=True, device=dev) for d in dtypes}
+    off = {d: Predictor(ckpt, size, compute_dtype=d, device=dev) for d in dtypes}
+    on8 = Predictor(ckpt, size, compute_dtype="bfloat16", use_pallas=True, quantize="int8",
+                    device=dev)
+    frames = np.round(synthetic_scenes(STREAM_BATCH, STREAM_FRAME[0], SEED + 15,
+                                       width=STREAM_FRAME[1]) * 255).astype(np.uint8)
+    frames_dev = torch.from_numpy(frames).to(dev)
+
+    def stream(pred, threshold=None):
+        return StreamingPredictor(pred, STREAM_FRAME, STREAM_BATCH, threshold=threshold)
+
+    streams = {d: stream(on[d]) for d in dtypes}
+    rec = report["stream"]
+    np.save(os.path.join(phase_dir, "frames.npy"), frames)
+    rec["profile"] = traced(lambda _: profile_in_child(phase_dir), "stream profile")
+    # the counted run: one forward a dtype
+    fs.reset_launch_counts()
+    probs = {d: streams[d].run_device(frames_dev) for d in dtypes}
+    torch.cuda.synchronize()
+    counts = dict(fs.LAUNCHES)
+    want = dict.fromkeys(counts, 0)
+    want["sepconv_pair"] = PAIR_LAUNCHES_PER_FORWARD * len(dtypes)
+    print(f"  launches over {len(dtypes)} stream forwards: {counts}")
+    if counts != want:
+        raise AssertionError(f"stream: expected {want}, got {counts}")
+    for dname in dtypes:
+        got = probs[dname]
+        ref = stream(off[dname]).run_device(frames_dev)
+        masks = stream(on[dname], 0.5).run_device(frames_dev)
+        if tuple(got.shape) != (STREAM_BATCH, *STREAM_FRAME) or not torch.isfinite(got).all():
+            raise AssertionError(f"stream {dname}: bad output {tuple(got.shape)}")
+        if not torch.equal(masks, (got > 0.5).to(torch.uint8)):
+            raise AssertionError(f"stream {dname}: the thresholded stream is not probs > 0.5")
+        err = (got - ref).abs().max().item()
+        agree = ((got > 0.5) == (ref > 0.5)).float().mean().item()
+        ok = err <= PROB_TOL[dname] and agree >= MASK_MIN_AGREE[dname]
+        print(f"  {dname} stream against the module path's: prob max_abs_err {err:.3e} (tol "
+              f"{PROB_TOL[dname]:g}), mask agreement {agree:.6f} (min {MASK_MIN_AGREE[dname]}), "
+              f"foreground {(ref > 0.5).float().mean().item():.3f} {'ok' if ok else 'FAIL'}")
+        rec[f"{dname} vs module path"] = {"max_abs_err": err, "mask_agree": agree}
+        if not ok:
+            raise AssertionError(f"stream {dname}: the kernels disagree with the module path")
+        del ref, masks
+    s8 = stream(on8)
+    s8.run_device(frames_dev)   # calibrates on this batch's model input
+    fs.reset_launch_counts()
+    p8 = s8.run_device(frames_dev)
+    torch.cuda.synchronize()
+    counts = dict(fs.LAUNCHES)
+    if counts["sepconv_pair_int8"] != INT8_LAUNCHES_PER_FORWARD or sum(counts.values()) != \
+            INT8_LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"int8 stream: expected {INT8_LAUNCHES_PER_FORWARD} int8 K7 "
+                             f"launches and nothing else, got {counts}")
+    f_err = (p8 - probs["bfloat16"]).abs().max().item()
+    f_agree = ((p8 > 0.5) == (probs["bfloat16"] > 0.5)).float().mean().item()
+    print(f"  bf16 int8 stream: {counts['sepconv_pair_int8']} int8 K7 launches a forward; "
+          f"against the bf16 float stream prob max_abs_diff {f_err:.3e}, mask agreement "
+          f"{f_agree:.6f} (printed, no bar)")
+    rec["int8 vs float"] = {"max_abs_diff": f_err, "mask_agree": f_agree,
+                            "scales": s8.quant_scales}
+    rates = {}
+    for label, st in (("bf16", streams["bfloat16"]), ("fp32", streams["float32"]),
+                      ("bf16 int8", s8)) * 2:
+        rates.setdefault(label, []).append(frames_per_second(st, frames_dev, torch))
+    host = stream(on["bfloat16"], 0.5)
+    host(frames)
+    t0 = time.perf_counter()
+    for _ in range(STREAM_REPS):
+        host(frames)
+    rates["bf16 from host frames to host masks"] = [
+        STREAM_REPS * STREAM_BATCH / (time.perf_counter() - t0)]
+    print(f"  stream frames/s at batch {STREAM_BATCH} (frames on the card): " + ", ".join(
+        f"{k} {' / '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()) + f" [{smi}]")
+    rec["frames_per_s"] = rates
+    del probs, p8, s8, streams, off, on8
+    return ckpt, on, frames_dev
+
+
+def dry_run(torch, dev, smi, report, launches, on, frames_dev, phase_dir):
+    """Phase 14: two ranks on the one card (gloo, a file rendezvous under
+    build/), each a process of this script (``--rank``), serve the 1024 px
+    model over a (data=1, spatial=2) mesh; their gathered outputs held to
+    the unsharded ones on the same card, their K7 launches counted."""
+    import subprocess
+
+    from unet_image_segmentation_tpu_torch import serving_quant as sq
+    from unet_image_segmentation_tpu_torch.parallel.mesh import create_mesh
+    from unet_image_segmentation_tpu_torch.streaming import StreamingPredictor
+
+    dry = os.path.join(phase_dir, "dry")
+    os.makedirs(dry)
+    x = synthetic_scenes(DRY_BATCH, STREAM_IMAGE, SEED + 16)
+    np.save(os.path.join(dry, "x.npy"), x)
+    np.save(os.path.join(dry, "frames.npy"), frames_dev[:DRY_BATCH].cpu().numpy())
+    xd = torch.from_numpy(x).to(dev)
+    kw8 = on["bfloat16"].serving_kwargs
+    scales = sq.calibrate_chained(on["bfloat16"].variables, xd, **kw8)
+    with open(os.path.join(dry, "scales.json"), "w") as f:
+        json.dump(scales, f)
+    torch.cuda.empty_cache()
+    print(f"dry run: {DRY_RANKS} ranks on the one card, gloo, a (data=1, spatial={DRY_RANKS}) "
+          f"mesh, {STREAM_IMAGE} px, batch {DRY_BATCH}:")
+    logs = [open(os.path.join(dry, f"rank{r}.log"), "w+") for r in range(DRY_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), dry],
+                              cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    wait_children(procs, RANK_TIMEOUT)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        for line in text.strip().splitlines()[-30:]:
+            print(f"  rank {r}: {line}")
+        if p.returncode != 0 or f"RANK_OK {r}" not in text:
+            raise AssertionError(f"dry run: rank {r} exited {p.returncode} (killed when another "
+                                 f"rank failed or after {RANK_TIMEOUT} s)")
+    out = dict(np.load(os.path.join(dry, "out.npz")))
+    counts = []
+    for r in range(DRY_RANKS):
+        with open(os.path.join(dry, f"counts{r}.json")) as f:
+            counts.append(json.load(f))
+    for key in ("sepconv_pair_edge", "sepconv_pair_quant_out"):
+        launches[key] = sum(c[key] for c in counts)
+    rec = report["dry_run"] = {"counts": counts}
+    # the unsharded references on the same card
+    refs = {f"float {d}": on[d].forward_fn(xd).cpu().numpy() for d in on}
+    refs["quant"] = sq.build_serving_forward_sharded_quant(
+        on["bfloat16"].variables, scales, create_mesh(), **kw8, device=dev)(xd).cpu().numpy()
+    refs["stream probs"] = StreamingPredictor(on["bfloat16"], STREAM_FRAME, DRY_BATCH,
+                                              threshold=None).run_device(
+        frames_dev[:DRY_BATCH]).cpu().numpy()
+    for key, ref in refs.items():
+        got = out[key]
+        diff = np.abs(got - ref)
+        err, share = float(diff.max()), float((diff > 1e-5).mean())
+        if key == "float float32":
+            bar, ok = "max 2e-05", err <= 2e-5
+        elif key == "quant":
+            bar, ok = "at most 1e-3 of the elements over 1e-5", share <= 1e-3
+        else:
+            bar, ok = f"max {PROB_TOL['bfloat16']:g}", err <= PROB_TOL["bfloat16"]
+        agree = float(((got > 0.5) == (ref > 0.5)).mean())
+        if key != "float float32":
+            ok = ok and agree >= MASK_MIN_AGREE["bfloat16"]
+        print(f"  sharded {key} against the unsharded: max_abs_diff {err:.3e}, {share:.2e} of "
+              f"elements over 1e-5 (bar: {bar}), mask agreement {agree:.6f} "
+              f"{'ok' if ok else 'FAIL'}")
+        rec[key] = {"max_abs_diff": err, "share_over_1e-5": share, "mask_agree": agree}
+        if not ok:
+            raise AssertionError(f"dry run: sharded {key} disagrees with the unsharded")
+    ref = refs["stream probs"]
+    near = np.abs(ref - 0.5) <= PROB_TOL["bfloat16"]
+    masks = out["stream masks"]
+    if not np.array_equal(masks[~near], (ref > 0.5)[~near]):
+        raise AssertionError("dry run: sharded stream masks differ away from the threshold")
+    print(f"  sharded stream masks equal the unsharded stream's wherever the probability is "
+          f"more than {PROB_TOL['bfloat16']:g} from 0.5; all equal: "
+          f"{bool(np.array_equal(masks, (ref > 0.5).astype(np.uint8)))}")
+
+
+def rank_main(rank, dry):
+    """One rank of phase 14's dry run (``chip_smoke.py --rank R DIR``): the
+    1024 px model over a (data=1, spatial=2) mesh on cuda:0, the sharded
+    float graph in bf16 and fp32, the sharded int8 graph in bf16, the
+    sharded stream (probabilities and masks); rank 0 writes the gathered
+    outputs, every rank its K7 launch counts."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from unet_image_segmentation_tpu_torch import serving, serving_quant as sq
+    from unet_image_segmentation_tpu_torch.inference import Predictor
+    from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+    from unet_image_segmentation_tpu_torch.parallel import distributed
+    from unet_image_segmentation_tpu_torch.parallel.mesh import create_mesh
+    from unet_image_segmentation_tpu_torch.streaming import StreamingPredictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.initialize("file://" + os.path.join(dry, "store"), DRY_RANKS, rank,
+                           backend="gloo")
+    mesh = create_mesh(data=1, spatial=DRY_RANKS)
+    ckpt = os.path.join(os.path.dirname(dry), "ckpt")
+    size = (STREAM_IMAGE, STREAM_IMAGE)
+    preds = {d: Predictor(ckpt, size, compute_dtype=d, use_pallas=True, device=dev)
+             for d in ("bfloat16", "float32")}
+    x = torch.from_numpy(np.load(os.path.join(dry, "x.npy"))).to(dev)
+    frames = torch.from_numpy(np.load(os.path.join(dry, "frames.npy"))).to(dev)
+    with open(os.path.join(dry, "scales.json")) as f:
+        scales = json.load(f)
+    bf = preds["bfloat16"]
+    fwds = {f"float {d}": serving.build_serving_forward_sharded(
+        p.variables, mesh, **p.serving_kwargs, device=dev) for d, p in preds.items()}
+    fwds["quant"] = sq.build_serving_forward_sharded_quant(bf.variables, scales, mesh,
+                                                           **bf.serving_kwargs, device=dev)
+    fs.reset_launch_counts()
+    out = {key: mesh.gather(fwd(mesh.shard(x))).float().cpu().numpy()
+           for key, fwd in fwds.items()}
+    for key, th in (("stream probs", None), ("stream masks", 0.5)):
+        out[key] = StreamingPredictor(bf, STREAM_FRAME, DRY_BATCH, threshold=th,
+                                      mesh=mesh).run_device(frames).cpu().numpy()
+    torch.cuda.synchronize()
+    counts = dict(fs.LAUNCHES)
+    forwards = 4   # two float graphs, two streams; and one int8 graph
+    want = dict.fromkeys(counts, 0)
+    want.update(sepconv_pair=PAIR_LAUNCHES_PER_FORWARD * forwards,
+                sepconv_pair_int8=PAIR_LAUNCHES_PER_FORWARD - STREAM_LAUNCHES_QUANT_OUT,
+                sepconv_pair_quant_out=STREAM_LAUNCHES_QUANT_OUT,
+                sepconv_pair_edge=STREAM_LAUNCHES_EDGE * (forwards + 1))
+    print(f"launches {counts}")
+    if counts != want:
+        raise AssertionError(f"rank {rank}: expected {want}, got {counts}")
+    fwd = fwds["float bfloat16"]
+    shard = mesh.shard(x)
+    fwd(shard)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STREAM_REPS):
+        fwd(shard)
+    torch.cuda.synchronize()
+    print(f"a bf16 sharded forward of {DRY_BATCH} images: "
+          f"{(time.perf_counter() - t0) / STREAM_REPS * 1e3:.1f} ms on the host clock (two ranks "
+          "sharing one card through the host: not a speed figure)")
+    with open(os.path.join(dry, f"counts{rank}.json"), "w") as f:
+        json.dump(counts, f)
+    if rank == 0:
+        np.savez(os.path.join(dry, "out.npz"), **out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"RANK_OK {rank}", flush=True)
+    return 0
+
+
 def reset_train_counts():
     from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
 
@@ -1649,9 +2291,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from unet_image_segmentation_tpu_torch import serving_quant as sq
     from unet_image_segmentation_tpu_torch.inference import Predictor
-    from unet_image_segmentation_tpu_torch.models.layers import BatchNorm
-    from unet_image_segmentation_tpu_torch.models.unet import UNet, recalibrate_batch_norm
+    from unet_image_segmentation_tpu_torch.models.unet import UNet
     from unet_image_segmentation_tpu_torch.ops import fused_head as fh
     from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
     from unet_image_segmentation_tpu_torch.ops import fused_train as ft
@@ -1775,18 +2417,9 @@ def main() -> int:
 
     # ---- 5. main path -------------------------------------------------------
     print(f"main path: U-Net filters {FILTERS} at {IMAGE}x{IMAGE}, seeded weights")
-    model = UNet(filters=FILTERS, generator=gen, device=dev)
     scenes = synthetic_scenes(64, IMAGE, SEED)
-    recalibrate_batch_norm(model, torch.from_numpy(scenes[:8]).to(dev))
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, BatchNorm):
-                m.mean.add_(0.05 * rnd(*m.mean.shape).to(dev) * m.var.sqrt())
-                m.var.mul_(1 + 0.2 * rnd(*m.var.shape).to(dev))
-    kwargs = {"num_classes": 1, "filters": list(FILTERS), "use_batch_norm": True,
-              "conv_type": "separable"}
-    state = model.state_dict()
-    del model
+    state = seeded_state(torch, dev, rnd, scenes[:8])
+    kwargs = MODEL_KWARGS
     with tempfile.TemporaryDirectory() as tmp:
         save_inference_variables(tmp, state, kwargs)
         on = {d: Predictor(tmp, (IMAGE, IMAGE), compute_dtype=d, use_pallas=True, device=dev)
@@ -2040,6 +2673,20 @@ def main() -> int:
     # ---- 13. int8 serving: K7's int8 I/O mode, the int8 Predictor, evaluate
     int8_path(torch, dev, smi, report, launches, worst_abs, totals, rnd, weights, dtypes,
               scenes, on, on8)
+    del on, off, on8, modules
+
+    # ---- 14. the 1024 px stream from 1080p frames, K7's edge-flag and
+    # float-in/int8-out modes, row-sharded serving on two ranks
+    phase_dir = os.path.join(ROOT, "build", "phase14")
+    shutil.rmtree(phase_dir, ignore_errors=True)
+    os.makedirs(phase_dir)
+    report["stream"], report["shard_stages"] = {}, {}
+    ckpt, on1024, frames_dev = stream_path(torch, dev, smi, report, rnd, dtypes, phase_dir)
+    edge_checks(torch, fs, sq, rnd, weights, dev, dtypes, pair_case, worst_abs)
+    stitch_checks(torch, fs, dtypes, pair_case, worst_abs, report)
+    quant_out_checks(torch, fs, sq, dtypes, pair_case, worst_abs)
+    time_shard_kernels(torch, fs, dtypes, pair_case, totals, report, smi)
+    dry_run(torch, dev, smi, report, launches, on1024, frames_dev, phase_dir)
 
     kernels, report["bounds"] = [], {}
     shapes = kernel_shapes()
@@ -2086,7 +2733,10 @@ def main() -> int:
           "forwards (K8 also phase 8's eval steps), K7 int8 over phase 13's int8 Predictor "
           f"forwards, K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
           "A/B step) in each dtype, K11 over phase 10's, K9/K10 over phase 11's 18 blocks in each "
-          "dtype, K12 over phase 12's link_floors run")
+          "dtype, K12 over phase 12's link_floors run; K7 edge flags (bf16, the first shard's "
+          f"flags) over the nine slabs of {STREAM_IMAGE} px over {DRY_RANKS} row shards and K7 "
+          "float-in/int8-out over their four decoder slabs, at batch "
+          f"{DRY_BATCH}, launches summed over phase 14's {DRY_RANKS} ranks")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2161,6 +2811,24 @@ def profile_predict(torch, dev, predictor, batch, smi, label="bf16"):
     return out
 
 
+def seeded_state(torch, dev, rnd, scenes, image=IMAGE):
+    """The state dict of the U-Net of ``FILTERS`` with seeded weights, its
+    BatchNorm recalibrated on ``scenes`` and then moved off the batch
+    statistics (the running mean by up to 5% of a deviation, the variance
+    by up to 20%), as a trained model's are."""
+    from unet_image_segmentation_tpu_torch.models.layers import BatchNorm
+    from unet_image_segmentation_tpu_torch.models.unet import UNet, recalibrate_batch_norm
+
+    model = UNet(filters=FILTERS, generator=rnd.gen, device=dev)
+    recalibrate_batch_norm(model, torch.from_numpy(scenes).to(dev))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.add_(0.05 * rnd(*m.mean.shape).to(dev) * m.var.sqrt())
+                m.var.mul_(1 + 0.2 * rnd(*m.var.shape).to(dev))
+    return model.state_dict()
+
+
 def multiclass_scenes(n, size, seed):
     """Scenes for the 3-class model: synthetic_scenes' document quad as
     class 1 and a dark disc, a "seal", as class 2 drawn over it; float32
@@ -2177,23 +2845,24 @@ def multiclass_scenes(n, size, seed):
     return images, ids
 
 
-def synthetic_scenes(n, size, seed, with_masks=False):
+def synthetic_scenes(n, size, seed, with_masks=False, width=None):
     """Document-like scenes in numpy: a bright quadrilateral on a textured
-    background, float32 in [0, 1], (n, size, size, 3); with ``with_masks``
-    also the quadrilateral's 0/1 mask (n, size, size, 1)."""
+    background, float32 in [0, 1], (n, size, width or size, 3); with
+    ``with_masks`` also the quadrilateral's 0/1 mask (n, size, width, 1)."""
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
-    out = np.empty((n, size, size, 3), np.float32)
-    masks = np.empty((n, size, size, 1), np.float32)
+    h, w = size, width or size
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.empty((n, h, w, 3), np.float32)
+    masks = np.empty((n, h, w, 1), np.float32)
     for i in range(n):
-        bg = rng.uniform(0.0, 0.4, 3) + 0.1 * rng.standard_normal((size, size, 1))
-        cy, cx = rng.uniform(0.3, 0.7, 2) * size
-        hh, hw = rng.uniform(0.15, 0.35, 2) * size
+        bg = rng.uniform(0.0, 0.4, 3) + 0.1 * rng.standard_normal((h, w, 1))
+        cy, cx = rng.uniform(0.3, 0.7, 2) * (h, w)
+        hh, hw = rng.uniform(0.15, 0.35, 2) * (h, w)
         ang = rng.uniform(-0.6, 0.6)
         u = (xx - cx) * np.cos(ang) + (yy - cy) * np.sin(ang)
         v = -(xx - cx) * np.sin(ang) + (yy - cy) * np.cos(ang)
         inside = (np.abs(u) < hw) & (np.abs(v) < hh)
-        img = np.broadcast_to(bg, (size, size, 3)).copy()
+        img = np.broadcast_to(bg, (h, w, 3)).copy()
         img[inside] = rng.uniform(0.6, 1.0, 3)
         out[i] = np.clip(img, 0.0, 1.0)
         masks[i, ..., 0] = inside
@@ -2201,4 +2870,8 @@ def synthetic_scenes(n, size, seed, with_masks=False):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:   # one rank of phase 14's dry run
+        sys.exit(rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--profile-stream"]:   # phase 14's stream profile
+        sys.exit(profile_main(sys.argv[2]))
     sys.exit(main())

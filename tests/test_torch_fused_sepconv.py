@@ -260,8 +260,11 @@ def test_cpu_path_launches_nothing():
     (y.sum() + s.sum() + q.sum() + tfs.sepconv_apply(xg, b2["depthwise_kernel"][:, :, :3],
                                                      b1["pointwise_kernel"]).sum()).backward()
     tfs.fused_sepconv_pair(torch.round(x * 20).clamp(-127, 127).to(torch.int8), b1, b2,
-                           pool=True, in_scale=0.0625, out_scale=0.125)
+                           pool=True, in_scale=0.0625, out_scale=0.125, edge_flags=(1, 0))
+    tfs.fused_sepconv_pair(x, b1, b2, out_scale=0.125, edge_flags=(0, 1))
+    tfs.fused_sepconv_pair(x, b1, b2, edge_flags=(1, 1))
     assert tfs.LAUNCHES == {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0,
+                            "sepconv_pair_quant_out": 0, "sepconv_pair_edge": 0,
                             "sepconv_stats": 0, "sepconv_bwd": 0}
 
 

@@ -34,7 +34,9 @@ def test_port_modules_import_no_jax():
                  "troubleshoot.profile_summary", "troubleshoot.roofline",
                  "troubleshoot.step_attribution", "troubleshoot.link_floors",
                  "troubleshoot.check_install", "troubleshoot.check_gpu_benchmark",
-                 "troubleshoot.pair_phases", "serving_quant", "evaluation", "cli.benchmark"):
+                 "troubleshoot.pair_phases", "serving_quant", "evaluation", "cli.benchmark",
+                 "ops.preprocess", "streaming", "parallel.mesh", "parallel.halo",
+                 "parallel.distributed"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -120,3 +122,23 @@ def test_train_cli_copy_parses_like_the_jax_cli():
     mine = cli.config_from_args(args).to_dict()
     assert mine == jax_cli.config_from_args(jax_cli.parse_args(flags)).to_dict()
     assert tuple(mine["model"]["filters"]) == (8, 16) and mine["model"]["use_pallas"] is True
+
+
+@pytest.mark.parametrize("out_size,in_size", [(1024, 1080), (1080, 1024), (1920, 1024),
+                                              (64, 96), (5, 5)])
+def test_resize_matrix_copy_equals_the_original(out_size, in_size):
+    from unet_image_segmentation_tpu.ops.preprocess import _resize_matrix as theirs
+    from unet_image_segmentation_tpu_torch.ops.preprocess import _resize_matrix as mine
+
+    np.testing.assert_array_equal(mine(out_size, in_size), theirs(out_size, in_size))
+
+
+@pytest.mark.parametrize("b,n", [(5, 8), (8, 8), (3, 2), (1, 4)])
+def test_pad_batch_copy_equals_the_original(b, n):
+    from unet_image_segmentation_tpu.parallel.mesh import pad_batch_to_devices as theirs
+    from unet_image_segmentation_tpu_torch.parallel.mesh import pad_batch_to_devices as mine
+
+    x = np.arange(b * 6, dtype=np.float32).reshape(b, 2, 3)
+    (got, pad), (want, wpad) = mine(x, n), theirs(x, n)
+    assert pad == wpad
+    np.testing.assert_array_equal(got, want)

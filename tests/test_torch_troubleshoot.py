@@ -232,6 +232,29 @@ def test_k7_int8_bound_by_hand():
     assert roofline.KERNELS["sepconv_pair_int8"][1:] == roofline.KERNELS["sepconv_pair"][1:]
 
 
+def test_k7_quant_out_and_edge_bounds_by_hand():
+    """K7's float-in/int8-out mode reads C elements in the compute dtype and
+    writes F2 bytes a pixel; its edge flags move nothing more than the float
+    mode (the same bytes and operations). A slab shape carries its width
+    after the mode: (H + 4) x W pixels."""
+    dec1 = ("dec1", 64, 64, 64, 64, 516, "x2", 1024)
+    px = 2 * 516 * 1024
+    weights = 9 * 128 + 128 * 64 + 9 * 64 + 64 * 64
+    for dname, e in (("bfloat16", 2), ("float32", 4)):
+        assert roofline.work("sepconv_pair_quant_out", dec1, dname, 2) == (
+            e * px * 128 + px * 64 + e * weights, sum(roofline.pair_ops(dec1, 2)))
+        assert roofline.work("sepconv_pair_edge", dec1, dname, 2) == \
+            roofline.work("sepconv_pair", dec1, dname, 2)
+        assert roofline.work("sepconv_pair", dec1, dname, 2)[0] == e * px * 192 + e * weights
+    assert roofline.pair_ops(dec1, 2) == roofline.pair_ops(("dec1", 64, 64, 64, 64, 516, "x2",
+                                                            1024), 2)
+    square = ("enc1", 3, 0, 64, 64, 256, "pool")
+    assert roofline.work("sepconv_pair", square, "bfloat16", 32) == \
+        roofline.work("sepconv_pair", square + (256,), "bfloat16", 32)
+    for name in ("sepconv_pair_quant_out", "sepconv_pair_edge"):
+        assert roofline.KERNELS[name][1:] == roofline.KERNELS["sepconv_pair"][1:]
+
+
 def test_pair_phases_marks_match_the_kernel():
     """Every PAIR_PHASE mark of sepconv_pair.cu names one of the tool's
     phases, in order, and the kernel's buffer holds as many a CTA."""

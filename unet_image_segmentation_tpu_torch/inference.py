@@ -82,6 +82,7 @@ class Predictor:
         self.serving_kwargs: Optional[Dict[str, Any]] = None
         self.quant_scales: Optional[Dict[str, float]] = None
         self._quantize = quantize
+        self._forward = None
         if use_pallas:
             if kwargs.get("conv_type", "separable") != "separable":
                 raise ValueError("use_pallas=True needs a separable-conv model")
@@ -98,6 +99,14 @@ class Predictor:
     @property
     def num_classes(self) -> int:
         return self.model.num_classes
+
+    @property
+    def forward_fn(self):
+        """The forward ((B, H, W, C) float tensor on the device -> fp32
+        probabilities on it) for composing into larger pipelines such as
+        :class:`.streaming.StreamingPredictor`; None while an int8 graph
+        waits for its calibration batch (JAX's is the float graph then)."""
+        return self._forward
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         """(B, H, W, C) float32 -> (B, H, W, num_classes) probabilities."""

@@ -20,7 +20,13 @@ Port of ``unet_image_segmentation_tpu/ops/pallas/fused_sepconv.py`` and
   multiply-adds it executes. Its int8 I/O mode (:func:`sepconv_pair_int8`,
   the TPU kernel's ``quant_out`` with int8 input): int8 x (and x2) in,
   int8 y (and pooled) out, the compute in the weights' dtype, the scales
-  folded into the weights beforehand (:func:`fold_int8`).
+  folded into the weights beforehand (:func:`fold_int8`). Its
+  float-in/int8-out mode (:func:`sepconv_pair_quant_out`, ``quant_out``
+  with a float input): x (and x2) in the compute dtype, int8 y (and
+  pooled). Each mode takes ``edge_flags=(top, bottom)`` for row-sharded
+  serving: x is a row shard with 2 halo rows each side, and a set flag
+  says that side's halo rows lie beyond the true image edge, so y1 is zero
+  on them (the TPU kernel's ``edge_flags``).
 * :func:`sepconv_stats` (K9, TPU kernel ``_sepconv_kernel_db_stats``): the
   plain sepconv ``y = (dw3x3(x) -> dtype) . pw`` rounded to the dtype, with
   the per-channel Σy and Σy² of the rounded y. CUDA source: the
@@ -60,8 +66,13 @@ from unet_image_segmentation_tpu_torch.ops import fused_train as ft
 from unet_image_segmentation_tpu_torch.ops.conv import max_pool_2x2
 from unet_image_segmentation_tpu_torch.ops.kernels import build
 
+# K7's launches count under their I/O mode (float, int8 I/O, float in and
+# int8 out); those that carry edge flags count under sepconv_pair_edge too
 LAUNCHES: Dict[str, int] = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0,
+                            "sepconv_pair_quant_out": 0, "sepconv_pair_edge": 0,
                             "sepconv_stats": 0, "sepconv_bwd": 0}
+
+EdgeFlags = Optional[Tuple[Union[int, bool], Union[int, bool]]]
 
 _MAX_BATCH = 65535  # gridDim.y of K7, gridDim.z of the others
 
@@ -153,17 +164,34 @@ def sepconv_block_reference(
     return y.to(x.dtype)
 
 
+def _kill_edges(y1: torch.Tensor, edge_flags: EdgeFlags) -> torch.Tensor:
+    """y1 with its first (last) 2 rows zeroed where the top (bottom) edge
+    flag is set."""
+    top, bot = edge_flags or (0, 0)
+    if not (top or bot):
+        return y1
+    y1 = y1.clone()
+    if top:
+        y1[:, :2] = 0
+    if bot:
+        y1[:, -2:] = 0
+    return y1
+
+
 def sepconv_pair_reference(
     x: torch.Tensor,
     w1: BlockWeights,
     w2: BlockWeights,
     pool: bool = False,
     x2: Optional[torch.Tensor] = None,
+    edge_flags: EdgeFlags = None,
 ):
     """Plain version of K7: two plain blocks with ReLU. y1 is rounded to
-    x.dtype, and block 2's zero padding is the zero y1 outside the image."""
+    x.dtype, and block 2's zero padding is the zero y1 outside the image
+    (and on the rows ``edge_flags`` kill)."""
     xin = torch.cat([x, x2], dim=-1) if x2 is not None else x
-    y = sepconv_block_reference(sepconv_block_reference(xin, w1), w2)
+    y1 = _kill_edges(sepconv_block_reference(xin, w1), edge_flags)
+    y = sepconv_block_reference(y1, w2)
     if pool:
         return y, max_pool_2x2(y)
     return y
@@ -172,24 +200,27 @@ def sepconv_pair_reference(
 def fold_int8(
     w1: BlockWeights,
     w2: BlockWeights,
-    in_scale: Union[float, Tuple[float, float]],
+    in_scale: Optional[Union[float, Tuple[float, float]]],
     out_scale: float,
     cx: int,
 ) -> Tuple[BlockWeights, BlockWeights]:
     """K7's int8 folds, in the JAX wrapper's order: block 1's taps times the
     input scale in the compute dtype (per channel for a two-stream call, the
     first ``cx`` channels by ``s_x`` of ``in_scale = (s_x, s_x2)``, the rest
-    by ``s_x2``), block 2's scale and shift times ``float32(1 / out_scale)``.
-    With power-of-two scales both folds are exact."""
+    by ``s_x2``; none for a float input, ``in_scale=None``), block 2's scale
+    and shift times ``float32(1 / out_scale)``. With power-of-two scales
+    both folds are exact."""
     t, c = w1.dw.dtype, w1.dw.shape[-1]
+    inv = torch.tensor(1.0 / out_scale, dtype=torch.float32, device=w2.scale.device)
+    w2 = w2._replace(scale=(w2.scale * inv).contiguous(), shift=(w2.shift * inv).contiguous())
+    if in_scale is None:
+        return w1, w2
     if isinstance(in_scale, (tuple, list)):
         s_x, s_x2 = in_scale
         vec = torch.cat([torch.full((cx,), s_x, dtype=t), torch.full((c - cx,), s_x2, dtype=t)])
     else:
         vec = torch.tensor(in_scale, dtype=t)
-    inv = torch.tensor(1.0 / out_scale, dtype=torch.float32, device=w2.scale.device)
-    return (w1._replace(dw=(w1.dw * vec.to(w1.dw.device)).contiguous()),
-            w2._replace(scale=(w2.scale * inv).contiguous(), shift=(w2.shift * inv).contiguous()))
+    return w1._replace(dw=(w1.dw * vec.to(w1.dw.device)).contiguous()), w2
 
 
 def sepconv_pair_int8_reference(
@@ -198,16 +229,36 @@ def sepconv_pair_int8_reference(
     w2: BlockWeights,
     pool: bool = False,
     x2: Optional[torch.Tensor] = None,
+    edge_flags: EdgeFlags = None,
 ):
     """Plain version of K7's int8 I/O mode on weights folded by
     :func:`fold_int8`: int8 x (and x2) cast to the compute dtype (nothing
-    dequantized), block 1 as in :func:`sepconv_pair_reference`, block 2's
-    affine and ReLU in fp32, then ``round(min(y2, 127))`` straight from fp32
-    (round half to even; no rounding to the compute dtype before it, as the
-    TPU kernel does), stored as int8; the pool takes the rounded values."""
+    dequantized), then :func:`sepconv_pair_quant_out_reference`."""
     t = w1.dw.dtype
-    xin = torch.cat([xq, x2], dim=-1) if x2 is not None else xq
-    y1 = sepconv_block_reference(xin.to(t), w1)
+    return sepconv_pair_quant_out_reference(
+        xq.to(t), w1, w2, pool=pool, x2=x2.to(t) if x2 is not None else None,
+        edge_flags=edge_flags)
+
+
+def sepconv_pair_quant_out_reference(
+    x: torch.Tensor,
+    w1: BlockWeights,
+    w2: BlockWeights,
+    pool: bool = False,
+    x2: Optional[torch.Tensor] = None,
+    edge_flags: EdgeFlags = None,
+):
+    """Plain version of K7's float-in/int8-out mode on weights whose block 2
+    is folded by ``1/out_scale`` (:func:`fold_int8` with ``in_scale=None``):
+    x (and x2) in the compute dtype, block 1 as in
+    :func:`sepconv_pair_reference`, block 2's affine and ReLU in fp32, then
+    ``round(min(y2, 127))`` straight from fp32 (round half to even; no
+    rounding to the compute dtype before it, as the TPU kernel's
+    ``quant_out`` does), stored as int8; the pool takes the rounded values.
+    With fp32 compute this is ``quantize`` of the float pair's output."""
+    t = w1.dw.dtype
+    xin = torch.cat([x, x2], dim=-1) if x2 is not None else x
+    y1 = _kill_edges(sepconv_block_reference(xin, w1), edge_flags)
     d = ft._depthwise(y1, w2.dw).to(t)
     y = torch.matmul(d.float(), w2.pw.float()) * w2.scale + w2.shift
     q = y.clamp_min(0.0).clamp_max(127.0).round().to(torch.int8)
@@ -408,22 +459,34 @@ def sepconv_block(
     return out
 
 
+def _pair(x, w1, w2, pool, x2, edge_flags, reference, key, in_int8=False, out_int8=False):
+    """One K7 call in a mode: ``reference`` on a CPU tensor, else the
+    kernel, counted under ``key`` (and ``sepconv_pair_edge`` with flags)."""
+    if x.device.type == "cpu":
+        return reference(x, w1, w2, pool=pool, x2=x2, edge_flags=edge_flags)
+    out, pooled = pair_launch(build.load_library(), x, w1, w2, pool, x2, in_int8=in_int8,
+                              out_int8=out_int8, edge_flags=edge_flags)
+    LAUNCHES[key] += 1
+    if edge_flags is not None:
+        LAUNCHES["sepconv_pair_edge"] += 1
+    return (out, pooled) if pool else out
+
+
 def sepconv_pair(
     x: torch.Tensor,
     w1: BlockWeights,
     w2: BlockWeights,
     pool: bool = False,
     x2: Optional[torch.Tensor] = None,
+    edge_flags: EdgeFlags = None,
 ):
     """K7 on a CUDA tensor, its plain version on a CPU tensor.
 
     Returns ``y`` or, with ``pool=True``, ``(y, max_pool_2x2(y))``.
+    ``edge_flags=(top, bottom)``: x is a row shard with 2 halo rows each
+    side; a set flag zeroes y1 on that side's 2 halo rows.
     """
-    if x.device.type == "cpu":
-        return sepconv_pair_reference(x, w1, w2, pool=pool, x2=x2)
-    out, pooled = pair_launch(build.load_library(), x, w1, w2, pool, x2)
-    LAUNCHES["sepconv_pair"] += 1
-    return (out, pooled) if pool else out
+    return _pair(x, w1, w2, pool, x2, edge_flags, sepconv_pair_reference, "sepconv_pair")
 
 
 def sepconv_pair_int8(
@@ -432,33 +495,57 @@ def sepconv_pair_int8(
     w2: BlockWeights,
     pool: bool = False,
     x2: Optional[torch.Tensor] = None,
+    edge_flags: EdgeFlags = None,
 ):
     """K7's int8 I/O mode on a CUDA tensor, its plain version
     (:func:`sepconv_pair_int8_reference`) on a CPU tensor.
 
     ``xq`` (and ``x2``) int8; the weights in the compute dtype, folded by
     :func:`fold_int8`. Returns int8 ``y`` or, with ``pool=True``, ``(y,
-    max_pool_2x2(y))``.
+    max_pool_2x2(y))``. ``edge_flags`` as in :func:`sepconv_pair`.
     """
-    if xq.device.type == "cpu":
-        return sepconv_pair_int8_reference(xq, w1, w2, pool=pool, x2=x2)
-    out, pooled = pair_launch(build.load_library(), xq, w1, w2, pool, x2, int8=True)
-    LAUNCHES["sepconv_pair_int8"] += 1
-    return (out, pooled) if pool else out
+    return _pair(xq, w1, w2, pool, x2, edge_flags, sepconv_pair_int8_reference,
+                 "sepconv_pair_int8", in_int8=True, out_int8=True)
+
+
+def sepconv_pair_quant_out(
+    x: torch.Tensor,
+    w1: BlockWeights,
+    w2: BlockWeights,
+    pool: bool = False,
+    x2: Optional[torch.Tensor] = None,
+    edge_flags: EdgeFlags = None,
+):
+    """K7's float-in/int8-out mode on a CUDA tensor, its plain version
+    (:func:`sepconv_pair_quant_out_reference`) on a CPU tensor.
+
+    ``x`` (and ``x2``) in the weights' compute dtype; block 2 folded by
+    ``1/out_scale`` (:func:`fold_int8` with ``in_scale=None``). Returns int8
+    ``y`` or, with ``pool=True``, ``(y, max_pool_2x2(y))``. ``edge_flags``
+    as in :func:`sepconv_pair`.
+    """
+    return _pair(x, w1, w2, pool, x2, edge_flags, sepconv_pair_quant_out_reference,
+                 "sepconv_pair_quant_out", out_int8=True)
 
 
 def pair_launch(lib, x: torch.Tensor, w1: BlockWeights, w2: BlockWeights, pool: bool,
-                x2: Optional[torch.Tensor], int8: bool = False
+                x2: Optional[torch.Tensor], in_int8: bool = False, out_int8: bool = False,
+                edge_flags: EdgeFlags = None,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Check K7's inputs, launch ``lib``'s ``unet_sepconv_pair`` on them
     (the kernel library, or an instrumented build of ``sepconv_pair.cu``)
-    and return ``(y, pooled or None)``. With ``int8`` x, x2, y and pooled
-    are int8 and the compute dtype is the weights'. Counts nothing."""
-    dtypes = (torch.int8,) if int8 else tuple(build.DTYPE_CODE)
+    and return ``(y, pooled or None)``. With ``in_int8`` x and x2 are int8,
+    with ``out_int8`` y and pooled (int8 in only with int8 out); the compute
+    dtype is the weights'. Counts nothing."""
+    if in_int8 and not out_int8:
+        raise ValueError("sepconv_pair: an int8 input needs an int8 output")
+    dtypes = (torch.int8,) if in_int8 else tuple(build.DTYPE_CODE)
     _check_cuda_input(x, "sepconv_pair", dtypes)
-    t = w1.dw.dtype if int8 else x.dtype
+    t = w1.dw.dtype
     if t not in build.DTYPE_CODE:
         raise TypeError(f"sepconv_pair: compute dtype {t} not supported (float32, bfloat16)")
+    if not in_int8 and x.dtype != t:
+        raise TypeError(f"sepconv_pair: x is {x.dtype}, the weights {t}")
     b, h, wd, cx = x.shape
     cx2 = 0
     if x2 is not None:
@@ -473,10 +560,14 @@ def pair_launch(lib, x: torch.Tensor, w1: BlockWeights, w2: BlockWeights, pool: 
     f2 = _check_weights(w2, f1, x, "sepconv_pair block2", t)
     if pool and (h % 2 or wd % 2):
         raise ValueError(f"sepconv_pair: pool needs even H and W, got {h}x{wd}")
-    plan = pair_plan(h, wd, cx + cx2, f1, f2, t, b, int8=int8)
-    out = torch.empty((b, h, wd, f2), dtype=x.dtype, device=x.device)
+    top, bot = (int(bool(e)) for e in (edge_flags or (0, 0)))
+    if (top or bot) and h < 4:
+        raise ValueError(f"sepconv_pair: edge flags need a slab of at least 4 rows, got {h}")
+    plan = pair_plan(h, wd, cx + cx2, f1, f2, t, b, int8=in_int8)
+    ot = torch.int8 if out_int8 else t
+    out = torch.empty((b, h, wd, f2), dtype=ot, device=x.device)
     pooled = (
-        torch.empty((b, h // 2, wd // 2, f2), dtype=x.dtype, device=x.device)
+        torch.empty((b, h // 2, wd // 2, f2), dtype=ot, device=x.device)
         if pool else None
     )
     status = lib.unet_sepconv_pair(
@@ -485,7 +576,7 @@ def pair_launch(lib, x: torch.Tensor, w1: BlockWeights, w2: BlockWeights, pool: 
         w2.dw.data_ptr(), w2.pw.data_ptr(), w2.scale.data_ptr(), w2.shift.data_ptr(),
         out.data_ptr(), pooled.data_ptr() if pooled is not None else None,
         b, h, wd, cx, cx2, f1, f2, plan.n, plan.s1, plan.s2, plan.width, plan.smem,
-        build.DTYPE_CODE[t], int(int8), build.stream_handle(x.device),
+        build.DTYPE_CODE[t], int(in_int8), int(out_int8), top, bot, build.stream_handle(x.device),
     )
     build.check(status, "sepconv_pair")
     return out, pooled
@@ -689,28 +780,37 @@ def fused_sepconv_pair(
     in_scale: Optional[Union[float, Tuple[float, float]]] = None,
     out_scale: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    edge_flags: EdgeFlags = None,
 ):
     """Inference ConvBlock pair (sepconv+BN+ReLU twice) in one kernel, K7.
 
     ``block1``/``block2`` are dicts as in :func:`prepare_block`. With
     ``x2`` block 1 reads the channel concat ``[x | x2]`` from both tensors;
-    with ``pool`` the result is ``(y, pooled)``.
+    with ``pool`` the result is ``(y, pooled)``; ``edge_flags=(top,
+    bottom)`` as in :func:`sepconv_pair`.
 
-    Int8 I/O: int8 ``x`` (and ``x2``) worth ``q * in_scale`` (a pair
-    ``(s_x, s_x2)`` for two streams), y (and pooled) returned as int8 in
-    units of ``out_scale``, computed in ``compute_dtype`` (bf16 unless
-    given); the scales fold into the weights (:func:`fold_int8`). Int8 in
-    and int8 out go together: the kernel has no mixed mode.
+    Int8, as the JAX wrapper's ``quant_in`` follows x's dtype and
+    ``quant_out`` follows ``out_scale``: an int8 ``x`` (and ``x2``) is worth
+    ``q * in_scale`` (a pair ``(s_x, s_x2)`` for two streams) and needs
+    ``out_scale``; with ``out_scale`` y (and pooled) are returned as int8 in
+    units of ``out_scale``. The compute dtype is ``compute_dtype``, else
+    bf16 for an int8 x and x's dtype for a float one; the scales fold into
+    the weights (:func:`fold_int8`). The kernel has no int8-in/float-out
+    mode.
     """
-    int8 = x.dtype == torch.int8
-    if int8 != (in_scale is not None) or int8 != (out_scale is not None):
-        raise ValueError("fused_sepconv_pair: int8 I/O takes an int8 x with both in_scale and "
-                         "out_scale; a float x takes neither")
-    dtype = compute_dtype or (torch.bfloat16 if int8 else x.dtype)
+    quant_in, quant_out = x.dtype == torch.int8, out_scale is not None
+    if quant_in != (in_scale is not None) or (quant_in and not quant_out):
+        raise ValueError("fused_sepconv_pair: an int8 x takes in_scale and out_scale; a float x "
+                         "takes no in_scale")
+    dtype = compute_dtype or (torch.bfloat16 if quant_in else x.dtype)
     w1 = prepare_block(block1, dtype, eps, x.device)
     w2 = prepare_block(block2, dtype, eps, x.device)
-    if not int8:
-        return sepconv_pair(x.to(dtype), w1, w2, pool=pool,
-                            x2=x2.to(dtype) if x2 is not None else None)
+    kw = dict(pool=pool, edge_flags=edge_flags)
+    if not quant_out:
+        return sepconv_pair(x.to(dtype), w1, w2, x2=x2.to(dtype) if x2 is not None else None,
+                            **kw)
     w1, w2 = fold_int8(w1, w2, in_scale, out_scale, x.shape[-1])
-    return sepconv_pair_int8(x, w1, w2, pool=pool, x2=x2)
+    if quant_in:
+        return sepconv_pair_int8(x, w1, w2, x2=x2, **kw)
+    return sepconv_pair_quant_out(x.to(dtype), w1, w2,
+                                  x2=x2.to(dtype) if x2 is not None else None, **kw)

@@ -45,9 +45,9 @@ SIGNATURES = {
     # smem, dtype, stream
     "unet_sepconv_block": [_P] * 6 + [_I] * 12 + [_P],
     # x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out,
-    # pooled, B, H, W, Cx, Cx2, F1, F2, n, s1, s2, width, smem, dtype, int8,
-    # stream
-    "unet_sepconv_pair": [_P] * 12 + [_I] * 14 + [_P],
+    # pooled, B, H, W, Cx, Cx2, F1, F2, n, s1, s2, width, smem, dtype,
+    # in_int8, out_int8, edge_top, edge_bot, stream
+    "unet_sepconv_pair": [_P] * 12 + [_I] * 17 + [_P],
     # x, dw, pw, in_aff, y, work, sums, B, H, W, C, F, seed, thresh,
     # drop_scale, n, s, width, per, smem, dtype, stream
     "unet_chain_fwd": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P],

@@ -6,8 +6,10 @@
 // modes: plain, pool=True (the encoder's 2x2 max pool of the dtype-cast y2
 // written beside y2) and two-stream (block 1's input is the channel concat
 // [x | x2], read from two pointers, so the decoder's concat is never stored);
-// and in its int8 I/O mode (quant_out with int8 input), where x, x2, y2 and
-// the pool are int8 and the compute stays in T.
+// in its int8 I/O mode (quant_out with int8 input), where x, x2, y2 and the
+// pool are int8 and the compute stays in T; in its float-in/int8-out mode
+// (quant_out with a float input: x and x2 in T, y2 and the pool int8); and
+// in each of them with edge flags, for row-sharded serving.
 // Semantics kept: the dw1 result is rounded to the compute dtype T before
 // pw1; y1 = relu(affine) rounded to T; y1 is ZERO outside the image, so block
 // 2's 'same' padding sees zeros and not block 1 evaluated past the edge; the
@@ -87,6 +89,16 @@
 //     so with pow2 scales the sums equal the float kernel's on the
 //     dequantized input. The epilogue stores rint(min(y2, 127)) from fp32
 //     (half to even, no rounding to T first) as int8 and pools those values.
+//   * Float-in/int8-out (the template's XB = sizeof(T), OB = 1): x stages as
+//     in the float mode and the epilogue is the int8 I/O mode's; only
+//     1/out_scale is folded (into scale2/shift2).
+//   * Edge flags (edge_top, edge_bot; run-time arguments, no instances of
+//     their own): the x slab is a row shard with 2 halo rows each side, and a
+//     set flag says that side's halo rows stand for rows beyond the true
+//     image edge. y1 is then zero on the slab's first (last) 2 rows too, as
+//     it is beyond the slab, so block 2's 'same' padding sees zeros there,
+//     as on the unsharded image (the JAX kernel's kill of slab rows <= 1 and
+//     >= H - 2).
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -148,8 +160,8 @@ struct PairSmem {
   static constexpr int min_blocks = 2 * (bytes + 1024) <= 228 * 1024 ? 2 : 1;
 };
 
-// XT: the type of x, x2, out and pooled (T, or int8_t in the int8 I/O mode)
-template <typename T, typename XT>
+// XT: the type of x and x2, OT: of out and pooled (each T or int8_t)
+template <typename T, typename XT, typename OT>
 struct PairArgs {
   const XT* x;
   const XT* x2;
@@ -161,10 +173,11 @@ struct PairArgs {
   const T* pw2;
   const float* scale2;
   const float* shift2;
-  XT* out;
-  XT* pooled;
+  OT* out;
+  OT* pooled;
   int H, W, Cx, Cx2, F1, F2, tiles_x, n, s1, s2;
   int vec_x, vec_w1, vec_w2;  // 16-byte staging allowed (widths and pointers aligned)
+  int edge_top, edge_bot;     // y1 is zero on the slab's first / last 2 rows
 };
 
 // Order of the 64 output pixels along GEMM2's M: m = 16*mt + 8*h + g lies in
@@ -265,12 +278,14 @@ __device__ __forceinline__ void store_out(int8_t* row, int f, int F, bool second
   if (second) row[f + 1] = q1;
 }
 
-// XB: the bytes of an x (and y) value, sizeof(T), or 1 in the int8 I/O mode
-template <typename T, int W, int XB>
+// XB, OB: the bytes of an x and of a y value, sizeof(T), or 1 for int8 (x
+// int8 only with y int8)
+template <typename T, int W, int XB, int OB>
 __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W, XB>::min_blocks)
-    sepconv_pair_cluster_kernel(const PairArgs<T, std::conditional_t<XB == 1, int8_t, T>> a) {
+    sepconv_pair_cluster_kernel(const PairArgs<T, std::conditional_t<XB == 1, int8_t, T>,
+                                               std::conditional_t<OB == 1, int8_t, T>> a) {
   using XT = std::conditional_t<XB == 1, int8_t, T>;
-  constexpr bool Q = XB == 1;
+  constexpr bool Q = OB == 1;
   using L = PairSmem<T, W, XB>;
   constexpr int KC = ChunkCfg<T>::KC, KS = ChunkCfg<T>::KS, V = ChunkCfg<T>::V;
   constexpr int LDK = L::LDK, LDN = L::LDN;
@@ -446,7 +461,9 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W, XB>::min_blocks)
   cp_async_commit();
   __syncthreads();  // y1 may reuse the x tiles and dw1 chunks
 
-  // y1 = relu(affine), zero outside the image and outside F1, rounded to T
+  // y1 = relu(affine), zero outside the image (and on the slab's flagged
+  // halo rows) and outside F1, rounded to T
+  const int y_lo = a.edge_top ? 2 : 0, y_hi = a.edge_bot ? H - 2 : H;
   float sc1[NT][2], sh1[NT][2];
 #pragma unroll
   for (int ni = 0; ni < NT; ++ni)
@@ -464,7 +481,7 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W, XB>::min_blocks)
       const int p = mt * 16 + h * 8 + g;
       if (p >= kHaloPx) continue;
       const int Y = ty0 - 1 + p / kHalo, X = tx0 - 1 + p % kHalo;
-      const bool inside = Y >= 0 && Y < H && X >= 0 && X < Wd;
+      const bool inside = Y >= y_lo && Y < y_hi && X >= 0 && X < Wd;
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni) {
         const int col = wn * 8 * NT + ni * 8 + 2 * t;
@@ -600,28 +617,28 @@ __global__ void __launch_bounds__(kPairThreads, PairSmem<T, W, XB>::min_blocks)
   }
 }
 
-template <typename T, int W, typename XT>
-int launch(PairArgs<T, XT> a, int B, int tiles, int smem, cudaStream_t stream) {
+template <typename T, int W, typename XT, typename OT>
+int launch(PairArgs<T, XT, OT> a, int B, int tiles, int smem, cudaStream_t stream) {
   if (smem != PairSmem<T, W, (int)sizeof(XT)>::bytes) return (int)cudaErrorInvalidValue;
-  return launch_cluster(sepconv_pair_cluster_kernel<T, W, (int)sizeof(XT)>,
+  return launch_cluster(sepconv_pair_cluster_kernel<T, W, (int)sizeof(XT), (int)sizeof(OT)>,
                         dim3(a.n * tiles, B, 1), kPairThreads, smem, a.n, stream, a);
 }
 
 inline bool aligned_to(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
 
-template <typename T, typename XT>
+template <typename T, typename XT, typename OT>
 int launch_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
                 const void* scale1, const void* shift1, const void* dw2, const void* pw2,
                 const void* scale2, const void* shift2, void* out, void* pooled, int B, int H,
                 int W, int Cx, int Cx2, int F1, int F2, int n, int s1, int s2, int width,
-                int smem, cudaStream_t stream) {
+                int smem, int edge_top, int edge_bot, cudaStream_t stream) {
   constexpr int V = ChunkCfg<T>::V;
   const bool plan_ok = (n == 1 || n == 2 || n == 4 || n == 8) && s1 % 16 == 0 &&
                        s2 % 16 == 0 && s1 > 0 && s2 > 0 && s1 <= width && s2 <= width &&
                        n * s1 >= F1 && n * s2 >= F2 && Cx > 0 && Cx2 >= 0 && B > 0 &&
                        B <= 65535 && H > 0 && W > 0;
   if (!plan_ok || (Cx2 > 0 && x2 == nullptr)) return (int)cudaErrorInvalidValue;
-  PairArgs<T, XT> a;
+  PairArgs<T, XT, OT> a;
   a.x = static_cast<const XT*>(x);
   a.x2 = static_cast<const XT*>(x2);
   a.dw1 = static_cast<const T*>(dw1);
@@ -632,8 +649,9 @@ int launch_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
   a.pw2 = static_cast<const T*>(pw2);
   a.scale2 = static_cast<const float*>(scale2);
   a.shift2 = static_cast<const float*>(shift2);
-  a.out = static_cast<XT*>(out);
-  a.pooled = static_cast<XT*>(pooled);
+  a.out = static_cast<OT*>(out);
+  a.pooled = static_cast<OT*>(pooled);
+  a.edge_top = edge_top != 0, a.edge_bot = edge_bot != 0;
   a.H = H, a.W = W, a.Cx = Cx, a.Cx2 = Cx2, a.F1 = F1, a.F2 = F2;
   a.tiles_x = (W + kTile - 1) / kTile;
   a.n = n, a.s1 = s1, a.s2 = s2;
@@ -664,24 +682,29 @@ extern "C" int unet_pair_phases_buffer(void* buf) {
 // of pair_plan (fused_sepconv.py): n CTAs a cluster, F1 and F2 slices of s1
 // and s2 channels, the slice width 64 or 128, the dynamic shared memory in
 // bytes (checked against this file's layout). dtype: the compute dtype, 0 =
-// float32, 1 = bfloat16 (the weights'). int8: 0 = x, x2, out and pooled in
-// the compute dtype, 1 = all four int8 (the scales folded into the weights).
-// Returns cudaGetLastError() after the launch.
+// float32, 1 = bfloat16 (the weights'). in_int8, out_int8: x and x2, out and
+// pooled in the compute dtype (0) or int8 (1; the scales folded into the
+// weights); int8 in goes only with int8 out. edge_top, edge_bot: the edge
+// flags (0 or 1). Returns cudaGetLastError() after the launch.
 extern "C" int unet_sepconv_pair(const void* x, const void* x2, const void* dw1, const void* pw1,
                                  const void* scale1, const void* shift1, const void* dw2,
                                  const void* pw2, const void* scale2, const void* shift2,
                                  void* out, void* pooled, int B, int H, int W, int Cx, int Cx2,
                                  int F1, int F2, int n, int s1, int s2, int width, int smem,
-                                 int dtype, int int8, void* stream) {
+                                 int dtype, int in_int8, int out_int8, int edge_top,
+                                 int edge_bot, void* stream) {
+  using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define UNET_PAIR_ARGS                                                                       \
   x, x2, dw1, pw1, scale1, shift1, dw2, pw2, scale2, shift2, out, pooled, B, H, W, Cx, Cx2, \
-      F1, F2, n, s1, s2, width, smem, s
-  if (dtype == 0 && int8 == 0) return unet::launch_pair<float, float>(UNET_PAIR_ARGS);
-  if (dtype == 0 && int8 == 1) return unet::launch_pair<float, int8_t>(UNET_PAIR_ARGS);
-  if (dtype == 1 && int8 == 0)
-    return unet::launch_pair<__nv_bfloat16, __nv_bfloat16>(UNET_PAIR_ARGS);
-  if (dtype == 1 && int8 == 1) return unet::launch_pair<__nv_bfloat16, int8_t>(UNET_PAIR_ARGS);
+      F1, F2, n, s1, s2, width, smem, edge_top, edge_bot, s
+  const int mode = 2 * in_int8 + out_int8;  // 0 float, 1 float in / int8 out, 3 int8 I/O
+  if (dtype == 0 && mode == 0) return unet::launch_pair<float, float, float>(UNET_PAIR_ARGS);
+  if (dtype == 0 && mode == 1) return unet::launch_pair<float, float, int8_t>(UNET_PAIR_ARGS);
+  if (dtype == 0 && mode == 3) return unet::launch_pair<float, int8_t, int8_t>(UNET_PAIR_ARGS);
+  if (dtype == 1 && mode == 0) return unet::launch_pair<bf16, bf16, bf16>(UNET_PAIR_ARGS);
+  if (dtype == 1 && mode == 1) return unet::launch_pair<bf16, bf16, int8_t>(UNET_PAIR_ARGS);
+  if (dtype == 1 && mode == 3) return unet::launch_pair<bf16, int8_t, int8_t>(UNET_PAIR_ARGS);
 #undef UNET_PAIR_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -17,6 +17,13 @@ Weights are cast, BN-folded and moved to the device once, when the forward
 is built (:func:`serving_weights`, which the int8 graph of
 :mod:`.serving_quant` shares). On a CUDA device the pair calls launch the
 kernel; on the CPU they run its plain version.
+
+:func:`build_serving_forward_sharded` is the same graph on row shards
+(JAX ``build_serving_forward_sharded``, its ``shard_map`` replaced by one
+process a rank of a :class:`.parallel.mesh.Mesh`): before each pair a
+2-row halo exchange (:func:`.parallel.halo.halo_exchange`), K7 with edge
+flags on the padded slab, the halo rows trimmed after it
+(:func:`halo_pair`); the pools, transpose-ups and the head are row-local.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from unet_image_segmentation_tpu_torch.ops.fused_sepconv import (
     prepare_block,
     sepconv_pair,
 )
+from unet_image_segmentation_tpu_torch.parallel.halo import halo_exchange
+from unet_image_segmentation_tpu_torch.parallel.mesh import Mesh
 
 
 def _tensor(value: Any, device) -> torch.Tensor:
@@ -106,6 +115,69 @@ def serving_weights(
     )
 
 
+def halo_pair(mesh: Mesh, launch: Callable) -> Callable:
+    """One of K7's wrappers (``launch(x, w1, w2, pool=, x2=, edge_flags=)``)
+    on row shards of ``mesh``'s spatial group: x (and x2) padded with 2
+    halo rows from each neighbour (zeros at the image edges), K7 on the
+    slab with the edge flags of this shard (first, last), the halo rows
+    trimmed from y and the halo's pooled row from the pool (the local rows
+    are even, so the slab's pooled rows keep their pairs)."""
+    n, i = mesh.shape["spatial"], mesh.spatial_index
+    flags = (int(i == 0), int(i == n - 1))
+
+    def pair(x, w1, w2, pool=False, x2=None):
+        xp = halo_exchange(x, mesh.spatial_group, 2)
+        x2p = halo_exchange(x2, mesh.spatial_group, 2) if x2 is not None else None
+        out = launch(xp, w1, w2, pool=pool, x2=x2p, edge_flags=flags)
+        if pool:
+            return out[0][:, 2:-2].contiguous(), out[1][:, 1:-1].contiguous()
+        return out[:, 2:-2].contiguous()
+
+    return pair
+
+
+def check_shard_rows(mesh: Mesh, rows: int, width: int, depth: int) -> None:
+    """A row shard the sharded graphs take: rows and width divisible by
+    ``2**depth`` and, with halos, at least 2 rows a shard at the deepest
+    stage (the JAX graph's ``x[:, -2:]`` silently takes one there)."""
+    if rows % (1 << depth) or width % (1 << depth):
+        raise ValueError(f"shard {rows}x{width}: rows and width must be divisible by "
+                         f"{1 << depth} (image height by {mesh.shape['spatial'] << depth})")
+    if mesh.shape["spatial"] > 1 and rows >> depth < 2:
+        raise ValueError(f"shard of {rows} rows: {rows >> depth} at the deepest stage, the "
+                         "2-row halo needs 2")
+
+
+def _make_forward(weights: ServingWeights, num_classes: int, compute_dtype: torch.dtype,
+                  device: torch.device, pair: Callable) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The float graph's body; ``pair(x, w1, w2, pool=, x2=)`` runs each K7
+    pair."""
+    enc, bneck = weights.enc, weights.bneck
+    dec = {s: (k.to(compute_dtype), b.to(compute_dtype), blocks)
+           for s, (k, b, blocks) in weights.dec.items()}
+    head_k, head_b = (t.to(compute_dtype) for t in weights.head)
+    depth = len(enc)
+
+    @torch.no_grad()
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        x = x.to(device=device, dtype=compute_dtype).contiguous()
+        skips = []
+        for w1, w2 in enc:
+            skip, x = pair(x, w1, w2, pool=True)
+            skips.append(skip)
+        x = pair(x, *bneck)
+        for s in range(depth, 0, -1):
+            k, b, (w1, w2) = dec[s]
+            up = conv_ops.conv_transpose_2x2(x, k, b)
+            x = pair(up, w1, w2, x2=skips[s - 1])
+        logits = conv_ops.pointwise_conv2d(x, head_k, head_b).float()
+        if num_classes == 1:
+            return torch.sigmoid(logits)
+        return torch.softmax(logits, dim=-1)
+
+    return forward
+
+
 def build_serving_forward(
     variables: Dict[str, Any],
     num_classes: int = 1,
@@ -122,26 +194,35 @@ def build_serving_forward(
     """
     device = torch.device(device)
     weights = serving_weights(variables, depth, compute_dtype, device)
-    enc, bneck = weights.enc, weights.bneck
-    dec = {s: (k.to(compute_dtype), b.to(compute_dtype), blocks)
-           for s, (k, b, blocks) in weights.dec.items()}
-    head_k, head_b = (t.to(compute_dtype) for t in weights.head)
+    return _make_forward(weights, num_classes, compute_dtype, device, sepconv_pair)
 
-    @torch.no_grad()
+
+def build_serving_forward_sharded(
+    variables: Dict[str, Any],
+    mesh: Mesh,
+    num_classes: int = 1,
+    depth: int = 4,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The serving forward on this rank's shard of ``mesh``: the batch on
+    'data', image rows on 'spatial' (:meth:`.parallel.mesh.Mesh.shard`).
+
+    Every rank of the mesh builds it and calls it together. The returned
+    function maps this rank's (B / data, H / spatial, W, C) shard to its fp32
+    probabilities (B / data, H / spatial, W, num_classes);
+    :meth:`~.parallel.mesh.Mesh.gather` puts the shards together. With one
+    spatial rank this is :func:`build_serving_forward` on the rank's
+    samples. Raises when the shard's rows or width are not divisible by
+    ``2**depth``, or a shard has fewer than 2 rows at the deepest stage.
+    """
+    device = torch.device(device)
+    weights = serving_weights(variables, depth, compute_dtype, device)
+    pair = sepconv_pair if mesh.shape["spatial"] == 1 else halo_pair(mesh, sepconv_pair)
+    local = _make_forward(weights, num_classes, compute_dtype, device, pair)
+
     def forward(x: torch.Tensor) -> torch.Tensor:
-        x = x.to(device=device, dtype=compute_dtype).contiguous()
-        skips = []
-        for w1, w2 in enc:
-            skip, x = sepconv_pair(x, w1, w2, pool=True)
-            skips.append(skip)
-        x = sepconv_pair(x, *bneck)
-        for s in range(depth, 0, -1):
-            k, b, (w1, w2) = dec[s]
-            up = conv_ops.conv_transpose_2x2(x, k, b)
-            x = sepconv_pair(up, w1, w2, x2=skips[s - 1])
-        logits = conv_ops.pointwise_conv2d(x, head_k, head_b).float()
-        if num_classes == 1:
-            return torch.sigmoid(logits)
-        return torch.softmax(logits, dim=-1)
+        check_shard_rows(mesh, x.shape[1], x.shape[2], depth)
+        return local(x)
 
     return forward

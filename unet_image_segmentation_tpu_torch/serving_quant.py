@@ -24,6 +24,13 @@ conv in the compute dtype, then sigmoid or softmax in fp32. The JAX graph's
 float and no-pool fallbacks exist for TPU lane-packing misfits and are left
 out: K7 takes every shape of the graph, and its plan raises on one it
 cannot take.
+
+:func:`build_serving_forward_sharded_quant` is the JAX package's row-sharded
+int8 graph, with its own numerics: int8 halos and edge flags around each
+int8 I/O pair of the encoder and bottleneck, the pools on int8; in each
+decoder stage the float ``[transpose-up | dequantized skip]`` (the
+transpose-up's kernel scaled by the input's scale) into K7's
+float-in/int8-out mode; the head on the last stage, its kernel scaled.
 """
 
 from __future__ import annotations
@@ -38,8 +45,15 @@ from unet_image_segmentation_tpu_torch.ops.fused_sepconv import (
     BlockWeights,
     fold_int8,
     sepconv_pair_int8,
+    sepconv_pair_quant_out,
 )
-from unet_image_segmentation_tpu_torch.serving import serving_weights
+from unet_image_segmentation_tpu_torch.parallel.mesh import Mesh
+from unet_image_segmentation_tpu_torch.serving import (
+    ServingWeights,
+    check_shard_rows,
+    halo_pair,
+    serving_weights,
+)
 
 
 def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -108,6 +122,16 @@ def calibrate_chained(
     return {k: pow2_scale(v.item()) for k, v in maxes.items()}
 
 
+def _fold_encoder(w: ServingWeights, scales: Dict[str, float]):
+    """The encoder's and the bottleneck's K7 pairs folded for int8 I/O."""
+    s_cur, enc = scales["input"], []
+    for stage, (w1, w2) in enumerate(w.enc, 1):
+        s_out = scales[f"enc{stage}"]
+        enc.append(fold_int8(w1, w2, s_cur, s_out, w1.dw.shape[-1]))
+        s_cur = s_out
+    return enc, fold_int8(*w.bneck, s_cur, scales["bneck"], w.bneck[0].dw.shape[-1])
+
+
 def build_serving_forward_quant(
     variables: Dict[str, Any],
     scales: Dict[str, float],
@@ -126,13 +150,7 @@ def build_serving_forward_quant(
     """
     device = torch.device(device)
     w = serving_weights(variables, depth, compute_dtype, device)
-    s_cur = scales["input"]
-    enc = []
-    for stage, (w1, w2) in enumerate(w.enc, 1):
-        s_out = scales[f"enc{stage}"]
-        enc.append(fold_int8(w1, w2, s_cur, s_out, w1.dw.shape[-1]))
-        s_cur = s_out
-    bneck = fold_int8(*w.bneck, s_cur, scales["bneck"], w.bneck[0].dw.shape[-1])
+    enc, bneck = _fold_encoder(w, scales)
     s_cur = scales["bneck"]
     dec = {}
     for stage in range(depth, 0, -1):
@@ -148,7 +166,7 @@ def build_serving_forward_quant(
 
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:
-        xq = quantize(x.to(device), s_in)
+        xq = quantize(x.to(device), s_in).contiguous()
         skips = []
         for w1, w2 in enc:
             skip, xq = sepconv_pair_int8(xq, w1, w2, pool=True)
@@ -158,6 +176,68 @@ def build_serving_forward_quant(
             kernel, bias, s_up, (w1, w2) = dec[stage]
             up = conv_ops.conv_transpose_2x2(xq.to(compute_dtype), kernel, bias)
             xq = sepconv_pair_int8(quantize(up, s_up), w1, w2, x2=skips[stage - 1])
+        logits = conv_ops.pointwise_conv2d(xq.to(compute_dtype), head_k, head_b).float()
+        if num_classes == 1:
+            return torch.sigmoid(logits)
+        return torch.softmax(logits, dim=-1)
+
+    return forward
+
+
+def build_serving_forward_sharded_quant(
+    variables: Dict[str, Any],
+    scales: Dict[str, float],
+    mesh: Mesh,
+    num_classes: int = 1,
+    depth: int = 4,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The row-sharded int8 serving forward on this rank's shard of
+    ``mesh`` (JAX ``build_serving_forward_sharded_quant``).
+
+    As :func:`.serving.build_serving_forward_sharded`: every rank builds and
+    calls it together, and it maps this rank's (B / data, H / spatial, W, C)
+    float shard to its fp32 probabilities. The halos are int8 where the
+    tensors are (the encoder and the bottleneck; zero is 0 in int8, so the
+    zero halo at the image edge stays 'same' padding) and float in the
+    decoder. With one spatial rank it runs the same graph without halos.
+    """
+    device = torch.device(device)
+    w = serving_weights(variables, depth, compute_dtype, device)
+    enc, bneck = _fold_encoder(w, scales)
+    s_cur, dec = scales["bneck"], {}
+    for stage in range(depth, 0, -1):
+        kernel, bias, (w1, w2) = w.dec[stage]
+        s_out = scales[f"dec{stage}"]
+        # the input's scale folds into the transpose-up; the float concat
+        # goes into K7 unscaled, its output scale folded into block 2
+        dec[stage] = ((kernel * s_cur).to(compute_dtype), bias.to(compute_dtype),
+                      scales[f"enc{stage}"], fold_int8(w1, w2, None, s_out, kernel.shape[2]))
+        s_cur = s_out
+    head_k = (w.head[0] * s_cur).to(compute_dtype)
+    head_b = w.head[1].to(compute_dtype)
+    s_in = scales["input"]
+    if mesh.shape["spatial"] == 1:
+        pair_q8, pair_qo = sepconv_pair_int8, sepconv_pair_quant_out
+    else:
+        pair_q8 = halo_pair(mesh, sepconv_pair_int8)
+        pair_qo = halo_pair(mesh, sepconv_pair_quant_out)
+
+    @torch.no_grad()
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        check_shard_rows(mesh, x.shape[1], x.shape[2], depth)
+        xq = quantize(x.to(device), s_in).contiguous()
+        skips = []
+        for w1, w2 in enc:
+            skip, xq = pair_q8(xq, w1, w2, pool=True)
+            skips.append(skip)
+        xq = pair_q8(xq, *bneck)
+        for stage in range(depth, 0, -1):
+            kernel, bias, s_skip, (w1, w2) = dec[stage]
+            up = conv_ops.conv_transpose_2x2(xq.to(compute_dtype), kernel, bias)
+            skip = dequantize(skips[stage - 1], s_skip, compute_dtype)
+            xq = pair_qo(up, w1, w2, x2=skip)
         logits = conv_ops.pointwise_conv2d(xq.to(compute_dtype), head_k, head_b).float()
         if num_classes == 1:
             return torch.sigmoid(logits)

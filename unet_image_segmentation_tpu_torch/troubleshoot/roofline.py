@@ -42,8 +42,12 @@ PEAK_TF32_OPS_PER_S = 495e12
 # unet_image_segmentation_tpu/, file:line of the function reaching pallas_call)
 KERNELS: Dict[str, Tuple[str, str, str]] = {
     "sepconv_pair": ("K7", "sepconv_pair.cu", "ops/pallas/fused_sepconv.py:903"),
-    # K7's int8 I/O mode: the same kernel, other template instances
+    # K7's int8 I/O and float-in/int8-out modes: the same kernel, other
+    # template instances; its edge flags: run-time arguments of every mode
     "sepconv_pair_int8": ("K7 int8", "sepconv_pair.cu", "ops/pallas/fused_sepconv.py:903"),
+    "sepconv_pair_quant_out": ("K7 float-in/int8-out", "sepconv_pair.cu",
+                               "ops/pallas/fused_sepconv.py:903"),
+    "sepconv_pair_edge": ("K7 edge flags", "sepconv_pair.cu", "ops/pallas/fused_sepconv.py:903"),
     "sepconv_block": ("K8", "sepconv_block.cu", "ops/pallas/fused_sepconv.py:300"),
     "chain_fwd": ("K1", "chain_fwd.cu", "ops/pallas/fused_train.py:93"),
     "chain_bwd": ("K2", "chain_bwd.cu", "ops/pallas/fused_train.py:1422"),
@@ -63,8 +67,8 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
 
 SUMS = "sums"  # label of reduce_rows' colsum_kernel (K1, K2, K6, K9, K10's row sums)
 # __global__ entry -> (wrapper, part). A wrapper call launches each of its
-# parts once. K7's int8 instances share the entry of its float ones, so a
-# trace counts both under sepconv_pair.
+# parts once. K7's int8 and float-in/int8-out instances share the entry of
+# its float ones, so a trace counts them all under sepconv_pair.
 ENTRIES: Dict[str, Tuple[Optional[str], str]] = {
     "sepconv_pair_cluster_kernel": ("sepconv_pair", "pair"),
     "sepconv_block_kernel": ("sepconv_block", "block"),
@@ -132,8 +136,14 @@ def wrapper_launches(entry_counts: Dict[str, int]) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
+_PAIR_MODES = ("sepconv_pair", "sepconv_pair_int8", "sepconv_pair_quant_out",
+               "sepconv_pair_edge")
+
+
 def stage_shapes(image: int, filters: Sequence[int]) -> List[tuple]:
-    """(name, Cx, Cx2, F1, F2, H, mode) of the K7 calls of one forward."""
+    """(name, Cx, Cx2, F1, F2, H, mode) of the K7 calls of one forward. A K7
+    shape may carry its width W after the mode (a row shard's slab, H + 4
+    rows by W); without it W = H."""
     shapes, c, h = [], 3, image
     for s, f in enumerate(filters, 1):
         shapes.append((f"enc{s}", c, 0, f, f, h, "pool"))
@@ -208,12 +218,14 @@ def work(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, fl
     ``dname`` at ``batch``: each input read once, each output written once;
     2 operations per multiply-add."""
     e = 4 if dname == "float32" else 2
-    if name in ("sepconv_pair", "sepconv_pair_int8"):
-        _, cx, cx2, f1, f2, h, mode = shape
-        c, px = cx + cx2, batch * h * h
+    if name in _PAIR_MODES:
+        _, cx, cx2, f1, f2, h, mode, *w = shape
+        c, px = cx + cx2, batch * h * (w[0] if w else h)
         out = px * f2 * (1.25 if mode == "pool" else 1.0)
-        io = 1 if name == "sepconv_pair_int8" else e   # x, x2, y, pooled: int8 or T
-        nbytes = io * (px * c + out) + e * (9 * c + c * f1 + 9 * f1 + f1 * f2)
+        # x and x2, y and pooled: int8 or T (the edge flags move no bytes)
+        io_in = 1 if name == "sepconv_pair_int8" else e
+        io_out = 1 if name in ("sepconv_pair_int8", "sepconv_pair_quant_out") else e
+        nbytes = io_in * px * c + io_out * out + e * (9 * c + c * f1 + 9 * f1 + f1 * f2)
         ops = sum(pair_ops(shape, batch))
     elif name == "sepconv_block":
         c, f, h = shape
@@ -273,8 +285,8 @@ def work(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, fl
 def pair_ops(shape: tuple, batch: int = 1) -> Tuple[float, float]:
     """(products, depthwise) operations of one K7 call at a stage ``shape``:
     the two pointwise GEMMs and the two 3x3 depthwise convolutions."""
-    _, cx, cx2, f1, f2, h, _ = shape
-    c, px = cx + cx2, batch * h * h
+    _, cx, cx2, f1, f2, h, _, *w = shape
+    c, px = cx + cx2, batch * h * (w[0] if w else h)
     return 2.0 * px * (c * f1 + f1 * f2), 2.0 * px * (9 * c + 9 * f1)
 
 
@@ -308,8 +320,8 @@ def feed_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
 
 # wrapper -> its (products, elementwise) operations, for the kernels whose
 # products run on the tensor cores and the rest on the CUDA cores
-_SPLIT_OPS = {"sepconv_pair": lambda name, shape, batch: pair_ops(shape, batch),
-              "sepconv_pair_int8": lambda name, shape, batch: pair_ops(shape, batch),
+_SPLIT_OPS = {**{name: lambda name, shape, batch: pair_ops(shape, batch)
+                 for name in _PAIR_MODES},
               "sepconv_block": fwd_ops, "chain_fwd": fwd_ops, "sepconv_stats": fwd_ops,
               "chain_bwd": bwd_ops, "sepconv_bwd": bwd_ops,
               "upconcat": feed_ops, "upconcat_bwd": feed_ops}
