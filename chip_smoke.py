@@ -159,9 +159,30 @@ exit code and no result line:
    sharded stream, their launches counted and asserted (45 edge-flag and 4
    float-in/int8-out a rank), the gathered outputs held to the unsharded
    ones on the card (fp32 2e-5, bf16 phase 5's bars, int8 at most 0.1% of
-   the elements over 1e-5); a rank that fails or hangs fails the run; then
-   the nineteen kernels' JSON line (with each kernel's bound, and K12a's
-   library time) and the result line.
+   the elements over 1e-5); a rank that fails or hangs fails the run;
+15. row-sharded and data-parallel training of the 1024 px model, K1's halo
+   mode: K1 with a halo against its plain version at the 18 links of a rank
+   of 2 row shards (batch 2) and at ``HALO_RAGGED`` (10-row shards of 20 x
+   36, C = 3, C = 200 with F = 300 over a partial cluster; batch 2 and 3),
+   halo above, below and both, the affine on and off, under phase 7's K1
+   bars; zero halos bit for bit K1 without one; every link's input cut into
+   2 row shards, each run with its neighbour's z row, stitched bit for bit
+   the whole image's y (the sums under the sums' bar); halo against no halo
+   timed at the 18 shard links at batch 4 with the bound; then
+   ``configs/highres_1024.json`` as it is through ``fit`` on one rank (its
+   spatial degree clamped to 1 with the Note), K3/K4 at its boundaries
+   against plain, one bf16 step profiled in a process of this script of its
+   own (``--profile-train``), and 3 steps kernels on against composed in
+   fp32 and bf16 under phase 8's bars and launches, images/s and peak
+   memory; then the dry run: the unsharded steps on the card, and two
+   processes (``--train-rank``) on the one card, gloo, training 2 steps
+   over a (1, 2) and a (2, 1) mesh (global batch 4, dropout 0, fp32 and
+   bf16; 18 K1 halo-mode launches a step on a row-sharded rank), each held
+   to the unsharded step (``hold_shard``), and one row-sharded step with
+   dropout 0.2 whose dropout sites' keep masks, recorded as the step
+   applies them, differ between the two ranks; then the twenty kernels' JSON
+   line (with each kernel's bound, and K12a's library time) and the result
+   line.
 
 A profile whose trace lost device activity (no device time, or kernels the
 host launched missing) is taken again, at most four times (``traced``); the
@@ -217,9 +238,9 @@ TRAIN_SUM_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
 TRAIN_CONFIG = "configs/tpu_train_256_bf16.json"   # run as it is
 TRAIN_STEPS = 3
 TRAIN_REPS = 5           # timing repetitions of K1-K6 and their plain versions
-STEP_LAUNCHES = {"chain_fwd": 18, "chain_bwd": 18, "tail_pool": 4, "tail_pool_bwd": 4,
-                 "upconcat": 4, "upconcat_bwd": 4, "head_fwd": 1, "head_bwd": 1,
-                 "head_fwd_mc": 0, "head_bwd_mc": 0}
+STEP_LAUNCHES = {"chain_fwd": 18, "chain_fwd_halo": 0, "chain_bwd": 18, "tail_pool": 4,
+                 "tail_pool_bwd": 4, "upconcat": 4, "upconcat_bwd": 4, "head_fwd": 1,
+                 "head_bwd": 1, "head_fwd_mc": 0, "head_bwd_mc": 0}
 # the same step with fused_head off: K5 does not run
 STEP_LAUNCHES_HEAD_OFF = {**STEP_LAUNCHES, "head_fwd": 0, "head_bwd": 0}
 # the multiclass config: K11 with fused_head all; nothing of the head with auto
@@ -324,6 +345,41 @@ EDGE_RAGGED_FLAGS = ((1, 0), (0, 1), (1, 1))
 STREAM_LAUNCHES_EDGE = 9         # K7 launches with edge flags, a rank a sharded forward
 STREAM_LAUNCHES_QUANT_OUT = 4    # float-in/int8-out launches (the decoder) a rank a forward
 STREAM_REPS = 3
+# phase 15: the 1024 px model's training (configs/highres_1024.json as it
+# is: batch 4, bf16, dropout 0.2) on one rank, kernels on against composed;
+# K1's halo mode against its plain version at the links of a rank of 2 row
+# shards and at ragged shapes (label, C, F, H, W of a shard), stitched
+# shards bit for bit the whole image's; then two ranks on the one card
+# (gloo) training over a (1, 2) and a (2, 1) mesh against the unsharded step
+HIGHRES_CONFIG = "configs/highres_1024.json"
+TRAIN_RANKS = 2
+SHARD_TRAIN_BATCH = 4            # the config's batch: a (1, 2) rank takes 4 x 512 rows
+SHARD_LINKS = roofline.shard_links(STREAM_IMAGE, FILTERS, TRAIN_RANKS)
+LINK_AFFINE = [link[4] for link in roofline.chain_links(STREAM_IMAGE, FILTERS)]
+HIGHRES_POOLS = roofline.pool_shapes(STREAM_IMAGE, FILTERS)
+HALO_BATCH = 2
+HALO_RAGGED = [("20x36", 32, 64, 10, 36), ("c3 f48", 3, 48, 10, 36),
+               ("c200 f300", 200, 300, 10, 36)]
+HALO_RAGGED_BATCHES = (2, 3)
+SHARD_MESHES = ((1, 2), (2, 1))  # (data, spatial)
+SHARD_STEPS = 2
+# the sharded steps against the unsharded step on the same card, fp32:
+# the loss relative, each step-1 gradient tensor's largest difference over
+# its max|g| and its cosine, the running statistics relative after step 1
+# (the forward's batch moments, summed in another order) and after step 2.
+# By step 2 the weights differ where AdamW's first step, about lr x the
+# sign of each gradient element, turned the rounding noise of near-zero
+# gradients into +-lr apart, and step 2's moments move with them (H100
+# run: 3.7e-4 at enc4_block2.bn.mean over a (1, 2) mesh, where the step-1
+# gradients were at most 6.3e-4 of max|g| apart), so step 2 is held to
+# 2e-3, step 1 to 1e-4.
+SHARD_LOSS_TOL = 2e-5
+SHARD_GRAD_TOL = 1e-3
+SHARD_GRAD_COS = 0.99999
+SHARD_STATS_TOL = 1e-4
+SHARD_STATS_TOL_STEP2 = 2e-3
+SHARD_LAUNCHES_HALO = 18         # K1 halo-mode launches a step on a row-sharded rank
+TRAIN_RANK_TIMEOUT = 420
 
 
 def slab_shapes(stages, n):
@@ -485,6 +541,7 @@ def kernel_shapes():
         sepconv_pair=(BATCH_SERVE, STAGES), sepconv_pair_int8=(BATCH_SERVE, STAGES),
         sepconv_pair_edge=(DRY_BATCH, SHARD_STAGES),
         sepconv_pair_quant_out=(DRY_BATCH, SHARD_DECODER),
+        chain_fwd_halo=(SHARD_TRAIN_BATCH, SHARD_LINKS),
         sepconv_block=(BATCH_SERVE, [(cx + cx2, f1, h) for _, cx, cx2, f1, _, h, _ in STAGES] +
                        [(f1, f2, h) for _, _, _, f1, f2, h, _ in STAGES]),
         sepconv_stats=(BATCH_SERVE, LINKS), sepconv_bwd=(BATCH_SERVE, LINKS),
@@ -499,7 +556,8 @@ def pool_case(torch, rnd, dev, dtype, batch, f, h, w=None):
     given. y takes 9 levels only, so after the ReLU many 2x2 windows hold
     exact ties (K4's first-max rule)."""
     w = h if w is None else w
-    y = (torch.randint(-4, 5, (batch, h, w, f), generator=rnd.gen) * 0.25).to(dev, dtype)
+    y = (torch.randint(-4, 5, (batch, h, w, f), generator=rnd.gen, device=rnd.gen.device)
+         * 0.25).to(dev, dtype)
     aff4 = torch.stack([1 + 0.5 * rnd(f).abs(), 0.1 * rnd(f), 0.1 * rnd(f),
                         1 + 0.5 * rnd(f).abs()]).to(dev).contiguous()
     gs = rnd(batch, h, w, f).to(dev, dtype)
@@ -780,13 +838,13 @@ def rel_max(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def train_ab(torch, dev, smi, base, x, m, launches, expect, variant=None):
+def train_ab(torch, dev, smi, base, x, m, launches, expect, variant=None, profile=True):
     """3 train steps of config dict ``base`` with the kernels against 3 of
     the composed path, in fp32 and bf16, under phase 8's bars; ``expect``
     the launches of every kernels-on step, added into ``launches``; images/s
-    in turns, peak memory and a profiled kernels-on step. With ``variant``
-    (label, model overrides, launches) also :func:`variant_ab`. Returns the
-    numbers by dtype."""
+    in turns, peak memory and (``profile``) a profiled kernels-on step. With
+    ``variant`` (label, model overrides, launches) also :func:`variant_ab`.
+    Returns the numbers by dtype."""
     from unet_image_segmentation_tpu_torch.models.unet import build_unet
     from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
     from unet_image_segmentation_tpu_torch.train.steps import make_train_step
@@ -896,7 +954,8 @@ def train_ab(torch, dev, smi, base, x, m, launches, expect, variant=None):
         if variant is not None:
             out[dname] = {"variant": variant_ab(torch, dev, smi, base, x, m, dname, on, variant,
                                                 launches)}
-        prof = attributed_step(torch, dev, on["step"], on["state"], x, m, base, dname, expect)
+        prof = attributed_step(torch, dev, on["step"], on["state"], x, m, base, dname,
+                               expect) if profile else None
         out.setdefault(dname, {}).update(
             losses_on=on["losses"], losses_off=off["losses"], grad_rel=g_rel, stats_rel=s_rel,
             images_per_s=rates, peak_gib={"on": on["peak_gb"], "off": off["peak_gb"]},
@@ -1934,8 +1993,10 @@ def wait_children(procs, timeout):
     are up; then kill what is left, so that none outlives the call."""
     deadline = time.monotonic() + timeout
     try:
-        while any(p.poll() is None for p in procs) and time.monotonic() < deadline and \
-                not any(p.returncode for p in procs):
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]   # every process polled each time
+            if None not in codes or any(codes):
+                break
             time.sleep(0.5)
     finally:
         for p in procs:
@@ -1944,29 +2005,50 @@ def wait_children(procs, timeout):
             p.wait()
 
 
-def profile_in_child(phase_dir):
+def join_ranks(procs, logs, timeout, label):
+    """Wait for the dry run's rank processes (:func:`wait_children`), print
+    the end of every rank's log, then raise, naming a rank that failed by
+    itself before one that was killed."""
+    wait_children(procs, timeout)
+    texts = []
+    for r, log in enumerate(logs):
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+        for line in texts[-1].strip().splitlines()[-30:]:
+            print(f"  rank {r}: {line}")
+    bad = [r for r, (p, text) in enumerate(zip(procs, texts))
+           if p.returncode != 0 or f"RANK_OK {r}" not in text]
+    if bad:   # name a rank that failed by itself before one that was killed
+        r = next((r for r in bad if (procs[r].returncode or 0) > 0), bad[0])
+        raise AssertionError(f"{label}: rank {r} exited {procs[r].returncode} (killed when "
+                             f"another rank failed or after {timeout} s)")
+
+
+def profile_in_child(phase_dir, flag="--profile-stream", name="stream_profile.json"):
     """Phase 14: :func:`profile_stream` in a process of this script of its
     own (``--profile-stream``), on the checkpoint and frames under
-    ``phase_dir``. In this script's long process, after the earlier phases'
-    profiler sessions, torch.profiler lost the first 26 of the stream's 40
-    kernels in most traces on an H100 (PyTorch 2.11), in one run in all
-    four tries; a fresh process's first trace is the case that came back
-    whole. The child's error, a lost trace's included, is raised here."""
+    ``phase_dir``; phase 15's profiled training step likewise
+    (``--profile-train``). In this script's long process, after the earlier
+    phases' profiler sessions, torch.profiler lost the first 26 of the
+    stream's 40 kernels in most traces on an H100 (PyTorch 2.11), in one run
+    in all four tries; a fresh process's first trace is the case that came
+    back whole. The child's error, a lost trace's included, is raised here."""
     import subprocess
 
-    path = os.path.join(phase_dir, "stream_profile.json")
+    path = os.path.join(phase_dir, name)
     if os.path.exists(path):
         os.remove(path)
     with open(os.path.join(phase_dir, "profile.log"), "w+") as log:
-        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--profile-stream",
-                                 phase_dir], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, phase_dir],
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
         wait_children([proc], PROFILE_TIMEOUT)
         log.seek(0)
         lines = log.read().strip().splitlines()
     for line in lines[-30:]:
         print(f"  profile process: {line}")
     if proc.returncode != 0 or not lines or lines[-1] != "PROFILE_OK":
-        raise AssertionError(f"stream profile: its process exited {proc.returncode} (killed "
+        raise AssertionError(f"{flag}: its process exited {proc.returncode} (killed "
                              f"after {PROFILE_TIMEOUT} s if still running): "
                              f"{lines[-1] if lines else 'no output'}")
     with open(path) as f:
@@ -2120,16 +2202,7 @@ def dry_run(torch, dev, smi, report, launches, on, frames_dev, phase_dir):
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), dry],
                               cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
              for r, log in enumerate(logs)]
-    wait_children(procs, RANK_TIMEOUT)
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        log.seek(0)
-        text = log.read()
-        log.close()
-        for line in text.strip().splitlines()[-30:]:
-            print(f"  rank {r}: {line}")
-        if p.returncode != 0 or f"RANK_OK {r}" not in text:
-            raise AssertionError(f"dry run: rank {r} exited {p.returncode} (killed when another "
-                                 f"rank failed or after {RANK_TIMEOUT} s)")
+    join_ranks(procs, logs, RANK_TIMEOUT, "dry run")
     out = dict(np.load(os.path.join(dry, "out.npz")))
     counts = []
     for r in range(DRY_RANKS):
@@ -2247,6 +2320,501 @@ def rank_main(rank, dry):
     torch.distributed.destroy_process_group()
     print(f"RANK_OK {rank}", flush=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 15: row-sharded and data-parallel training, K1's halo mode
+# ---------------------------------------------------------------------------
+
+
+def device_rnd(torch, dev, seed):
+    """``rnd`` drawing on the card from a generator of its own, seeded:
+    phase 15's inputs at 1024 px (hundreds of millions of elements) are
+    drawn there, not on the host."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def drnd(*shape, scale=1.0):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * scale
+
+    drnd.gen = gen
+    return drnd
+
+
+def halo_inputs(torch, rnd, dev, dtype, batch, c, f, h, w):
+    """Seeded inputs of one K1 call at (batch, h, w, c) -> f: x, the taps,
+    the pointwise and an input affine (rows a, b)."""
+    x = rnd(batch, h, w, c).to(dev, dtype)
+    dw = rnd(3, 3, c, scale=(6 / (9 * c + 9)) ** 0.5).to(dev, dtype)
+    pw = rnd(c, f, scale=(6 / (c + f)) ** 0.5).to(dev, dtype)
+    aff2 = torch.stack([1 + 0.5 * rnd(c), 0.1 * rnd(c)]).to(dev).contiguous()
+    return x, dw, pw, aff2
+
+
+def judge_halo(ft, tjudge, x, dw, pw, aff, halo, label, dname):
+    """K1's halo mode against its plain version: y under phase 7's
+    elementwise bar, the sums under its sums' bar."""
+    got = ft.chain_fwd(x, dw, pw, aff, None, halo)
+    want = ft.chain_fwd_reference(x, dw, pw, aff, None, halo)
+    tjudge("chain_fwd_halo", label + " y", dname, [(got[0], want[0])])
+    tjudge("chain_fwd_halo", label + " sums", dname, [(got[1], want[1]), (got[2], want[2])],
+           sums=True)
+
+
+def halo_checks(torch, ft, rnd, dev, dtypes, tjudge):
+    """Phase 15 (a): K1's halo mode against its plain version at the 18
+    links of a rank of 2 row shards of the 1024 px model (batch 2) and at
+    ``HALO_RAGGED`` (batch 2 and 3): halo above only, below only and both,
+    with the input affine and without, each halo row random z values; zero
+    halos bit for bit the K1 without a halo."""
+    from unet_image_segmentation_tpu_torch.ops.kernels import build
+
+    sms = build.sm_count(dev)
+    print(f"K1 halo mode vs plain at the {len(SHARD_LINKS)} links of a rank of {TRAIN_RANKS} row "
+          f"shards of {STREAM_IMAGE} px (batch {HALO_BATCH}) and at other shapes (batch "
+          f"{' and '.join(map(str, HALO_RAGGED_BATCHES))}): halo above, below, both; affine "
+          "on and off:")
+    cases = [(name, c, f, h, w, HALO_BATCH) for name, c, f, h, w in SHARD_LINKS] + [
+        (name, c, f, h, w, b) for b in HALO_RAGGED_BATCHES for name, c, f, h, w in HALO_RAGGED]
+    for dname, dtype in dtypes.items():
+        for name, c, f, h, w, batch in cases:
+            x, dw, pw, aff2 = halo_inputs(torch, rnd, dev, dtype, batch, c, f, h, w)
+            plan = ft.fwd_plan(batch, h, w, c, f, dtype, sms)
+            shape = f"{name} {c}->{f}@{h}x{w} batch {batch}, cluster {plan.n} x {plan.s}"
+            for aff in (aff2, None):
+                full = rnd(batch, 2, w, c)
+                full = (full.abs() if aff is not None else full).to(dev, dtype)  # z >= 0 after a ReLU
+                for which, keep in (("above", (1, 0)), ("below", (0, 1)), ("both", (1, 1))):
+                    halo = (full * torch.tensor(keep, device=dev, dtype=dtype).view(1, 2, 1, 1)
+                            ).contiguous()
+                    judge_halo(ft, tjudge, x, dw, pw, aff, halo,
+                               f"{shape} halo {which}{' affine' if aff is not None else ''}",
+                               dname)
+            zero = torch.zeros(batch, 2, w, c, device=dev, dtype=dtype)
+            for aff in (aff2, None):
+                got, want = ft.chain_fwd(x, dw, pw, aff, None, zero), ft.chain_fwd(x, dw, pw, aff)
+                if not all(torch.equal(p, q) for p, q in zip(got, want)):
+                    raise AssertionError(f"chain_fwd_halo {shape} {dname}: zero halos differ from "
+                                         "K1 without a halo")
+        print(f"  {dname}: zero halos equal K1 without a halo bit for bit (y, Σy, Σy²) at all "
+              f"{len(cases)} shapes, affine on and off")
+
+
+def halo_stitch_checks(torch, ft, rnd, dev, dtypes, tjudge):
+    """Phase 15 (a): each link's input of the 1024 px model (batch 2, the
+    link's affine) and the 20 x 36 ragged images cut into 2 row shards,
+    each run through K1's halo mode with the rows its neighbour would send
+    it (z rows, zeros at the image's edges): the shards' y put together
+    equal K1 on the whole image bit for bit, and their sums add up to its
+    sums under the sums' bar."""
+    print(f"K1 halo mode: {TRAIN_RANKS} row shards stitched against K1 on the whole image, "
+          f"batch {HALO_BATCH}:")
+    cases = [(name, c, f, 2 * h, w, aff) for (name, c, f, h, w), aff in
+             zip(SHARD_LINKS, LINK_AFFINE)] + [
+        (name, c, f, 2 * h, w, True) for name, c, f, h, w in HALO_RAGGED]
+    for dname, dtype in dtypes.items():
+        for name, c, f, h, w, affine in cases:
+            x, dw, pw, aff2 = halo_inputs(torch, rnd, dev, dtype, HALO_BATCH, c, f, h, w)
+            aff = aff2 if affine else None
+            whole = ft.chain_fwd(x, dw, pw, aff)
+            top, bot = x[:, :h // 2].contiguous(), x[:, h // 2:].contiguous()
+
+            def z(rows):
+                return rows if aff is None else (rows.float() * aff[0] + aff[1]).clamp_min(
+                    0.0).to(dtype)
+
+            none = torch.zeros_like(top[:, :1])
+            y0 = ft.chain_fwd(top, dw, pw, aff, None, torch.cat([none, z(bot[:, :1])], 1))
+            y1 = ft.chain_fwd(bot, dw, pw, aff, None, torch.cat([z(top[:, -1:]), none], 1))
+            stitched = torch.cat([y0[0], y1[0]], 1)
+            label = f"{name} {c}->{f}@{h}x{w}{' affine' if affine else ''} stitched"
+            if not torch.equal(stitched, whole[0]):
+                err = (stitched.float() - whole[0].float()).abs().max().item()
+                raise AssertionError(f"chain_fwd_halo {label} {dname}: y differs from the whole "
+                                     f"image's by up to {err:.3e}")
+            tjudge("chain_fwd_halo", label + " sums", dname,
+                   [(y0[1] + y1[1], whole[1]), (y0[2] + y1[2], whole[2])], sums=True)
+        print(f"  {dname}: stitched y bit for bit the whole image's at all {len(cases)} shapes")
+
+
+def time_halo_links(torch, ft, rnd, dev, dtypes, tjudge, totals, report, smi):
+    """Phase 15 (a): K1's halo mode at the 18 links of a (1, 2) rank at
+    the config's batch (4 x 512 x 1024), the link's affine, both halos: held
+    to plain, then timed beside K1 without a halo at the same shapes, the
+    plain version and the bound."""
+    print(f"K1 halo mode at the {len(SHARD_LINKS)} shard links, batch {SHARD_TRAIN_BATCH}, ms "
+          f"(halo / no halo / plain, bound) [{smi}]:")
+    rec = report["halo_links"] = {}
+    for dname, dtype in dtypes.items():
+        tot = {"halo": 0.0, "no halo": 0.0, "plain": 0.0, "bound": 0.0}
+        for (name, c, f, h, w), affine in zip(SHARD_LINKS, LINK_AFFINE):
+            x, dw, pw, aff2 = halo_inputs(torch, rnd, dev, dtype, SHARD_TRAIN_BATCH, c, f, h, w)
+            aff = aff2 if affine else None
+            halo = rnd(SHARD_TRAIN_BATCH, 2, w, c).abs().to(dev, dtype)
+            label = f"{name} {c}->{f}@{h}x{w}"
+            judge_halo(ft, tjudge, x, dw, pw, aff, halo, f"{label} batch {SHARD_TRAIN_BATCH}",
+                       dname)
+            t = {"halo": time_ms(lambda: ft.chain_fwd(x, dw, pw, aff, None, halo), torch,
+                                 TRAIN_REPS),
+                 "no halo": time_ms(lambda: ft.chain_fwd(x, dw, pw, aff), torch, TRAIN_REPS),
+                 "plain": time_ms(lambda: ft.chain_fwd_reference(x, dw, pw, aff, None, halo),
+                                  torch, TRAIN_REPS)}
+            t["bound"], by = roofline.bounds_ms("chain_fwd_halo", (name, c, f, h, w), dname,
+                                                SHARD_TRAIN_BATCH)
+            for key in tot:
+                tot[key] += t[key]
+            print(f"  {label} {dtype_label(dname)}: {t['halo']:.3f} / {t['no halo']:.3f} / "
+                  f"{t['plain']:.3f}, bound {t['bound']:.4f} ({by})")
+            rec[f"{label} {dname}"] = {**t, "bound_by": by}
+            del x, halo
+        totals[dname]["chain_fwd_halo"] = (tot["halo"], tot["plain"])
+        rec[f"total {dname}"] = tot
+        print(f"  {dname} totals over the {len(SHARD_LINKS)} links: halo {tot['halo']:.3f}, no "
+              f"halo {tot['no halo']:.3f}, plain {tot['plain']:.3f}, bound {tot['bound']:.4f} ms")
+
+
+def highres_train(torch, dev, smi, report, launches, rnd, dtypes, tjudge, phase_dir):
+    """Phase 15 (b): ``configs/highres_1024.json`` as it is through ``fit``
+    on one rank (its spatial degree 2 clamped to 1, with the Note); K3/K4 at
+    its boundaries against plain; then its kernels-on step against the
+    composed one (:func:`train_ab`, phase 8's bars and launches) and one
+    profiled bf16 step in a process of its own."""
+    from unet_image_segmentation_tpu_torch.ops import fused_train as ft
+    from unet_image_segmentation_tpu_torch.train.loop import fit
+    from unet_image_segmentation_tpu_torch.train.state import Config
+
+    with open(os.path.join(ROOT, HIGHRES_CONFIG)) as f:
+        base = json.load(f)
+    batch = base["train"]["batch_size"]
+    images, masks = synthetic_scenes(3 * batch, STREAM_IMAGE, SEED + 17, with_masks=True)
+    print(f"1024 px training: {HIGHRES_CONFIG} as it is (U-Net {base['model']['filters']}, batch "
+          f"{batch}, {base['model']['compute_dtype']}, dropout {base['model']['dropout_rate']}, "
+          f"mesh spatial {base['mesh']['spatial_axis']}) through fit on one rank:")
+    d = json.loads(json.dumps(base))
+    with tempfile.TemporaryDirectory() as tmp:
+        d["train"].update(epochs=1, model_out=os.path.join(tmp, "model"),
+                          log_dir=os.path.join(tmp, "logs"))
+        t0 = time.perf_counter()
+        res = fit(Config.from_dict(d), MemoryDataset(images[:2 * batch], masks[:2 * batch]),
+                  MemoryDataset(images[2 * batch:], masks[2 * batch:]), device=dev)
+        loss = res.history["loss"][-1]
+        print(f"  fit: 1 epoch, 2 steps + 1 validation batch in {time.perf_counter() - t0:.1f} s, "
+              f"loss {loss:.4f}, val_mean_io_u {res.history['val_mean_io_u'][-1]:.4f}")
+        if not np.isfinite(loss):
+            raise AssertionError("1024 px fit: the loss is not finite")
+        del res
+    print(f"K3/K4 vs plain at the {STREAM_IMAGE} px boundaries, batch {batch}:")
+    for dname, dtype in dtypes.items():
+        for name, f, h in HIGHRES_POOLS:
+            k = pool_case(torch, rnd, dev, dtype, batch, f, h)
+            judge_pool(torch, ft, tjudge, k, f"{name} boundary F={f}@{h}", dname)
+            del k
+    np.save(os.path.join(phase_dir, "train_x.npy"), images[:batch])
+    np.save(os.path.join(phase_dir, "train_m.npy"), masks[:batch])
+    torch.cuda.empty_cache()
+    report["highres_profile"] = profile_in_child(phase_dir, "--profile-train",
+                                                 "train_profile.json")
+    prof = report["highres_profile"]
+    print(f"  bf16 profiled step (a process of its own): {prof['wall_ms_per_step']:.1f} ms a step, "
+          f"device busy {prof['device_ms_per_step']:.1f} ms, idle share {prof['idle_share']:.3f} "
+          f"[{smi}]")
+    x = torch.from_numpy(images[:batch]).to(dev)
+    m = torch.from_numpy(masks[:batch]).to(dev)
+    print(f"  kernels on vs the composed path, {TRAIN_STEPS} steps each, fp32 and bf16:")
+    report["highres_train"] = train_ab(torch, dev, smi, base, x, m, launches, STEP_LAUNCHES,
+                                       profile=False)
+    del x, m
+    torch.cuda.empty_cache()
+
+
+def profile_train_main(phase_dir):
+    """Phase 15's profiled step (``chip_smoke.py --profile-train DIR``): one
+    bf16 kernels-on step of the 1024 px config on DIR's batch under
+    ``step_attribution``, its launches held to phase 8's; writes
+    DIR/train_profile.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet
+    from unet_image_segmentation_tpu_torch.train.state import Config, create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(ROOT, HIGHRES_CONFIG)) as f:
+        base = json.load(f)
+    cfg = Config.from_dict(base)
+    model = build_unet(cfg.model, device=dev, generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(cfg, model=model, device=dev)
+    step = make_train_step(model, cfg.train.loss)
+    x = torch.from_numpy(np.load(os.path.join(phase_dir, "train_x.npy"))).to(dev)
+    m = torch.from_numpy(np.load(os.path.join(phase_dir, "train_m.npy"))).to(dev)
+    prof = traced(lambda _: attributed_step(torch, dev, step, state, x, m, base,
+                                            cfg.model.compute_dtype, STEP_LAUNCHES),
+                  "1024 px train profile")
+    prof["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(phase_dir, "train_profile.json"), "w") as f:
+        json.dump(prof, f)
+    print("PROFILE_OK", flush=True)
+    return 0
+
+
+def shard_config(dname, dropout=0.0):
+    """The 1024 px config as the dry run trains it: its batch, dropout
+    ``dropout``, compute dtype ``dname``."""
+    from unet_image_segmentation_tpu_torch.train.state import Config
+
+    with open(os.path.join(ROOT, HIGHRES_CONFIG)) as f:
+        d = json.load(f)
+    d["model"].update(compute_dtype=dname, dropout_rate=dropout)
+    return Config.from_dict(d)
+
+
+def shard_run(torch, dev, dname, mesh, x, m, expect):
+    """``SHARD_STEPS`` kernels-on steps of the dry run's model on ``mesh``
+    (None: unsharded) from seeded weights: the losses, the step-1 gradients
+    (summed over the mesh), the running statistics after the last step,
+    each step's launches held to ``expect``, and the K1 halo-mode launches
+    counted over the steps."""
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet
+    from unet_image_segmentation_tpu_torch.train.state import create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    cfg = shard_config(dname)
+    model = build_unet(cfg.model, device=dev, generator=torch.Generator().manual_seed(SEED))
+    if mesh is not None:
+        model.set_groups(mesh.group, mesh.spatial_group)
+    state = create_train_state(cfg, model=model, device=dev)
+    step = make_train_step(model, cfg.train.loss, mesh)
+    if mesh is not None:
+        x, m = mesh.shard(x), mesh.shard(m)
+    out = {"losses": [], "halo_launches": 0}
+    for i in range(SHARD_STEPS):
+        reset_train_counts()
+        out["losses"].append(float(step(state, x, m)["loss"]))
+        torch.cuda.synchronize()
+        counts = train_counts()
+        out["halo_launches"] += counts["chain_fwd_halo"]
+        if counts != expect:
+            raise AssertionError(f"{dname} step {i + 1}: expected launches {expect}, got {counts}")
+        if i == 0:
+            out["grads"] = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+            out["stats1"] = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+    out["stats"] = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+    return out
+
+
+def train_rank_main(rank, dry):
+    """One rank of phase 15's dry run (``chip_smoke.py --train-rank R
+    DIR``): on cuda:0 with gloo, ``SHARD_STEPS`` steps of the 1024 px model
+    on each mesh of ``SHARD_MESHES`` in fp32 and bf16 (global batch 4,
+    dropout 0), its launches held (18 K1 halo-mode launches a step on a
+    row-sharded rank); then one row-sharded step with dropout 0.2, the
+    keep masks its dropout sites applied recorded and compared between the
+    two ranks. Rank 0 writes the results."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+
+    from unet_image_segmentation_tpu_torch.models import unet as unet_mod
+    from unet_image_segmentation_tpu_torch.ops import hash_dropout as hd
+    from unet_image_segmentation_tpu_torch.parallel import distributed
+    from unet_image_segmentation_tpu_torch.parallel.mesh import create_mesh
+    from unet_image_segmentation_tpu_torch.train.state import create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.initialize("file://" + os.path.join(dry, "store"), TRAIN_RANKS, rank,
+                           backend="gloo")
+    x = torch.from_numpy(np.load(os.path.join(dry, "x.npy"))).to(dev)
+    m = torch.from_numpy(np.load(os.path.join(dry, "m.npy"))).to(dev)
+    meshes = {shape: create_mesh(*shape) for shape in SHARD_MESHES}
+    out, halo_launches = {}, 0
+    for shape, mesh in meshes.items():
+        rows = shape[1] > 1
+        expect = {**STEP_LAUNCHES, "chain_fwd_halo": SHARD_LAUNCHES_HALO if rows else 0}
+        for dname in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            run = shard_run(torch, dev, dname, mesh, x, m, expect)
+            halo_launches += run["halo_launches"]
+            print(f"mesh {shape} {dname}: losses {run['losses']}, launches a step {expect} "
+                  f"({time.perf_counter() - t0:.1f} s on the host clock, two ranks sharing one "
+                  "card: not a speed figure)", flush=True)
+            key = f"{shape[0]}x{shape[1]} {dname}"
+            out[f"{key} losses"] = np.array(run["losses"])
+            out.update({f"{key} grad {n}": g.numpy() for n, g in run["grads"].items()})
+            for part in ("stats", "stats1"):
+                out.update({f"{key} {part} {n}": b.numpy() for n, b in run[part].items()})
+            del run
+            torch.cuda.empty_cache()
+    # dropout 0.2 on the row shards: the step runs, and the keep masks that
+    # its dropout sites (the bottleneck's, and the decoder's hoisted before
+    # their chains) applied differ between the ranks
+    mesh = meshes[(1, TRAIN_RANKS)]
+    cfg = shard_config("bfloat16", dropout=0.2)
+    model = unet_mod.build_unet(cfg.model, device=dev,
+                                generator=torch.Generator().manual_seed(SEED))
+    model.set_groups(mesh.group, mesh.spatial_group)
+    state = create_train_state(cfg, model=model, device=dev)
+    sites = []
+
+    def recorded(t, seed, rate):
+        """The model's dropout, its keep mask kept (the first 8 rows of
+        sample 0, 64 channels) once the output shows it is the one applied."""
+        y = hd.hash_dropout(t, seed, rate)
+        keep = hd.keep_mask(t.shape, seed, hd.keep_threshold(rate), t.device)
+        if not torch.equal(y, hd.apply_keep(t, keep, hd.inv_keep(rate))):
+            raise AssertionError(f"rank {rank}: a dropout site's output is not its keep mask's")
+        sites.append(keep[0, :8, :, :64].to(torch.int32).cpu())
+        return y
+
+    unet_mod.hash_dropout = recorded
+    try:
+        loss = float(make_train_step(model, cfg.train.loss, mesh)(state, mesh.shard(x),
+                                                                  mesh.shard(m))["loss"])
+    finally:
+        unet_mod.hash_dropout = hd.hash_dropout
+    if not np.isfinite(loss):
+        raise AssertionError(f"rank {rank}: the dropout step's loss is {loss}")
+    if len(sites) != len(cfg.model.filters):   # the bottleneck and decoder stages 4..2
+        raise AssertionError(f"rank {rank}: {len(sites)} dropout sites ran, expected "
+                             f"{len(cfg.model.filters)}")
+    differ = []
+    for keep in sites:
+        both = torch.zeros((TRAIN_RANKS,) + tuple(keep.shape), dtype=torch.int32)
+        both[rank] = keep
+        dist.all_reduce(both)
+        differ.append(float((both[0] != both[1]).float().mean()))
+    print(f"dropout 0.2 row-sharded step: loss {loss:.6f}; the keep masks the step's "
+          f"{len(sites)} dropout sites applied differ between the ranks at "
+          f"{[round(d, 4) for d in differ]} of the elements compared", flush=True)
+    if min(differ) == 0.0:
+        raise AssertionError("a dropout site applied the same keep mask on both ranks")
+    out["dropout"] = np.array([loss, *differ])
+    with open(os.path.join(dry, f"counts{rank}.json"), "w") as f:
+        json.dump({"chain_fwd_halo": halo_launches}, f)
+    if rank == 0:
+        np.savez(os.path.join(dry, "out.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"RANK_OK {rank}", flush=True)
+    return 0
+
+
+def hold_shard(torch, label, dname, got, ref, ref_dtype=None, own=None):
+    """One sharded run against the unsharded one. fp32: the losses within
+    ``SHARD_LOSS_TOL`` relative, each step-1 gradient tensor within
+    ``SHARD_GRAD_TOL`` of its max|g| with a cosine of at least
+    ``SHARD_GRAD_COS``, the running statistics within ``SHARD_STATS_TOL``
+    relative after step 1 and ``SHARD_STATS_TOL_STEP2`` after step 2. bf16
+    (phase 8's rule): the losses within its bf16 loss bar of the unsharded
+    bf16 run's; gradients and statistics against the fp32 unsharded run
+    ``ref_dtype``, each tensor's error at most ``BF16_GRAD_FACTOR`` x the
+    unsharded bf16 run's (``own``) plus ``BF16_GRAD_SLACK``. Returns (ok,
+    the worst numbers)."""
+    rec = {}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    loss_bar = SHARD_LOSS_TOL if dname == "float32" else TRAIN_LOSS_TOL[dname]
+    ok = loss_rel <= loss_bar
+    rec["loss_rel"] = loss_rel
+    if dname == "float32":
+        g_rel = {n: rel_max(got["grads"][n], g) for n, g in ref["grads"].items()}
+        g_cos = {n: cosine(got["grads"][n], g) for n, g in ref["grads"].items()}
+        wg, wc = max(g_rel, key=g_rel.get), min(g_cos, key=g_cos.get)
+        ok = ok and g_rel[wg] <= SHARD_GRAD_TOL and g_cos[wc] >= SHARD_GRAD_COS
+        text = []
+        for part, bar in (("stats1", SHARD_STATS_TOL), ("stats", SHARD_STATS_TOL_STEP2)):
+            s_rel = {n: rel_max(got[part][n], b) for n, b in ref[part].items()}
+            ws = max(s_rel, key=s_rel.get)
+            ok = ok and s_rel[ws] <= bar
+            rec[f"{part}_rel"] = s_rel[ws]
+            text.append(f"after step {1 if part == 'stats1' else SHARD_STEPS} {s_rel[ws]:.2e} at "
+                        f"{ws} (bar {bar:g})")
+        print(f"  {label} {dname}: losses {got['losses']} vs {ref['losses']} (max rel "
+              f"{loss_rel:.2e}, bar {loss_bar:g}); gradients max |diff| / max|g| "
+              f"{g_rel[wg]:.2e} at {wg} (bar {SHARD_GRAD_TOL:g}), median "
+              f"{float(np.median(list(g_rel.values()))):.2e}, min cosine {g_cos[wc]:.8f} at {wc} "
+              f"(bar {SHARD_GRAD_COS}); running stats max rel " + ", ".join(text) +
+              f" {'ok' if ok else 'FAIL'}")
+        rec.update(grad_rel=g_rel[wg], grad_cos=g_cos[wc])
+    else:
+        for part in ("grads", "stats"):
+            err = {n: rel_max(got[part][n], g) for n, g in ref_dtype[part].items()}
+            base = {n: rel_max(own[part][n], g) for n, g in ref_dtype[part].items()}
+            excess = {n: err[n] - BF16_GRAD_FACTOR * base[n] for n in err}
+            w = max(excess, key=excess.get)
+            ok = ok and excess[w] <= BF16_GRAD_SLACK
+            rec[f"{part}_excess"] = excess[w]
+            print(f"  {label} {dname} {part} against the fp32 unsharded run: sharded max rel err "
+                  f"{max(err.values()):.2e}, unsharded bf16 {max(base.values()):.2e}; per tensor "
+                  f"sharded <= {BF16_GRAD_FACTOR:g} x unsharded + {BF16_GRAD_SLACK:g} (worst {w}: "
+                  f"{err[w]:.2e} vs {base[w]:.2e})")
+        print(f"  {label} {dname}: losses {got['losses']} vs {ref['losses']} (max rel "
+              f"{loss_rel:.2e}, bar {loss_bar:g}) {'ok' if ok else 'FAIL'}")
+    return ok, rec
+
+
+def train_dry_run(torch, dev, smi, report, launches, phase_dir):
+    """Phase 15 (c): the unsharded steps on the card (fp32, bf16), then two
+    ranks of this script (``--train-rank``) on the one card, gloo, training
+    over each mesh of ``SHARD_MESHES``; each held to the unsharded step
+    (:func:`hold_shard`); a rank that fails or hangs fails the run."""
+    import subprocess
+
+    dry = os.path.join(phase_dir, "train_dry")
+    os.makedirs(dry)
+    batch = SHARD_TRAIN_BATCH
+    images, masks = synthetic_scenes(batch, STREAM_IMAGE, SEED + 18, with_masks=True)
+    np.save(os.path.join(dry, "x.npy"), images)
+    np.save(os.path.join(dry, "m.npy"), masks)
+    x, m = torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
+    print(f"sharded training dry run: the {STREAM_IMAGE} px model at full width, global batch "
+          f"{batch}, dropout 0, {SHARD_STEPS} steps; unsharded on the card, then {TRAIN_RANKS} "
+          f"ranks on the one card (gloo) over meshes (data, spatial) {SHARD_MESHES}:")
+    refs = {d: shard_run(torch, dev, d, None, x, m, STEP_LAUNCHES) for d in ("float32",
+                                                                              "bfloat16")}
+    for d, r in refs.items():
+        print(f"  unsharded {d}: losses {r['losses']}")
+    del x, m
+    torch.cuda.empty_cache()
+    logs = [open(os.path.join(dry, f"rank{r}.log"), "w+") for r in range(TRAIN_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--train-rank", str(r),
+                               dry], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    join_ranks(procs, logs, TRAIN_RANK_TIMEOUT, "train dry run")
+    out = dict(np.load(os.path.join(dry, "out.npz")))
+    counts = []
+    for r in range(TRAIN_RANKS):
+        with open(os.path.join(dry, f"counts{r}.json")) as f:
+            counts.append(json.load(f))
+    launches["chain_fwd_halo"] = sum(c["chain_fwd_halo"] for c in counts)
+    rec = report["train_dry_run"] = {"halo_launches": counts, "dropout": out["dropout"].tolist()}
+    names = refs["float32"]["grads"].keys()
+    stat_names = refs["float32"]["stats"].keys()
+    failed = []
+    for shape in SHARD_MESHES:
+        label = f"mesh (data {shape[0]}, spatial {shape[1]})"
+        rec[label] = {}
+        for dname in ("float32", "bfloat16"):
+            key = f"{shape[0]}x{shape[1]} {dname}"
+            got = {"losses": out[f"{key} losses"].tolist(),
+                   "grads": {n: torch.from_numpy(out[f"{key} grad {n}"]) for n in names}}
+            for part in ("stats", "stats1"):
+                got[part] = {n: torch.from_numpy(out[f"{key} {part} {n}"]) for n in stat_names}
+            ok, rec[label][dname] = hold_shard(
+                torch, label, dname, got, refs[dname], ref_dtype=refs["float32"],
+                own=refs["bfloat16"])
+            if not ok:
+                failed.append(f"{label} {dname}")
+    if failed:
+        raise AssertionError(f"the sharded steps disagree with the unsharded: {failed}")
 
 
 def reset_train_counts():
@@ -2687,6 +3255,24 @@ def main() -> int:
     quant_out_checks(torch, fs, sq, dtypes, pair_case, worst_abs)
     time_shard_kernels(torch, fs, dtypes, pair_case, totals, report, smi)
     dry_run(torch, dev, smi, report, launches, on1024, frames_dev, phase_dir)
+    del on1024, frames_dev
+    torch.cuda.empty_cache()
+
+    # ---- 15. row-sharded and data-parallel training, K1's halo mode -------
+    phase_dir = os.path.join(ROOT, "build", "phase15")
+    shutil.rmtree(phase_dir, ignore_errors=True)
+    os.makedirs(phase_dir)
+    drnd = device_rnd(torch, dev, SEED + 15)
+    t0 = time.perf_counter()
+    halo_checks(torch, ft, drnd, dev, dtypes, tjudge)
+    halo_stitch_checks(torch, ft, drnd, dev, dtypes, tjudge)
+    time_halo_links(torch, ft, drnd, dev, dtypes, tjudge, totals, report, smi)
+    t1 = time.perf_counter()
+    highres_train(torch, dev, smi, report, launches, drnd, dtypes, tjudge, phase_dir)
+    t2 = time.perf_counter()
+    train_dry_run(torch, dev, smi, report, launches, phase_dir)
+    print(f"phase 15 on the host clock: (a) K1 halo mode {t1 - t0:.1f} s, (b) 1024 px training "
+          f"{t2 - t1:.1f} s, (c) sharded training {time.perf_counter() - t2:.1f} s")
 
     kernels, report["bounds"] = [], {}
     shapes = kernel_shapes()
@@ -2736,7 +3322,10 @@ def main() -> int:
           "dtype, K12 over phase 12's link_floors run; K7 edge flags (bf16, the first shard's "
           f"flags) over the nine slabs of {STREAM_IMAGE} px over {DRY_RANKS} row shards and K7 "
           "float-in/int8-out over their four decoder slabs, at batch "
-          f"{DRY_BATCH}, launches summed over phase 14's {DRY_RANKS} ranks")
+          f"{DRY_BATCH}, launches summed over phase 14's {DRY_RANKS} ranks; K1 halo mode over "
+          f"the {len(SHARD_LINKS)} links of a rank of {TRAIN_RANKS} row shards of {STREAM_IMAGE} "
+          f"px at batch {SHARD_TRAIN_BATCH}, launches over phase 15's row-sharded steps summed "
+          f"over its {TRAIN_RANKS} ranks")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2874,4 +3463,8 @@ if __name__ == "__main__":
         sys.exit(rank_main(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--profile-stream"]:   # phase 14's stream profile
         sys.exit(profile_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-rank"]:   # one rank of phase 15's dry run
+        sys.exit(train_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--profile-train"]:   # phase 15's profiled step
+        sys.exit(profile_train_main(sys.argv[2]))
     sys.exit(main())

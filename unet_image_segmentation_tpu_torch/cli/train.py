@@ -4,12 +4,17 @@ The flags of the JAX package's ``cli/train.py`` (config files,
 ``--set section__key=value`` overrides, loss, image size, ``--bf16``,
 ``--pallas``, ``--resume`` ...), parsed into the same :class:`Config`, plus
 ``--device`` (default ``cuda``). Nothing moves to the CPU unless
-``--device cpu`` is given. ``--mesh`` is accepted and stored, but the port
-trains on one device.
+``--device cpu`` is given. ``--mesh DATA,SPATIAL`` lays the job's ranks out
+as the training mesh (``fit`` clamps the spatial degree to the ranks
+present). A job of several ranks is launched with torchrun, one process a
+rank; the CLI joins the process group (env://) with gloo when ranks share
+a card, NCCL when each has its own.
 
 Usage:
   python -m unet_image_segmentation_tpu_torch.cli.train \\
       --config configs/tpu_train_256_bf16.json --data-root <dataset> --device cuda
+  torchrun --nproc_per_node 2 -m unet_image_segmentation_tpu_torch.cli.train \\
+      --config configs/highres_1024.json --mesh 1,2 --data-root <dataset>
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-pallas", dest="pallas", action="store_false",
                    help="Force the composed PyTorch train step.")
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,SPATIAL",
-                   help="Device mesh of the JAX package (stored in the config; "
-                        "the port trains on one device).")
+                   help="Mesh of the job's ranks: batch over DATA, image rows over "
+                        "SPATIAL (launch the ranks with torchrun).")
     p.add_argument("--set", dest="sets", action="append", default=[],
                    metavar="section__key=value",
                    help="Generic config override (JSON-parsed value), e.g. "
@@ -146,8 +151,10 @@ def main(argv=None) -> int:
     print(f"Seed          : {t.seed}")
     print("------------------------------")
 
+    from unet_image_segmentation_tpu_torch.parallel import distributed
     from unet_image_segmentation_tpu_torch.train.loop import fit
 
+    distributed.initialize(device=args.device)   # a no-op in one process
     try:
         result = fit(cfg, device=args.device)
     except KeyboardInterrupt:

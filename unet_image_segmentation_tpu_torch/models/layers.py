@@ -30,6 +30,7 @@ from unet_image_segmentation_tpu_torch.ops.fused_sepconv import (
     fused_sepconv_bn_relu,
     sepconv_apply_stats,
 )
+from unet_image_segmentation_tpu_torch.parallel.reduce import all_sum_grad
 
 
 def glorot_uniform(shape: Sequence[int], generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -85,18 +86,21 @@ class BatchNorm(nn.Module):
     x and of x², variance ``max(E[x²] - mean², 0)``, biased), normalize with
     them, cast back to the input dtype, and move the running statistics
     toward them. Stock ``nn.BatchNorm2d`` (epsilon 1e-5, momentum 0.1,
-    unbiased running variance, NCHW) is not this layer.
+    unbiased running variance, NCHW) is not this layer. With a process
+    ``group`` (flax ``axis_name``) the moments are the group's batch: the
+    sums of x and x² are all-reduced over it, and their cotangents too.
     """
 
     eps = 1e-3
     momentum = 0.99
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, group=None):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.group = group
 
     @torch.no_grad()
     def update_stats(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:
@@ -110,8 +114,14 @@ class BatchNorm(nn.Module):
                 x, self.mean, self.var, self.scale, self.bias, self.eps
             )
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = ((xf * xf).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+        if self.group is None:
+            mean, sq = xf.mean(dim=(0, 1, 2)), (xf * xf).mean(dim=(0, 1, 2))
+        else:
+            n = xf.numel() // xf.shape[-1] * torch.distributed.get_world_size(self.group)
+            sums = all_sum_grad(torch.stack([xf.sum(dim=(0, 1, 2)),
+                                             (xf * xf).sum(dim=(0, 1, 2))]), self.group)
+            mean, sq = sums[0] / n, sums[1] / n
+        var = (sq - mean * mean).clamp_min(0.0)
         self.update_stats(mean, var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
         return y.to(x.dtype)
@@ -182,6 +192,9 @@ class ConvBlock(nn.Module):
                     bn_scale=bn.scale, bn_offset=bn.bias, bn_mean=bn.mean, bn_var=bn.var,
                     eps=bn.eps,
                 )
+            if bn.group is not None:
+                raise ValueError("per-block training (K9/K10) takes no BatchNorm group; a "
+                                 "sharded U-Net trains through the fused chains")
             y, s, q = sepconv_apply_stats(x, sep.depthwise_kernel, sep.pointwise_kernel)
             n = y.shape[0] * y.shape[1] * y.shape[2]
             mean = s / n

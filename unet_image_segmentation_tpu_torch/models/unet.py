@@ -29,6 +29,16 @@ ConvBlock runs K8 forward with the composed backward. Without
 the position hash of :mod:`..ops.hash_dropout`, with explicit per-site
 seeds (site 0 after the bottleneck, site ``s`` on decoder stage ``s``).
 
+On a mesh (JAX ``bn_axis_name`` / ``spatial_axis_name``),
+:meth:`UNet.set_groups` gives the model ``bn_group``, the
+group whose batch every BatchNorm normalizes (the chains all-reduce their
+sums over it, the composed BatchNorm its moments), and ``spatial_group``,
+the ranks holding an image's row shards. A row-sharded training forward
+runs only through the fused chains: each link exchanges its halo rows
+(K1's halo mode), the decoder's dropout runs before its chain on the
+shard, and with ``head_targets`` the sums are this rank's rows' (the
+train step sums them over the group).
+
 Submodule names follow the JAX package (``enc{s}_block{n}``,
 ``bneck_block{n}``, ``dec{s}_upsample``, ``dec{s}_block{n}``,
 ``output_mask``), so ``state_dict`` keys are the Flax paths joined by dots.
@@ -56,6 +66,7 @@ from unet_image_segmentation_tpu_torch.ops.fused_head import (
     head_sums_reference_mc,
 )
 from unet_image_segmentation_tpu_torch.ops.fused_train import (
+    Groups,
     fused_chain_train,
     fused_chain_train_pool,
 )
@@ -111,9 +122,19 @@ class UNet(nn.Module):
             setattr(self, f"dec{stage}_block2", block(f, f))
             cin = f
         self.output_mask = Conv(cin, num_classes, kernel_size=1, generator=generator)
+        self.set_groups()
         self.eval()
         if device is not None:
             self.to(device)
+
+    def set_groups(self, bn_group=None, spatial_group=None) -> None:
+        """The mesh groups the training forward runs over (None: one rank):
+        the chains' and every composed BatchNorm's ``bn_group``, the chains'
+        ``spatial_group``."""
+        self.groups = Groups(bn_group, spatial_group)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = bn_group
 
     def forward(
         self,
@@ -142,6 +163,10 @@ class UNet(nn.Module):
         drop = train and self.dropout_rate > 0.0
         if drop and dropout_seeds is None:
             raise ValueError("a training forward with dropout needs dropout_seeds")
+        rows = self.groups.spatial is not None
+        if train and rows and not use_chain:
+            raise ValueError("row-sharded training runs through the fused chains: use_pallas, "
+                             "BatchNorm and separable blocks")
         # as the JAX package: 'auto' fuses the sigmoid head only, and a head
         # no kernel takes (over 4 classes, a width K5/K11 cannot read) keeps
         # the composed sums
@@ -164,8 +189,12 @@ class UNet(nn.Module):
             rate = self.dropout_rate if drop_site is not None else 0.0
             seed = dropout_seeds[drop_site] if drop_site is not None else None
             if use_chain:
+                if rows and rate > 0.0:
+                    # the halo rows must be dropped out values: the row
+                    # shard drops out before its chain (JAX hoists it too)
+                    x, rate, seed = hash_dropout(x, seed, rate), 0.0, None
                 z, stats = fused_chain_train(x, chain_blocks(b1, b2), drop_rate=rate,
-                                             drop_seed=seed)
+                                             drop_seed=seed, groups=self.groups)
                 update_bn(stats, b1, b2)
                 return z
             if rate > 0.0:
@@ -177,7 +206,8 @@ class UNet(nn.Module):
         for stage in range(1, depth + 1):
             if use_chain:
                 b1, b2 = pair(f"enc{stage}")
-                skip, x, stats = fused_chain_train_pool(x, chain_blocks(b1, b2))
+                skip, x, stats = fused_chain_train_pool(x, chain_blocks(b1, b2),
+                                                        groups=self.groups)
                 update_bn(stats, b1, b2)
             else:
                 skip = run_pair(x, f"enc{stage}")
@@ -200,7 +230,7 @@ class UNet(nn.Module):
             if stage == 1 and fuse_head:
                 out = self.output_mask
                 sums, stats = fused_head_train(cat, chain_blocks(b1, b2), out.kernel, out.bias,
-                                               head_targets)
+                                               head_targets, groups=self.groups)
                 update_bn(stats, b1, b2)
                 return sums
             x = run_pair(cat, f"dec{stage}", stage if drop and stage > 1 else None)

@@ -536,13 +536,13 @@ class _HeadChain(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, z_in, targets, w_head, b_head, eps: float, *flat):
-        ys, stats, (a, b) = ft._chain_links_fwd(z_in, flat, eps, None)
+    def forward(ctx, z_in, targets, w_head, b_head, eps: float, groups: ft.Groups, *flat):
+        ys, stats, (a, b), halos = ft._chain_links_fwd(z_in, flat, eps, None, groups)
         w, hb = _head_weights(w_head, b_head, z_in.dtype)
         fwd = head_fwd_sums if w_head.shape[-1] == 1 else head_fwd_sums_mc
         sums = fwd(ys[-1], targets, torch.stack([a, b]).contiguous(), w, hb)
-        ctx.save_for_backward(z_in, targets, w_head, b_head, *ys, *flat, *stats)
-        ctx.eps, ctx.n_blocks = eps, len(flat) // 4
+        ctx.save_for_backward(z_in, targets, w_head, b_head, *ys, *flat, *stats, *halos)
+        ctx.eps, ctx.n_blocks, ctx.groups = eps, len(flat) // 4, groups
         ctx.mark_non_differentiable(*stats)
         return (sums, *stats)
 
@@ -553,7 +553,8 @@ class _HeadChain(torch.autograd.Function):
         z_first, targets, w_head, b_head = saved[:4]
         ys = saved[4:4 + nb]
         flat = saved[4 + nb:4 + 5 * nb]
-        stats = saved[4 + 5 * nb:]
+        stats = saved[4 + 5 * nb:4 + 7 * nb]
+        halos = saved[4 + 7 * nb:]
         mean, r, a, b = ft._bn_terms(flat[-4:], stats[-2:], eps)
         aff4 = torch.stack([a, b, mean.float(), r.float()]).contiguous()
         w, hb = _head_weights(w_head, b_head, z_first.dtype)
@@ -567,9 +568,12 @@ class _HeadChain(torch.autograd.Function):
         else:
             gsc = torch.cat([g_sums[:, :2 * nc], g_sums[:, 3 * nc:3 * nc + 1]], dim=1).contiguous()
             dzt, S, T, dw, db = head_bwd_mc(ys[-1], targets, aff4, w, hb, gsc)
-        dz_in, grads = ft._chain_links_bwd(z_first, ys, flat, stats, eps, None, dzt, S, T, True)
+        # S and T over this rank's pixels: the links' backward all-reduces
+        # them; dw and db stay this rank's partials, as the links' gradients
+        dz_in, grads = ft._chain_links_bwd(z_first, ys, flat, stats, eps, None, dzt, S, T, True,
+                                           ctx.groups, halos)
         return (dz_in, None, dw.reshape(w_head.shape).to(w_head.dtype),
-                db.reshape(b_head.shape).to(b_head.dtype), None, *grads)
+                db.reshape(b_head.shape).to(b_head.dtype), None, None, *grads)
 
 
 def fused_head_train(
@@ -579,6 +583,7 @@ def fused_head_train(
     b_head: Optional[torch.Tensor],
     targets: torch.Tensor,
     eps: float = 1e-3,
+    groups: ft.Groups = ft.Groups(),
 ):
     """The last decoder chain, the head and the loss/metric sums.
 
@@ -591,7 +596,9 @@ def fused_head_train(
     :data:`MC_KEYS` to ``i``/``p``/``t`` (B,NC), ``cce`` (B,) and ``cm``
     (B,NC,NC). Returns ``(sums, stats)``, ``stats`` the per-block batch
     moments. Raises on a head :func:`fused_head_feasible` refuses: the
-    caller composes the head there.
+    caller composes the head there. ``groups`` as for
+    :func:`.fused_train.fused_chain_train`; on row shards the sums are this
+    rank's rows' (the train step sums them over the spatial group).
     """
     nc = w_head.shape[-1]
     f = blocks[-1][1].shape[-1]
@@ -606,6 +613,6 @@ def fused_head_train(
     else:
         t = target_ids(targets)
     flat = ft._prep_blocks(z_in.dtype, z_in.shape[-1], blocks)
-    out = _HeadChain.apply(z_in.contiguous(), t, w_head, b_head, eps, *flat)
+    out = _HeadChain.apply(z_in.contiguous(), t, w_head, b_head, eps, groups, *flat)
     sums = dict(zip(SUM_KEYS, out[0].unbind(1))) if nc == 1 else mc_sums_dict(out[0], nc)
     return sums, ft._stat_pairs(out[1:])

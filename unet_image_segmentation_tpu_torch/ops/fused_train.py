@@ -1,7 +1,7 @@
 """The training chains: [sepconv -> BatchNorm(batch stats) -> ReLU] x N.
 
 Port of ``unet_image_segmentation_tpu/ops/pallas/fused_train.py`` without
-its TPU layout machinery (lane packing, narrow-input padding, halos). Four
+its TPU layout machinery (lane packing, narrow-input padding). Four
 hand-written CUDA kernels carry a chain, each beside its plain PyTorch
 version (``*_reference``):
 
@@ -9,7 +9,8 @@ version (``*_reference``):
   of ``sepconv_fwd.cuh``, shared with K8; launch plan :func:`fwd_plan`,
   work :func:`fwd_work`): one forward link, optional hash dropout or the
   previous link's BN affine + ReLU on the input, the sepconv, and the
-  link's Σy and Σy² (TPU kernel ``_fwd_train_kernel``);
+  link's Σy and Σy² (TPU kernel ``_fwd_train_kernel``); in its halo mode
+  a row shard's padding rows are its neighbours' z rows;
 * :func:`chain_bwd` (K2, ``kernels/csrc/chain_bwd.cu``): one backward link,
   the link's BN backward folded into per-channel constants, the sepconv
   backward, and the previous link's BN reductions S and T
@@ -28,7 +29,10 @@ raw link outputs ``ys``; normalized activations and ReLU masks are
 recomputed in the backward. Each wrapper runs its plain version on a CPU
 tensor and its kernel on a CUDA tensor (or raises), so the CPU tests drive
 the same orchestration the card runs. :data:`LAUNCHES` counts wrapper
-calls that launched a kernel, and only those.
+calls that launched a kernel, and only those. On a mesh (:class:`Groups`)
+the BatchNorm sums are all-reduced over the mesh and, on row shards, each
+link exchanges its edge rows (K1's halo mode) and its backward adds the
+halo rows' terms outside K2 (:func:`_halo_bwd`), as the JAX chain does.
 
 Rounding points follow the Pallas kernels (bf16 compute dtype T):
 K1 rounds the dropped input and the transformed input ``relu(a*x+b)`` to
@@ -44,12 +48,17 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from unet_image_segmentation_tpu_torch.ops import hash_dropout as hd
 from unet_image_segmentation_tpu_torch.ops.kernels import build
+from unet_image_segmentation_tpu_torch.parallel.halo import edge_halo_exchange
+from unet_image_segmentation_tpu_torch.parallel.reduce import all_sum
 
-LAUNCHES: Dict[str, int] = {"chain_fwd": 0, "chain_bwd": 0, "tail_pool": 0, "tail_pool_bwd": 0}
+# K1 launches in the halo mode count under chain_fwd_halo too
+LAUNCHES: Dict[str, int] = {"chain_fwd": 0, "chain_fwd_halo": 0, "chain_bwd": 0, "tail_pool": 0,
+                            "tail_pool_bwd": 0}
 
 _MAX_BATCH = 65535  # gridDim.z of K2 and K9; K1 and K8 hold to it too
 
@@ -117,20 +126,29 @@ def chain_fwd_reference(
     pw: torch.Tensor,
     in_aff: Optional[torch.Tensor] = None,
     drop: Optional[Dropout] = None,
+    halo: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain K1: ``(y, Σy, Σy²)``.
 
     z = dropout(x) (rounded to x.dtype) or relu(a*x+b) (rounded) or x;
     'same' zero padding applies to z; the depthwise sum is rounded to
     x.dtype, the pointwise accumulates in fp32, y is rounded, and the sums
-    are taken over the rounded y in fp32.
+    are taken over the rounded y in fp32. The halo mode: ``halo`` (B,2,W,C)
+    z rows above and below a row shard join z as its rows -1 and H (the
+    JAX package's halo-augmented slab: the affine before the concatenation,
+    the 'same' sepconv of the taller slab, its two extra rows sliced off).
     """
     z = x
     if drop is not None:
         z = hd.apply_keep(x, hd.keep_mask(x.shape, drop.seed, drop.thresh, x.device), drop.scale)
     if in_aff is not None:
         z = _relu_affine(x, in_aff[0], in_aff[1]).to(x.dtype)
+    if halo is not None:
+        h = halo.to(x.dtype)
+        z = torch.cat([h[:, :1], z, h[:, 1:]], dim=1)
     d = _depthwise(z, dw).to(x.dtype)
+    if halo is not None:
+        d = d[:, 1:-1]
     y = torch.matmul(d.float(), pw.float()).to(x.dtype).contiguous()
     yf = y.float()
     return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
@@ -573,17 +591,25 @@ def chain_fwd(
     pw: torch.Tensor,
     in_aff: Optional[torch.Tensor] = None,
     drop: Optional[Dropout] = None,
+    halo: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on a CUDA tensor, its plain version on a CPU tensor.
 
     ``dw`` (3,3,C) and ``pw`` (C,F) in x.dtype; ``in_aff`` (2,C) fp32 rows
     a, b; ``drop`` and ``in_aff`` are exclusive (dropout fuses on a chain's
-    first link only). Returns ``(y (B,H,W,F), Σy (F,), Σy² (F,))``.
+    first link only). ``halo`` (B,2,W,C) in x.dtype: the halo mode of a row
+    shard, z rows above (0) and below (1) it, zeros at the image's edge;
+    exclusive with ``drop`` (row-sharded chains drop out before the chain);
+    a launch with it also counts under ``chain_fwd_halo``. Returns ``(y
+    (B,H,W,F), Σy (F,), Σy² (F,))``, the sums over the shard's own rows.
     """
     if drop is not None and in_aff is not None:
         raise ValueError("chain_fwd: dropout and the input affine are exclusive")
+    if drop is not None and halo is not None:
+        raise ValueError("chain_fwd: dropout and the halo are exclusive (row-sharded chains "
+                         "drop out before the chain)")
     if x.device.type == "cpu":
-        return chain_fwd_reference(x, dw, pw, in_aff, drop)
+        return chain_fwd_reference(x, dw, pw, in_aff, drop, halo)
     _check_act(x, "chain_fwd x")
     b, h, w, c = x.shape
     f = pw.shape[-1]
@@ -592,6 +618,7 @@ def chain_fwd(
     _check_small(dw, "chain_fwd dw", (3, 3, c), x.dtype, x.device)
     _check_small(pw, "chain_fwd pw", (c, f), x.dtype, x.device)
     _check_small(in_aff, "chain_fwd in_aff", (2, c), torch.float32, x.device)
+    _check_small(halo, "chain_fwd halo", (b, 2, w, c), x.dtype, x.device)
     plan = fwd_plan(b, h, w, c, f, x.dtype, build.sm_count(x.device))
     lib = build.load_library()
     y = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
@@ -600,12 +627,14 @@ def chain_fwd(
                        dtype=torch.float32, device=x.device)
     seed, thresh, scale = _drop_args(drop)
     status = lib.unet_chain_fwd(
-        x.data_ptr(), dw.data_ptr(), pw.data_ptr(), _ptr(in_aff), y.data_ptr(),
+        x.data_ptr(), dw.data_ptr(), pw.data_ptr(), _ptr(in_aff), _ptr(halo), y.data_ptr(),
         work.data_ptr(), sums.data_ptr(), b, h, w, c, f, seed, thresh, scale,
         *fwd_plan_args(plan), build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "chain_fwd")
     LAUNCHES["chain_fwd"] += 1
+    if halo is not None:
+        LAUNCHES["chain_fwd_halo"] += 1
     return y, sums[0], sums[1]
 
 
@@ -776,43 +805,149 @@ def _bn_terms(block, stats, eps: float):
     return mean, r, a, (beta - mean * a).float()
 
 
-def _chain_links_fwd(z_in: torch.Tensor, flat, eps: float, drop: Optional[Dropout]):
-    """The links of a chain, K1 once per block: ``(ys, stats, (a, b))``.
+class Groups(NamedTuple):
+    """The process groups of a sharded chain (None: one rank): ``bn`` the
+    ranks whose pixels one BatchNorm normalizes (the whole mesh; its sums
+    are all-reduced over it), ``spatial`` the ranks holding an image's row
+    shards (the links exchange halos over it)."""
+
+    bn: Optional[dist.ProcessGroup] = None
+    spatial: Optional[dist.ProcessGroup] = None
+
+
+def _ranks(group: Optional[dist.ProcessGroup]) -> int:
+    return dist.get_world_size(group) if group is not None else 1
+
+
+def halo_row_contrib(h_row: torch.Tensor, ktap: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
+    """What one halo row adds to the adjacent output row of a 'same' 3x3
+    separable conv (JAX ``_halo_row_contrib``): the (B,1,W,C) row correlated
+    along W with one tap triple ``ktap`` (3,C) of the depthwise (``dw[0]``
+    pairs with the row above, ``dw[2]`` with the row below), then the
+    pointwise (C,F); fp32 in, (B,1,W,F) fp32 out."""
+    _, m = _row_taps(h_row, ktap)
+    return torch.matmul(m, pw.float())
+
+
+def _row_taps(h_row, ktap):
+    """``((prev, h, nxt), m)``: the row's values at w - 1, w and w + 1 (zero
+    past the edges) and their sum weighted by the tap triple, fp32."""
+    h, k = h_row.float(), ktap.float()
+    z = torch.zeros_like(h[:, :, :1])
+    prev = torch.cat([z, h[:, :, :-1]], dim=2)
+    nxt = torch.cat([h[:, :, 1:], z], dim=2)
+    return (prev, h, nxt), prev * k[0] + h * k[1] + nxt * k[2]
+
+
+def halo_row_contrib_vjp(h_row, ktap, pw, g):
+    """The vjp of :func:`halo_row_contrib` at cotangent ``g`` (B,1,W,F),
+    in closed form, fp32: ``(d_h_row (B,1,W,C), d_ktap (3,C), d_pw (C,F))``."""
+    k, p = ktap.float(), pw.float()
+    dm = torch.matmul(g, p.t())                        # (B,1,W,C)
+    (prev, h, nxt), m = _row_taps(h_row, ktap)
+    d_k = torch.stack([(prev * dm).sum(dim=(0, 1, 2)), (h * dm).sum(dim=(0, 1, 2)),
+                       (nxt * dm).sum(dim=(0, 1, 2))])
+    d_h = dm * k[1]
+    d_h[:, :, :-1] += dm[:, :, 1:] * k[0]              # h[w] is prev at w + 1
+    d_h[:, :, 1:] += dm[:, :, :-1] * k[2]              # h[w] is nxt at w - 1
+    c, f = p.shape
+    d_p = torch.matmul(m.reshape(-1, c).t(), g.reshape(-1, f))
+    return d_h, d_k, d_p
+
+
+def _chain_links_fwd(z_in: torch.Tensor, flat, eps: float, drop: Optional[Dropout],
+                     groups: Groups = Groups()):
+    """The links of a chain, K1 once per block: ``(ys, stats, (a, b), halos)``.
 
     ``ys`` are the raw link outputs, ``stats`` the flat per-block batch
-    mean and var, and ``(a, b)`` the last block's BatchNorm affine, which
-    the chain's exit applies (JAX ``_chain_fwd_impl``).
+    mean and var, ``(a, b)`` the last block's BatchNorm affine, which the
+    chain's exit applies (JAX ``_chain_fwd_impl``), and ``halos`` each
+    link's (B,2,W,C) halo on row shards (``groups.spatial``), else empty.
+    On row shards each link's z rows at the shard's edges (link 0's from
+    ``z_in``, a later link's ``relu(a*y+b)`` of the previous raw rows,
+    rounded) are exchanged and K1 runs in its halo mode; Σy and Σy² are
+    all-reduced over ``groups.bn`` before the moments.
     """
-    n = z_in.shape[0] * z_in.shape[1] * z_in.shape[2]
-    x, in_aff, ys, stats = z_in, None, [], []
+    n = z_in.shape[0] * z_in.shape[1] * z_in.shape[2] * _ranks(groups.bn)
+    x, in_aff, ys, stats, halos = z_in, None, [], [], []
     for k, (dw, pw, gamma, beta) in enumerate(_unflatten(flat)):
-        y, s, q = chain_fwd(x, dw, pw, in_aff, drop if k == 0 else None)
-        mean = s / n
-        var = q / n - mean * mean
+        kw = {}
+        if groups.spatial is not None:
+            top, bot = x[:, :1], x[:, -1:]
+            if in_aff is not None:
+                top, bot = (_relu_affine(r, in_aff[0], in_aff[1]).to(x.dtype) for r in (top, bot))
+            kw["halo"] = edge_halo_exchange(top, bot, groups.spatial)
+            halos.append(kw["halo"])
+        y, s, q = chain_fwd(x, dw, pw, in_aff, drop if k == 0 else None, **kw)
+        sq = all_sum(torch.stack([s, q]), groups.bn)
+        mean = sq[0] / n
+        var = sq[1] / n - mean * mean
         a, b = affine_from_stats(gamma, beta, mean, var, eps)
         in_aff = torch.stack([a, b])
         ys.append(y)
         stats += [mean, var]
         x = y
-    return ys, stats, (in_aff[0], in_aff[1])
+    return ys, stats, (in_aff[0], in_aff[1]), halos
+
+
+def _edge_rows(t: torch.Tensor) -> torch.Tensor:
+    """A shard's first and last rows (B,2,W,C), fp32."""
+    return torch.cat([t[:, :1], t[:, -1:]], dim=1).float()
+
+
+def _halo_bwd(x_in, in_aff, g_raw, y, masked, comb, dw, pw, halo, spatial):
+    """A link's halo terms on row shards (JAX ``_chain_bwd_links``' spatial
+    part), after K2: gy rebuilt at the shard's two edge rows, the vjp of
+    :func:`halo_row_contrib` for the halo above (taps ``dw[0]``) and below
+    (``dw[2]``), the halos' cotangents sent back to their owners. Returns
+    ``(ddw_add (3,3,C), dpw_add, recv (B,2,W,C), st_add)``: the weight
+    gradients' missing halo terms, what this shard's first and last rows of
+    dx gain (masked by its own boundary ReLU after an affine), and, after
+    an affine, that gain's share of the previous block's S and T (else
+    None)."""
+    gf, yf = _edge_rows(g_raw), _edge_rows(y)
+    if not masked:
+        gf = torch.where(yf * comb[4] + comb[5] > 0, gf, torch.zeros_like(gf))
+    gy = gf * comb[0] + comb[1] + (yf - comb[3]) * comb[2]
+    dwf = dw.float()
+    d_top, ddw_top, dpw_top = halo_row_contrib_vjp(halo[:, :1], dwf[0], pw, gy[:, :1])
+    d_bot, ddw_bot, dpw_bot = halo_row_contrib_vjp(halo[:, 1:], dwf[2], pw, gy[:, 1:])
+    ddw_add = torch.stack([ddw_top, torch.zeros_like(ddw_top), ddw_bot])
+    recv = edge_halo_exchange(d_top, d_bot, spatial)   # back to the rows' ranks
+    st_add = None
+    if in_aff is not None:
+        # dx carries the masked dz: mask what comes in by this shard's own
+        # boundary ReLU and add its share of the previous block's S and T
+        xf = _edge_rows(x_in)
+        recv = torch.where(xf * in_aff[0] + in_aff[1] > 0, recv, torch.zeros_like(recv))
+        xhat = (xf - in_aff[2]) * in_aff[3]
+        st_add = torch.stack([recv.sum(dim=(0, 1, 2)), (recv * xhat).sum(dim=(0, 1, 2))])
+    return ddw_add, dpw_top + dpw_bot, recv, st_add
 
 
 def _chain_links_bwd(z_first, ys, flat, stats, eps: float, drop: Optional[Dropout],
-                     g_raw, S, T, masked: bool):
+                     g_raw, S_loc, T_loc, masked: bool, groups: Groups = Groups(), halos=()):
     """The links' backward, K2 once per block, last block first (JAX
     ``_chain_bwd_links``): ``(dz_in, grads)``.
 
     ``g_raw`` is the cotangent of the last raw link output, already masked
     by the exit's ReLU when ``masked`` (else K2 folds the mask in), and
-    ``S``, ``T`` the exit's BatchNorm reductions. ``grads`` are per block
-    ``ddw, dpw, dgamma, dbeta`` in the parameters' dtypes.
+    ``S_loc``, ``T_loc`` the exit's BatchNorm reductions over this rank's
+    pixels, all-reduced over ``groups.bn`` for the combine constants (the
+    normalized batch is the mesh's). ``grads`` are per block ``ddw, dpw,
+    dgamma, dbeta`` in the parameters' dtypes, this rank's partials (the
+    train step sums them over the mesh). On row shards (``groups.spatial``,
+    ``halos`` from :func:`_chain_links_fwd`) each link adds its halo terms
+    (:func:`_halo_bwd`).
     """
     blocks = _unflatten(flat)
     nb = len(blocks)
     pairs = [(stats[2 * k], stats[2 * k + 1]) for k in range(nb)]
-    n = z_first.shape[0] * z_first.shape[1] * z_first.shape[2]
+    n = z_first.shape[0] * z_first.shape[1] * z_first.shape[2] * _ranks(groups.bn)
     grads: List[Optional[torch.Tensor]] = [None] * (4 * nb)
     dz_in = None
+    st = all_sum(torch.stack([S_loc, T_loc]), groups.bn)
+    S, T = st[0], st[1]
     for k in range(nb - 1, -1, -1):
         dw, pw, gamma, beta = blocks[k]
         mean, r, a_out, b_out = _bn_terms(blocks[k], pairs[k], eps)
@@ -830,14 +965,26 @@ def _chain_links_bwd(z_first, ys, flat, stats, eps: float, drop: Optional[Dropou
             x_in = ys[k - 1]
         else:
             in_aff, x_in = None, z_first
-        dx, ddw, dpw, st = chain_bwd(
-            x_in, g_raw.contiguous(), ys[k], in_aff, comb, dw, pw,
+        g_raw = g_raw.contiguous()
+        dx, ddw, dpw, st_prev = chain_bwd(
+            x_in, g_raw, ys[k], in_aff, comb, dw, pw,
             mask_combine=not masked, drop=drop if k == 0 else None,
         )
+        if groups.spatial is not None:
+            ddw_add, dpw_add, recv, st_add = _halo_bwd(
+                x_in, in_aff, g_raw, ys[k], masked, comb, dw, pw, halos[k], groups.spatial)
+            ddw, dpw = ddw + ddw_add, dpw + dpw_add
+            dx = dx.clone()
+            dx[:, :1] += recv[:, :1].to(dx.dtype)
+            dx[:, -1:] += recv[:, 1:].to(dx.dtype)
+            if st_add is not None:
+                st_prev = st_prev + st_add
         grads[4 * k:4 * k + 4] = [
-            ddw.to(dw.dtype), dpw.to(pw.dtype), T.to(gamma.dtype), S.to(beta.dtype),
+            ddw.to(dw.dtype), dpw.to(pw.dtype), T_loc.to(gamma.dtype), S_loc.to(beta.dtype),
         ]
         if k > 0:
+            S_loc, T_loc = st_prev[0], st_prev[1]
+            st = all_sum(st_prev, groups.bn)
             S, T = st[0], st[1]
             g_raw, masked = dx, True
         else:
@@ -855,14 +1002,16 @@ class _Chain(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, z_in, eps: float, drop: Optional[Dropout], pool: bool, *flat):
-        ys, stats, (a, b) = _chain_links_fwd(z_in, flat, eps, drop)
+    def forward(ctx, z_in, eps: float, drop: Optional[Dropout], pool: bool, groups: Groups,
+                *flat):
+        ys, stats, (a, b), halos = _chain_links_fwd(z_in, flat, eps, drop, groups)
         if pool:
             outs = tail_pool(ys[-1], a, b)
         else:
             outs = (_relu_affine(ys[-1], a, b).to(z_in.dtype),)
-        ctx.save_for_backward(z_in, *ys, *flat, *stats)
+        ctx.save_for_backward(z_in, *ys, *flat, *stats, *halos)
         ctx.n_blocks, ctx.eps, ctx.drop, ctx.pool = len(flat) // 4, eps, drop, pool
+        ctx.groups = groups
         ctx.mark_non_differentiable(*stats)
         return (*outs, *stats)
 
@@ -872,7 +1021,8 @@ class _Chain(torch.autograd.Function):
         saved = ctx.saved_tensors
         z_first, ys = saved[0], saved[1:1 + nb]
         flat = saved[1 + nb:1 + 5 * nb]
-        stats = saved[1 + 5 * nb:]
+        stats = saved[1 + 5 * nb:1 + 7 * nb]
+        halos = saved[1 + 7 * nb:]
         mean, r, a_out, b_out = _bn_terms(flat[-4:], stats[-2:], eps)
         g_z = grads[0].to(z_first.dtype).contiguous()
         if ctx.pool:
@@ -884,8 +1034,8 @@ class _Chain(torch.autograd.Function):
             S, T = _boundary_bwd_plain(ys[-1], g_z, a_out, b_out, mean, r)
             g_raw, masked = g_z, False
         dz_in, grads_out = _chain_links_bwd(z_first, ys, flat, stats, eps, ctx.drop,
-                                            g_raw, S, T, masked)
-        return (dz_in, None, None, None, *grads_out)
+                                            g_raw, S, T, masked, ctx.groups, halos)
+        return (dz_in, None, None, None, None, *grads_out)
 
 
 def _prep_blocks(dtype: torch.dtype, c: int, blocks) -> List[torch.Tensor]:
@@ -913,21 +1063,28 @@ def fused_chain_train(
     eps: float = 1e-3,
     drop_rate: float = 0.0,
     drop_seed: Optional[int] = None,
+    groups: Groups = Groups(),
 ):
     """Train-mode ConvBlock chain ``z_in -> [sepconv -> BN -> ReLU] x N``.
 
     ``blocks``: per block ``(depthwise (3,3,C[,1]), pointwise ([1,1,]C,F),
     bn_scale (F,), bn_offset (F,))``. With ``drop_rate > 0`` the chain's
     input gets hash dropout with ``drop_seed``, fused into the first link.
-    Returns ``(z_out, ((batch_mean, batch_var), ...))``.
+    ``groups``: on a mesh, the BatchNorm group (the moments are the mesh
+    batch's) and the row shards' group (halos every link; no dropout, the
+    caller drops out before the chain). Returns ``(z_out, ((batch_mean,
+    batch_var), ...))``.
     """
     flat = _prep_blocks(z_in.dtype, z_in.shape[-1], blocks)
     drop = None
     if drop_rate > 0.0:
         if drop_seed is None:
             raise ValueError("fused_chain_train: drop_rate > 0 needs a drop_seed")
+        if groups.spatial is not None:
+            raise ValueError("fused_chain_train: row-sharded chains take no dropout; drop out "
+                             "before the chain")
         drop = Dropout(int(drop_seed), float(drop_rate))
-    out = _Chain.apply(z_in.contiguous(), eps, drop, False, *flat)
+    out = _Chain.apply(z_in.contiguous(), eps, drop, False, groups, *flat)
     return out[0], _stat_pairs(out[1:])
 
 
@@ -935,14 +1092,16 @@ def fused_chain_train_pool(
     z_in: torch.Tensor,
     blocks: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]],
     eps: float = 1e-3,
+    groups: Groups = Groups(),
 ):
     """Encoder chain with the 2x2 max pool fused into its boundary.
 
     Returns ``(z, pooled, stats)``: the stage activation (the skip), its
     2x2 max pool (the next stage's input) and the per-block moments.
+    ``groups`` as for :func:`fused_chain_train`.
     """
     flat = _prep_blocks(z_in.dtype, z_in.shape[-1], blocks)
-    out = _Chain.apply(z_in.contiguous(), eps, None, True, *flat)
+    out = _Chain.apply(z_in.contiguous(), eps, None, True, groups, *flat)
     return out[0], out[1], _stat_pairs(out[2:])
 
 

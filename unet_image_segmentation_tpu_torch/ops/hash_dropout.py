@@ -30,6 +30,14 @@ _M1 = _as_int32(0x85EBCA6B)  # murmur3 fmix32 multipliers
 _M2 = _as_int32(0xC2B2AE35)
 
 
+def fold_seed(seed: int, value: int) -> int:
+    """A dropout seed with an index folded in (the counterpart of JAX
+    ``random.fold_in`` for a data or spatial index): the hash of ``seed``
+    and the hash of ``value + 1``, an int32, the same on every rank."""
+    folded = mix_hash(mix_hash(torch.tensor([value + 1], dtype=torch.int32), 0), seed)
+    return int(folded[0])
+
+
 def keep_threshold(rate: float) -> int:
     """31-bit threshold: keep iff ``hash & 0x7fffffff < threshold``."""
     return min(int(round((1.0 - rate) * 2147483648.0)), 2147483647)

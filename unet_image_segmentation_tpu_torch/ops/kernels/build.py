@@ -48,9 +48,9 @@ SIGNATURES = {
     # pooled, B, H, W, Cx, Cx2, F1, F2, n, s1, s2, width, smem, dtype,
     # in_int8, out_int8, edge_top, edge_bot, stream
     "unet_sepconv_pair": [_P] * 12 + [_I] * 17 + [_P],
-    # x, dw, pw, in_aff, y, work, sums, B, H, W, C, F, seed, thresh,
+    # x, dw, pw, in_aff, halo, y, work, sums, B, H, W, C, F, seed, thresh,
     # drop_scale, n, s, width, per, smem, dtype, stream
-    "unet_chain_fwd": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
+    "unet_chain_fwd": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
     # x, g, y, in_aff, comb, dw, pw, dx, m, gy, work, sums, dpw, B, H, W, C,
     # F, mask_combine, seed, thresh, drop_scale, wc, tm, tn, splits, per,
     # smem_a, smem_b, dtype, stream

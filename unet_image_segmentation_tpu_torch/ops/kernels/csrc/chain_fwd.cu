@@ -13,7 +13,13 @@
 // rounded to T before the pointwise; the pointwise in fp32; y rounded to T;
 // Σy and Σy² in fp32 over the rounded y. The masks are the ones K2 rebuilds
 // from the same x (hash_keep, __fmul_rn, affine_rn). The halo mode
-// (row-sharded training) is not ported; sepconv_fwd.cuh says where it goes.
+// (row-sharded training, the TPU kernel's has_halo): with a halo (B, 2, W, C)
+// of z rows, the 'same' padding rows above and below the shard are the
+// neighbours' rows (row 0 above, row 1 below; zeros at the image's edge),
+// staged by the body and left alone by the prologue, since they are z
+// already; Σy and Σy² cover the shard's own rows. Dropout and the halo are
+// exclusive (the caller checks it): row-sharded chains drop out before
+// the chain.
 //
 // What bounds it on the H100: per pixel 9C + C*F multiply-adds for C + F
 // elements moved; with the products on the tensor cores the bytes bound it
@@ -132,7 +138,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     for (int p = threadIdx.x / G; p < kFwdHaloPx; p += kThreads / G) {
       const int Y = t.ty0 - 1 + p / kFwdHalo, X = t.tx0 - 1 + p % kFwdHalo;
-      if (Y < 0 || Y >= H || X < 0 || X >= Wd) continue;  // stays 0
+      // outside the image: 0, or in the halo mode rows -1 and H, already z
+      if (Y < 0 || Y >= H || X < 0 || X >= Wd) continue;
       uint4* q = reinterpret_cast<uint4*>(xs + p * KC + v * V);
       float z[V];
       unpack(*q, z);
@@ -189,15 +196,16 @@ int launch_link(const FwdArgs<T>& a, const float* in_aff, T* y, float* partials,
 }
 
 template <typename T>
-int launch_chain(const void* x, const void* dw, const void* pw, const void* in_aff, void* y,
-                 float* work, float* sums, int B, int H, int W, int C, int F, int seed,
-                 int thresh, float drop_scale, int n, int s, int width, int per, int smem,
-                 cudaStream_t stream) {
-  if (!fwd_plan_ok<T>(B, H, W, C, F, n, s, width, per, smem)) return (int)cudaErrorInvalidValue;
+int launch_chain(const void* x, const void* dw, const void* pw, const void* in_aff,
+                 const void* halo, void* y, float* work, float* sums, int B, int H, int W, int C,
+                 int F, int seed, int thresh, float drop_scale, int n, int s, int width, int per,
+                 int smem, cudaStream_t stream) {
+  if (!fwd_plan_ok<T>(B, H, W, C, F, n, s, width, per, smem) || (halo != nullptr && thresh))
+    return (int)cudaErrorInvalidValue;
   const SumRows rows = sum_rows(B, H, W, F);
   float* partials = work;
   float* scratch = work + rows.rows * rows.cols;
-  const FwdArgs<T> a = fwd_args<T>(x, dw, pw, B, H, W, C, F, n, s, per);
+  const FwdArgs<T> a = fwd_args<T>(x, dw, pw, B, H, W, C, F, n, s, per, halo);
   const float* aff = static_cast<const float*>(in_aff);
   T* out = static_cast<T*>(y);
   const int err = width == 64 ? launch_link<T, 64>(a, aff, out, partials, smem, (uint32_t)seed,
@@ -235,24 +243,26 @@ extern "C" long long unet_chain_fwd_workspace(int B, int H, int W, int C, int F)
   return p.rows * p.cols + unet::reduce_scratch_floats(p.rows, p.cols);
 }
 
-// x (B,H,W,C), dw (3,3,C), pw (C,F) in T; in_aff (2,C) fp32 or null; y
-// (B,H,W,F) in T; sums (2,F) fp32 = Σy, Σy². thresh 0 = no dropout.
+// x (B,H,W,C), dw (3,3,C), pw (C,F) in T; in_aff (2,C) fp32 or null; halo
+// (B,2,W,C) in T or null (the halo mode; not with dropout); y (B,H,W,F) in
+// T; sums (2,F) fp32 = Σy, Σy². thresh 0 = no dropout.
 // (n, s, width, per, smem) is the launch plan of fwd_plan
 // (ops/fused_train.py), checked against sepconv_fwd.cuh's layout. dtype: 0
 // = float32, 1 = bfloat16. Returns cudaGetLastError().
 extern "C" int unet_chain_fwd(const void* x, const void* dw, const void* pw, const void* in_aff,
-                              void* y, void* work, void* sums, int B, int H, int W, int C, int F,
-                              int seed, int thresh, float drop_scale, int n, int s, int width,
-                              int per, int smem, int dtype, void* stream) {
+                              const void* halo, void* y, void* work, void* sums, int B, int H,
+                              int W, int C, int F, int seed, int thresh, float drop_scale, int n,
+                              int s, int width, int per, int smem, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
   float* o = static_cast<float*>(sums);
   if (dtype == 0)
-    return unet::launch_chain<float>(x, dw, pw, in_aff, y, w, o, B, H, W, C, F, seed, thresh,
-                                     drop_scale, n, s, width, per, smem, st);
+    return unet::launch_chain<float>(x, dw, pw, in_aff, halo, y, w, o, B, H, W, C, F, seed,
+                                     thresh, drop_scale, n, s, width, per, smem, st);
   if (dtype == 1)
-    return unet::launch_chain<__nv_bfloat16>(x, dw, pw, in_aff, y, w, o, B, H, W, C, F, seed,
-                                             thresh, drop_scale, n, s, width, per, smem, st);
+    return unet::launch_chain<__nv_bfloat16>(x, dw, pw, in_aff, halo, y, w, o, B, H, W, C, F,
+                                             seed, thresh, drop_scale, n, s, width, per, smem,
+                                             st);
   return (int)cudaErrorInvalidValue;
 }
 

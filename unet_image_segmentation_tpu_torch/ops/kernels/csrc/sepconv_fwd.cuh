@@ -70,10 +70,15 @@
 //     (fp32) executed over useful; 5.33 at enc1.1, whose 3 channels fill a
 //     16-deep (8 in fp32: 2.67) mma step. F <= 128 takes one CTA a tile,
 //     whose cluster barrier is a CTA barrier.
-//   * Room for the halo mode (K1's row-sharded training, not ported): it
-//     changes only stage() below (the top and bottom halo rows of a shard's
-//     edge tiles come from the neighbour's rows, not zeros) and the
-//     prologue's image test; the chunk loop and the products stay.
+//   * K1's halo mode (row-sharded training): a run-time pointer, no
+//     template instance of its own. With FwdArgs::halo set, stage() takes
+//     the staged rows Y = -1 and Y = H of a shard's first and last tile
+//     rows from the halo (B, 2, W, C) (row 0 above the shard, row 1 below,
+//     z values the neighbours exchanged) in place of zeros; columns X = -1
+//     and X = W stay zero. The prologue's image test (rows outside
+//     0..H-1 are left as staged) keeps them out of the dropout and the
+//     affine, since they are z already; the chunk loop, the products and
+//     the epilogue's sums over the shard's own rows stay as they are.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -106,6 +111,7 @@ struct FwdArgs {
   const T* x;   // (B, H, W, C)
   const T* dw;  // (3, 3, C)
   const T* pw;  // (C, F)
+  const T* halo;  // (B, 2, W, C) z rows above and below a row shard, or null
   int B, H, W, C, F, tiles_x, tiles, n, s, per;
   int vec_x, vec_w;  // 16-byte staging of x and dw / of pw (widths and pointers aligned)
 };
@@ -118,17 +124,18 @@ struct FwdTile {
 
 template <typename T>
 inline FwdArgs<T> fwd_args(const void* x, const void* dw, const void* pw, int B, int H, int W,
-                           int C, int F, int n, int s, int per) {
+                           int C, int F, int n, int s, int per, const void* halo = nullptr) {
   constexpr int V = ChunkCfg<T>::V;
   FwdArgs<T> a;
   a.x = static_cast<const T*>(x);
   a.dw = static_cast<const T*>(dw);
   a.pw = static_cast<const T*>(pw);
+  a.halo = static_cast<const T*>(halo);
   a.B = B, a.H = H, a.W = W, a.C = C, a.F = F;
   a.tiles_x = (W + kTile - 1) / kTile;
   a.tiles = a.tiles_x * ((H + kTile - 1) / kTile);
   a.n = n, a.s = s, a.per = per;
-  a.vec_x = C % V == 0 && aligned16(x) && aligned16(dw);
+  a.vec_x = C % V == 0 && aligned16(x) && aligned16(dw) && aligned16(halo);
   a.vec_w = F % V == 0 && aligned16(pw);
   return a;
 }
@@ -236,7 +243,7 @@ __device__ __forceinline__ void sepconv_fwd_tiles(const FwdArgs<T>& a, unsigned 
     return max(0, min(sh, kpad - rank * sh));
   };
   // chunk c0 of tile t into buffer buf: the slice's pw rows, the share's
-  // taps and x halo
+  // taps and x halo (in the halo mode its rows -1 and H from a.halo)
   auto stage = [&](const FwdTile& t, int c0, int buf) {
     const int rows = min(KC, C - c0);
     stage_tile<W / V>(Bs + buf * KC * LDN, LDN, KC, W / V, a.vec_w, a.x, [&](int k, int j) {
@@ -250,9 +257,10 @@ __device__ __forceinline__ void sepconv_fwd_tiles(const FwdArgs<T>& a, unsigned 
     stage_tile<G>(xs + buf * kFwdHaloPx * KC, KC, kFwdHaloPx, groups, a.vec_x, a.x,
                   [&](int p, int k) {
                     const int Y = t.ty0 - 1 + p / kFwdHalo, X = t.tx0 - 1 + p % kFwdHalo;
-                    return Y >= 0 && Y < H && X >= 0 && X < Wd && cs + k < C
-                               ? a.x + (img + (size_t)Y * Wd + X) * C + cs + k
-                               : (const T*)nullptr;
+                    if (X < 0 || X >= Wd || cs + k >= C) return (const T*)nullptr;
+                    if (Y >= 0 && Y < H) return a.x + (img + (size_t)Y * Wd + X) * C + cs + k;
+                    if (a.halo == nullptr || (Y != -1 && Y != H)) return (const T*)nullptr;
+                    return a.halo + (((size_t)t.b * 2 + (Y < 0 ? 0 : 1)) * Wd + X) * C + cs + k;
                   });
   };
   // V depthwise sums of pixel m, channels col.. of the chunk, into buffer

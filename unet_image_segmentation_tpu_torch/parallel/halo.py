@@ -1,16 +1,24 @@
 """Halo exchange for row-sharded images.
 
-Port of ``unet_image_segmentation_tpu/parallel/halo.py``. An image's rows
-are split over the mesh's ``spatial`` ranks; a 3x3 receptive field at a
-shard boundary needs rows of the neighbour shards, which
-:func:`halo_exchange` brings in: it pads the local shard with ``halo``
-rows from each neighbour, and zeros at the true image edges ('same'
-padding).
+Port of ``unet_image_segmentation_tpu/parallel/halo.py`` and of the
+row-sharded training chains' boundary-row exchange (JAX
+``ops/pallas/fused_train.py`` ``_edge_halo_exchange`` and the reverse
+``ppermute`` of the halos' cotangents). An image's rows are split over the
+mesh's ``spatial`` ranks; a 3x3 receptive field at a shard boundary needs
+rows of the neighbour shards:
+
+* :func:`halo_exchange` pads the local shard with ``halo`` rows from each
+  neighbour, and zeros at the true image edges ('same' padding) (the
+  sharded serving graphs);
+* :func:`edge_halo_exchange` gives a training chain's link its (B, 2, W, C)
+  halo, the row above the shard and the row below, which K1's halo mode
+  takes in place of its zero padding rows, and sends each halo row's
+  cotangent back to the rank that owns the row.
 
 The exchange is one collective that every backend takes on every device:
-each rank writes its first and last ``halo`` rows into its slot of a
-zeroed (n, 2, B, halo, W, C) buffer, and one ``all_reduce(SUM)`` over the
-spatial group gives every rank every slot. Adding zeros is exact in every
+each rank writes its rows into its slot of a zeroed (n, 2, ...) buffer,
+and one ``all_reduce(SUM)`` over the spatial group gives every rank every
+slot. Adding zeros is exact in every
 dtype (int8 too). Gloo takes only ``broadcast`` and ``all_reduce`` on CUDA
 tensors and NCCL refuses two ranks on one card, so point-to-point sends,
 the JAX package's ``ppermute``, would not run on one card shared by two
@@ -52,6 +60,20 @@ def halo_exchange(x: torch.Tensor, group: Optional[dist.ProcessGroup],
     top = buf[i - 1, 1] if i > 0 else zeros
     bottom = buf[i + 1, 0] if i < n - 1 else zeros
     return torch.cat([top, x, bottom], dim=1)
+
+
+def edge_halo_exchange(top: torch.Tensor, bot: torch.Tensor,
+                       group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """A chain link's halo on row shards: this rank's first row ``top`` and
+    last row ``bot`` (B, 1, W, C) in; out (B, 2, W, C), row 0 the previous
+    rank's ``bot``, row 1 the next rank's ``top``, zeros past the first and
+    the last rank (the 'same' padding at the image's edges).
+
+    The training forward sends z rows this way; its backward sends each
+    halo row's cotangent back to the rank whose row it was by the same
+    exchange (``top``/``bot`` the cotangents of the rows above and below
+    the shard come back as those of its own first and last row)."""
+    return halo_exchange(torch.cat([top, bot], dim=1), group, halo=1)[:, [0, 3]]
 
 
 def sharded_conv3x3_rows(

@@ -11,10 +11,15 @@ ranks and the groups the collectives run over:
   rows over ``spatial`` (:meth:`Mesh.row_slice`); :meth:`Mesh.shard` takes
   both;
 * each data row's ranks form a ``spatial_group`` (``dist.new_group``), the
-  group of the halo exchange (:mod:`.halo`);
-* :meth:`Mesh.gather` puts every rank's shard back together on every rank.
+  group of the halo exchange (:mod:`.halo`) and of the head sums of a
+  row-sharded training step; the ranks with one spatial index form a
+  ``data_group``, over which that step's metrics are reduced; ``group``
+  names the whole mesh (the BatchNorm sums and the gradients);
+* :meth:`Mesh.gather` puts every rank's shard back together on every rank,
+  :meth:`Mesh.gather_rows` the rows of a data row's ranks.
 
-In one process (no process group) the mesh is (1, 1) and has no groups.
+In one process (no process group) the mesh is (1, 1) and has no groups; a
+group of one rank is None too.
 :func:`pad_batch_to_devices` is a copy of the JAX package's numpy helper.
 """
 
@@ -31,12 +36,20 @@ class Mesh:
     """This rank's place in a ('data', 'spatial') layout of the ranks."""
 
     def __init__(self, data: int, spatial: int, rank: int = 0,
-                 spatial_group: Optional[dist.ProcessGroup] = None):
+                 spatial_group: Optional[dist.ProcessGroup] = None,
+                 data_group: Optional[dist.ProcessGroup] = None):
         self.shape = {"data": data, "spatial": spatial}
         self.size = data * spatial
         self.rank = rank
         self.data_index, self.spatial_index = divmod(rank, spatial)
         self.spatial_group = spatial_group
+        self.data_group = data_group
+
+    @property
+    def group(self) -> Optional[dist.ProcessGroup]:
+        """The whole mesh (every rank of the process group), None in one
+        rank: the group of the BatchNorm sums and the gradient sum."""
+        return dist.group.WORLD if self.size > 1 else None
 
     def _part(self, n: int, axis: str, what: str) -> slice:
         parts = self.shape[axis]
@@ -71,6 +84,18 @@ class Mesh:
             dist.all_reduce(out)
         return out
 
+    def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """The rows of this rank's data row put back together: the whole
+        images of its samples, on each of the row's ranks (one
+        ``all_reduce`` of a zeroed tensor over the spatial group)."""
+        if self.spatial_group is None:
+            return local
+        h = local.shape[1] * self.shape["spatial"]
+        out = local.new_zeros((local.shape[0], h, *local.shape[2:]))
+        out[:, self.row_slice(h)] = local
+        dist.all_reduce(out, group=self.spatial_group)
+        return out
+
 
 def create_mesh(data: int = -1, spatial: int = 1) -> Mesh:
     """The ('data', 'spatial') mesh of the process group's ranks (one
@@ -84,14 +109,20 @@ def create_mesh(data: int = -1, spatial: int = 1) -> Mesh:
         data = world // spatial
     if data < 1 or spatial < 1 or data * spatial != world:
         raise ValueError(f"mesh {data}x{spatial} does not lay out the {world} ranks")
-    group = None
+    # every rank creates every group, in the same order: the spatial groups
+    # (one a data index), then the data groups (one a spatial index)
+    spatial_group = data_group = None
     if joined and spatial > 1:
-        # every rank creates every group, in the same order
         for d in range(data):
             g = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
             if d == rank // spatial:
-                group = g
-    return Mesh(data, spatial, rank, group)
+                spatial_group = g
+    if joined and data > 1:
+        for s in range(spatial):
+            g = dist.new_group(list(range(s, world, spatial)))
+            if s == rank % spatial:
+                data_group = g
+    return Mesh(data, spatial, rank, spatial_group, data_group)
 
 
 def pad_batch_to_devices(images: np.ndarray, n: int) -> Tuple[np.ndarray, int]:

@@ -1,14 +1,25 @@
-"""The training loop: the reference's ``model.fit`` on one device.
+"""The training loop: the reference's ``model.fit``, on one device or on a
+mesh of ranks.
 
-Port of ``unet_image_segmentation_tpu/train/loop.py`` without its mesh,
-``shard_map`` and spatial branches (they come with the ``parallel/``
-slice). Per epoch: prefetched host batches (:mod:`..data.loader`'s loaders and
-``Prefetcher``, :mod:`..data.autopack`) -> device -> train step -> metric sums
-kept on the device and fetched once per epoch -> validation -> callbacks
-(best checkpoint, early stop, LR plateau, TensorBoard) -> ``meta.json`` for
-``--resume``. With ``train.profile_dir`` set, the first ``profile_steps``
-steps of the first epoch run under a ``torch.profiler`` trace written there
-(:func:`..utils.profiling.trace`); the epoch then goes on untraced.
+Port of ``unet_image_segmentation_tpu/train/loop.py``. Per epoch:
+prefetched host batches (:mod:`..data.loader`'s loaders and ``Prefetcher``,
+:mod:`..data.autopack`) -> this rank's shard -> device -> train step ->
+metric sums kept on the device and fetched once per epoch -> validation ->
+callbacks (best checkpoint, early stop, LR plateau, TensorBoard) ->
+``meta.json`` for ``--resume``. With ``train.profile_dir`` set, the first
+``profile_steps`` steps of the first epoch run under a ``torch.profiler``
+trace written there (:func:`..utils.profiling.trace`); the epoch then goes
+on untraced.
+
+The mesh comes from the config's ``mesh`` section over the process group's
+ranks (:mod:`..parallel`; one process: (1, 1)), its spatial degree clamped
+to the ranks present as the JAX ``fit`` clamps it to the devices. Every
+rank loads the same global batch and takes its shard; the steps reduce
+what crosses ranks (:mod:`.steps`), so every rank holds the same weights
+and metrics, and only rank 0 writes checkpoints, logs and ``meta.json``
+(and packs the dataset; the others read the same samples from the
+directory). Where the JAX package drops a row-sharded configuration to its
+GSPMD-XLA step, the port has no such path and raises.
 
 Metric names mirror Keras logs: ``loss``, ``dice_coef``, ``mean_io_u``
 (Keras int-cast semantics), ``mean_io_u_thresh`` (> 0.5), and ``val_*``.
@@ -27,11 +38,14 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unet_image_segmentation_tpu_torch.config import Config
 from unet_image_segmentation_tpu_torch.data.loader import Prefetcher, make_loaders
 from unet_image_segmentation_tpu_torch.models.unet import build_unet, resolve_device
+from unet_image_segmentation_tpu_torch.ops.losses import sums_loss_supported
 from unet_image_segmentation_tpu_torch.ops.metrics import mean_iou_from_cm, per_class_iou_from_cm
+from unet_image_segmentation_tpu_torch.parallel.mesh import Mesh, create_mesh
 from unet_image_segmentation_tpu_torch.train import checkpoint as ckpt_lib
 from unet_image_segmentation_tpu_torch.train.callbacks import (
     BestCheckpoint,
@@ -89,17 +103,48 @@ class _EpochMetrics:
         return out
 
 
-def _model_config(cfg: Config, verbose: bool):
-    mcfg = cfg.model
-    if mcfg.use_pallas and not (mcfg.conv_type == "separable" and mcfg.use_batch_norm):
+def config_mesh(cfg: Config, verbose: bool = True) -> Mesh:
+    """The mesh of the config's ``mesh`` section over the process group's
+    ranks, its spatial degree clamped to the largest that divides them (the
+    config's layouts are for several cards and must still run on one)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    spatial_req = spatial = cfg.mesh.spatial_axis
+    while spatial > 1 and world % spatial:
+        spatial -= 1
+    if spatial != spatial_req and verbose:
+        print(f"Note: mesh spatial={spatial_req} clamped to {spatial} ({world} rank(s) present).")
+    return create_mesh(data=cfg.mesh.data_axis, spatial=spatial)
+
+
+def _model_config(cfg: Config, mesh: Mesh):
+    """The model config the run trains, checked against the mesh: raises
+    where no path of the port trains it."""
+    mcfg, tcfg = cfg.model, cfg.train
+    n_data, n_spatial = mesh.shape["data"], mesh.shape["spatial"]
+    if tcfg.batch_size % n_data:
+        raise ValueError(f"batch_size {tcfg.batch_size} not divisible by data-parallel degree "
+                         f"{n_data}")
+    chain = mcfg.conv_type == "separable" and mcfg.use_batch_norm
+    if n_spatial > 1:
+        depth = len(mcfg.filters)
+        ok = (mcfg.use_pallas and chain and sums_loss_supported(tcfg.loss, mcfg.num_classes)
+              and mcfg.image_height % (n_spatial * 2 ** depth) == 0)
+        if not ok:
+            raise ValueError(
+                f"row-sharded training (mesh spatial={n_spatial}) runs only through the fused "
+                "chains: it needs use_pallas, conv_type='separable', use_batch_norm, a "
+                "sums-form loss (dice family; + cce for a softmax head) and image_height % "
+                f"{n_spatial * 2 ** depth} == 0; this configuration (use_pallas="
+                f"{mcfg.use_pallas}, conv_type={mcfg.conv_type!r}, use_batch_norm="
+                f"{mcfg.use_batch_norm}, num_classes={mcfg.num_classes}, loss={tcfg.loss!r}, "
+                f"H={mcfg.image_height}) has no row-sharded path in the port")
+    if mcfg.use_pallas and not chain:
         print(
             "WARNING: the fused training chains need conv_type='separable' and "
             f"use_batch_norm=True; this configuration (conv_type={mcfg.conv_type!r}, "
             f"use_batch_norm={mcfg.use_batch_norm}) trains on the composed path."
         )
         mcfg = dataclasses.replace(mcfg, use_pallas=False)
-    if verbose and (cfg.mesh.spatial_axis != 1 or cfg.mesh.data_axis not in (-1, 1)):
-        print("Note: the port trains on one device; the mesh settings are not used.")
     return mcfg
 
 
@@ -113,19 +158,23 @@ def fit(
     verbose: bool = True,
 ) -> FitResult:
     """Train for ``cfg.train.epochs`` on ``device``; the datasets default to
-    the directory contract under ``cfg.data.root``."""
+    the directory contract under ``cfg.data.root``; the mesh is
+    :func:`config_mesh`'s. On a mesh every rank calls it alike."""
     device = resolve_device(device)
     tcfg = cfg.train
+    mesh = config_mesh(cfg, verbose)
+    lead = mesh.rank == 0
+    verbose = verbose and lead
+    mcfg = _model_config(cfg, mesh)
     if train_ds is None or val_ds is None:
         train_ds, val_ds = make_loaders(cfg)
-    if cfg.data.auto_pack:
+    if cfg.data.auto_pack and lead:
         from unet_image_segmentation_tpu_torch.data.autopack import maybe_autopack
 
         train_ds = maybe_autopack(train_ds, pack_dir=cfg.data.pack_dir,
                                   fallback_dir=tcfg.model_out, verbose=verbose)
         val_ds = maybe_autopack(val_ds, pack_dir=cfg.data.pack_dir,
                                 fallback_dir=tcfg.model_out, verbose=verbose)
-    mcfg = _model_config(cfg, verbose)
     if state is None:
         model = build_unet(mcfg, device=device,
                            generator=torch.Generator().manual_seed(tcfg.seed))
@@ -133,6 +182,7 @@ def fit(
     else:
         state.model.to(device)
     model = state.model
+    model.set_groups(mesh.group, mesh.spatial_group)
 
     model_kwargs = dict(
         num_classes=cfg.model.num_classes,
@@ -145,18 +195,23 @@ def fit(
         image_channels=cfg.model.image_channels,
     )
     if callbacks is None:
+        # every rank sees the same logs and weights; only rank 0 writes
         callbacks = [
-            BestCheckpoint(tcfg.model_out, monitor=tcfg.monitor, mode=tcfg.monitor_mode,
-                           model_kwargs=model_kwargs, verbose=verbose),
             EarlyStopping(monitor=tcfg.monitor, mode=tcfg.monitor_mode,
                           patience=tcfg.early_stop_patience,
                           restore_best_weights=tcfg.restore_best_weights, verbose=verbose),
             ReduceLROnPlateau(monitor=tcfg.monitor, mode=tcfg.monitor_mode,
                               factor=tcfg.reduce_lr_factor, patience=tcfg.reduce_lr_patience,
                               min_lr=tcfg.min_lr, verbose=verbose),
-            TensorBoardLogger(os.path.join(tcfg.log_dir, time.strftime("%Y%m%d_%H%M%S")),
-                              histogram_freq=tcfg.histogram_freq),
         ]
+        if lead:
+            callbacks = [
+                BestCheckpoint(tcfg.model_out, monitor=tcfg.monitor, mode=tcfg.monitor_mode,
+                               model_kwargs=model_kwargs, verbose=verbose),
+                *callbacks,
+                TensorBoardLogger(os.path.join(tcfg.log_dir, time.strftime("%Y%m%d_%H%M%S")),
+                                  histogram_freq=tcfg.histogram_freq),
+            ]
     cb_list = CallbackList(callbacks)
 
     start_epoch = 0
@@ -172,12 +227,13 @@ def fit(
             if verbose:
                 print(f"Resumed from {last} at epoch {start_epoch}")
 
-    train_step = make_train_step(model, tcfg.loss)
-    eval_step = make_eval_step(model, tcfg.loss)
+    train_step = make_train_step(model, tcfg.loss, mesh)
+    eval_step = make_eval_step(model, tcfg.loss, mesh)
 
     def put(batch):
-        return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
-                     for x in batch)
+        """This rank's shard of a global batch, on the device."""
+        return tuple(mesh.shard(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)))
+                     .to(device) for x in batch)
 
     def run_steps(batches, acc, timer, limit=None) -> bool:
         """Train on ``batches`` until they end (False) or, with ``limit``,
@@ -207,9 +263,10 @@ def fit(
         old_handlers[signal.SIGTERM] = signal.signal(signal.SIGTERM, _request_stop)
 
     out_dir = os.path.abspath(tcfg.model_out)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json(indent=2))
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json(indent=2))
 
     try:
         for epoch in range(start_epoch, tcfg.epochs):
@@ -254,14 +311,15 @@ def fit(
                 )
                 print(f"Epoch {epoch + 1}/{tcfg.epochs} [{logs['epoch_time_sec']:.1f}s] {msg}")
 
-            ckpt_lib.write_meta(out_dir, {
-                "epoch": epoch,
-                "monitor": tcfg.monitor,
-                "mode": tcfg.monitor_mode,
-                "callbacks": cb_list.state_dict(),
-                "learning_rate": state.learning_rate,
-                "config": cfg.to_dict(),
-            })
+            if lead:
+                ckpt_lib.write_meta(out_dir, {
+                    "epoch": epoch,
+                    "monitor": tcfg.monitor,
+                    "mode": tcfg.monitor_mode,
+                    "callbacks": cb_list.state_dict(),
+                    "learning_rate": state.learning_rate,
+                    "config": cfg.to_dict(),
+                })
             result.epochs_run = epoch + 1
             if cb_list.should_stop or stop_requested["flag"]:
                 result.stopped_epoch = epoch

@@ -1,7 +1,9 @@
 """The train, eval and predict steps.
 
-Port of ``unet_image_segmentation_tpu/train/steps.py`` (single device):
-forward -> loss -> backward -> AdamW update -> the metric bundle.
+Port of ``unet_image_segmentation_tpu/train/steps.py``: forward -> loss ->
+backward -> AdamW update -> the metric bundle, on one device or on a
+('data', 'spatial') mesh of ranks (:mod:`..parallel.mesh`), each rank
+running the whole step on its shard as the JAX ``shard_map`` step does.
 
 * ``loss``: the batch loss (mean over the batch, as Keras).
 * ``dice``: dice_coef.
@@ -14,11 +16,21 @@ head sums express (the dice family; + cce for a softmax head), the model
 returns the head-sums dict and loss and metrics come from it, as in the
 JAX package. Metrics stay on the device; the loop fetches them once per
 epoch.
+
+On a mesh the model must carry the mesh's groups
+(``model.set_groups(mesh.group, mesh.spatial_group)``): the BatchNorm
+moments are the mesh batch's. The gradients are summed over the mesh and
+divided by the data degree (row shards' partials add up to their batch
+shard's gradient, equal batch shards average to the global batch's); the
+loss is averaged. Row-sharded (spatial > 1) steps need the sums contract:
+the per-sample head sums are summed over the spatial group with the
+identity cotangent before the loss, and the metrics are reduced over the
+data group only.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -28,7 +40,10 @@ from unet_image_segmentation_tpu_torch.ops.losses import (
     loss_from_sums,
     sums_loss_supported,
 )
+from unet_image_segmentation_tpu_torch.ops.hash_dropout import fold_seed
 from unet_image_segmentation_tpu_torch.ops.metrics import SMOOTH, confusion_matrix, dice_coef
+from unet_image_segmentation_tpu_torch.parallel.mesh import Mesh
+from unet_image_segmentation_tpu_torch.parallel.reduce import all_sum, replicated_sum
 from unet_image_segmentation_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -42,11 +57,13 @@ def prep_masks(masks: torch.Tensor, num_classes: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(labels.long(), num_classes).float()
 
 
-def metric_bundle_sums(sums: Metrics, masks: torch.Tensor) -> Metrics:
+def metric_bundle_sums(sums: Metrics, masks: torch.Tensor, npix_scale: int = 1) -> Metrics:
     """The binary bundle from the per-sample head sums: TP = I, FP = P - I,
-    FN = T - I, TN = pixels - TP - FP - FN."""
+    FN = T - I, TN = pixels - TP - FP - FN. ``npix_scale``: on row shards
+    ``masks`` holds 1/n of each sample's rows while the sums are the whole
+    sample's."""
     dice = ((2.0 * sums["i"] + SMOOTH) / (sums["t"] + sums["p"] + SMOOTH)).mean()
-    npix = float(masks.shape[0] * masks.shape[1] * masks.shape[2])
+    npix = float(masks.shape[0] * masks.shape[1] * masks.shape[2] * npix_scale)
 
     def cm(ik: str, pk: str, tk: str) -> torch.Tensor:
         i, p, t = sums[ik].sum(), sums[pk].sum(), sums[tk].sum()
@@ -85,32 +102,93 @@ def uses_head_sums(model: UNet, loss_name: str) -> bool:
     )
 
 
-def draw_dropout_seeds(model: UNet, generator: torch.Generator):
-    """One int32 seed per dropout site (index = site), or None without dropout."""
+def draw_dropout_seeds(model: UNet, generator: torch.Generator, mesh: Optional[Mesh] = None):
+    """One int32 seed per dropout site (index = site), or None without
+    dropout. On a mesh every rank draws the same seeds, then folds in its
+    data index, and on row shards its spatial index (JAX ``fold_in`` of the
+    axis indices), so each shard's masks differ."""
     if model.dropout_rate <= 0.0:
         return None
     depth = len(model.filters)
-    return torch.randint(-2**31, 2**31, (depth + 1,), generator=generator,
-                         dtype=torch.int64).tolist()
+    seeds = torch.randint(-2**31, 2**31, (depth + 1,), generator=generator,
+                          dtype=torch.int64).tolist()
+    if mesh is not None and mesh.size > 1:
+        seeds = [fold_seed(s, mesh.data_index) for s in seeds]
+        if mesh.shape["spatial"] > 1:
+            seeds = [fold_seed(s, mesh.spatial_index) for s in seeds]
+    return seeds
+
+
+def _check_mesh_model(model: UNet, mesh: Optional[Mesh], loss_name: str) -> bool:
+    """Raise where ``model`` cannot take a step on ``mesh``; True on row
+    shards."""
+    if mesh is None or mesh.size == 1:
+        return False
+    if model.use_batch_norm and model.groups.bn is not mesh.group:
+        raise ValueError("a step on a mesh needs model.set_groups(mesh.group, ...) "
+                         "(BatchNorm moments are the mesh batch's)")
+    if mesh.shape["spatial"] == 1:
+        if model.groups.spatial is not None:
+            raise ValueError("the model has a spatial group but the mesh no row shards")
+        return False
+    # row shards: per-sample loss and metric sums are partial per shard and
+    # are summed before any nonlinear use, so the step needs the sums contract
+    if not sums_loss_supported(loss_name, model.num_classes):
+        raise ValueError("the row-sharded train step needs a sums-form loss for this head (got "
+                         f"num_classes={model.num_classes}, loss={loss_name!r})")
+    if not uses_head_sums(model, loss_name) or model.groups.spatial is not mesh.spatial_group:
+        raise ValueError("the row-sharded train step needs use_pallas, BatchNorm, separable "
+                         "blocks and model.set_groups(mesh.group, mesh.spatial_group)")
+    return True
+
+
+def _reduce_metrics(metrics: Metrics, group, ranks: int) -> Metrics:
+    """Per-shard metrics -> the global batch's: confusion matrices are
+    counts (summed), the scalars means over equal shards (averaged)."""
+    if group is None:
+        return metrics
+    return {k: all_sum(v, group) if k.startswith("cm_") else all_sum(v, group) / ranks
+            for k, v in metrics.items()}
+
+
+def _sum_gradients(params, mesh: Mesh) -> None:
+    """Every gradient summed over the mesh in one collective, divided by
+    the data degree."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_sum(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
+    flat /= mesh.shape["data"]
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 def make_train_step(
-    model: UNet, loss_name: str = "dice"
+    model: UNet, loss_name: str = "dice", mesh: Optional[Mesh] = None
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Metrics]:
-    """``step(state, images, masks) -> metrics``; updates ``state`` in place."""
+    """``step(state, images, masks) -> metrics``; updates ``state`` in place.
+    On a mesh ``images`` and ``masks`` are this rank's shard
+    (:meth:`..parallel.mesh.Mesh.shard`) and the metrics the global batch's."""
     loss_core = get_loss(loss_name)
-    head_sums = uses_head_sums(model, loss_name)
+    rows = _check_mesh_model(model, mesh, loss_name)
+    sharded = mesh is not None and mesh.size > 1
+    head_sums = rows or uses_head_sums(model, loss_name)
+    n_spatial = mesh.shape["spatial"] if rows else 1
 
     def step(state: TrainState, images: torch.Tensor, masks: torch.Tensor) -> Metrics:
-        seeds = draw_dropout_seeds(model, state.generator)
+        seeds = draw_dropout_seeds(model, state.generator, mesh)
         state.optimizer.zero_grad(set_to_none=True)
         if head_sums:
             out = model(images, train=True, head_targets=masks, dropout_seeds=seeds)
+            if rows:
+                out = {k: replicated_sum(v, mesh.spatial_group) for k, v in out.items()}
             loss = loss_from_sums(loss_name, out)
         else:
             out = model(images, train=True, dropout_seeds=seeds)
             loss = loss_core(prep_masks(masks, model.num_classes), out)
         loss.backward()
+        if sharded:
+            _sum_gradients(model.parameters(), mesh)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -119,24 +197,42 @@ def make_train_step(
             elif model.num_classes > 1:
                 bundle = metric_bundle_sums_mc({k: v.detach() for k, v in out.items()})
             else:
-                bundle = metric_bundle_sums({k: v.detach() for k, v in out.items()}, masks)
-        return {"loss": loss.detach(), **bundle}
+                bundle = metric_bundle_sums({k: v.detach() for k, v in out.items()}, masks,
+                                            n_spatial)
+            metrics = {"loss": loss.detach(), **bundle}
+            if rows:   # the sums are the row's already: reduce over the data group
+                metrics = _reduce_metrics(metrics, mesh.data_group, mesh.shape["data"])
+            elif sharded:
+                metrics = _reduce_metrics(metrics, mesh.group, mesh.size)
+        return metrics
 
     return step
 
 
 def make_eval_step(
-    model: UNet, loss_name: str = "dice"
+    model: UNet, loss_name: str = "dice", mesh: Optional[Mesh] = None
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], Metrics]:
     """Validation step: running BatchNorm statistics, no dropout. With
-    ``use_pallas`` every separable block runs the eval kernel K8."""
+    ``use_pallas`` every separable block runs the eval kernel K8.
+
+    On a mesh ``images`` and ``masks`` are this rank's shard and the metrics
+    are reduced over the data group. On row shards each rank first gathers
+    its data row's rows and evaluates the whole images of its batch shard
+    through the module path (K8 per block): the JAX package evaluates there
+    through the XLA module under GSPMD, which PyTorch does not have."""
     loss_core = get_loss(loss_name)
+    sharded = mesh is not None and mesh.size > 1
 
     @torch.no_grad()
     def step(state: TrainState, images: torch.Tensor, masks: torch.Tensor) -> Metrics:
+        if sharded:
+            images, masks = mesh.gather_rows(images), mesh.gather_rows(masks)
         preds = model(images)
         loss = loss_core(prep_masks(masks, model.num_classes), preds)
-        return {"loss": loss, **metric_bundle(masks, preds, model.num_classes)}
+        metrics = {"loss": loss, **metric_bundle(masks, preds, model.num_classes)}
+        if sharded:
+            metrics = _reduce_metrics(metrics, mesh.data_group, mesh.shape["data"])
+        return metrics
 
     return step
 

@@ -50,6 +50,9 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "sepconv_pair_edge": ("K7 edge flags", "sepconv_pair.cu", "ops/pallas/fused_sepconv.py:903"),
     "sepconv_block": ("K8", "sepconv_block.cu", "ops/pallas/fused_sepconv.py:300"),
     "chain_fwd": ("K1", "chain_fwd.cu", "ops/pallas/fused_train.py:93"),
+    # K1's halo mode (row-sharded training): a run-time argument of the
+    # same kernel and instances
+    "chain_fwd_halo": ("K1 halo mode", "chain_fwd.cu", "ops/pallas/fused_train.py:93"),
     "chain_bwd": ("K2", "chain_bwd.cu", "ops/pallas/fused_train.py:1422"),
     "tail_pool": ("K3", "tail_pool.cu", "ops/pallas/fused_train.py:468"),
     "tail_pool_bwd": ("K4", "tail_pool.cu", "ops/pallas/fused_train.py:1068"),
@@ -179,6 +182,13 @@ def chain_links(image: int, filters: Sequence[int]) -> List[tuple]:
     return links
 
 
+def shard_links(image: int, filters: Sequence[int], shards: int) -> List[tuple]:
+    """(name, C, F, H, W) of the chain links of one rank of ``shards`` row
+    shards: each link's H / shards rows by W, the shapes K1's halo mode
+    runs at."""
+    return [(name, c, f, h // shards, h) for name, c, f, h, *_ in chain_links(image, filters)]
+
+
 def pool_shapes(image: int, filters: Sequence[int]) -> List[tuple]:
     """(name, F, H) of the encoder boundaries."""
     return [(f"enc{s}", f, image >> (s - 1)) for s, f in enumerate(filters, 1)]
@@ -231,6 +241,11 @@ def work(name: str, shape: tuple, dname: str, batch: int = 1) -> Tuple[float, fl
         c, f, h = shape
         px = batch * h * h
         nbytes, ops = e * (px * (c + f) + 9 * c + c * f), 2 * px * (9 * c + c * f)
+    elif name == "chain_fwd_halo":                   # x, halo -> y, Σy, Σy²
+        _, c, f, h, w = shape
+        px = batch * h * w
+        nbytes = e * (px * (c + f) + batch * 2 * w * c + 9 * c + c * f) + 4 * 2 * f
+        ops = 2 * px * (9 * c + c * f)
     elif name in ("chain_fwd", "chain_bwd", "sepconv_stats", "sepconv_bwd"):
         _, c, f, h = shape[:4]
         px = batch * h * h
@@ -302,9 +317,10 @@ def bwd_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
 def fwd_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
     """(products, depthwise) operations of one K8 or K1 call: the pointwise
     product (C*F multiply-adds a pixel) and the 3x3 depthwise (9*C). K8's
-    shape is (C, F, H), K1's a link (name, C, F, H, ...)."""
+    shape is (C, F, H), K1's a link (name, C, F, H, ...), K1's halo mode a
+    row shard's link (name, C, F, H, W)."""
     c, f, h = shape if name == "sepconv_block" else shape[1:4]
-    px = batch * h * h
+    px = batch * h * (shape[4] if name == "chain_fwd_halo" else h)
     return 2.0 * px * c * f, 2.0 * px * 9 * c
 
 
@@ -322,7 +338,8 @@ def feed_ops(name: str, shape: tuple, batch: int = 1) -> Tuple[float, float]:
 # products run on the tensor cores and the rest on the CUDA cores
 _SPLIT_OPS = {**{name: lambda name, shape, batch: pair_ops(shape, batch)
                  for name in _PAIR_MODES},
-              "sepconv_block": fwd_ops, "chain_fwd": fwd_ops, "sepconv_stats": fwd_ops,
+              "sepconv_block": fwd_ops, "chain_fwd": fwd_ops, "chain_fwd_halo": fwd_ops,
+              "sepconv_stats": fwd_ops,
               "chain_bwd": bwd_ops, "sepconv_bwd": bwd_ops,
               "upconcat": feed_ops, "upconcat_bwd": feed_ops}
 
