@@ -180,8 +180,22 @@ exit code and no result line:
    bf16; 18 K1 halo-mode launches a step on a row-sharded rank), each held
    to the unsharded step (``hold_shard``), and one row-sharded step with
    dropout 0.2 whose dropout sites' keep masks, recorded as the step
-   applies them, differ between the two ranks; then the twenty kernels' JSON
-   line (with each kernel's bound, and K12a's library time) and the result
+   applies them, differ between the two ranks;
+16. export (``export/pt2.py``) of phase 5's checkpoint on the card: the
+   plain model and the ``use_pallas`` model at batch 1 and 32, fp32 and
+   bf16, through ``export_pt2``; each artifact loaded in a fresh process
+   (the plain graphs where only torch is imported, no module of the
+   repository; the kernel graphs through ``load_pt2``): each loaded graph
+   held to its in-memory module, and the kernel graph to the same graph
+   with K8's plain version, under phase 3's K8 bars relative to
+   max|plain|; the kernel graph to the plain graph under K8's fp32 bar and
+   in bf16 under phase 5's mask agreement (the roundings of 18 bf16 blocks
+   part from the composed path's as in phase 5), 18 ``unet.sepconv_block``
+   nodes and 18 K8 launches a forward of a kernel graph (the loading
+   process's counter), images/s at batch 32 loaded against in memory; then
+   the export CLI's ``pt2`` on phase 8's ``fit`` checkpoint, its artifact
+   held to the checkpoint's module; then the twenty kernels' JSON line
+   (with each kernel's bound, and K12a's library time) and the result
    line.
 
 A profile whose trace lost device activity (no device time, or kernels the
@@ -380,6 +394,14 @@ SHARD_STATS_TOL = 1e-4
 SHARD_STATS_TOL_STEP2 = 2e-3
 SHARD_LAUNCHES_HALO = 18         # K1 halo-mode launches a step on a row-sharded rank
 TRAIN_RANK_TIMEOUT = 420
+# phase 16: export of phase 5's checkpoint at these batches, each artifact
+# loaded in a process of its own kind: the plain graphs where only torch is
+# imported, the kernel graphs with the port (unet::sepconv_block)
+EXPORT_BATCHES = (1, BATCH_SERVE)
+EXPORT_KINDS = ("plain", "kernel")
+EXPORT_NODE = "unet.sepconv_block.default"
+EXPORT_CHILD_TIMEOUT = 300
+EXPORT_REPS = 10
 
 
 def slab_shapes(stages, n):
@@ -1071,7 +1093,8 @@ def eval_ab(torch, dev, smi, base, x, m, launches):
 
 def train_path(torch, dev, smi, report, launches):
     """Phase 8: the training step at full width, kernels on against the
-    composed path on the same card, then ``fit`` and a ``Predictor`` request."""
+    composed path on the same card, then ``fit`` and a ``Predictor`` request.
+    Returns fit's ``model_out`` (under ``build/phase8``)."""
     from unet_image_segmentation_tpu_torch.inference import Predictor
     from unet_image_segmentation_tpu_torch.models.unet import build_unet
     from unet_image_segmentation_tpu_torch.train.checkpoint import load_inference_variables
@@ -1112,31 +1135,33 @@ def train_path(torch, dev, smi, report, launches):
     del model, state
 
     d = json.loads(json.dumps(base))
-    with tempfile.TemporaryDirectory() as tmp:
-        d["train"].update(epochs=1, model_out=os.path.join(tmp, "model"),
-                          log_dir=os.path.join(tmp, "logs"))
-        cfg = Config.from_dict(d)
-        n_train = 2 * BATCH_SERVE
-        t0 = time.perf_counter()
-        res = fit(cfg, MemoryDataset(images[:n_train], masks[:n_train]),
-                  MemoryDataset(images[n_train:], masks[n_train:]), device=dev)
-        print(f"  fit: 1 epoch, {n_train // BATCH_SERVE} steps + 1 validation batch in "
-              f"{time.perf_counter() - t0:.1f} s, best {cfg.train.monitor} {res.best_score:.4f}")
-        saved, _ = load_inference_variables(cfg.train.model_out)
-        trained = res.state.model.state_dict()
-        if saved.keys() != trained.keys() or not all(
-                torch.equal(saved[k], trained[k].cpu()) for k in saved):
-            raise AssertionError("best/ does not hold the trained weights and statistics")
-        pred = Predictor(cfg.train.model_out, (IMAGE, IMAGE), compute_dtype="bfloat16",
-                         use_pallas=True, device=dev)
-        out = pred.predict(images[:1])
-        if out.shape != (1, IMAGE, IMAGE, 1) or not np.isfinite(out).all() or \
-                out.min() < 0 or out.max() > 1:
-            raise AssertionError(f"Predictor on the fit checkpoint: bad output {out.shape}")
-        print(f"  Predictor(use_pallas=True) on {cfg.train.model_out}/best answered a request: "
-              f"probabilities in [{out.min():.3f}, {out.max():.3f}], foreground "
-              f"{(out > 0.5).mean():.3f}")
-        report["train"]["fit_best"] = res.best_score
+    tmp = os.path.join(ROOT, "build", "phase8")   # its best/ is phase 16's CLI input
+    shutil.rmtree(tmp, ignore_errors=True)
+    d["train"].update(epochs=1, model_out=os.path.join(tmp, "model"),
+                      log_dir=os.path.join(tmp, "logs"))
+    cfg = Config.from_dict(d)
+    n_train = 2 * BATCH_SERVE
+    t0 = time.perf_counter()
+    res = fit(cfg, MemoryDataset(images[:n_train], masks[:n_train]),
+              MemoryDataset(images[n_train:], masks[n_train:]), device=dev)
+    print(f"  fit: 1 epoch, {n_train // BATCH_SERVE} steps + 1 validation batch in "
+          f"{time.perf_counter() - t0:.1f} s, best {cfg.train.monitor} {res.best_score:.4f}")
+    saved, _ = load_inference_variables(cfg.train.model_out)
+    trained = res.state.model.state_dict()
+    if saved.keys() != trained.keys() or not all(
+            torch.equal(saved[k], trained[k].cpu()) for k in saved):
+        raise AssertionError("best/ does not hold the trained weights and statistics")
+    pred = Predictor(cfg.train.model_out, (IMAGE, IMAGE), compute_dtype="bfloat16",
+                     use_pallas=True, device=dev)
+    out = pred.predict(images[:1])
+    if out.shape != (1, IMAGE, IMAGE, 1) or not np.isfinite(out).all() or \
+            out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"Predictor on the fit checkpoint: bad output {out.shape}")
+    print(f"  Predictor(use_pallas=True) on {cfg.train.model_out}/best answered a request: "
+          f"probabilities in [{out.min():.3f}, {out.max():.3f}], foreground "
+          f"{(out > 0.5).mean():.3f}")
+    report["train"]["fit_best"] = res.best_score
+    return cfg.train.model_out
 
 
 def multiclass_path(torch, dev, smi, report, launches):
@@ -2817,6 +2842,269 @@ def train_dry_run(torch, dev, smi, report, launches, phase_dir):
         raise AssertionError(f"the sharded steps disagree with the unsharded: {failed}")
 
 
+# phase 16's loading process: ``python -c EXPORT_CHILD KIND DIR``, run
+# from DIR, with the repository on the path only for the kernel graphs. It
+# starts with the phase, so its imports and the card's context overlap the
+# exports, and loads the artifacts once DIR/go exists
+EXPORT_CHILD = r"""
+import json, os, sys, time
+t_start = time.perf_counter()
+import numpy as np
+import torch
+kind, phase_dir, node, timeout = sys.argv[1], sys.argv[2], sys.argv[3], float(sys.argv[4])
+if kind == "kernel":
+    from unet_image_segmentation_tpu_torch.export.pt2 import load_pt2
+    from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+torch.zeros(1, device=dev)
+out = {"import_s": time.perf_counter() - t_start}
+while not os.path.exists(os.path.join(phase_dir, "go")):
+    if time.perf_counter() - t_start > timeout:
+        sys.exit("no artifacts to load")
+    time.sleep(0.05)
+images = np.load(os.path.join(phase_dir, "x.npy"))
+for name in sorted(os.listdir(phase_dir)):
+    art = os.path.join(phase_dir, name)
+    if not name.startswith(kind + "-"):
+        continue
+    t0 = time.perf_counter()
+    program = torch.export.load(os.path.join(art, "model.pt2"))
+    module = program.module()
+    res = {"load_s": time.perf_counter() - t0,
+           "nodes": sum(str(n.target) == node for n in program.graph.nodes)}
+    with open(os.path.join(art, "metadata.json")) as f:
+        batch = json.load(f)["input"]["shape"][0]
+    x = torch.from_numpy(images[:batch]).to(dev)
+    with torch.no_grad():
+        if kind == "kernel":
+            fs.reset_launch_counts()
+        y = module(x)
+        torch.cuda.synchronize()
+        if kind == "kernel":
+            res["launches"] = fs.LAUNCHES["sepconv_block"]
+            call, _ = load_pt2(art, "cuda")
+            res["load_pt2_max_diff"] = float(np.abs(call(images[:batch]) - y.cpu().numpy()).max())
+    np.save(os.path.join(art, "y.npy"), y.cpu().numpy())
+    out[name] = res
+out["port_modules"] = sorted(m for m in sys.modules if m.startswith("unet_image_segmentation"))
+print(json.dumps(out))
+"""
+
+
+def start_export_child(kind, phase_dir):
+    """Phase 16: start one loading process (:data:`EXPORT_CHILD`) of
+    ``kind``'s artifacts, its output in ``phase_dir``; the plain graphs'
+    process finds no module of the repository on its path."""
+    import subprocess
+
+    env = dict(os.environ)
+    if kind == "kernel":
+        env["PYTHONPATH"] = ROOT
+    else:
+        env.pop("PYTHONPATH", None)
+    with open(os.path.join(phase_dir, f"{kind}.out"), "w") as o, \
+            open(os.path.join(phase_dir, f"{kind}.err"), "w") as e:
+        return subprocess.Popen(
+            [sys.executable, "-c", EXPORT_CHILD, kind, phase_dir, EXPORT_NODE,
+             str(EXPORT_CHILD_TIMEOUT)],
+            cwd=phase_dir if kind == "plain" else ROOT, env=env, stdout=o, stderr=e)
+
+
+def join_export_child(kind, proc, phase_dir):
+    """The JSON line of a loading process; it failing or hanging fails the run."""
+    import subprocess
+
+    try:
+        rc = proc.wait(timeout=EXPORT_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    with open(os.path.join(phase_dir, f"{kind}.out")) as o, \
+            open(os.path.join(phase_dir, f"{kind}.err")) as e:
+        text, err = o.read(), e.read()
+    if rc != 0:
+        raise AssertionError(f"phase 16 {kind} loading process: exit {rc}\n{text[-3000:]}"
+                             f"{err[-3000:]}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def forward_rates(torch, modules, x):
+    """Host-clock images/s of each of ``modules`` (name -> forward) in
+    turns, twice round, ``EXPORT_REPS`` forwards a rate after warm-ups."""
+    rates = {name: [] for name in modules}
+    with torch.no_grad():
+        for fn in modules.values():
+            for _ in range(3):
+                fn(x)
+        for _ in range(2):
+            for name, fn in modules.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EXPORT_REPS):
+                    fn(x)
+                torch.cuda.synchronize()
+                rates[name].append(EXPORT_REPS * x.shape[0] / (time.perf_counter() - t0))
+    return rates
+
+
+def export_path(torch, dev, smi, report, state, scenes, fit_out):
+    """Phase 16: ``export_pt2`` of phase 5's checkpoint (the plain and the
+    ``use_pallas`` model, batch 1 and 32, fp32 and bf16) on the card, each
+    artifact loaded in a fresh process (:func:`start_export_child`): each
+    loaded graph held to its in-memory module, and the kernel graph to the
+    same graph with K8's plain version, under phase 3's K8 bars relative to
+    max|plain|; the kernel graph to the plain graph under K8's fp32 bar and
+    phase 5's bf16 mask agreement; 18 op nodes and 18 K8 launches a forward
+    of a kernel graph (that process's counter); then the batch-32 artifacts
+    loaded here and timed in turns with their in-memory modules (images/s);
+    then the CLI's ``pt2`` on phase 8's ``fit`` checkpoint, held to its
+    module."""
+    from unet_image_segmentation_tpu_torch.cli.export import main as export_main
+    from unet_image_segmentation_tpu_torch.export.pt2 import export_pt2, load_pt2
+    from unet_image_segmentation_tpu_torch.models.unet import UNet
+    from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
+    from unet_image_segmentation_tpu_torch.train.checkpoint import load_inference_variables
+
+    t_start = time.perf_counter()
+    phase_dir = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(phase_dir, ignore_errors=True)
+    os.makedirs(phase_dir)
+    procs = {kind: start_export_child(kind, phase_dir) for kind in EXPORT_KINDS}
+    try:
+        np.save(os.path.join(phase_dir, "x.npy"), scenes[:max(EXPORT_BATCHES)])
+        out = report["export"] = {"artifacts": {}, "images_per_s": {}}
+        wanted, plain_k8, models = {}, {}, {}
+        print(f"export: phase 5's checkpoint through export_pt2 on {dev}, batches "
+              f"{' and '.join(map(str, EXPORT_BATCHES))}, fp32 and bf16, plain and use_pallas; "
+              "each artifact loaded in a fresh process")
+        for dname in ("float32", "bfloat16"):
+            for kind in EXPORT_KINDS:
+                model = UNet(filters=FILTERS, dtype=getattr(torch, dname),
+                             use_pallas=kind == "kernel")
+                model.load_state_dict(state)
+                models[(dname, kind)] = model.to(dev)
+                for batch in EXPORT_BATCHES:
+                    name = f"{kind}-{dname}-b{batch}"
+                    t0 = time.perf_counter()
+                    export_pt2(model, os.path.join(phase_dir, name), batch_size=batch,
+                               image_size=(IMAGE, IMAGE), device=dev)
+                    out["artifacts"][name] = {"export_s": time.perf_counter() - t0}
+                    x = torch.from_numpy(scenes[:batch]).to(dev)
+                    with torch.no_grad():
+                        wanted[name] = model(x).cpu().numpy()
+                        if kind == "kernel":   # the same graph with K8's plain version
+                            with patched(fs, "sepconv_block", fs.sepconv_block_reference):
+                                plain_k8[name] = model(x).cpu().numpy()
+        t_exports = time.perf_counter() - t_start
+        open(os.path.join(phase_dir, "go"), "w").close()
+        loaded = {kind: join_export_child(kind, proc, phase_dir) for kind, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_children = time.perf_counter() - t_start - t_exports
+    if loaded["plain"]["port_modules"]:
+        raise AssertionError(f"the plain graphs' process imported {loaded['plain']['port_modules']}")
+    print(f"  loading processes: plain graphs with torch alone (no module of the repository "
+          f"imported), kernel graphs through load_pt2 [{smi}]")
+    for dname in ("float32", "bfloat16"):
+        tol = KERNEL_TOL[dname]
+        for batch in EXPORT_BATCHES:
+            names = {kind: f"{kind}-{dname}-b{batch}" for kind in EXPORT_KINDS}
+            ys = {kind: np.load(os.path.join(phase_dir, n, "y.npy")) for kind, n in names.items()}
+            res = {kind: loaded[kind][n] for kind, n in names.items()}
+            for kind, y in ys.items():
+                if y.shape != (batch, IMAGE, IMAGE, 1) or not np.isfinite(y).all():
+                    raise AssertionError(f"{names[kind]}: bad output {y.shape}")
+            pairs = {"kernel graph vs its plain K8": (ys["kernel"], plain_k8[names["kernel"]]),
+                     "plain graph vs its module": (ys["plain"], wanted[names["plain"]]),
+                     "kernel graph vs its module": (ys["kernel"], wanted[names["kernel"]]),
+                     "kernel graph vs plain graph": (ys["kernel"], ys["plain"])}
+            errs = {}
+            for label, (got, want) in pairs.items():
+                err = float(np.abs(got - want).max())
+                errs[label] = (err, err / max(float(np.abs(want).max()), 1e-30))
+            # K8's bars hold the first three; the kernel graph against the
+            # plain graph is phase 5's kernels-on against kernels-off
+            # comparison of the whole forward, whose bf16 roundings part
+            # through 18 blocks (phase 5's module path: 0.056 at batch 2):
+            # fp32 under K8's bar, bf16 under phase 5's mask agreement
+            agree = float(((ys["kernel"] > 0.5) == (ys["plain"] > 0.5)).mean())
+            err, rel = errs["kernel graph vs plain graph"]
+            graphs_ok = all(errs[label][1] <= tol for label in list(pairs)[:3]) and (
+                rel <= tol if dname == "float32" else agree >= MASK_MIN_AGREE[dname])
+            bars = (f"tol {tol:g}" if dname == "float32" else
+                    f"tol {tol:g} but the last; mask agreement {agree:.6f} (min "
+                    f"{MASK_MIN_AGREE[dname]})")
+            k = res["kernel"]
+            ok = graphs_ok and res["plain"]["nodes"] == 0 and \
+                k["nodes"] == k["launches"] == BLOCK_LAUNCHES_PER_FORWARD
+            print(f"  {dtype_label(dname)} batch {batch}: " + ", ".join(
+                f"{label} max_abs_err {e:.3e} rel {r:.3e}" for label, (e, r) in errs.items()) +
+                f" ({bars}); kernel graph {k['nodes']} op nodes, {k['launches']} K8 "
+                f"launches a forward, load_pt2's call {k['load_pt2_max_diff']:.1e} from its "
+                f"module; loaded in {res['plain']['load_s']:.2f} / {k['load_s']:.2f} s "
+                f"{'ok' if ok else 'FAIL'}")
+            for kind, n in names.items():
+                out["artifacts"][n].update(res[kind], max_abs_err=errs[f"{kind} graph vs its "
+                                                                       f"module"][0])
+            out["artifacts"][names["kernel"]].update(
+                vs_plain_k8=errs["kernel graph vs its plain K8"][0], vs_plain_graph=err,
+                mask_agree=agree)
+            if not ok:
+                raise AssertionError(f"export {dname} batch {batch}: {errs}, {res}")
+    t0 = time.perf_counter()
+    x = torch.from_numpy(scenes[:BATCH_SERVE]).to(dev)
+    for dname in ("float32", "bfloat16"):
+        fns = {}
+        for kind in EXPORT_KINDS:
+            art = os.path.join(phase_dir, f"{kind}-{dname}-b{BATCH_SERVE}", "model.pt2")
+            fns[f"{kind} loaded"] = torch.export.load(art).module()
+            fns[f"{kind} in memory"] = models[(dname, kind)]
+        rates = out["images_per_s"][dname] = forward_rates(torch, fns, x)
+        print(f"  {dtype_label(dname)} forward at batch {BATCH_SERVE}, images/s in turns: " +
+              ", ".join(f"{label} {' / '.join(f'{r:.1f}' for r in v)}"
+                        for label, v in rates.items()) + f" [{smi}]")
+        del fns
+    del models
+    t_rates = time.perf_counter() - t0
+
+    cli_dir = os.path.join(phase_dir, "cli")
+    rc = export_main(["pt2", fit_out, cli_dir, "--image-size", str(IMAGE), "--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"export CLI pt2 on {fit_out}: exit code {rc}")
+    call, meta = load_pt2(cli_dir, device="cuda")
+    sd, kwargs = load_inference_variables(fit_out)
+    model = UNet(**{k: v for k, v in kwargs.items() if k in (
+        "num_classes", "filters", "dropout_rate", "use_batch_norm", "conv_type")}, device=dev)
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        want = model(torch.from_numpy(scenes[:1]).to(dev)).cpu().numpy()
+    got = call(scenes[:1])
+    err = float(np.abs(got - want).max())
+    rel = err / max(float(np.abs(want).max()), 1e-30)
+    ok = got.shape == (1, IMAGE, IMAGE, 1) and rel <= KERNEL_TOL["float32"] and \
+        meta["format"] == "torch.export"
+    print(f"  export CLI pt2 on {fit_out}/best: {meta['input']['shape']} -> "
+          f"{meta['output']['shape']}, against its module max_abs_err {err:.3e} rel {rel:.3e} "
+          f"(tol {KERNEL_TOL['float32']:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("export CLI pt2: the artifact disagrees with its checkpoint")
+    out["cli_max_abs_err"] = err
+    out["seconds"] = time.perf_counter() - t_start
+    export_s = [a["export_s"] for a in out["artifacts"].values()]
+    print(f"phase 16 on the host clock: {out['seconds']:.1f} s: the exports and in-memory runs "
+          f"{t_exports:.1f} s (export_pt2 {sum(export_s):.1f} s, "
+          f"{' / '.join(f'{t:.1f}' for t in export_s)}), the loading processes after them "
+          f"{t_children:.1f} s (imports and the card's context, during the exports: " +
+          ", ".join(f"{kind} {loaded[kind]['import_s']:.1f} s" for kind in EXPORT_KINDS) +
+          f"), the rates {t_rates:.1f} s")
+
+
 def reset_train_counts():
     from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
 
@@ -3120,7 +3408,7 @@ def main() -> int:
     report["k11_alone"] = k11_alone_launches(torch, dev, rnd)
 
     # ---- 8. the training path at full width ----------------------------------
-    train_path(torch, dev, smi, report, launches)
+    fit_out = train_path(torch, dev, smi, report, launches)
 
     # ---- 9. K1-K6 at batch 32: against plain, then timed ---------------------
     # Each kernel's launch plan depends on the batch (blocks per sample,
@@ -3273,6 +3561,9 @@ def main() -> int:
     train_dry_run(torch, dev, smi, report, launches, phase_dir)
     print(f"phase 15 on the host clock: (a) K1 halo mode {t1 - t0:.1f} s, (b) 1024 px training "
           f"{t2 - t1:.1f} s, (c) sharded training {time.perf_counter() - t2:.1f} s")
+
+    # ---- 16. export: torch.export artifacts with K8 as a registered op ----
+    export_path(torch, dev, smi, report, state, scenes, fit_out)
 
     kernels, report["bounds"] = [], {}
     shapes = kernel_shapes()

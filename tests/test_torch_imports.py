@@ -36,7 +36,8 @@ def test_port_modules_import_no_jax():
                  "troubleshoot.check_install", "troubleshoot.check_gpu_benchmark",
                  "troubleshoot.pair_phases", "serving_quant", "evaluation", "cli.benchmark",
                  "ops.preprocess", "streaming", "parallel.mesh", "parallel.halo",
-                 "parallel.distributed"):
+                 "parallel.distributed", "export.pt2", "export.tflite",
+                 "export.tflite_metadata", "cli.export"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -57,12 +58,29 @@ def test_port_modules_import_no_jax():
 
 
 def test_chip_smoke_imports_no_jax_cv2_or_h5py():
-    """chip_smoke.py runs where only torch is installed."""
+    """chip_smoke.py runs where only torch is installed: no jax, flax, cv2,
+    h5py, tensorflow or flatbuffers, neither in its source nor pulled in by
+    the export modules it drives."""
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         src = f.read()
     for banned in ("import jax", "import flax", "import cv2", "import h5py",
+                   "import tensorflow", "import flatbuffers",
                    "unet_image_segmentation_tpu.", "from unet_image_segmentation_tpu "):
         assert banned not in src, banned
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "from unet_image_segmentation_tpu_torch.export import pt2\n"
+        "from unet_image_segmentation_tpu_torch.cli import export\n"
+        "banned = ('tensorflow', 'flatbuffers', 'jax', 'cv2', 'h5py')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(ROOT, "configs", "*.json"))),
@@ -142,3 +160,26 @@ def test_pad_batch_copy_equals_the_original(b, n):
     (got, pad), (want, wpad) = mine(x, n), theirs(x, n)
     assert pad == wpad
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("num_classes,label_file,extra", [
+    (1, "labels.txt", {}),
+    (3, None, {}),
+    (1, None, {"author": "someone", "license": "Apache-2.0", "version": "v7"}),
+], ids=["binary", "3-class", "fields"])
+def test_tflite_metadata_copy_writes_the_original_bytes(num_classes, label_file, extra):
+    pytest.importorskip("flatbuffers")
+    from unet_image_segmentation_tpu.export.tflite_metadata import (
+        build_metadata_flatbuffer as theirs,
+    )
+    from unet_image_segmentation_tpu_torch.export.tflite_metadata import (
+        build_metadata_flatbuffer as mine,
+    )
+
+    meta = {"name": "unet-image-segmentation-tpu", "version": "v1",
+            "input": {"shape": [1, 64, 48, 3], "color_space": "RGB",
+                      "normalization": {"mean": [0.0], "std": [255.0]}},
+            "output": {"shape": [1, 64, 48, num_classes], "semantics": "probability mask",
+                       "binarization_threshold": 0.4},
+            "labels": ["a", "b"], **extra}
+    assert mine(meta, label_file) == theirs(meta, label_file)

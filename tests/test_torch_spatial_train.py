@@ -20,8 +20,9 @@
   the optimizer took (summed over the ranks, divided by the data degree)
   within 3e-4 of each tensor's max|g| of the JAX unsharded XLA model's
   gradient of the global batch's loss; loss and dice rtol 2e-5 against
-  JAX ``make_train_step(mesh=)`` on a (2, 2) mesh from the same weights,
-  parameters after the step within 4.5e-3 (JAX's own test's bar: Adam's
+  that same JAX step (one jit of ``jax.value_and_grad`` and the
+  optimizer's update, from the same weights; a JAX mesh step's numerics
+  are its), parameters after the step within 4.5e-3 (JAX's own test's bar: Adam's
   first step moves a weight by about +-lr whatever its gradient, so this
   only bounds the optimizer's composition), BatchNorm statistics within
   1e-4. In the same jobs: the composed step (BatchNorm moments over the
@@ -34,8 +35,8 @@
   the JAX package's Note. The launch plans at the 1024 px shard shapes,
   and K1's halo-mode bound by hand.
 
-About 95 s alone on the CPU: the JAX (2, 2) mesh step's lowering (~27 s) and
-compiling (~13 s) and the JAX sharded chains (~21 s) are most of it.
+About 35 s alone on the CPU: the JAX sharded chains (~21 s) are most of
+it.
 """
 
 import dataclasses
@@ -60,8 +61,11 @@ from unet_image_segmentation_tpu.ops.pallas import fused_head as jfh
 from unet_image_segmentation_tpu.ops.pallas import fused_train as jft
 from unet_image_segmentation_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from unet_image_segmentation_tpu.train.state import create_train_state as create_state_jax
-from unet_image_segmentation_tpu.train.steps import _psum_replicated_cotangent
-from unet_image_segmentation_tpu.train.steps import make_train_step as make_step_jax
+from unet_image_segmentation_tpu.train.steps import (
+    _metric_bundle,
+    _prep_masks,
+    _psum_replicated_cotangent,
+)
 from unet_image_segmentation_tpu_torch.config import Config as TorchConfig
 from unet_image_segmentation_tpu_torch.models.unet import build_unet
 from unet_image_segmentation_tpu_torch.ops import fused_train as tft
@@ -573,40 +577,42 @@ def _step_cfg():
 
 
 def _jax_step(inp, sd):
-    """JAX ``make_train_step(mesh=)`` on a (2, 2) mesh from the weights
-    ``sd``: its metrics and the weights and statistics after the step."""
+    """The JAX package's unsharded XLA train step (``use_pallas`` off) on
+    the global batch from the weights ``sd``, as one jit of
+    ``jax.value_and_grad`` and the optimizer's update (``make_train_step``'s
+    body without a mesh): its metrics, the weights and statistics after it,
+    and the gradient every sharded step must take, by parameter name. A
+    mesh step's numerics are this step's (``make_train_step(mesh=)``: equal
+    shards, moments and gradients reduced over the mesh)."""
     cfg = _step_cfg()
-    mesh = jax_create_mesh(data=2, spatial=2, devices=jax.devices()[:4])
-    model = build_unet_jax(cfg.model, bn_axis_name=("data", "spatial"),
-                           spatial_axis_name="spatial")
-    state = create_state_jax(cfg, model=model)
-    variables = jax.tree_util.tree_map(jnp.asarray, flax_from_state_dict(sd))
-    params = variables["params"]
-    state = state.replace(params=params, batch_stats=variables["batch_stats"],
-                          opt_state=state.tx.init(params))
-    step = make_step_jax(model, "dice", donate=False, mesh=mesh)
-    new, met = step(state, jnp.asarray(inp["step x"]), jnp.asarray(inp["step m"]))
-    after = state_dict_from_flax(jax.tree_util.tree_map(
-        np.asarray, {"params": new.params, "batch_stats": new.batch_stats}))
-    return {k: np.asarray(v) for k, v in met.items()}, {k: v.numpy() for k, v in after.items()}
-
-
-def _jax_grads(inp, sd):
-    """The gradient every sharded step must take: the JAX package's
-    unsharded XLA model (``use_pallas`` off), the dice loss of the global
-    batch, at the weights ``sd``, by parameter name."""
-    model = build_unet_jax(dataclasses.replace(_step_cfg().model, use_pallas=False))
+    model = build_unet_jax(dataclasses.replace(cfg.model, use_pallas=False))
+    tx = create_state_jax(cfg, model=model).tx
     variables = jax.tree_util.tree_map(jnp.asarray, flax_from_state_dict(sd))
     x, m = jnp.asarray(inp["step x"]), jnp.asarray(inp["step m"])
 
-    def loss(params):
-        preds, _ = model.apply({"params": params, "batch_stats": variables["batch_stats"]}, x,
-                               train=True, mutable=["batch_stats"])
-        return jlosses.get_loss("dice")(m, preds)
+    def step(params, stats, opt_state):
+        def loss(p):
+            preds, mutated = model.apply({"params": p, "batch_stats": stats}, x, train=True,
+                                         mutable=["batch_stats"])
+            return jlosses.get_loss("dice")(_prep_masks(m, 1), preds), (
+                preds, mutated["batch_stats"])
 
-    grads = jax.jit(jax.grad(loss))(variables["params"])
-    return {k: v.numpy() for k, v in state_dict_from_flax(
-        {"params": jax.tree_util.tree_map(np.asarray, grads)}).items()}
+        (val, (preds, new_stats)), grads = jax.value_and_grad(loss, has_aux=True)(params)
+        updates, _ = tx.update(grads, opt_state, params)
+        new_params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+        return {"loss": val, **_metric_bundle(m, preds, 1)}, new_params, new_stats, grads
+
+    params = variables["params"]
+    met, new_params, new_stats, grads = jax.jit(step)(params, variables["batch_stats"],
+                                                      tx.init(params))
+
+    def by_name(tree):
+        return {k: v.numpy() for k, v in state_dict_from_flax(
+            jax.tree_util.tree_map(np.asarray, tree)).items()}
+
+    return ({k: np.asarray(v) for k, v in met.items()},
+            by_name({"params": new_params, "batch_stats": new_stats}),
+            by_name({"params": grads}))
 
 
 def _close_grads(got, want, msg):
@@ -646,7 +652,7 @@ def sharded(tmp_path_factory):
     (tmp / "fit_config.json").write_text(_fit_cfg(tmp).to_json())
     procs = {world: _spawn(world, tmp) for world in STEP_MESHES}
     jax_chains = {world: _jax_chains(inp, world) for world in STEP_MESHES}
-    jax_step = _jax_step(inp, sd) + (_jax_grads(inp, sd),)
+    jax_step = _jax_step(inp, sd)
     fx, fm = inp["fit x"], inp["fit m"]
     one = loop.fit(_fit_cfg(tmp / "one"), _Memory(fx[:8], fm[:8]), _Memory(fx[8:], fm[8:]),
                    device="cpu", verbose=False).history
@@ -692,7 +698,7 @@ def test_sharded_train_step_matches_jax(sharded, mesh):
     """The step's gradients (summed over the ranks, divided by the data
     degree) within GRAD_REL of max|g| of the JAX unsharded gradient; its
     loss and metrics, and the weights and statistics after it, as the JAX
-    mesh step's."""
+    step's."""
     port, _, (jmet, jsd, jgrads), _ = sharded
     out = port[mesh[0] * mesh[1]]
     tag = f"step {mesh[0]}x{mesh[1]}"

@@ -272,6 +272,14 @@ def test_pair_phases_needs_a_card(monkeypatch, capsys):
     assert "CUDA card" in capsys.readouterr().err
 
 
+def test_eval_ab_needs_a_card(monkeypatch, capsys):
+    from unet_image_segmentation_tpu_torch.troubleshoot import eval_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert eval_ab.main(["--against", "."]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_fp32_split_ab_variants_build_from_the_sources():
     """Each variant of fp32_split_ab applies to the kernels' sources as they
     are: it changes the files it names, brings its product, and K6's

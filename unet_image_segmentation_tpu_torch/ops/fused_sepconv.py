@@ -46,10 +46,16 @@ plain PyTorch version beside it (``*_reference``); given a CUDA tensor it
 launches the kernel on the current stream or raises. :data:`LAUNCHES`
 counts kernel launches, and only those.
 
+K8 is the registered PyTorch op ``unet::sepconv_block``
+(:func:`sepconv_block_op`: CUDA, CPU, fake and autograd implementations),
+the counterpart of the TPU kernel's Mosaic custom call, so that
+``torch.export`` keeps it as one node a block and an exported graph runs
+the kernel (:mod:`..export.pt2`).
+
 The differentiable entry points follow the JAX custom VJPs:
-:func:`fused_sepconv_bn_relu` runs K8 forward and the composed backward
-(``_sepconv_core``), :func:`sepconv_apply` K8 forward and K10 backward
-(``_sepconv_plain``), :func:`sepconv_apply_stats` K9 forward and K10
+:func:`fused_sepconv_bn_relu` runs the op (K8 forward, the composed
+backward: ``_sepconv_core``), :func:`sepconv_apply` K8 forward and K10
+backward (``_sepconv_plain``), :func:`sepconv_apply_stats` K9 forward and K10
 backward (``_sepconv_stats``: the cotangents of Σy and Σy² fold into the
 output cotangent, ``g = T(gy + gs + 2 y gq)``, and ``ddw``/``dpw`` are
 rounded to the dtype, as the JAX VJP casts them to the kernels' dtype).
@@ -437,26 +443,65 @@ def _check_tensors(x: torch.Tensor, name: str, expect) -> None:
             raise ValueError(f"{name}: weights must be contiguous")
 
 
-def sepconv_block(
-    x: torch.Tensor, w: BlockWeights, relu: bool = True
-) -> torch.Tensor:
-    """K8 on a CUDA tensor, its plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return sepconv_block_reference(x, w, relu)
+@torch.library.custom_op("unet::sepconv_block", mutates_args=(), device_types="cpu")
+def sepconv_block_op(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, scale: torch.Tensor,
+                     shift: torch.Tensor, relu: bool) -> torch.Tensor:
+    """K8 as the registered op ``unet::sepconv_block``: the kernel on a CUDA
+    tensor, its plain version on a CPU tensor, an empty (B, H, W, F) tensor
+    of x's dtype when traced (``torch.export``); differentiable, its
+    gradient the composed block's (JAX ``_sepconv_core``)."""
+    return sepconv_block_reference(x, BlockWeights(dw, pw, scale, shift), relu)
+
+
+@sepconv_block_op.register_kernel("cuda")
+def _sepconv_block_cuda(x, dw, pw, scale, shift, relu):
     _check_cuda_input(x, "sepconv_block")
     b, h, wd, c = x.shape
+    w = BlockWeights(dw, pw, scale, shift)
     f = _check_weights(w, c, x, "sepconv_block")
     plan = ft.fwd_plan(b, h, wd, c, f, x.dtype, build.sm_count(x.device))
     lib = build.load_library()
     out = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
     status = lib.unet_sepconv_block(
-        x.data_ptr(), w.dw.data_ptr(), w.pw.data_ptr(), w.scale.data_ptr(),
-        w.shift.data_ptr(), out.data_ptr(), b, h, wd, c, f, int(relu), *ft.fwd_plan_args(plan),
+        x.data_ptr(), dw.data_ptr(), pw.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        out.data_ptr(), b, h, wd, c, f, int(relu), *ft.fwd_plan_args(plan),
         build.DTYPE_CODE[x.dtype], build.stream_handle(x.device),
     )
     build.check(status, "sepconv_block")
     LAUNCHES["sepconv_block"] += 1
     return out
+
+
+@sepconv_block_op.register_fake
+def _sepconv_block_fake(x, dw, pw, scale, shift, relu):
+    return x.new_empty((*x.shape[:3], pw.shape[-1]))
+
+
+def _sepconv_block_setup(ctx, inputs, output):
+    *tensors, relu = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.relu = relu
+
+
+def _sepconv_block_backward(ctx, g):
+    """Autograd through the plain K8, as the JAX ``_sepconv_core`` VJP
+    differentiates its XLA reference."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        y = sepconv_block_reference(leaves[0], BlockWeights(*leaves[1:]), ctx.relu)
+        grads = torch.autograd.grad(y, leaves, g)
+    return (*grads, None)
+
+
+sepconv_block_op.register_autograd(_sepconv_block_backward, setup_context=_sepconv_block_setup)
+
+
+def sepconv_block(
+    x: torch.Tensor, w: BlockWeights, relu: bool = True
+) -> torch.Tensor:
+    """K8 on a CUDA tensor, its plain version on a CPU tensor (the op
+    :func:`sepconv_block_op`)."""
+    return sepconv_block_op(x, w.dw, w.pw, w.scale, w.shift, relu)
 
 
 def _pair(x, w1, w2, pool, x2, edge_flags, reference, key, in_int8=False, out_int8=False):
@@ -654,25 +699,6 @@ def sepconv_bwd(
 # --------------------------------------------------------------------------
 
 
-class _SepconvCore(torch.autograd.Function):
-    """K8 forward, composed backward (autograd through the plain K8), as
-    the JAX ``_sepconv_core`` VJP differentiates its XLA reference."""
-
-    @staticmethod
-    def forward(ctx, x, dw, pw, scale, shift, relu: bool):
-        ctx.save_for_backward(x, dw, pw, scale, shift)
-        ctx.relu = relu
-        return sepconv_block(x, BlockWeights(dw, pw, scale, shift), relu)
-
-    @staticmethod
-    def backward(ctx, g):
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            y = sepconv_block_reference(leaves[0], BlockWeights(*leaves[1:]), ctx.relu)
-            grads = torch.autograd.grad(y, leaves, g)
-        return (*grads, None)
-
-
 class _SepconvPlain(torch.autograd.Function):
     """Plain sepconv plus bias: K8 forward (scale 1, shift = bias, no
     ReLU), K10 backward (JAX ``_sepconv_plain``)."""
@@ -681,7 +707,7 @@ class _SepconvPlain(torch.autograd.Function):
     def forward(ctx, x, dw, pw, bias):
         ctx.save_for_backward(x, dw, pw, bias)
         ones = torch.ones(pw.shape[-1], dtype=torch.float32, device=x.device)
-        return sepconv_block(x, BlockWeights(dw, pw, ones, bias.float().contiguous()), relu=False)
+        return sepconv_block_op(x, dw, pw, ones, bias.float().contiguous(), False)
 
     @staticmethod
     def backward(ctx, g):
@@ -767,7 +793,7 @@ def fused_sepconv_bn_relu(
     if bn_scale is not None:
         block.update(scale=bn_scale, offset=bn_offset, mean=bn_mean, var=bn_var)
     w = prepare_block(block, x.dtype, eps, x.device)
-    return _SepconvCore.apply(x.contiguous(), *w, relu)
+    return sepconv_block(x.contiguous(), w, relu)
 
 
 def fused_sepconv_pair(
