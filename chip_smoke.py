@@ -194,9 +194,18 @@ exit code and no result line:
    nodes and 18 K8 launches a forward of a kernel graph (the loading
    process's counter), images/s at batch 32 loaded against in memory; then
    the export CLI's ``pt2`` on phase 8's ``fit`` checkpoint, its artifact
-   held to the checkpoint's module; then the twenty kernels' JSON line
-   (with each kernel's bound, and K12a's library time) and the result
-   line.
+   held to the checkpoint's module;
+17. the binary 256 px quality gate's ``torch`` stage
+   (``troubleshoot/quality_gate_256.py``; the gate's full run is a command
+   of its own): a pack of 16 train and 8 val numpy scenes written on the
+   card with the port's ``write_pack``, stamped with the gate's
+   ``write_stamp``, then one seed for one epoch of 8 steps at full width in
+   fp32 (BatchNorm, dropout 0, ``use_pallas``) through ``fit``: 18/18/4/4
+   K1-K4, 4/4 K6 and 1/1 K5 launches a step, 18 K8 launches a validation
+   forward and in the first predict forward, a val IoU in [0, 1] and finite
+   losses; then the stage refuses the pack with one byte changed; the
+   stage's seconds; then the twenty kernels' JSON line (with each
+   kernel's bound, and K12a's library time) and the result line.
 
 A profile whose trace lost device activity (no device time, or kernels the
 host launched missing) is taken again, at most four times (``traced``); the
@@ -402,6 +411,9 @@ EXPORT_KINDS = ("plain", "kernel")
 EXPORT_NODE = "unet.sepconv_block.default"
 EXPORT_CHILD_TIMEOUT = 300
 EXPORT_REPS = 10
+# phase 17: the quality gate's torch stage on packed numpy scenes
+GATE_SCENES = (16, 8)            # train, val records: 8 steps at batch 2, one epoch
+GATE_SECONDS = 30                # the phase's budget on the host clock
 
 
 def slab_shapes(stages, n):
@@ -3105,6 +3117,55 @@ def export_path(torch, dev, smi, report, state, scenes, fit_out):
           f"), the rates {t_rates:.1f} s")
 
 
+def quality_gate_path(torch, dev, smi, report):
+    """Phase 17: the quality gate's ``torch`` stage on a pack written on the card."""
+    from unet_image_segmentation_tpu_torch.data.packed import write_pack
+    from unet_image_segmentation_tpu_torch.troubleshoot import quality_gate_256 as q
+
+    workdir = os.path.join(ROOT, "build", "phase17")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(os.path.join(workdir, "packs"))
+    n_train, n_val = GATE_SCENES
+    images, masks = synthetic_scenes(n_train + n_val, IMAGE, SEED + 17, with_masks=True)
+    u8 = np.round(images * 255.0).astype(np.uint8), np.round(masks * 255.0).astype(np.uint8)
+    for split, rows in (("train", slice(0, n_train)), ("val", slice(n_train, None))):
+        write_pack(q.pack_path(workdir, split), u8[0][rows], u8[1][rows])
+    protocol = q.Protocol(image_size=IMAGE, n_train=n_train, n_val=n_val, epochs=1, seeds=(SEED,))
+    q.write_stamp(workdir, protocol, "chip_smoke numpy scenes", None)
+    print(f"quality gate (troubleshoot/quality_gate_256.py), torch stage: {n_train} train / "
+          f"{n_val} val numpy scenes packed on the card, one seed, one epoch of "
+          f"{n_train // protocol.batch} steps at batch {protocol.batch}, full width, fp32")
+    t0 = time.perf_counter()
+    res = q.stage_torch(workdir, device=dev, protocol=protocol, verbose=False)
+    seconds = time.perf_counter() - t0
+    rec = res["seeds"][str(SEED)]
+    per_step = {k: rec["launches_per_step"][k] for k in STEP_LAUNCHES}
+    k8 = (rec["launches_per_val_forward"], rec["launches_first_predict"]["sepconv_block"])
+    print(f"  val IoU {rec['val_iou']:.4f}, loss {rec['loss_per_epoch']}, {rec['steps']} steps, "
+          f"native loader {rec['native_loader']}; launches a step {per_step}; K8 a validation "
+          f"forward {k8[0]}, in the first predict forward {k8[1]}")
+    if rec["steps"] != n_train // protocol.batch or per_step != STEP_LAUNCHES or \
+            k8 != (BLOCK_LAUNCHES_PER_FORWARD, BLOCK_LAUNCHES_PER_FORWARD) or \
+            not 0.0 <= rec["val_iou"] <= 1.0 or not np.isfinite(rec["loss_per_epoch"]).all():
+        raise AssertionError(f"quality gate stage: expected {STEP_LAUNCHES} a step and "
+                             f"{BLOCK_LAUNCHES_PER_FORWARD} K8 a forward, got {rec}")
+    path = q.pack_path(workdir, "val")
+    with open(path, "r+b") as f:   # one byte of one image changed
+        f.seek(4096)
+        byte = f.read(1)[0]
+        f.seek(4096)
+        f.write(bytes([byte ^ 1]))
+    try:
+        q.stage_torch(workdir, device=dev, protocol=protocol, verbose=False)
+    except ValueError as e:
+        print(f"  a pack with one byte changed is refused: {e}")
+    else:
+        raise AssertionError("quality gate stage: a changed pack was not refused")
+    print(f"phase 17 on the host clock: the torch stage {seconds:.1f} s (budget {GATE_SECONDS} s) "
+          f"[{smi}]")
+    report["quality_gate"] = {"seconds": seconds, **rec}
+
+
 def reset_train_counts():
     from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
 
@@ -3564,6 +3625,9 @@ def main() -> int:
 
     # ---- 16. export: torch.export artifacts with K8 as a registered op ----
     export_path(torch, dev, smi, report, state, scenes, fit_out)
+
+    # ---- 17. the binary quality gate's torch stage on packed scenes -------
+    quality_gate_path(torch, dev, smi, report)
 
     kernels, report["bounds"] = [], {}
     shapes = kernel_shapes()

@@ -37,7 +37,8 @@ def test_port_modules_import_no_jax():
                  "troubleshoot.pair_phases", "serving_quant", "evaluation", "cli.benchmark",
                  "ops.preprocess", "streaming", "parallel.mesh", "parallel.halo",
                  "parallel.distributed", "export.pt2", "export.tflite",
-                 "export.tflite_metadata", "cli.export"):
+                 "export.tflite_metadata", "cli.export", "data.synthetic",
+                 "troubleshoot.quality_gate_256"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -140,6 +141,14 @@ def test_train_cli_copy_parses_like_the_jax_cli():
     mine = cli.config_from_args(args).to_dict()
     assert mine == jax_cli.config_from_args(jax_cli.parse_args(flags)).to_dict()
     assert tuple(mine["model"]["filters"]) == (8, 16) and mine["model"]["use_pallas"] is True
+
+
+def test_synthetic_copy_is_the_original_source():
+    """``data/synthetic.py`` is copied verbatim, its lazy cv2 imports with it."""
+    mine, theirs = (os.path.join(ROOT, pkg, "data", "synthetic.py")
+                    for pkg in ("unet_image_segmentation_tpu_torch", "unet_image_segmentation_tpu"))
+    with open(mine, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
 
 
 @pytest.mark.parametrize("out_size,in_size", [(1024, 1080), (1080, 1024), (1920, 1024),

@@ -1,13 +1,20 @@
 """Packed-dataset format + native loader bindings.
 
-The port's own copy of the reader half of
-``unet_image_segmentation_tpu/data/packed.py``: the ``.upk`` format and
-:class:`PackedDataset`, which serves batches from a memory-mapped file of
-fixed-size uint8 records through the C++ library in the repository's
-``native/packed_dataset.cpp`` (mmap + thread-pool gather/normalize/flip,
-no GIL), built with its ``Makefile`` on first use, or through a
-bit-identical NumPy fallback when the library cannot be built. Packs are
-written by :mod:`.autopack`.
+The port's own copy of ``unet_image_segmentation_tpu/data/packed.py``:
+the ``.upk`` format, its writers :func:`write_pack` and
+:func:`pack_directory_dataset` (numpy and ``struct`` only; their files are
+byte for byte the JAX package's), and :class:`PackedDataset`, which serves
+batches from a memory-mapped file of fixed-size uint8 records through the
+C++ library in the repository's ``native/packed_dataset.cpp`` (mmap +
+thread-pool gather/normalize/flip, no GIL), built with its ``Makefile`` on
+first use, or through a bit-identical NumPy fallback when the library
+cannot be built. :mod:`.autopack` writes packs on a first epoch.
+
+Usage::
+
+    pack_directory_dataset(dir_ds, "train.upk")         # one-time
+    ds = PackedDataset("train.upk", horizontal_flip=True, seed=2301)
+    for images, masks in ds.batches(batch_size=32, epoch=e): ...
 
 ``PackedDataset.batches`` matches :class:`.loader.DirectoryDataset`'s
 iteration contract (seeded shuffle per epoch, paired flips, fixed batch
@@ -100,6 +107,44 @@ def native_available() -> bool:
     return _load_native() is not None
 
 
+def write_pack(
+    path: str,
+    images_u8: np.ndarray,  # (N, H, W, C) uint8
+    masks_u8: np.ndarray,   # (N, H, W, MC) uint8
+    mask_is_class_id: bool = False,
+) -> str:
+    n, h, w, c = images_u8.shape
+    mc = masks_u8.shape[-1]
+    assert masks_u8.shape[:3] == (n, h, w), (images_u8.shape, masks_u8.shape)
+    assert images_u8.dtype == np.uint8 and masks_u8.dtype == np.uint8
+    header = struct.pack(
+        _HEADER_FMT, _MAGIC, 1, n, h, w, c, mc, int(mask_is_class_id)
+    )
+    header += b"\0" * (_HEADER_SIZE - len(header))
+    with open(path, "wb") as f:
+        f.write(header)
+        for i in range(n):
+            f.write(images_u8[i].tobytes())
+            f.write(masks_u8[i].tobytes())
+    return path
+
+
+def pack_directory_dataset(directory_ds, path: str) -> str:
+    """Pack a :class:`.loader.DirectoryDataset` (decode+resize once)."""
+    mask_is_class_id = directory_ds.mask_mode == "class_id"
+    imgs, masks = [], []
+    for i in range(len(directory_ds)):
+        img, mask = directory_ds.load_sample(i)
+        imgs.append(np.round(img * 255.0).astype(np.uint8))
+        if mask_is_class_id:
+            masks.append(mask.astype(np.uint8))
+        else:
+            masks.append(np.round(mask * 255.0).astype(np.uint8))
+    return write_pack(
+        path, np.stack(imgs), np.stack(masks), mask_is_class_id
+    )
+
+
 class PackedDataset:
     """Batch server over a pack file (native threads, numpy fallback)."""
 
@@ -155,6 +200,11 @@ class PackedDataset:
     @property
     def image_size(self) -> Tuple[int, int]:
         return (self.h, self.w)
+
+    @property
+    def native(self) -> bool:
+        """Whether the C++ library serves the batches (else the numpy path)."""
+        return bool(self._handle)
 
     def close(self) -> None:
         if self._handle:

@@ -1,0 +1,542 @@
+"""The binary 256 px trained-quality gate of the port, on the card.
+
+Port of ``unet_image_segmentation_tpu/troubleshoot/quality_gate_256.py``
+with its protocol unchanged: 256 px ``style='hard'`` synthetic scenes
+(clutter, occlusion, perspective; ``data/synthetic.py``), 64 train and 128
+val, batch 2, 24 epochs = 768 steps (768 BatchNorm running-statistic
+updates at momentum 0.99), BatchNorm on, dropout 0, no flips, the product
+path (``use_pallas=True``: the fused training chains K1-K6 each step, K8 in
+every validation and predict forward), fp32, seeds (2301, 7, 23, 42). The
+thresholded IoU of the 128 val images, predicted from ``fit``'s final
+state, is held to the JAX package's recorded ``QUALITY_256.json``: the
+gate passes when the port's mean over the seeds is at least the JAX mean
+minus 0.005 (the project's 0.5% MeanIoU gate).
+
+The card's machine has no cv2, which draws the scenes, so the stages are
+split by machine:
+
+* ``data`` (where cv2 is): renders the scenes with the port's copy of
+  ``data/synthetic.py`` at the data seed 230, packs each split through
+  :class:`..data.loader.DirectoryDataset` (``shuffle=False``) and
+  :func:`..data.packed.pack_directory_dataset` into
+  ``<workdir>/packs/{train,val}.upk``, and writes ``<workdir>/stamp.json``:
+  the protocol it ran, the style, cv2's version, the record counts and each
+  pack's SHA-256. The hard packs of the gate's protocol must have the
+  digests of :data:`SCENE_SHA256`, those of the JAX package's own data
+  path (held by the tests).
+* ``torch`` (on the card; ``--device cpu`` only for tests): refuses packs
+  whose protocol, digests or scenes differ from the stamp and from
+  :data:`SCENE_SHA256`, then for each seed runs ``fit`` on
+  :class:`..data.packed.PackedDataset`\\ s of the packs (their shuffle and
+  seed those ``make_loaders`` gives the directory datasets, so the batches
+  are the JAX run's), predicts the val images in batches of 8 through
+  ``make_predict_fn`` and scores them (and, as a diagnostic beside that
+  score, the same weights with their BatchNorm statistics recalibrated on
+  the train images); writes
+  ``<workdir>/torch_results.json`` (``--composed``: the same protocol with
+  ``use_pallas=False``, ``torch_results_composed.json``). TF32 is off.
+* ``report`` (anywhere): ``QUALITY_256_TORCH.json`` beside the JAX
+  record, its setup copied from the stamp and the results.
+
+There is no TF stage: the TF reference checkout is not part of this
+repository and the card has no TF.
+
+Usage::
+
+    python -m unet_image_segmentation_tpu_torch.troubleshoot.quality_gate_256 \\
+        --workdir build/q256 --stage data               # where cv2 is
+    python -m ... --workdir build/q256 --stage torch [--composed]  # on the card
+    python -m ... --workdir build/q256 --stage report   # QUALITY_256_TORCH.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import os
+import sys
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+HW = 256
+BATCH = 2  # the reference default (scripts/train.py:72)
+N_TRAIN, N_VAL = 64, 128
+STEPS_PER_EPOCH = N_TRAIN // BATCH  # 32
+EPOCHS = 24  # 24 * 32 = 768 BN updates
+SEEDS = (2301, 7, 23, 42)
+DATA_SEED = 230          # write_synthetic_dataset's default, as the JAX gate ran it
+PREDICT_BATCH = 8
+GATE = 0.005             # 0.5% MeanIoU (reference scripts/benchmark.py:277-279)
+
+# The packs of the gate's protocol with style 'hard', as the data stage and
+# the JAX package's write_synthetic_dataset + pack_directory_dataset write them.
+SCENE_SHA256 = {
+    "train": "08dec93b8a44a8c75ed1ecae2ce0c2a2b24892e033ab49569b7c082f08dd6ca0",
+    "val": "ec90cb674e4f7f71b94ace812a47dfdf17d70b4f1d619d061c9df89978e7e0cc",
+}
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REFERENCE = os.path.join(ROOT, "QUALITY_256.json")
+SPLITS = ("train", "val")
+STAMP = "stamp.json"
+RESULTS = {False: "torch_results.json", True: "torch_results_composed.json"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Protocol:
+    """What a gate run trains and scores; the stamp records it."""
+
+    image_size: int = HW
+    batch: int = BATCH
+    n_train: int = N_TRAIN
+    n_val: int = N_VAL
+    epochs: int = EPOCHS
+    seeds: Tuple[int, ...] = SEEDS
+    data_seed: int = DATA_SEED
+
+    def to_dict(self) -> dict:
+        return {**dataclasses.asdict(self), "seeds": list(self.seeds)}
+
+
+GATE_PROTOCOL = Protocol()
+
+
+def _thresholded_iou(y_true: np.ndarray, y_prob: np.ndarray, thr: float = 0.5) -> float:
+    p = (y_prob > thr).astype(np.float32)
+    t = (y_true > 0.5).astype(np.float32)
+    inter = (p * t).sum()
+    union = p.sum() + t.sum() - inter
+    return float((inter + 1e-7) / (union + 1e-7))
+
+
+def sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def pack_path(workdir: str, split: str) -> str:
+    return os.path.join(workdir, "packs", f"{split}.upk")
+
+
+def write_stamp(workdir: str, protocol: Protocol, style: str,
+                cv2_version: Optional[str]) -> dict:
+    """``<workdir>/stamp.json`` for the packs under ``<workdir>/packs``."""
+    from unet_image_segmentation_tpu_torch.data.packed import PackedDataset
+
+    records = {}
+    for split in SPLITS:
+        ds = PackedDataset(pack_path(workdir, split), shuffle=False, force_numpy=True)
+        records[split] = [int(ds.n), int(ds.h), int(ds.w), int(ds.img_c), int(ds.mask_c)]
+    stamp = {
+        "protocol": protocol.to_dict(),
+        "style": style,
+        "cv2": cv2_version,
+        "records": records,   # n, h, w, image channels, mask channels
+        "sha256": {split: sha256_file(pack_path(workdir, split)) for split in SPLITS},
+    }
+    with open(os.path.join(workdir, STAMP), "w") as f:
+        json.dump(stamp, f, indent=2)
+    return stamp
+
+
+def stage_data(workdir: str, style: str = "hard", protocol: Protocol = GATE_PROTOCOL) -> dict:
+    """Render, pack and stamp the scenes (needs cv2)."""
+    import cv2
+
+    from unet_image_segmentation_tpu_torch.data.loader import DirectoryDataset
+    from unet_image_segmentation_tpu_torch.data.packed import pack_directory_dataset
+    from unet_image_segmentation_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    root = os.path.join(workdir, "ds")
+    hw = protocol.image_size
+    write_synthetic_dataset(root, n_train=protocol.n_train, n_val=protocol.n_val,
+                            image_size=(hw, hw), seed=protocol.data_seed, style=style)
+    os.makedirs(os.path.join(workdir, "packs"), exist_ok=True)
+    for split in SPLITS:
+        ds = DirectoryDataset(
+            frames_dir=os.path.join(root, f"{split}_frames", "image"),
+            masks_dir=os.path.join(root, f"{split}_masks", "image"),
+            image_size=(hw, hw),
+            shuffle=False,
+        )
+        pack_directory_dataset(ds, pack_path(workdir, split))
+    stamp = write_stamp(workdir, protocol, style, cv2.__version__)
+    _check_scenes(stamp, protocol, style)
+    print(f"synthetic {hw}px {style} scenes ({protocol.n_train} train / {protocol.n_val} val, "
+          f"cv2 {cv2.__version__}) packed under {os.path.join(workdir, 'packs')}: "
+          f"{json.dumps(stamp['sha256'])}")
+    return stamp
+
+
+def _check_scenes(stamp: dict, protocol: Protocol, style: str) -> None:
+    if style != "hard" or protocol != GATE_PROTOCOL:
+        return
+    for split in SPLITS:
+        if stamp["sha256"][split] != SCENE_SHA256[split]:
+            raise ValueError(
+                f"the {split} pack's SHA-256 {stamp['sha256'][split]} is not the gate's scenes' "
+                f"{SCENE_SHA256[split]} (cv2 {stamp.get('cv2')}): the scenes differ from the "
+                "JAX gate's data")
+
+
+def check_inputs(workdir: str, protocol: Protocol = GATE_PROTOCOL) -> dict:
+    """The stamp, once its protocol, the packs' digests and (for the gate's
+    hard scenes) :data:`SCENE_SHA256` all agree; raises ``ValueError``
+    otherwise."""
+    path = os.path.join(workdir, STAMP)
+    if not os.path.exists(path):
+        raise ValueError(f"no {STAMP} under {workdir}: run the data stage first")
+    with open(path) as f:
+        stamp = json.load(f)
+    if stamp.get("protocol") != protocol.to_dict():
+        raise ValueError(f"the stamp's protocol {stamp.get('protocol')} is not this run's "
+                         f"{protocol.to_dict()}")
+    want = {"train": protocol.n_train, "val": protocol.n_val}
+    for split in SPLITS:
+        n, h, w = stamp["records"][split][:3]
+        if (n, h, w) != (want[split], protocol.image_size, protocol.image_size):
+            raise ValueError(f"the stamp's {split} records {stamp['records'][split]} do not fit "
+                             f"the protocol {protocol.to_dict()}")
+        got = sha256_file(pack_path(workdir, split))
+        if got != stamp["sha256"][split]:
+            raise ValueError(f"{pack_path(workdir, split)}: SHA-256 {got} is not the stamp's "
+                             f"{stamp['sha256'][split]}")
+    _check_scenes(stamp, protocol, stamp.get("style"))
+    return stamp
+
+
+def gate_config(protocol: Protocol, seed: int, out_dir: str, use_pallas: bool = True,
+                overrides: Optional[dict] = None):
+    """The JAX gate's overrides of the default config (its ``stage_jax``)."""
+    from unet_image_segmentation_tpu_torch.config import Config
+
+    hw = protocol.image_size
+    return Config().override(
+        model__image_height=hw, model__image_width=hw,
+        model__use_batch_norm=True, model__dropout_rate=0.0,
+        model__use_pallas=use_pallas,
+        data__num_workers=4, data__horizontal_flip=False,
+        train__epochs=protocol.epochs, train__batch_size=protocol.batch, train__seed=seed,
+        train__model_out=os.path.join(out_dir, f"model{seed}"),
+        train__log_dir=os.path.join(out_dir, f"logs{seed}"),
+        train__early_stop_patience=1000,
+        train__reduce_lr_patience=1000,  # bare-Keras run: no LR schedule
+        **(overrides or {}),
+    )
+
+
+def gate_datasets(workdir: str, cfg):
+    """(train, val) :class:`..data.packed.PackedDataset`\\ s of the packs with
+    the flips, shuffles and seed ``make_loaders(cfg)`` gives the directory
+    datasets."""
+    from unet_image_segmentation_tpu_torch.data.packed import PackedDataset
+
+    d = cfg.data
+    train = PackedDataset(pack_path(workdir, "train"), horizontal_flip=d.horizontal_flip,
+                          shuffle=d.shuffle_train, seed=cfg.train.seed)
+    val = PackedDataset(pack_path(workdir, "val"), horizontal_flip=False,
+                        shuffle=d.shuffle_val, seed=cfg.train.seed)
+    return train, val
+
+
+def split_arrays(workdir: str, split: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Every record of a split in file order: (images, masks) as the loaders give them."""
+    from unet_image_segmentation_tpu_torch.data.packed import PackedDataset
+
+    ds = PackedDataset(pack_path(workdir, split), shuffle=False)
+    return next(ds.batches(len(ds)))
+
+
+def _predict(model, images: np.ndarray, device) -> Tuple[np.ndarray, Dict[str, int]]:
+    """The probabilities of ``images`` in batches of 8 through
+    ``make_predict_fn``, and the launches of the first batch."""
+    import torch
+
+    from unet_image_segmentation_tpu_torch.train.steps import make_predict_fn
+
+    predict = make_predict_fn(model)
+    out = []
+    for i in range(0, len(images), PREDICT_BATCH):
+        if i == 0:
+            _reset_counts()
+        out.append(predict(torch.from_numpy(images[i:i + PREDICT_BATCH]).to(device))
+                   .float().cpu().numpy())
+        if i == 0:
+            first = _counts()
+    return np.concatenate(out), first
+
+
+def recalibrated_iou(model, cfg, workdir: str, device, xva: np.ndarray,
+                     yva: np.ndarray) -> float:
+    """A diagnostic beside the gate's IoU: the val IoU of the same weights
+    with every BatchNorm's running statistics replaced by the moments of
+    its input over the train images (``recalibrate_batch_norm``, composed
+    path), which tells stale running statistics apart from the weights."""
+    import torch
+
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet, recalibrate_batch_norm
+
+    twin = build_unet(dataclasses.replace(cfg.model, use_pallas=False), device=device)
+    twin.load_state_dict(model.state_dict())
+    xtr, _ = split_arrays(workdir, "train")
+    with torch.no_grad():
+        recalibrate_batch_norm(twin, torch.from_numpy(xtr).to(device))
+    return _thresholded_iou(yva, _predict(twin, xva, device)[0])
+
+
+def _counts() -> Dict[str, int]:
+    from unet_image_segmentation_tpu_torch.ops import (
+        fused_head,
+        fused_sepconv,
+        fused_train,
+        fused_upconcat,
+    )
+
+    return {**fused_train.LAUNCHES, **fused_upconcat.LAUNCHES, **fused_head.LAUNCHES,
+            "sepconv_block": fused_sepconv.LAUNCHES["sepconv_block"]}
+
+
+def _reset_counts() -> None:
+    from unet_image_segmentation_tpu_torch.ops import (
+        fused_head,
+        fused_sepconv,
+        fused_train,
+        fused_upconcat,
+    )
+
+    for mod in (fused_train, fused_upconcat, fused_head, fused_sepconv):
+        mod.reset_launch_counts()
+
+
+def run_seed(cfg, workdir: str, device, xva: np.ndarray, yva: np.ndarray, state=None,
+             verbose: bool = True) -> dict:
+    """One seed: ``fit`` on the packs, then the val IoU of its final state.
+
+    Launches: each kernel's count over the fit's train steps (K1-K6) and
+    validation forwards (K8), divided by their number, then K8's over the
+    first predict batch."""
+    import torch
+
+    from unet_image_segmentation_tpu_torch.models.unet import resolve_device
+    from unet_image_segmentation_tpu_torch.train.loop import fit
+
+    device = resolve_device(device)
+    train_ds, val_ds = gate_datasets(workdir, cfg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = fit(cfg, train_ds, val_ds, state=state, device=device, verbose=verbose)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_fit = time.perf_counter() - t0
+    fit_counts = _counts()
+    steps = int(result.state.step)
+    val_forwards = result.epochs_run * max(1, len(val_ds) // cfg.train.batch_size)
+    preds, predict_counts = _predict(result.state.model, xva, device)
+    seconds = time.perf_counter() - t0
+    iou = _thresholded_iou(yva, preds)
+    per_step = {k: v / max(steps, 1) for k, v in fit_counts.items() if k != "sepconv_block"}
+    return {
+        "val_iou": iou,
+        "val_iou_bn_recalibrated": recalibrated_iou(result.state.model, cfg, workdir, device,
+                                                    xva, yva),
+        "val_mean_io_u_per_epoch": result.history.get("val_mean_io_u", []),
+        "val_mean_io_u_thresh_per_epoch": result.history.get("val_mean_io_u_thresh", []),
+        "loss_per_epoch": result.history.get("loss", []),
+        "epoch_seconds": result.history.get("epoch_time_sec", []),
+        "step_mean_ms_per_epoch": result.history.get("step_mean_ms", []),
+        "best_epoch": int(result.best_epoch),
+        "epochs": int(result.epochs_run),
+        "steps": steps,
+        "seconds": seconds,
+        "fit_seconds": t_fit,
+        "launches_per_step": per_step,
+        "launches_per_val_forward": fit_counts["sepconv_block"] / max(val_forwards, 1),
+        "launches_first_predict": {"sepconv_block": predict_counts["sepconv_block"]},
+        "native_loader": bool(train_ds.native and val_ds.native),
+    }
+
+
+def stage_torch(workdir: str, device="cuda", composed: bool = False,
+                protocol: Protocol = GATE_PROTOCOL, overrides: Optional[dict] = None,
+                verbose: bool = True) -> dict:
+    """Every seed of the protocol through ``fit`` on the device; writes and
+    returns the results."""
+    import torch
+
+    from unet_image_segmentation_tpu_torch.models.unet import resolve_device
+
+    device = resolve_device(device)
+    stamp = check_inputs(workdir, protocol)
+    card = None
+    if device.type == "cuda":
+        from unet_image_segmentation_tpu_torch.troubleshoot.roofline import card as smi_card
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = smi_card()
+    xva, yva = split_arrays(workdir, "val")
+    leg = "composed" if composed else "kernels"
+    results = {
+        "leg": leg,
+        "path": ("use_pallas=False (composed PyTorch ops)" if composed else
+                 "use_pallas=True (fused training chains K1-K6, K8 forwards)") + ", fp32, TF32 off",
+        "protocol": stamp["protocol"],
+        "style": stamp["style"],
+        "sha256": stamp["sha256"],
+        "overrides": overrides or {},
+        "device": str(device),
+        "card": card,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "seeds": {},
+    }
+    out_path = os.path.join(workdir, RESULTS[composed])
+    for seed in protocol.seeds:
+        cfg = gate_config(protocol, seed, os.path.join(workdir, leg), use_pallas=not composed,
+                          overrides=overrides)
+        rec = run_seed(cfg, workdir, device, xva, yva, verbose=verbose)
+        results["seeds"][str(seed)] = rec
+        print(f"torch {leg} seed {seed}: val IoU {rec['val_iou']:.4f} (BatchNorm statistics "
+              f"recalibrated on the train images: {rec['val_iou_bn_recalibrated']:.4f}), best epoch "
+              f"{rec['best_epoch']}, {rec['steps']} steps in {rec['seconds']:.1f} s, launches a "
+              f"step {rec['launches_per_step']}, K8 a val forward "
+              f"{rec['launches_per_val_forward']}, native loader {rec['native_loader']}"
+              + (f" [{card}]" if card else ""), flush=True)
+        with open(out_path, "w") as f:
+            json.dump(results, f, indent=2)
+    return results
+
+
+def _leg_summary(res: dict, reference: dict) -> dict:
+    seeds = [s for s in reference["setup"]["seeds"] if str(s) in res["seeds"]]
+    jax_iou = dict(zip(reference["setup"]["seeds"], reference["val_iou_jax_per_seed"]))
+    ious = [res["seeds"][str(s)]["val_iou"] for s in seeds]
+    deltas = [v - jax_iou[s] for v, s in zip(ious, seeds)]
+    delta_std = float(np.std(deltas, ddof=1)) if len(deltas) > 1 else None
+    mean = float(np.mean(ious))
+    return {
+        "path": res["path"],
+        "seeds": seeds,
+        "val_iou_torch_per_seed": ious,
+        "val_iou_torch_mean": mean,
+        "val_iou_bn_recalibrated_per_seed": [res["seeds"][str(s)]["val_iou_bn_recalibrated"]
+                                             for s in seeds],
+        "torch_seed_spread": max(ious) - min(ious),
+        "delta": mean - reference["val_iou_jax_mean"],
+        "delta_per_seed": deltas,
+        "delta_std": delta_std,
+        "delta_sem": delta_std / float(np.sqrt(len(deltas))) if delta_std is not None else None,
+        "within_gate": bool(mean >= reference["val_iou_jax_mean"] - GATE),
+        "val_mean_io_u_per_epoch": {str(s): res["seeds"][str(s)]["val_mean_io_u_per_epoch"]
+                                    for s in seeds},
+        "best_epoch": {str(s): res["seeds"][str(s)]["best_epoch"] for s in seeds},
+        "steps": {str(s): res["seeds"][str(s)]["steps"] for s in seeds},
+        "seconds": {str(s): res["seeds"][str(s)]["seconds"] for s in seeds},
+        "launches_per_step": res["seeds"][str(seeds[0])]["launches_per_step"],
+        "launches_per_val_forward": res["seeds"][str(seeds[0])]["launches_per_val_forward"],
+        "launches_first_predict": res["seeds"][str(seeds[0])]["launches_first_predict"],
+        "native_loader": all(res["seeds"][str(s)]["native_loader"] for s in seeds),
+    }
+
+
+def stage_report(workdir: str, out: str, reference_path: str = REFERENCE) -> dict:
+    """``out`` from the stamp, the results and the JAX record (read only)."""
+    with open(os.path.join(workdir, STAMP)) as f:
+        stamp = json.load(f)
+    with open(reference_path) as f:
+        reference = json.load(f)
+    legs = {}
+    for composed, name in RESULTS.items():
+        path = os.path.join(workdir, name)
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            res = json.load(f)
+        if res["sha256"] != stamp["sha256"] or res["protocol"] != stamp["protocol"]:
+            raise ValueError(f"{name} was run on other packs or another protocol than "
+                             f"{STAMP} records")
+        legs[composed] = res
+    if False not in legs:
+        raise ValueError(f"no {RESULTS[False]} under {workdir}: run the torch stage first")
+    kernels = legs[False]
+    proto = stamp["protocol"]
+    setup = {
+        "image_size": proto["image_size"], "epochs": proto["epochs"], "batch": proto["batch"],
+        "n_train": proto["n_train"], "n_val": proto["n_val"], "bn": True, "dropout": 0.0,
+        "bn_updates": proto["epochs"] * (proto["n_train"] // proto["batch"]),
+        "seeds": [int(s) for s in kernels["seeds"]],
+        "protocol_seeds": proto["seeds"],
+        "data_seed": proto["data_seed"],
+        "scene_style": stamp["style"],
+        "cv2": stamp["cv2"],
+        "records": stamp["records"],
+        "sha256": stamp["sha256"],
+        "overrides": kernels["overrides"],
+        "torch_path": kernels["path"],
+        "device": kernels["device"],
+        "card": kernels["card"],
+        "torch": kernels["torch"],
+        "cuda": kernels["cuda"],
+        "jax_record": os.path.basename(reference_path),
+        "jax_path": reference["setup"]["jax_path"],
+        "gate": reference["setup"]["gate"] + ": within_gate = port mean >= JAX mean - "
+                f"{GATE}",
+        "tf_leg": "not run: the TF reference checkout is not in this repository and the card "
+                  "has no TF; the JAX record's TF numbers are not compared",
+    }
+    summary = _leg_summary(kernels, reference)
+    artifact = {
+        "setup": setup,
+        "val_iou_jax_per_seed": [dict(zip(reference["setup"]["seeds"],
+                                          reference["val_iou_jax_per_seed"]))[s]
+                                 for s in summary["seeds"]],
+        "val_iou_jax_mean": reference["val_iou_jax_mean"],
+        "jax_seed_spread": reference["jax_seed_spread"],
+        **summary,
+    }
+    if True in legs:
+        artifact["composed"] = _leg_summary(legs[True], reference)
+    else:
+        artifact["composed"] = {"not_run": f"no {RESULTS[True]} under the workdir"}
+    with open(out, "w") as f:
+        json.dump(artifact, f, indent=2)
+    print(json.dumps(artifact, indent=2))
+    return artifact
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--workdir", required=True)
+    p.add_argument("--stage", required=True, choices=["data", "torch", "report", "all"])
+    p.add_argument(
+        "--style", default="hard", choices=["easy", "hard"],
+        help="scene difficulty of the data stage; 'hard' is the gate's (both stacks land "
+        "well below IoU 1.0 so the 0.5%% gate can discriminate)",
+    )
+    p.add_argument("--out", default=os.path.join(ROOT, "QUALITY_256_TORCH.json"))
+    p.add_argument("--device", default="cuda",
+                   help="the torch stage's device (the card; 'cpu' only for tests)")
+    p.add_argument("--composed", action="store_true",
+                   help="the torch stage with use_pallas=False, into its own results file")
+    args = p.parse_args(argv)
+    os.makedirs(args.workdir, exist_ok=True)
+    stages = ["data", "torch", "report"] if args.stage == "all" else [args.stage]
+    for stage in stages:
+        if stage == "data":
+            stage_data(args.workdir, style=args.style)
+        elif stage == "torch":
+            stage_torch(args.workdir, device=args.device, composed=args.composed)
+        else:
+            stage_report(args.workdir, args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
