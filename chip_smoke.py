@@ -204,8 +204,20 @@ exit code and no result line:
    K1-K4, 4/4 K6 and 1/1 K5 launches a step, 18 K8 launches a validation
    forward and in the first predict forward, a val IoU in [0, 1] and finite
    losses; then the stage refuses the pack with one byte changed; the
-   stage's seconds; then the twenty kernels' JSON line (with each
-   kernel's bound, and K12a's library time) and the result line.
+   stage's seconds;
+18. the 3-class quality gate's ``torch`` stage
+   (``troubleshoot/quality_gate_512mc.py``; the gate's full runs are
+   commands of their own): a pack of 8 train and 4 val numpy class-id scenes
+   at 512 px written on the card with ``write_pack(...,
+   mask_is_class_id=True)``, one seed for one epoch of 4 steps at full
+   width in fp32 with ``cce`` through ``fit``: with ``fused_head`` 'auto'
+   18/18/4/4 K1-K4, 4/4 K6 and no K5 or K11 launch a step, 18 K8 launches
+   a validation forward and in the first predict forward; then the same
+   epoch with 'all' (the gate's K11 leg): 1/1 K11 a step beside the same
+   K1-K4 and K6; per-class IoUs in [0, 1] and finite losses; then the stage
+   refuses the pack with one byte changed; the stage's seconds; then the
+   twenty kernels' JSON line (with each kernel's bound, and K12a's library
+   time) and the result line.
 
 A profile whose trace lost device activity (no device time, or kernels the
 host launched missing) is taken again, at most four times (``traced``); the
@@ -414,6 +426,9 @@ EXPORT_REPS = 10
 # phase 17: the quality gate's torch stage on packed numpy scenes
 GATE_SCENES = (16, 8)            # train, val records: 8 steps at batch 2, one epoch
 GATE_SECONDS = 30                # the phase's budget on the host clock
+# phase 18: the 3-class quality gate's torch stage on packed class-id scenes
+GATE_MC_SCENES = (8, 4)          # train, val records at 512 px: 4 steps at batch 2
+GATE_MC_SECONDS = 30             # the phase's budget on the host clock
 
 
 def slab_shapes(stages, n):
@@ -3166,6 +3181,69 @@ def quality_gate_path(torch, dev, smi, report):
     report["quality_gate"] = {"seconds": seconds, **rec}
 
 
+def quality_gate_mc_path(torch, dev, smi, report):
+    """Phase 18: the 3-class quality gate's ``torch`` stage on class-id packs
+    written on the card, the kernel leg ('auto') and the K11 leg ('all')."""
+    from unet_image_segmentation_tpu_torch.data.packed import write_pack
+    from unet_image_segmentation_tpu_torch.troubleshoot import quality_gate_256 as q
+    from unet_image_segmentation_tpu_torch.troubleshoot import quality_gate_512mc as mc
+
+    workdir = os.path.join(ROOT, "build", "phase18")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(os.path.join(workdir, "packs"))
+    n_train, n_val = GATE_MC_SCENES
+    images, ids = multiclass_scenes(n_train + n_val, MC_IMAGE, SEED + 18)
+    u8 = np.round(images * 255.0).astype(np.uint8), ids.astype(np.uint8)
+    for split, rows in (("train", slice(0, n_train)), ("val", slice(n_train, None))):
+        write_pack(q.pack_path(workdir, split), u8[0][rows], u8[1][rows], mask_is_class_id=True)
+    protocol = q.Protocol(image_size=MC_IMAGE, n_train=n_train, n_val=n_val, epochs=1,
+                          seeds=mc.ALL_LEG_SEEDS, num_classes=mc.N_CLASSES, mask_mode="class_id",
+                          loss="cce")
+    q.write_stamp(workdir, protocol, "chip_smoke numpy class-id scenes", None)
+    print(f"3-class quality gate (troubleshoot/quality_gate_512mc.py), torch stage: {n_train} "
+          f"train / {n_val} val numpy class-id scenes at {MC_IMAGE} px packed on the card, one "
+          f"seed, one epoch of {n_train // protocol.batch} steps at batch {protocol.batch}, full "
+          "width, fp32, cce; fused_head 'auto', then 'all'")
+    t0 = time.perf_counter()
+    legs = {}
+    for name, fused_all, want in (("auto", False, STEP_LAUNCHES_HEAD_OFF),
+                                  ("all", True, MC_STEP_LAUNCHES)):
+        res = mc.stage_torch(workdir, protocol, device=dev, fused_head_all=fused_all,
+                             verbose=False)
+        rec = res["seeds"][str(protocol.seeds[0])]
+        per_step = {k: rec["launches_per_step"][k] for k in want}
+        k8 = (rec["launches_per_val_forward"], rec["launches_first_predict"]["sepconv_block"])
+        print(f"  fused_head {name!r}: per-class IoU {[round(v, 4) for v in rec['per_class_iou']]}"
+              f", loss {rec['loss_per_epoch']}, {rec['steps']} steps, native loader "
+              f"{rec['native_loader']}; launches a step {per_step}; K8 a validation forward "
+              f"{k8[0]}, in the first predict forward {k8[1]}")
+        if res["fused_head"] != name or rec["steps"] != n_train // protocol.batch or \
+                per_step != want or \
+                k8 != (BLOCK_LAUNCHES_PER_FORWARD, BLOCK_LAUNCHES_PER_FORWARD) or \
+                not all(0.0 <= v <= 1.0 for v in rec["per_class_iou"]) or \
+                not np.isfinite(rec["loss_per_epoch"]).all():
+            raise AssertionError(f"3-class quality gate stage, fused_head {name!r}: expected "
+                                 f"{want} a step and {BLOCK_LAUNCHES_PER_FORWARD} K8 a forward, "
+                                 f"got {rec}")
+        legs[name] = rec
+    seconds = time.perf_counter() - t0
+    path = q.pack_path(workdir, "train")
+    with open(path, "r+b") as f:   # one byte of one image changed
+        f.seek(8192)
+        byte = f.read(1)[0]
+        f.seek(8192)
+        f.write(bytes([byte ^ 1]))
+    try:
+        mc.stage_torch(workdir, protocol, device=dev, verbose=False)
+    except ValueError as e:
+        print(f"  a pack with one byte changed is refused: {e}")
+    else:
+        raise AssertionError("3-class quality gate stage: a changed pack was not refused")
+    print(f"phase 18 on the host clock: the torch stage's two legs {seconds:.1f} s (budget "
+          f"{GATE_MC_SECONDS} s) [{smi}]")
+    report["quality_gate_mc"] = {"seconds": seconds, **legs}
+
+
 def reset_train_counts():
     from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
 
@@ -3628,6 +3706,9 @@ def main() -> int:
 
     # ---- 17. the binary quality gate's torch stage on packed scenes -------
     quality_gate_path(torch, dev, smi, report)
+
+    # ---- 18. the 3-class quality gate's torch stage on class-id packs -----
+    quality_gate_mc_path(torch, dev, smi, report)
 
     kernels, report["bounds"] = [], {}
     shapes = kernel_shapes()

@@ -38,13 +38,15 @@ def test_port_modules_import_no_jax():
                  "ops.preprocess", "streaming", "parallel.mesh", "parallel.halo",
                  "parallel.distributed", "export.pt2", "export.tflite",
                  "export.tflite_metadata", "cli.export", "data.synthetic",
-                 "troubleshoot.quality_gate_256"):
+                 "troubleshoot.quality_gate_256", "troubleshoot.quality_gate_512mc",
+                 "data.midv", "data.prepare"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "banned = ('jax', 'jaxlib', 'flax', 'unet_image_segmentation_tpu')\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'unet_image_segmentation_tpu', 'cv2', 'h5py',\n"
+        "          'tensorflow')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
@@ -149,6 +151,27 @@ def test_synthetic_copy_is_the_original_source():
                     for pkg in ("unet_image_segmentation_tpu_torch", "unet_image_segmentation_tpu"))
     with open(mine, "rb") as f, open(theirs, "rb") as g:
         assert f.read() == g.read()
+
+
+def test_midv_copy_is_the_original_source():
+    """``data/midv.py`` is copied verbatim, its lazy cv2 and urllib imports with it."""
+    mine, theirs = (os.path.join(ROOT, pkg, "data", "midv.py")
+                    for pkg in ("unet_image_segmentation_tpu_torch", "unet_image_segmentation_tpu"))
+    with open(mine, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_prepare_copy_is_the_original_source_but_its_import():
+    """``data/prepare.py`` is the original but line 24, which imports the
+    port's ``midv`` in place of the JAX package's."""
+    mine, theirs = (os.path.join(ROOT, pkg, "data", "prepare.py")
+                    for pkg in ("unet_image_segmentation_tpu_torch", "unet_image_segmentation_tpu"))
+    with open(mine, "rb") as f, open(theirs, "rb") as g:
+        a, b = f.read().split(b"\n"), g.read().split(b"\n")
+    assert len(a) == len(b)
+    assert [i for i, (x, y) in enumerate(zip(a, b)) if x != y] == [23]
+    assert b[23] == b"from unet_image_segmentation_tpu.data.midv import quad_to_mask"
+    assert a[23] == b"from unet_image_segmentation_tpu_torch.data.midv import quad_to_mask"
 
 
 @pytest.mark.parametrize("out_size,in_size", [(1024, 1080), (1080, 1024), (1920, 1024),

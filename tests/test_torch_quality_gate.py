@@ -34,6 +34,7 @@ SMALL = q.Protocol(image_size=32, n_train=8, n_val=8, epochs=2, seeds=(2301, 7))
 SMALL_MODEL = {"model__filters": [8, 16]}
 LOSS_RTOL = 1e-4
 IOU_ATOL = 1e-3
+BN_STATS_TOL = 2e-5   # of each statistic's max |value|; measured 2.9e-6 (bneck_block1's mean)
 
 
 @pytest.fixture(scope="module")
@@ -293,7 +294,8 @@ def test_one_seed_tracks_jax_fit(small_dir, tmp_path):
     """The gate's seed run from JAX's initial weights (carried through
     ``weights.py``) against JAX ``fit`` + ``make_predict_fn`` on the same
     scenes and batches: per-epoch loss within 1e-4 relative, val IoU within
-    1e-3 absolute, fp32."""
+    1e-3 absolute, and every BatchNorm's final running mean and variance
+    within 2e-5 of the largest |value| of JAX's ``batch_stats``, fp32."""
     import jax
     import jax.numpy as jnp
 
@@ -343,7 +345,15 @@ def test_one_seed_tracks_jax_fit(small_dir, tmp_path):
     preds = np.concatenate([np.asarray(predict(jxva[i:i + 8])) for i in range(0, len(jxva), 8)])
     want_iou = jq._thresholded_iou(jyva, preds)
 
-    assert rec["steps"] == int(res.state.step) == 8
+    assert rec["steps"] == int(res.state.step) == int(state.step) == 8
     np.testing.assert_allclose(rec["loss_per_epoch"], res.history["loss"], rtol=LOSS_RTOL)
     assert abs(rec["val_iou"] - want_iou) <= IOU_ATOL, (rec["val_iou"], want_iou)
     assert rec["loss_per_epoch"][1] < rec["loss_per_epoch"][0]   # it trains
+    # the running statistics the gate's final weights are scored with
+    want_stats = state_dict_from_flax(
+        {"batch_stats": jax.tree_util.tree_map(np.asarray, res.state.batch_stats)})
+    got = state.model.state_dict()
+    assert len(want_stats) == 2 * 10   # 10 BatchNorms at filters (8, 16)
+    errs = {k: float((got[k] - v).abs().max() / v.abs().max()) for k, v in want_stats.items()}
+    assert max(errs.values()) <= BN_STATS_TOL, max(errs.items(), key=lambda kv: kv[1])
+    assert all(float(got[k].abs().max()) > 0 for k in want_stats if k.endswith(".mean"))

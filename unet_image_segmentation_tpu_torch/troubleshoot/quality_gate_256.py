@@ -35,8 +35,17 @@ split by machine:
   the train images); writes
   ``<workdir>/torch_results.json`` (``--composed``: the same protocol with
   ``use_pallas=False``, ``torch_results_composed.json``). TF32 is off.
+  ``--extra-seeds N`` runs N more seeds (:func:`extra_seeds`) after the
+  protocol's, into ``torch_results_extra.json``: the spread of the final
+  epoch's IoU, which the four seeds of the gate cannot resolve. They never
+  enter the gate's results.
 * ``report`` (anywhere): ``QUALITY_256_TORCH.json`` beside the JAX
-  record, its setup copied from the stamp and the results.
+  record, its setup copied from the stamp and the results; with extra
+  seeds also ``QUALITY_256_TORCH_SEEDS.json``, every seed's final and
+  recalibrated IoU and its BatchNorm diagnostics.
+
+The 3-class gate (``quality_gate_512mc.py``) runs on the same stages with a
+:class:`Protocol` of class-id masks and ``cce`` and its own :class:`Scoring`.
 
 There is no TF stage: the TF reference checkout is not part of this
 repository and the card has no TF.
@@ -46,6 +55,7 @@ Usage::
     python -m unet_image_segmentation_tpu_torch.troubleshoot.quality_gate_256 \\
         --workdir build/q256 --stage data               # where cv2 is
     python -m ... --workdir build/q256 --stage torch [--composed]  # on the card
+    python -m ... --workdir build/q256 --stage torch --extra-seeds 12  # and 12 more
     python -m ... --workdir build/q256 --stage report   # QUALITY_256_TORCH.json
 """
 
@@ -58,7 +68,7 @@ import json
 import os
 import sys
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -84,6 +94,8 @@ REFERENCE = os.path.join(ROOT, "QUALITY_256.json")
 SPLITS = ("train", "val")
 STAMP = "stamp.json"
 RESULTS = {False: "torch_results.json", True: "torch_results_composed.json"}
+RESULTS_EXTRA = "torch_results_extra.json"
+DROP, DROP_AFTER = 0.05, 10   # a late drop: val MeanIoU falls by > 0.05 after epoch 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +109,27 @@ class Protocol:
     epochs: int = EPOCHS
     seeds: Tuple[int, ...] = SEEDS
     data_seed: int = DATA_SEED
+    num_classes: int = 1
+    mask_mode: str = "binary"
+    loss: str = "dice"   # the default config's: the binary gate sets no loss
 
     def to_dict(self) -> dict:
-        return {**dataclasses.asdict(self), "seeds": list(self.seeds)}
+        """The stamp's record; a binary protocol's leaves out the three
+        fields it shares with the default config, as the binary gate's stamp
+        always has."""
+        d = {**dataclasses.asdict(self), "seeds": list(self.seeds)}
+        if (self.num_classes, self.mask_mode, self.loss) == (1, "binary", "dice"):
+            for k in ("num_classes", "mask_mode", "loss"):
+                del d[k]
+        return d
 
 
 GATE_PROTOCOL = Protocol()
+
+
+def extra_seeds(n: int) -> Tuple[int, ...]:
+    """The seeds of ``--extra-seeds n``: 101..100+n, none a protocol seed."""
+    return tuple(range(101, 101 + n))
 
 
 def _thresholded_iou(y_true: np.ndarray, y_prob: np.ndarray, thr: float = 0.5) -> float:
@@ -111,6 +138,27 @@ def _thresholded_iou(y_true: np.ndarray, y_prob: np.ndarray, thr: float = 0.5) -
     inter = (p * t).sum()
     union = p.sum() + t.sum() - inter
     return float((inter + 1e-7) / (union + 1e-7))
+
+
+@dataclasses.dataclass(frozen=True)
+class Scoring:
+    """How a seed's final weights are scored: the predict batch, what is kept
+    of each predicted batch (``post``), and the scores of the kept
+    predictions against the masks; ``key`` names the headline score."""
+
+    predict_batch: int
+    score: Callable[[np.ndarray, np.ndarray], Dict[str, object]]
+    key: str
+    post: Optional[Callable[[np.ndarray], np.ndarray]] = None
+
+
+BINARY_SCORING = Scoring(PREDICT_BATCH, lambda y, p: {"val_iou": _thresholded_iou(y, p)},
+                         "val_iou")
+
+
+def late_drops(values, size: float = DROP, after: int = DROP_AFTER) -> int:
+    """Epoch-to-epoch falls of more than ``size`` into an epoch past ``after``."""
+    return sum(1 for i in range(max(after, 1), len(values)) if values[i - 1] - values[i] > size)
 
 
 def sha256_file(path: str) -> str:
@@ -146,18 +194,25 @@ def write_stamp(workdir: str, protocol: Protocol, style: str,
     return stamp
 
 
-def stage_data(workdir: str, style: str = "hard", protocol: Protocol = GATE_PROTOCOL) -> dict:
-    """Render, pack and stamp the scenes (needs cv2)."""
+def stage_data(workdir: str, style: str = "hard", protocol: Protocol = GATE_PROTOCOL,
+               pinned: Optional[Dict[str, str]] = None) -> dict:
+    """Render, pack and stamp the scenes (needs cv2): binary masks with
+    ``write_synthetic_dataset``, class-id masks with
+    ``write_synthetic_multiclass_dataset``."""
     import cv2
 
+    from unet_image_segmentation_tpu_torch.data import synthetic
     from unet_image_segmentation_tpu_torch.data.loader import DirectoryDataset
     from unet_image_segmentation_tpu_torch.data.packed import pack_directory_dataset
-    from unet_image_segmentation_tpu_torch.data.synthetic import write_synthetic_dataset
 
     root = os.path.join(workdir, "ds")
     hw = protocol.image_size
-    write_synthetic_dataset(root, n_train=protocol.n_train, n_val=protocol.n_val,
-                            image_size=(hw, hw), seed=protocol.data_seed, style=style)
+    kw = dict(n_train=protocol.n_train, n_val=protocol.n_val, image_size=(hw, hw),
+              seed=protocol.data_seed, style=style)
+    if protocol.mask_mode == "class_id":
+        synthetic.write_synthetic_multiclass_dataset(root, num_classes=protocol.num_classes, **kw)
+    else:
+        synthetic.write_synthetic_dataset(root, **kw)
     os.makedirs(os.path.join(workdir, "packs"), exist_ok=True)
     for split in SPLITS:
         ds = DirectoryDataset(
@@ -165,31 +220,41 @@ def stage_data(workdir: str, style: str = "hard", protocol: Protocol = GATE_PROT
             masks_dir=os.path.join(root, f"{split}_masks", "image"),
             image_size=(hw, hw),
             shuffle=False,
+            mask_mode=protocol.mask_mode,
         )
         pack_directory_dataset(ds, pack_path(workdir, split))
     stamp = write_stamp(workdir, protocol, style, cv2.__version__)
-    _check_scenes(stamp, protocol, style)
+    _check_scenes(stamp, _pinned(protocol, pinned), style)
     print(f"synthetic {hw}px {style} scenes ({protocol.n_train} train / {protocol.n_val} val, "
-          f"cv2 {cv2.__version__}) packed under {os.path.join(workdir, 'packs')}: "
-          f"{json.dumps(stamp['sha256'])}")
+          f"{protocol.mask_mode} masks, cv2 {cv2.__version__}) packed under "
+          f"{os.path.join(workdir, 'packs')}: {json.dumps(stamp['sha256'])}")
     return stamp
 
 
-def _check_scenes(stamp: dict, protocol: Protocol, style: str) -> None:
-    if style != "hard" or protocol != GATE_PROTOCOL:
+def _pinned(protocol: Protocol, pinned: Optional[Dict[str, str]]) -> Optional[Dict[str, str]]:
+    """The digests a protocol's hard scenes must have: ``pinned``, else
+    :data:`SCENE_SHA256` for the binary gate's protocol, else none."""
+    if pinned is not None:
+        return pinned
+    return SCENE_SHA256 if protocol == GATE_PROTOCOL else None
+
+
+def _check_scenes(stamp: dict, pinned: Optional[Dict[str, str]], style: str) -> None:
+    if style != "hard" or pinned is None:
         return
     for split in SPLITS:
-        if stamp["sha256"][split] != SCENE_SHA256[split]:
+        if stamp["sha256"][split] != pinned[split]:
             raise ValueError(
                 f"the {split} pack's SHA-256 {stamp['sha256'][split]} is not the gate's scenes' "
-                f"{SCENE_SHA256[split]} (cv2 {stamp.get('cv2')}): the scenes differ from the "
+                f"{pinned[split]} (cv2 {stamp.get('cv2')}): the scenes differ from the "
                 "JAX gate's data")
 
 
-def check_inputs(workdir: str, protocol: Protocol = GATE_PROTOCOL) -> dict:
-    """The stamp, once its protocol, the packs' digests and (for the gate's
-    hard scenes) :data:`SCENE_SHA256` all agree; raises ``ValueError``
-    otherwise."""
+def check_inputs(workdir: str, protocol: Protocol = GATE_PROTOCOL,
+                 pinned: Optional[Dict[str, str]] = None) -> dict:
+    """The stamp, once its protocol, the packs' digests and (for a gate's
+    hard scenes) the pinned digests (``pinned``, or :data:`SCENE_SHA256`
+    for the binary gate) all agree; raises ``ValueError`` otherwise."""
     path = os.path.join(workdir, STAMP)
     if not os.path.exists(path):
         raise ValueError(f"no {STAMP} under {workdir}: run the data stage first")
@@ -208,7 +273,7 @@ def check_inputs(workdir: str, protocol: Protocol = GATE_PROTOCOL) -> dict:
         if got != stamp["sha256"][split]:
             raise ValueError(f"{pack_path(workdir, split)}: SHA-256 {got} is not the stamp's "
                              f"{stamp['sha256'][split]}")
-    _check_scenes(stamp, protocol, stamp.get("style"))
+    _check_scenes(stamp, _pinned(protocol, pinned), stamp.get("style"))
     return stamp
 
 
@@ -220,6 +285,8 @@ def gate_config(protocol: Protocol, seed: int, out_dir: str, use_pallas: bool = 
     hw = protocol.image_size
     return Config().override(
         model__image_height=hw, model__image_width=hw,
+        model__num_classes=protocol.num_classes, data__mask_mode=protocol.mask_mode,
+        train__loss=protocol.loss,
         model__use_batch_norm=True, model__dropout_rate=0.0,
         model__use_pallas=use_pallas,
         data__num_workers=4, data__horizontal_flip=False,
@@ -254,41 +321,52 @@ def split_arrays(workdir: str, split: str) -> Tuple[np.ndarray, np.ndarray]:
     return next(ds.batches(len(ds)))
 
 
-def _predict(model, images: np.ndarray, device) -> Tuple[np.ndarray, Dict[str, int]]:
-    """The probabilities of ``images`` in batches of 8 through
-    ``make_predict_fn``, and the launches of the first batch."""
+def _predict(model, images: np.ndarray, device, scoring: Scoring = BINARY_SCORING
+             ) -> Tuple[np.ndarray, Dict[str, int]]:
+    """The predictions of ``images`` in batches of ``scoring.predict_batch``
+    through ``make_predict_fn`` (each kept through ``scoring.post``), and the
+    launches of the first batch."""
     import torch
 
     from unet_image_segmentation_tpu_torch.train.steps import make_predict_fn
 
     predict = make_predict_fn(model)
     out = []
-    for i in range(0, len(images), PREDICT_BATCH):
+    n = scoring.predict_batch
+    for i in range(0, len(images), n):
         if i == 0:
             _reset_counts()
-        out.append(predict(torch.from_numpy(images[i:i + PREDICT_BATCH]).to(device))
-                   .float().cpu().numpy())
+        p = predict(torch.from_numpy(images[i:i + n]).to(device)).float().cpu().numpy()
+        out.append(scoring.post(p) if scoring.post else p)
         if i == 0:
             first = _counts()
     return np.concatenate(out), first
 
 
-def recalibrated_iou(model, cfg, workdir: str, device, xva: np.ndarray,
-                     yva: np.ndarray) -> float:
-    """A diagnostic beside the gate's IoU: the val IoU of the same weights
+def recalibrated(model, cfg, workdir: str, device, xva: np.ndarray, yva: np.ndarray,
+                 scoring: Scoring = BINARY_SCORING) -> Tuple[Dict[str, object], Dict[str, float]]:
+    """A diagnostic beside the gate's score: the scores of the same weights
     with every BatchNorm's running statistics replaced by the moments of
     its input over the train images (``recalibrate_batch_norm``, composed
-    path), which tells stale running statistics apart from the weights."""
+    path), which tells stale running statistics apart from the weights; and
+    for each BatchNorm the channel mean of ``log(running var / recalibrated
+    var)``."""
     import torch
 
+    from unet_image_segmentation_tpu_torch.models.layers import BatchNorm
     from unet_image_segmentation_tpu_torch.models.unet import build_unet, recalibrate_batch_norm
 
     twin = build_unet(dataclasses.replace(cfg.model, use_pallas=False), device=device)
     twin.load_state_dict(model.state_dict())
+    bns = {name: m for name, m in twin.named_modules() if isinstance(m, BatchNorm)}
+    running = {name: bn.var.clone() for name, bn in bns.items()}
     xtr, _ = split_arrays(workdir, "train")
     with torch.no_grad():
         recalibrate_batch_norm(twin, torch.from_numpy(xtr).to(device))
-    return _thresholded_iou(yva, _predict(twin, xva, device)[0])
+    log_var = {name: float(torch.log(running[name].clamp_min(1e-12) / bn.var.clamp_min(1e-12))
+                           .mean()) for name, bn in bns.items()}
+    scores = scoring.score(yva, _predict(twin, xva, device, scoring)[0])
+    return scores, log_var
 
 
 def _counts() -> Dict[str, int]:
@@ -316,12 +394,14 @@ def _reset_counts() -> None:
 
 
 def run_seed(cfg, workdir: str, device, xva: np.ndarray, yva: np.ndarray, state=None,
-             verbose: bool = True) -> dict:
-    """One seed: ``fit`` on the packs, then the val IoU of its final state.
+             verbose: bool = True, scoring: Scoring = BINARY_SCORING) -> dict:
+    """One seed: ``fit`` on the packs, then the scores of its final state,
+    beside those of the same weights with recalibrated BatchNorm statistics
+    (``stale_gap``: recalibrated minus final headline score).
 
-    Launches: each kernel's count over the fit's train steps (K1-K6) and
-    validation forwards (K8), divided by their number, then K8's over the
-    first predict batch."""
+    Launches: each kernel's count over the fit's train steps (K1-K6, K11)
+    and validation forwards (K8), divided by their number, then K8's over
+    the first predict batch."""
     import torch
 
     from unet_image_segmentation_tpu_torch.models.unet import resolve_device
@@ -338,16 +418,20 @@ def run_seed(cfg, workdir: str, device, xva: np.ndarray, yva: np.ndarray, state=
     fit_counts = _counts()
     steps = int(result.state.step)
     val_forwards = result.epochs_run * max(1, len(val_ds) // cfg.train.batch_size)
-    preds, predict_counts = _predict(result.state.model, xva, device)
+    preds, predict_counts = _predict(result.state.model, xva, device, scoring)
     seconds = time.perf_counter() - t0
-    iou = _thresholded_iou(yva, preds)
+    scores = scoring.score(yva, preds)
+    recal, log_var = recalibrated(result.state.model, cfg, workdir, device, xva, yva, scoring)
     per_step = {k: v / max(steps, 1) for k, v in fit_counts.items() if k != "sepconv_block"}
+    history = result.history
     return {
-        "val_iou": iou,
-        "val_iou_bn_recalibrated": recalibrated_iou(result.state.model, cfg, workdir, device,
-                                                    xva, yva),
-        "val_mean_io_u_per_epoch": result.history.get("val_mean_io_u", []),
-        "val_mean_io_u_thresh_per_epoch": result.history.get("val_mean_io_u_thresh", []),
+        **scores,
+        **{f"{k}_bn_recalibrated": v for k, v in recal.items()},
+        "stale_gap": recal[scoring.key] - scores[scoring.key],
+        "bn_log_var_ratio": log_var,
+        "late_drops": late_drops(history.get("val_mean_io_u_thresh", [])),
+        "val_mean_io_u_per_epoch": history.get("val_mean_io_u", []),
+        "val_mean_io_u_thresh_per_epoch": history.get("val_mean_io_u_thresh", []),
         "loss_per_epoch": result.history.get("loss", []),
         "epoch_seconds": result.history.get("epoch_time_sec", []),
         "step_mean_ms_per_epoch": result.history.get("step_mean_ms", []),
@@ -365,15 +449,19 @@ def run_seed(cfg, workdir: str, device, xva: np.ndarray, yva: np.ndarray, state=
 
 def stage_torch(workdir: str, device="cuda", composed: bool = False,
                 protocol: Protocol = GATE_PROTOCOL, overrides: Optional[dict] = None,
-                verbose: bool = True) -> dict:
-    """Every seed of the protocol through ``fit`` on the device; writes and
-    returns the results."""
+                verbose: bool = True, extra: int = 0, scoring: Scoring = BINARY_SCORING,
+                pinned: Optional[Dict[str, str]] = None, seeds: Optional[Tuple[int, ...]] = None,
+                out_name: Optional[str] = None) -> dict:
+    """Every seed of the protocol (or ``seeds``) through ``fit`` on the
+    device; writes the results to ``out_name`` (default :data:`RESULTS`'s
+    file of the leg) and returns them. ``extra`` > 0 then runs
+    :func:`extra_seeds` into :data:`RESULTS_EXTRA`."""
     import torch
 
     from unet_image_segmentation_tpu_torch.models.unet import resolve_device
 
     device = resolve_device(device)
-    stamp = check_inputs(workdir, protocol)
+    stamp = check_inputs(workdir, protocol, pinned)
     card = None
     if device.type == "cuda":
         from unet_image_segmentation_tpu_torch.troubleshoot.roofline import card as smi_card
@@ -383,34 +471,43 @@ def stage_torch(workdir: str, device="cuda", composed: bool = False,
         card = smi_card()
     xva, yva = split_arrays(workdir, "val")
     leg = "composed" if composed else "kernels"
-    results = {
-        "leg": leg,
-        "path": ("use_pallas=False (composed PyTorch ops)" if composed else
-                 "use_pallas=True (fused training chains K1-K6, K8 forwards)") + ", fp32, TF32 off",
-        "protocol": stamp["protocol"],
-        "style": stamp["style"],
-        "sha256": stamp["sha256"],
-        "overrides": overrides or {},
-        "device": str(device),
-        "card": card,
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "seeds": {},
-    }
-    out_path = os.path.join(workdir, RESULTS[composed])
-    for seed in protocol.seeds:
-        cfg = gate_config(protocol, seed, os.path.join(workdir, leg), use_pallas=not composed,
-                          overrides=overrides)
-        rec = run_seed(cfg, workdir, device, xva, yva, verbose=verbose)
-        results["seeds"][str(seed)] = rec
-        print(f"torch {leg} seed {seed}: val IoU {rec['val_iou']:.4f} (BatchNorm statistics "
-              f"recalibrated on the train images: {rec['val_iou_bn_recalibrated']:.4f}), best epoch "
-              f"{rec['best_epoch']}, {rec['steps']} steps in {rec['seconds']:.1f} s, launches a "
-              f"step {rec['launches_per_step']}, K8 a val forward "
-              f"{rec['launches_per_val_forward']}, native loader {rec['native_loader']}"
-              + (f" [{card}]" if card else ""), flush=True)
-        with open(out_path, "w") as f:
-            json.dump(results, f, indent=2)
+    results = None
+    runs = [(seeds or protocol.seeds, out_name or RESULTS[composed])]
+    if extra:
+        runs.append((extra_seeds(extra), RESULTS_EXTRA))
+    for run_seeds, name in runs:
+        res = {
+            "leg": leg,
+            "path": ("use_pallas=False (composed PyTorch ops)" if composed else
+                     "use_pallas=True (fused training chains K1-K6, K8 forwards)")
+            + ", fp32, TF32 off",
+            "protocol": stamp["protocol"],
+            "style": stamp["style"],
+            "sha256": stamp["sha256"],
+            "overrides": overrides or {},
+            "device": str(device),
+            "card": card,
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "seeds": {},
+        }
+        for seed in run_seeds:
+            cfg = gate_config(protocol, seed, os.path.join(workdir, leg),
+                              use_pallas=not composed, overrides=overrides)
+            res["fused_head"] = cfg.model.fused_head
+            rec = run_seed(cfg, workdir, device, xva, yva, verbose=verbose, scoring=scoring)
+            res["seeds"][str(seed)] = rec
+            key = scoring.key
+            print(f"torch {leg} seed {seed}: {key} {rec[key]:.4f} (BatchNorm statistics "
+                  f"recalibrated on the train images: {rec[key + '_bn_recalibrated']:.4f}; "
+                  f"stale gap {rec['stale_gap']:+.4f}, {rec['late_drops']} late drops), best "
+                  f"epoch {rec['best_epoch']}, {rec['steps']} steps in {rec['seconds']:.1f} s, "
+                  f"launches a step {rec['launches_per_step']}, K8 a val forward "
+                  f"{rec['launches_per_val_forward']}, native loader {rec['native_loader']}"
+                  + (f" [{card}]" if card else ""), flush=True)
+            with open(os.path.join(workdir, name), "w") as f:
+                json.dump(res, f, indent=2)
+        results = results or res
     return results
 
 
@@ -428,6 +525,8 @@ def _leg_summary(res: dict, reference: dict) -> dict:
         "val_iou_torch_mean": mean,
         "val_iou_bn_recalibrated_per_seed": [res["seeds"][str(s)]["val_iou_bn_recalibrated"]
                                              for s in seeds],
+        "stale_gap_per_seed": [res["seeds"][str(s)].get("stale_gap") for s in seeds],
+        "late_drops_per_seed": [res["seeds"][str(s)].get("late_drops") for s in seeds],
         "torch_seed_spread": max(ious) - min(ious),
         "delta": mean - reference["val_iou_jax_mean"],
         "delta_per_seed": deltas,
@@ -508,7 +607,59 @@ def stage_report(workdir: str, out: str, reference_path: str = REFERENCE) -> dic
     with open(out, "w") as f:
         json.dump(artifact, f, indent=2)
     print(json.dumps(artifact, indent=2))
+    extra = os.path.join(workdir, RESULTS_EXTRA)
+    if os.path.exists(extra):
+        with open(extra) as f:
+            res = json.load(f)
+        if res["sha256"] != stamp["sha256"] or res["protocol"] != stamp["protocol"]:
+            raise ValueError(f"{RESULTS_EXTRA} was run on other packs or another protocol than "
+                             f"{STAMP} records")
+        seeds_report(kernels, res, reference, os.path.splitext(out)[0] + "_SEEDS.json")
     return artifact
+
+
+def _mean_sem(values) -> dict:
+    v = np.asarray(values, np.float64)
+    std = float(np.std(v, ddof=1)) if len(v) > 1 else None
+    return {"mean": float(v.mean()), "std": std,
+            "sem": std / float(np.sqrt(len(v))) if std is not None else None}
+
+
+def seeds_report(gate: dict, extra: dict, reference: dict, out: str) -> dict:
+    """Every seed of the gate's results and of the extra seeds' (one leg):
+    final and recalibrated IoU, the stale gap, late drops and each
+    BatchNorm's log variance ratio, with their means over the seeds. Not a
+    gate: the gate's fields stay in the gate's artifact."""
+    runs = {**gate["seeds"], **extra["seeds"]}
+    seeds = [int(s) for s in runs]
+    per = {k: [runs[str(s)][k] for s in seeds]
+           for k in ("val_iou", "val_iou_bn_recalibrated", "stale_gap", "late_drops")}
+    names = list(runs[str(seeds[0])]["bn_log_var_ratio"])
+    ratios = np.array([[runs[str(s)]["bn_log_var_ratio"][n] for n in names] for s in seeds])
+    art = {
+        "what": "the binary 256 px gate's protocol, kernels leg, on the gate's seeds and "
+                f"{len(extra['seeds'])} more: the spread of the final weights' val IoU and how "
+                "far the running BatchNorm statistics lag (a diagnostic; the gate is "
+                "QUALITY_256_TORCH.json)",
+        "leg": gate["leg"], "path": gate["path"], "card": gate["card"], "torch": gate["torch"],
+        "cuda": gate["cuda"], "protocol": gate["protocol"], "sha256": gate["sha256"],
+        "seeds": seeds,
+        **{f"{k}_per_seed": v for k, v in per.items()},
+        **{k: _mean_sem(v) for k, v in per.items()},
+        "seeds_within_jax_mean_minus_gate": int(sum(
+            v >= reference["val_iou_jax_mean"] - GATE for v in per["val_iou"])),
+        "val_iou_jax_mean": reference["val_iou_jax_mean"],
+        "drop": {"size": DROP, "after_epoch": DROP_AFTER},
+        "bn_log_var_ratio_mean_over_seeds": dict(zip(names, ratios.mean(0).tolist())),
+        "bn_log_var_ratio_mean": _mean_sem(ratios.mean(1)),
+        "best_epoch_per_seed": [runs[str(s)]["best_epoch"] for s in seeds],
+        "seconds_per_seed": [runs[str(s)]["seconds"] for s in seeds],
+    }
+    with open(out, "w") as f:
+        json.dump(art, f, indent=2)
+    print(f"{len(seeds)} seeds: val IoU {art['val_iou']}, recalibrated "
+          f"{art['val_iou_bn_recalibrated']}, stale gap {art['stale_gap']} -> {out}")
+    return art
 
 
 def main(argv=None) -> int:
@@ -525,6 +676,9 @@ def main(argv=None) -> int:
                    help="the torch stage's device (the card; 'cpu' only for tests)")
     p.add_argument("--composed", action="store_true",
                    help="the torch stage with use_pallas=False, into its own results file")
+    p.add_argument("--extra-seeds", type=int, default=0, metavar="N",
+                   help=f"the torch stage then runs N more seeds into {RESULTS_EXTRA} (the "
+                   "final IoU's spread; never the gate's results)")
     args = p.parse_args(argv)
     os.makedirs(args.workdir, exist_ok=True)
     stages = ["data", "torch", "report"] if args.stage == "all" else [args.stage]
@@ -532,7 +686,8 @@ def main(argv=None) -> int:
         if stage == "data":
             stage_data(args.workdir, style=args.style)
         elif stage == "torch":
-            stage_torch(args.workdir, device=args.device, composed=args.composed)
+            stage_torch(args.workdir, device=args.device, composed=args.composed,
+                        extra=args.extra_seeds)
         else:
             stage_report(args.workdir, args.out)
     return 0
