@@ -100,9 +100,12 @@ exit code and no result line:
    gradient, running statistics; the cotangent is 0 at the outputs whose
    ReLU the fp32 and fp64 forwards decide apart, at most 64 a block; the
    fp32 output and dx within 16x the fp32 composed block's distance from
-   the fp64 composed block, the rest within 5e-4 of it), then one train
-   step of the 256 px U-Net without BatchNorm (18 K8 launches) against its
-   composed step;
+   the fp64 composed block, the rest within 5e-4 of it); K10's fp32 dpw at
+   enc1.1 five ways (``troubleshoot/dpw_digits.py``: fp64; fp32 fused
+   multiply-adds in pass (b)'s order; its products as 3xTF32; one split;
+   the kernel) from the inputs the block's K10 took, and at batch 2 from
+   the tool's seeded inputs; then one train step of the 256 px U-Net
+   without BatchNorm (18 K8 launches) against its composed step;
 12. the troubleshoot tools: K12a (the launch probe, ``x + 1`` on (8, 128)
    fp32) exactly and K12b (the FMA-rate probe at (1024, 512), K = 2048)
    bit for bit in bf16 and within K * 2^-24 in fp32 against their plain
@@ -329,10 +332,12 @@ BLOCK_GRAD_TOL = 5e-4
 # fp32 kernels are held to the fp64 composed block: the output and dx at most
 # FP64_FACTOR x the fp32 composed block's own distance from it (H100 run: up
 # to 4.3x and 7.3x, at 5.7e-6 and 6.2e-6), the parameter gradients and
-# running statistics within BLOCK_GRAD_TOL (up to 1.5e-4, dpw at enc1.1,
-# where the composed block is 1.8e-6 off).
+# running statistics within BLOCK_GRAD_TOL (H100 run: up to 9.1e-6, a
+# running mean; dpw at enc1.1 4.6e-6 where the composed block is 1.8e-6
+# off, 1.5e-4 before K2/K10's fp32 pass (b) took fresh mma fragments).
 RELU_APART_MAX = 64
 FP64_FACTOR = 16.0
+DPW_BLOCK = "enc1.1"   # the block whose K10 dpw phase 11 takes apart (dpw_digits)
 BLOCK_LAUNCHES = {"sepconv_block": 0, "sepconv_pair": 0, "sepconv_pair_int8": 0,
                   "sepconv_pair_quant_out": 0, "sepconv_pair_edge": 0, "sepconv_stats": 1,
                   "sepconv_bwd": 1}
@@ -1302,6 +1307,42 @@ def plain_per_block(fs):
         fs.sepconv_stats, fs.sepconv_bwd = saved
 
 
+@contextlib.contextmanager
+def recorded_bwd(fs, into):
+    """K10 as it is, the inputs of its call kept in ``into`` (phase 11's
+    dpw digits start from them)."""
+    saved = fs.sepconv_bwd
+
+    def record(x, g, dw, pw):
+        into.update(x=x.detach(), g=g.detach(), dw=dw.detach(), pw=pw.detach())
+        return saved(x, g, dw, pw)
+
+    fs.sepconv_bwd = record
+    try:
+        yield
+    finally:
+        fs.sepconv_bwd = saved
+
+
+def dpw_digits_path(fs, smi, report, k10_inputs):
+    """Phase 11's dpw digits (``troubleshoot/dpw_digits.py``): K10's fp32 dpw
+    five ways at enc1.1, from the inputs the block's K10 took at batch 32,
+    and at batch 2 from the tool's seeded inputs (those of the CPU's JAX
+    comparison, ``tests/dpw_digits_cpu.py``). Its K10 launches compare; they
+    leave the counts as they were."""
+    from unet_image_segmentation_tpu_torch.troubleshoot import dpw_digits as dd
+
+    counts = dict(fs.LAUNCHES)
+    t0 = time.perf_counter()
+    data = {k: v.float().cpu().numpy() for k, v in k10_inputs.items()}
+    results = [dd.run(data["x"].shape[0], data=data), dd.run(2)]
+    fs.LAUNCHES.update(counts)
+    for res in results:
+        print(f"  {dd.line(res)} [{smi}]")
+    print(f"  dpw digits in {time.perf_counter() - t0:.1f} s (the orders emulated on the host)")
+    report["dpw_digits"] = results
+
+
 def block_train_path(torch, dev, smi, report, launches, dtypes):
     """Phase 11: per-block training (K9/K10) of the 18 ConvBlocks at batch
     32 against the composed block, and a BatchNorm-free U-Net train step
@@ -1322,6 +1363,7 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
           f"the fp32 composed block, kernels <= {BF16_GRAD_FACTOR:g} x the plain per-block path "
           f"+ {BF16_GRAD_SLACK:g} per tensor")
     report["block_train"] = {}
+    k10_inputs = {}
     gen = torch.Generator().manual_seed(SEED + 5)
     for name, c, f, h, *_ in LINKS:
         x = torch.rand(BATCH_SERVE, h, h, c, generator=gen) * 2 - 1
@@ -1348,7 +1390,13 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
                 blk = blk.double()
             xi = x.to(dev, dtypes.get(dname, torch.float64)).detach().requires_grad_()
             fs.reset_launch_counts()
-            with plain_per_block(fs) if path == "plain" else contextlib.nullcontext():
+            if path == "plain":
+                around = plain_per_block(fs)
+            elif (name, dname, path) == (DPW_BLOCK, "float32", "kernels"):
+                around = recorded_bwd(fs, k10_inputs)
+            else:
+                around = contextlib.nullcontext()
+            with around:
                 out = blk(xi, train=True)
                 (out.double() * g.to(dev)).sum().backward()
             torch.cuda.synchronize()
@@ -1396,6 +1444,8 @@ def block_train_path(torch, dev, smi, report, launches, dtypes):
                                        "fp32_kernels_vs_fp64": k64, "fp32_composed_vs_fp64": c64,
                                        "relu_decisions_apart": int(split.sum())}
         del res, ref, exact
+    dpw_digits_path(fs, smi, report, k10_inputs)
+    del k10_inputs
 
     with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
         base = json.load(f)

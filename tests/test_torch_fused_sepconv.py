@@ -350,3 +350,37 @@ def test_forward_kernels_take_their_products_to_the_tensor_cores():
     for src in build.CSRC.glob("*.cu*"):
         text = src.read_text()
         assert "smem_gemm" not in text and "gemm_8x4" not in text, src.name
+
+
+# K10/K2's dpw in pass (b)'s order (troubleshoot/dpw_digits.py)
+# of max |plain dpw| at 2 x 64 x 64 pixels: (ii) and (iii) in splits of 512
+# pixels, (iv) serial over all 8192 (measured up to 3.8e-6)
+DPW_ORDER_TOL = {"fp64": 1e-6, "fp32": 2e-6, "3xtf32": 2e-6, "fp32_one_split": 1e-5}
+
+
+@pytest.mark.parametrize("c,f", [(3, 64), (5, 24)])
+def test_dpw_pass_b_order_matches_the_plain_dpw(c, f):
+    """(i)-(iv) of ``dpw_digits``, from the plain K10's fp32 m and the
+    cotangent, equal its dpw within DPW_ORDER_TOL, on the split plan
+    ``chain_bwd_plan`` gives; tf32() rounds to 10 mantissa bits, ties away
+    from zero."""
+    import numpy as np
+
+    from unet_image_segmentation_tpu_torch.ops import fused_train as ft
+    from unet_image_segmentation_tpu_torch.troubleshoot import dpw_digits as dd
+
+    d = dd.inputs(2, c, f, 64)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    want = tfs.sepconv_bwd_reference(t["x"], t["g"], t["dw"], t["pw"])[2].double()
+    m = ft._depthwise(t["x"], t["dw"]).reshape(-1, c).numpy()
+    plan = ft.chain_bwd_plan(2, 64, 64, c, f, torch.float32, bias=True)
+    assert plan.splits > 1
+    got = dd.orders(m, d["g"].reshape(-1, f), plan.per, plan.splits)
+    assert set(got) == {"fp64", "fp32", "3xtf32", "fp32_one_split"}
+    for name, v in got.items():
+        err = (torch.from_numpy(np.asarray(v)).double() - want).abs().max().item()
+        assert err <= DPW_ORDER_TOL[name] * want.abs().max().item(), (name, err)
+    v = np.array([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12], np.float32)
+    np.testing.assert_array_equal(dd.tf32(v), [1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 1])
+    hi = dd.tf32(d["g"][0, 0])
+    assert not (hi.view(np.uint32) & 0x1FFF).any()

@@ -39,7 +39,8 @@ def test_port_modules_import_no_jax():
                  "parallel.distributed", "export.pt2", "export.tflite",
                  "export.tflite_metadata", "cli.export", "data.synthetic",
                  "troubleshoot.quality_gate_256", "troubleshoot.quality_gate_512mc",
-                 "data.midv", "data.prepare"):
+                 "data.midv", "data.prepare", "troubleshoot.products",
+                 "troubleshoot.dpw_digits", "troubleshoot.probe_sass"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

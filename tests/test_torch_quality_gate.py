@@ -357,3 +357,189 @@ def test_one_seed_tracks_jax_fit(small_dir, tmp_path):
     errs = {k: float((got[k] - v).abs().max() / v.abs().max()) for k, v in want_stats.items()}
     assert max(errs.values()) <= BN_STATS_TOL, max(errs.items(), key=lambda kv: kv[1])
     assert all(float(got[k].abs().max()) > 0 for k in want_stats if k.endswith(".mean"))
+
+
+# --products: the composed leg at another product precision (troubleshoot/products.py)
+
+PRODUCT_RTOL = 1e-6   # of each product's max |fp64 value|
+
+
+def _close(got, want, rtol=PRODUCT_RTOL):
+    err = (got.double() - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), (err, want.abs().max().item())
+
+
+def _products_model():
+    import torch
+
+    from unet_image_segmentation_tpu_torch.models.unet import UNet
+
+    model = UNet(filters=(8, 16), dropout_rate=0.0, device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    model.train()
+    return model
+
+
+def test_bf16x1_products_are_exact_products_of_rounded_operands():
+    """Every MXU-type product of a 32 px composed model's training forward
+    goes through the bf16x1 matmul; each one, forward and both gradient
+    products (a seeded cotangent), equals the fp64 product of its operands
+    rounded to bf16 within 1e-6 of its max |value|, which the unrounded
+    operands' product misses; a full conv2d likewise."""
+    import torch
+
+    from unet_image_segmentation_tpu_torch.ops import conv as conv_ops
+    from unet_image_segmentation_tpu_torch.troubleshoot import products as pr
+
+    model = _products_model()
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    seen = []
+    with pr.product_precision("bf16x1"):
+        wrapped = conv_ops.torch.matmul
+        assert wrapped is pr.bf16x1_matmul
+
+        def record(a, b):
+            seen.append((a.detach().clone(), b.detach().clone()))
+            return wrapped(a, b)
+
+        conv_ops.torch.matmul = record   # a name of the context's view, gone with it
+        model(x, train=True).sum().backward()
+    assert conv_ops.torch is torch and conv_ops.F is torch.nn.functional
+    # 10 ConvBlocks (the decoder's on the stored concat), 2 transpose-ups, the head
+    assert len(seen) == 13
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    gen = torch.Generator().manual_seed(2)
+    r = pr.bf16_round
+    missed = 0
+    for a, b in seen:
+        a, b = a.requires_grad_(), b.requires_grad_()
+        y = pr.bf16x1_matmul(a, b)
+        g = torch.randn(y.shape, generator=gen)
+        y.backward(g)
+        a64, b64, g64 = r(a.detach()).double(), r(b.detach()).double(), r(g).double()
+        want = a64 @ b64
+        _close(y, want)
+        _close(a.grad, g64 @ b64.T)
+        _close(b.grad, a64.reshape(-1, a.shape[-1]).T @ g64.reshape(-1, b.shape[-1]))
+        exact = a.detach().double() @ b.detach().double()
+        missed += (exact - want).abs().max().item() > PRODUCT_RTOL * want.abs().max().item()
+    assert missed == len(seen)
+    # a full 3x3 conv (conv_type 'full'), against fp64 autograd on the rounded operands
+    xc = torch.rand(2, 9, 7, 5, generator=gen).requires_grad_()
+    k = (torch.rand(3, 3, 5, 6, generator=gen) - 0.5).requires_grad_()
+    with pr.product_precision("bf16x1"):
+        y = conv_ops.conv2d(xc, k)
+    g = torch.randn(y.shape, generator=gen)
+    y.backward(g)
+    x64, k64 = r(xc.detach()).double().requires_grad_(), r(k.detach()).double().requires_grad_()
+    y64 = conv_ops.conv2d(x64, k64)
+    y64.backward(r(g).double())
+    _close(y, y64.detach())
+    _close(xc.grad, x64.grad)
+    _close(k.grad, k64.grad)
+
+
+def test_bf16x1_leaves_the_depthwise_unrounded():
+    import torch
+
+    from unet_image_segmentation_tpu_torch.ops import conv as conv_ops
+    from unet_image_segmentation_tpu_torch.troubleshoot import products as pr
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand(2, 8, 8, 5, generator=gen)
+    k = torch.rand(3, 3, 5, 1, generator=gen)
+    w = torch.rand(5, 7, generator=gen)
+    want, pw = conv_ops.depthwise_conv2d(x, k), conv_ops.pointwise_conv2d(x, w)
+    with pr.product_precision("bf16x1"):
+        got, pw_rounded = conv_ops.depthwise_conv2d(x, k), conv_ops.pointwise_conv2d(x, w)
+    assert torch.equal(got, want)
+    assert not torch.equal(pw_rounded, pw)
+
+
+def test_products_fp32_is_the_gates_own_stage(small_dir, small_results):
+    """``--products fp32`` touches nothing, and the kernel leg's stage gives
+    today's numbers bit for bit (all but the clocks)."""
+    import torch
+
+    from unet_image_segmentation_tpu_torch.ops import conv as conv_ops
+    from unet_image_segmentation_tpu_torch.troubleshoot import products as pr
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    with pr.product_precision("fp32"):
+        assert conv_ops.torch is torch and conv_ops.F is torch.nn.functional
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+    res = q.stage_torch(small_dir, device="cpu", protocol=SMALL, overrides=SMALL_MODEL,
+                        verbose=False, products="fp32", seeds=(2301,),
+                        out_name="torch_results_fp32.json")
+    clocks = {"seconds", "fit_seconds", "epoch_seconds", "step_mean_ms_per_epoch"}
+    want = small_results[0]
+    assert res["path"] == want["path"] and res["products"] == "fp32"
+    assert list(res["seeds"]) == ["2301"]
+    assert {k: v for k, v in res["seeds"]["2301"].items() if k not in clocks} == \
+        {k: v for k, v in want["seeds"]["2301"].items() if k not in clocks}
+
+
+@pytest.mark.parametrize("products", ["tf32", "bf16x1"])
+def test_products_other_than_fp32_need_the_composed_leg(small_dir, tmp_path, capsys, products):
+    from unet_image_segmentation_tpu_torch.troubleshoot import quality_gate_512mc as mc
+
+    with pytest.raises(ValueError, match="composed leg only"):
+        q.stage_torch(small_dir, device="cpu", protocol=SMALL, overrides=SMALL_MODEL,
+                      verbose=False, products=products)
+    for main in (q.main, mc.main):
+        with pytest.raises(SystemExit):
+            main(["--workdir", str(tmp_path), "--stage", "torch", "--products", products])
+        assert "add --composed" in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("case,verdict", [
+    ({"kernels": False, "composed_fp32": False, "composed_tf32": False,
+      "composed_bf16x1": True}, "reference property"),
+    ({"kernels": False, "composed_fp32": False, "composed_tf32": False,
+      "composed_bf16x1": False}, "open"),
+    ({"kernels": False, "composed_fp32": True, "composed_tf32": False,
+      "composed_bf16x1": True}, "kernels at fault"),
+    ({"kernels": True, "composed_fp32": True, "composed_tf32": True,
+      "composed_bf16x1": True}, "other"),
+])
+def test_products_verdict_applies_the_rule(case, verdict):
+    assert q.products_verdict(case).startswith(verdict)
+
+
+def test_products_legs_write_their_own_files_and_report(small_dir, small_results, tmp_path):
+    """The composed leg at bf16x1 (a protocol seed and one extra) lands in
+    files of its own, never the gate's (so would tf32's); the products
+    report reads them beside a kernel leg's seeds file and applies the
+    rule."""
+    workdir = str(tmp_path / "w")
+    shutil.copytree(small_dir, workdir, ignore=shutil.ignore_patterns(
+        "ds", "kernels", "composed", "torch_results*.json"))
+    res = q.stage_torch(workdir, device="cpu", composed=True, protocol=SMALL,
+                        overrides=SMALL_MODEL, verbose=False, products="bf16x1", extra=1,
+                        seeds=(2301,))
+    assert res["products"] == "bf16x1" and res["leg"] == "composed"
+    assert sorted(n for n in os.listdir(workdir) if n.startswith("torch_results")) == [
+        "torch_results_composed_bf16x1.json", "torch_results_extra_composed_bf16x1.json"]
+    assert [q.results_name(True, "tf32", extra) for extra in (False, True)] == [
+        "torch_results_composed_tf32.json", "torch_results_extra_composed_tf32.json"]
+    assert [q.results_name(c, "fp32", e) for c in (False, True) for e in (False, True)] == [
+        q.RESULTS[False], q.RESULTS_EXTRA, q.RESULTS[True], "torch_results_extra_composed.json"]
+    with open(q.REFERENCE) as f:
+        reference = json.load(f)
+    seeds = str(tmp_path / "seeds.json")
+    q.seeds_report(small_results[0], {"seeds": {}}, reference, seeds)
+    out = str(tmp_path / "products.json")
+    art = q.products_report(workdir, out, seeds_path=seeds)
+    with open(out) as f:
+        assert json.load(f) == json.loads(json.dumps(art))
+    assert list(art["legs"]) == ["kernels", "composed_bf16x1"]
+    bar = reference["val_iou_jax_mean"] - q.GATE
+    assert art["bar"] == bar and "kernel_protocol_seeds" not in art
+    for name, leg in art["legs"].items():
+        assert leg["seeds"] == ([2301, 7] if name == "kernels" else [2301, 101])
+        n_at = sum(v >= bar for v in leg["val_iou_per_seed"])
+        assert leg["seeds_at_bar"] == n_at
+        assert leg["reproduces_records"] == ((n_at / len(leg["seeds"])) ** 4 >= q.REPRODUCES)
+    assert art["verdict"] == q.products_verdict(
+        {k: v["reproduces_records"] for k, v in art["legs"].items()})

@@ -329,3 +329,47 @@ def test_one_seed_tracks_jax_fit(tmp_path):
         scale = want_stats[k[:-4] + "var"].sqrt() if k.endswith(".mean") else v.abs().max()
         errs[k] = float(((got[k] - v).abs() / scale).max())
     assert len(errs) == 2 * 10 and max(errs.values()) <= BN_STATS_TOL, errs
+
+
+def test_extra_seeds_and_the_seeds_report(small_dir, small_results, tmp_path, monkeypatch):
+    """``--extra-seeds`` and ``--products`` reach the binary gate's stage
+    (seeds 101.. into a file of their own); the fused-head 'all' leg takes
+    no extra seeds. The seeds report lists every seed of the kernel leg's
+    files (the protocol's and the extra ones) per class, final and
+    recalibrated, counts the seeds at JAX's MeanIoU minus 0.005, and tells
+    whether the protocol seeds have the gate's bits."""
+    with pytest.raises(ValueError, match="no extra seeds"):
+        mc.stage_torch(small_dir, SMALL, device="cpu", fused_head_all=True, extra=1)
+    seen = {}
+    monkeypatch.setattr(q, "stage_torch", lambda *a, **kw: seen.update(kw))
+    mc.stage_torch(small_dir, SMALL, device="cpu", composed=True, extra=3, products="bf16x1")
+    assert (seen["extra"], seen["products"], seen["composed"]) == (3, "bf16x1", True)
+    monkeypatch.undo()
+    workdir = str(tmp_path / "w")
+    shutil.copytree(small_dir, workdir, ignore=shutil.ignore_patterns(
+        "ds", "kernels", "composed", "torch_results_*.json"))
+    kernels = small_results["kernels"]
+    with open(os.path.join(workdir, q.RESULTS_EXTRA), "w") as f:   # seed 7's run as seed 101
+        json.dump({**kernels, "seeds": {"101": kernels["seeds"]["7"]}}, f)
+    gate = str(tmp_path / "gate.json")
+    with open(gate, "w") as f:
+        json.dump({"per_seed_torch": {s: r["per_class_iou"]
+                                      for s, r in kernels["seeds"].items()}}, f)
+    ref_path = mc.reference_path(512)
+    out = str(tmp_path / "seeds.json")
+    art = mc.seeds_report(workdir, out, ref_path, gate_path=gate)
+    with open(out) as f:
+        assert json.load(f) == json.loads(json.dumps(art))
+    with open(ref_path) as f:
+        bar = json.load(f)["mean_iou_jax"] - mc.GATE
+    leg = art["legs"]["kernels"]
+    assert list(art["legs"]) == ["kernels"] and leg["seeds"] == [2301, 7, 101]
+    assert art["kernel_protocol_seeds_same_bits_as_gate"]
+    assert leg["seeds_at_bar"] == sum(v >= bar for v in leg["mean_iou_per_seed"])
+    assert leg["seeds_at_bar_bn_recalibrated"] == sum(
+        v >= bar for v in leg["mean_iou_bn_recalibrated_per_seed"])
+    assert all(len(v) == 3 for v in leg["per_class_iou_bn_recalibrated_per_seed"].values())
+    with open(gate, "w") as f:
+        json.dump({"per_seed_torch": {"2301": [0.0, 0.0, 0.0]}}, f)
+    assert not mc.seeds_report(workdir, out, ref_path, gate_path=gate)[
+        "kernel_protocol_seeds_same_bits_as_gate"]

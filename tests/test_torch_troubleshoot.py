@@ -32,9 +32,11 @@ from unet_image_segmentation_tpu_torch.train.steps import make_train_step
 from unet_image_segmentation_tpu_torch.troubleshoot import (
     check_gpu_benchmark,
     check_install,
+    dpw_digits,
     fp32_split_ab,
     link_floors,
     pair_phases,
+    probe_sass,
     profile_summary,
     roofline,
     step_attribution,
@@ -678,12 +680,30 @@ def test_check_install_on_the_cpu_passes():
 
 
 @pytest.mark.parametrize("tool", [check_install, check_gpu_benchmark, link_floors,
-                                  step_attribution], ids=lambda m: m.__name__.split(".")[-1])
+                                  step_attribution, dpw_digits, probe_sass],
+                         ids=lambda m: m.__name__.split(".")[-1])
 def test_tools_refuse_to_run_without_a_card(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main([]) != 0
     out = capsys.readouterr()
     assert "no CUDA device" in out.out + out.err
+
+
+def test_probe_sass_counts_each_kernels_opcodes():
+    sass = """
+        Function : _ZN4unet12_GLOBAL__N_121fma_probe_bf16_kernelEPK14__nv_bfloat162PS1_iif
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*1140*/                   HFMA2.BF16_V2 R10, R11, R0.reuse.H0_H0, R21 ;
+        /*1160*/                   HFMA2.BF16_V2 R9, R9, R0.reuse.H0_H0, R15 ;
+        /*1170*/              @!P0 BRA 0x1100 ;
+        Function : _ZN4unet12_GLOBAL__N_120fma_probe_f32_kernelEPKfPfiif
+        /*0040*/                   FFMA R5, R5, R2, R4 ;
+    """
+    counts = probe_sass.opcode_counts(sass)
+    assert list(counts) == [
+        "_ZN4unet12_GLOBAL__N_121fma_probe_bf16_kernelEPK14__nv_bfloat162PS1_iif",
+        "_ZN4unet12_GLOBAL__N_120fma_probe_f32_kernelEPKfPfiif"]
+    assert list(counts.values()) == [{"HFMA2.BF16_V2": 2, "LDC": 1, "BRA": 1}, {"FFMA": 1}]
 
 
 def _ptxas_lines(mangled, frame, regs):

@@ -668,6 +668,15 @@ def sepconv_bwd(
     """
     if x.device.type == "cpu":
         return sepconv_bwd_reference(x, g, dw, pw)
+    return sepconv_bwd_with_m(x, g, dw, pw)[:4]
+
+
+def sepconv_bwd_with_m(
+    x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10 on a CUDA tensor, as :func:`sepconv_bwd`, and the (B,H,W,CM)
+    depthwise ``m`` its pass (b) consumed (its first C channels;
+    ``troubleshoot/dpw_digits.py`` reads it)."""
     _check_cuda_input(x, "sepconv_bwd x")
     _check_cuda_input(g, "sepconv_bwd g")
     b, h, wd, c = x.shape
@@ -691,7 +700,7 @@ def sepconv_bwd(
     )
     build.check(status, "sepconv_bwd")
     LAUNCHES["sepconv_bwd"] += 1
-    return dx, sums[:9].reshape(3, 3, c), dpwb[:c], dpwb[c]
+    return dx, sums[:9].reshape(3, 3, c), dpwb[:c], dpwb[c], m
 
 
 # --------------------------------------------------------------------------

@@ -58,7 +58,9 @@
 //      with TM x TN output tiles (128 wide, or 64 where C or F is <= 64) on
 //      the tensor cores: m and gy chunks of KC pixels flow through kStages
 //      stages by cp.async and are read through ldmatrix.trans (3xTF32 from
-//      scalar fragments in fp32); one partial per split.
+//      scalar fragments in fp32; in fp32 each mma depth into a fresh
+//      fragment, added into the split's accumulator by a rounding fp32
+//      add); one partial per split.
 // Every cross-block sum (ddw, S, T over tiles; dpw over splits) goes
 // through reduce_rows(): fixed order, bit-reproducible. The sums run over
 // B*H*W pixels (2M at the 256 px stage of batch 32) in fp32.
@@ -74,6 +76,7 @@
 // dx = the correlation of dm with the flipped taps (written in T),
 // ddw = Σ shifted x * dm, m = depthwise(x) -> T, dpw = m^T . g, dbias = Σg.
 #include <algorithm>
+#include <type_traits>
 
 #include "mma_common.cuh"
 #include "train_common.cuh"
@@ -607,9 +610,19 @@ __device__ __forceinline__ void chain_bwd_dpw(const DpwArgs<T>& a) {
     if (sums_bias)
 #pragma unroll 4
       for (int k = 0; k < KC; ++k) bsum += to_f(gb[k * LDB + tid]);
-    if (active)
-      gemm_cols<MT, NT, LDA, LDB>(acc, ms(st), gb, wm * MT, nm, wn * (TN / 4),
-                                  (min(KC, p_end - p0) + KS - 1) / KS, lane);
+    if (active) {
+      const int ksteps = (min(KC, p_end - p0) + KS - 1) / KS;
+      // fp32: each mma depth into a fresh fragment (gemm_cols' kFresh); a
+      // split's one accumulator over thousands of truncating mma sums put
+      // dpw 5.1e-5 of max|fp64| from fp64 at enc1.1, batch 32, against
+      // 5.4e-7 now (troubleshoot/fp32_split_ab.py, one_acc). bf16 keeps it:
+      // its operands' own rounding is far larger.
+      if constexpr (std::is_same<T, float>::value)
+        gemm_cols<MT, NT, LDA, LDB, true>(acc, ms(st), gb, wm * MT, nm, wn * (TN / 4), ksteps,
+                                          lane);
+      else
+        gemm_cols<MT, NT, LDA, LDB>(acc, ms(st), gb, wm * MT, nm, wn * (TN / 4), ksteps, lane);
+    }
   }
   cp_async_wait_all();
   float* out = a.part + (size_t)blockIdx.z * a.cols;

@@ -260,7 +260,13 @@ __device__ __forceinline__ void gemm_cols(float (&acc)[MT][NT][4], const __nv_bf
   }
 }
 
-template <int MT, int NT, int LDA, int LDB>
+// The fp32 operands as 3xTF32. With kFresh, each mma depth's three products
+// go into a fresh fragment that an fp32 add (round to nearest) then puts
+// into acc: an mma aligns its terms to the largest and truncates, so into
+// one large accumulator over thousands of depths it loses about a bit a
+// time (K2/K10's fp32 dpw; troubleshoot/dpw_digits.py), into a fragment of
+// its own next to nothing.
+template <int MT, int NT, int LDA, int LDB, bool kFresh = false>
 __device__ __forceinline__ void gemm_cols(float (&acc)[MT][NT][4], const float* A,
                                           const float* B, int mt0, int m_end, int n0, int ksteps,
                                           int lane) {
@@ -282,7 +288,16 @@ __device__ __forceinline__ void gemm_cols(float (&acc)[MT][NT][4], const float* 
       split_tf32(p[4 * LDA], ah[2], al[2]);
       split_tf32(p[4 * LDA + 8], ah[3], al[3]);
 #pragma unroll
-      for (int ni = 0; ni < NT; ++ni) mma_3xtf32(acc[mi][ni], ah, al, bh[ni], bl[ni]);
+      for (int ni = 0; ni < NT; ++ni) {
+        if (kFresh) {
+          float d[4] = {};
+          mma_3xtf32(d, ah, al, bh[ni], bl[ni]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][ni][r] += d[r];
+        } else {
+          mma_3xtf32(acc[mi][ni], ah, al, bh[ni], bl[ni]);
+        }
+      }
     }
   }
 }

@@ -21,7 +21,13 @@
 // element's chain is dependent, so a thread keeps kIlp independent chains in
 // registers (4 elements in fp32, 4 pairs in bf16) and the k loop is unrolled
 // by 8: with ~8 warps a scheduler that covers the FMA latency, and the loop
-// counter costs ~1/16 of the issue slots.
+// counter costs ~1/16 of the issue slots. The bf16 loop runs whole bodies of
+// 8 steps with no test of k inside, then the rest. Its SASS is one native
+// HFMA2.BF16_V2 a pair a step and no conversion, but the H100 issues it at
+// about half the rate the 133.8 TFLOP/s bound takes: over 4M elements and
+// 16384 steps, where the launch's ramp and tail weigh nothing, it sustains
+// 64.8 TFLOP/s (48.4% of its bound; the fp32 kernel 85.9% of its own;
+// troubleshoot/probe_sass.py), so K12b bf16 stays just under half.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,8 +82,13 @@ __global__ void __launch_bounds__(kProbeThreads)
       xv[j] = i < n2 ? x[i] : zero;
       acc[j] = xv[j];
     }
-#pragma unroll 8
-    for (int s = 0; s < k; ++s)
+    int s = 0;
+    for (; s + 8 <= k; s += 8)
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int j = 0; j < kIlp; ++j) acc[j] = __hfma2(acc[j], e2, xv[j]);
+    for (; s < k; ++s)
 #pragma unroll
       for (int j = 0; j < kIlp; ++j) acc[j] = __hfma2(acc[j], e2, xv[j]);
 #pragma unroll

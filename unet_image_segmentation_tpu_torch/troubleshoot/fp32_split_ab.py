@@ -13,7 +13,11 @@ sources as they are, in fp32 at the 256 px U-Net's shapes at batch 32:
   stage lands, as K8 and K1 do, the lo parts in a buffer of their own, on
   a 2-stage ring (two CTAs an SM) or the 3-stage ring (one CTA an SM);
 * ``afirst``: K6's d_kernel and K2/K10's pass (b) hold the A fragments of
-  a depth and split B one fragment at a time (``gemm_3xtf32``'s order).
+  a depth and split B one fragment at a time (``gemm_3xtf32``'s order);
+* ``one_acc``: K2/K10's pass (b) sums every mma depth of a split into one
+  accumulator, as before the fresh fragments of ``gemm_cols``' kFresh;
+  beside the times, K10's dpw at enc1.1 against fp64 at batch 32 and 2
+  (``dpw_digits``' inputs) for it and the tree.
 
 Each variant is held to the plain versions (fp32 bars) before it is
 timed; ``afirst`` must match the tree bit for bit. Writes
@@ -37,7 +41,7 @@ from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
 from unet_image_segmentation_tpu_torch.ops import fused_train as ft
 from unet_image_segmentation_tpu_torch.ops import fused_upconcat as fu
 from unet_image_segmentation_tpu_torch.ops.kernels import build
-from unet_image_segmentation_tpu_torch.troubleshoot import roofline
+from unet_image_segmentation_tpu_torch.troubleshoot import dpw_digits, roofline
 from unet_image_segmentation_tpu_torch.troubleshoot.link_floors import link_inputs
 
 HW = 256
@@ -46,7 +50,8 @@ BATCH = 32
 SEED = 2301
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT = os.path.join(ROOT, "build", "fp32_split_ab.json")
-VARIANTS = ("tree", "split2", "split3", "afirst")
+VARIANTS = ("tree", "split2", "split3", "afirst", "one_acc")
+LINK_VARIANTS = ("tree", "afirst", "one_acc")   # the variants of chain_bwd.cu
 
 # 3xTF32 products with A split where it was staged (Ah, Al row-major, read
 # with ldmatrix), each B fragment split just before its products
@@ -77,9 +82,10 @@ __device__ __forceinline__ void ab_gemm_presplit(float (&acc)[MT][NT][4], const 
 }
 """
 
-# gemm_cols<float>'s product (A [k][LDA] pixel-major) in gemm_3xtf32's order
+# gemm_cols<float>'s product (A [k][LDA] pixel-major) in gemm_3xtf32's order,
+# kFresh as gemm_cols' (each depth into a fresh fragment, then added)
 _A_FIRST = r"""
-template <int MT, int NT, int LDA, int LDB>
+template <int MT, int NT, int LDA, int LDB, bool kFresh = false>
 __device__ __forceinline__ void ab_gemm_afirst(float (&acc)[MT][NT][4], const float* A,
                                                const float* B, int mt0, int n0, int ksteps,
                                                int lane) {
@@ -101,7 +107,16 @@ __device__ __forceinline__ void ab_gemm_afirst(float (&acc)[MT][NT][4], const fl
       for (int h = 0; h < 2; ++h)
         split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[h], bl[h]);
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh, bl);
+      for (int mi = 0; mi < MT; ++mi) {
+        if (kFresh) {
+          float d[4] = {};
+          mma_3xtf32(d, ah[mi], al[mi], bh, bl);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][ni][r] += d[r];
+        } else {
+          mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh, bl);
+        }
+      }
     }
   }
 }
@@ -174,25 +189,26 @@ def variant_sources(csrc=build.CSRC) -> Dict[str, Dict[str, str]]:
     cb = (csrc / "chain_bwd.cu").read_text()
     dw = """      gemm_cols<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, nm, wn * 64,
                               (min(KC, p_end - p0) + KS - 1) / KS, lane);"""
-    dpw = """      gemm_cols<MT, NT, LDA, LDB>(acc, ms(st), gb, wm * MT, nm, wn * (TN / 4),
-                                  (min(KC, p_end - p0) + KS - 1) / KS, lane);"""
+    dpw = """        gemm_cols<MT, NT, LDA, LDB, true>(acc, ms(st), gb, wm * MT, nm, wn * (TN / 4), ksteps,
+                                          lane);"""
 
-    def afirst(src, call, mt, lda, ldb, n0):
-        ks = "(min(KC, p_end - p0) + KS - 1) / KS"
-        a_src = "xs(st)" if "xs(st)" in call else "ms(st)"
-        return _sub(_inject(src, _A_FIRST), call, f"""    {{
+    k6_afirst = _sub(_inject(up, _A_FIRST), dw, f"""    {{
       if constexpr (sizeof(T) == 4)
-        ab_gemm_afirst<{mt}, {lda}, {ldb}>(acc, {a_src}, gb, {n0}, {ks}, lane);
+        ab_gemm_afirst<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, wn * 64,
+                                     (min(KC, p_end - p0) + KS - 1) / KS, lane);
       else
-{call}
+{dw}
     }}""")
 
     return {
         "split2": {"upconcat.cu": _upconcat_split(up, 2)},
         "split3": {"upconcat.cu": _upconcat_split(up, 3)},
-        "afirst": {"upconcat.cu": afirst(up, dw, "2, 8", "LD", "LD", "wm * 2, wn * 64"),
-                   "chain_bwd.cu": afirst(cb, dpw, "MT, NT", "LDA", "LDB",
-                                          "wm * MT, wn * (TN / 4)")},
+        "afirst": {"upconcat.cu": k6_afirst,
+                   "chain_bwd.cu": _sub(_inject(cb, _A_FIRST), dpw,
+                                        "        ab_gemm_afirst<MT, NT, LDA, LDB, true>(acc, "
+                                        "ms(st), gb, wm * MT, wn * (TN / 4), ksteps, lane);")},
+        "one_acc": {"chain_bwd.cu": _sub(cb, "gemm_cols<MT, NT, LDA, LDB, true>(",
+                                         "gemm_cols<MT, NT, LDA, LDB>(")},
     }
 
 
@@ -281,9 +297,10 @@ def main(argv=None) -> int:
         bias, skip = (0.1 * rnd(f)).to(dev), rnd(BATCH, 2 * h, 2 * h, f).to(dev)
         fwd, bwd = (x, kern, bias, skip), (x, kern, g)
         want_cat, want = fu.upconcat_reference(*fwd), fu.upconcat_bwd_reference(*bwd)
-        times = {v: [0.0, 0.0] for v in VARIANTS}
+        feed_variants = [v for v in VARIANTS if v != "one_acc"]
+        times = {v: [0.0, 0.0] for v in feed_variants}
         for rnd_i in range(2):   # two rounds, the second in reverse order
-            for v in VARIANTS if rnd_i == 0 else VARIANTS[::-1]:
+            for v in feed_variants if rnd_i == 0 else feed_variants[::-1]:
                 build._lib = libs[v]
                 if rnd_i == 0:
                     got = fu.upconcat_bwd(*bwd)
@@ -298,19 +315,26 @@ def main(argv=None) -> int:
         report["feeds"][name] = times
         print(f"  {name} {c}->{f}@{h}: " + ", ".join(
             f"{v} {t[0]:.3f} / {t[1]:.3f}" for v, t in times.items()))
-    print(f"fp32 K2 / K10 at batch {BATCH}, ms by variant (afirst bit for bit the tree's):")
-    tot = {v: [0.0, 0.0] for v in ("tree", "afirst")}
+    print(f"fp32 K2 / K10 at batch {BATCH}, ms by variant (afirst bit for bit the tree's, "
+          "one_acc held to plain):")
+    tot = {v: [0.0, 0.0] for v in LINK_VARIANTS}
     for name, c, f, h, in_aff, drop, mc in roofline.chain_links(HW, FILTERS):
         k = link_inputs(rnd, dev, torch.float32, BATCH, c, f, h, in_aff, drop)
         k2 = (k["x"], k["g"], k["y"], k["aff4"], k["comb"], k["dw"], k["pw"], mc, k["drop"])
         k10 = (k["x"], k["g"], k["dw"], k["pw"])
         outs, times = {}, {v: [0.0, 0.0] for v in tot}
         for rnd_i in range(2):
-            for v in ("tree", "afirst") if rnd_i == 0 else ("afirst", "tree"):
+            for v in LINK_VARIANTS if rnd_i == 0 else LINK_VARIANTS[::-1]:
                 build._lib = libs[v]
                 if rnd_i == 0:
                     outs[v] = [t for t in (*ft.chain_bwd(*k2), *fs.sepconv_bwd(*k10))
                                if t is not None]
+                    if v == "one_acc":   # its ddw and dpw (K2, K10) against plain
+                        got = (ft.chain_bwd(*k2), fs.sepconv_bwd(*k10))
+                        want = (ft.chain_bwd_reference(*k2), fs.sepconv_bwd_reference(*k10))
+                        errs = [_rel(a[i], b[i]) for a, b in zip(got, want) for i in (1, 2)]
+                        if max(errs) > 5e-4:
+                            raise AssertionError(f"one_acc at {name}: errors {errs}")
                 times[v][0] += _ms(lambda: ft.chain_bwd(*k2), args.iters) / 2
                 times[v][1] += _ms(lambda: fs.sepconv_bwd(*k10), args.iters) / 2
         build._lib = base
@@ -324,6 +348,20 @@ def main(argv=None) -> int:
             f"{v} {t[0]:.3f} / {t[1]:.3f}" for v, t in times.items()))
     print("  over the 18 links: " + ", ".join(
         f"{v} K2 {t[0]:.3f}, K10 {t[1]:.3f}" for v, t in tot.items()))
+    report["dpw_digits"] = {}
+    for batch in (32, 2):
+        data = dpw_digits.inputs(batch)
+        t = {key: torch.from_numpy(val).to(dev) for key, val in data.items()}
+        errs = {}
+        for v in ("tree", "one_acc"):
+            build._lib = libs[v]
+            dpw, m, _ = dpw_digits.kernel_run(t["x"], t["g"], t["dw"], t["pw"])
+            g = data["g"].reshape(-1, data["g"].shape[-1])
+            errs[v] = dpw_digits.rel_err(dpw, dpw_digits.exact(m, g))
+        build._lib = base
+        report["dpw_digits"][batch] = errs
+        print(f"  K10 fp32 dpw at {dpw_digits.BLOCK[0]}, batch {batch}, max err / max|fp64|: "
+              + ", ".join(f"{v} {e:.2e}" for v, e in errs.items()))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(report, fh, indent=1)

@@ -36,13 +36,21 @@ split by machine:
   ``<workdir>/torch_results.json`` (``--composed``: the same protocol with
   ``use_pallas=False``, ``torch_results_composed.json``). TF32 is off.
   ``--extra-seeds N`` runs N more seeds (:func:`extra_seeds`) after the
-  protocol's, into ``torch_results_extra.json``: the spread of the final
-  epoch's IoU, which the four seeds of the gate cannot resolve. They never
-  enter the gate's results.
+  protocol's, into ``torch_results_extra.json`` (the composed leg's
+  ``torch_results_extra_composed.json``): the spread of the final epoch's
+  IoU, which the four seeds of the gate cannot resolve. They never enter
+  the gate's results. ``--composed --products tf32|bf16x1`` runs the
+  composed leg at another product precision (:mod:`.products`: TF32, or one
+  bf16 pass a product as XLA computes fp32 on a TPU) into files of its own
+  (:func:`results_name`); a diagnostic, never the gate's.
 * ``report`` (anywhere): ``QUALITY_256_TORCH.json`` beside the JAX
   record, its setup copied from the stamp and the results; with extra
   seeds also ``QUALITY_256_TORCH_SEEDS.json``, every seed's final and
   recalibrated IoU and its BatchNorm diagnostics.
+* ``products`` (anywhere): ``QUALITY_256_TORCH_PRODUCTS.json``, each leg's
+  spread over its seeds (the kernel leg's from
+  ``QUALITY_256_TORCH_SEEDS.json``, the composed legs' at each product
+  precision from the workdir) and the verdict of :func:`products_verdict`.
 
 The 3-class gate (``quality_gate_512mc.py``) runs on the same stages with a
 :class:`Protocol` of class-id masks and ``cce`` and its own :class:`Scoring`.
@@ -57,6 +65,9 @@ Usage::
     python -m ... --workdir build/q256 --stage torch [--composed]  # on the card
     python -m ... --workdir build/q256 --stage torch --extra-seeds 12  # and 12 more
     python -m ... --workdir build/q256 --stage report   # QUALITY_256_TORCH.json
+    python -m ... --workdir build/q256 --stage torch --composed --products bf16x1 \\
+        --extra-seeds 12                                # a diagnostic leg on the card
+    python -m ... --workdir build/q256 --stage products  # QUALITY_256_TORCH_PRODUCTS.json
 """
 
 from __future__ import annotations
@@ -95,6 +106,8 @@ SPLITS = ("train", "val")
 STAMP = "stamp.json"
 RESULTS = {False: "torch_results.json", True: "torch_results_composed.json"}
 RESULTS_EXTRA = "torch_results_extra.json"
+GATE_REPORT = os.path.join(ROOT, "QUALITY_256_TORCH.json")
+SEEDS_REPORT = os.path.join(ROOT, "QUALITY_256_TORCH_SEEDS.json")
 DROP, DROP_AFTER = 0.05, 10   # a late drop: val MeanIoU falls by > 0.05 after epoch 10
 
 
@@ -130,6 +143,17 @@ GATE_PROTOCOL = Protocol()
 def extra_seeds(n: int) -> Tuple[int, ...]:
     """The seeds of ``--extra-seeds n``: 101..100+n, none a protocol seed."""
     return tuple(range(101, 101 + n))
+
+
+def results_name(composed: bool, products: str = "fp32", extra: bool = False) -> str:
+    """The results file of a leg: :data:`RESULTS` (``extra``:
+    :data:`RESULTS_EXTRA`, the composed leg's with ``_composed``) at fp32,
+    ``torch_results[_extra]_composed_<products>.json`` at another precision."""
+    if products != "fp32":
+        return f"torch_results{'_extra' if extra else ''}_composed_{products}.json"
+    if not extra:
+        return RESULTS[composed]
+    return "torch_results_extra_composed.json" if composed else RESULTS_EXTRA
 
 
 def _thresholded_iou(y_true: np.ndarray, y_prob: np.ndarray, thr: float = 0.5) -> float:
@@ -451,15 +475,20 @@ def stage_torch(workdir: str, device="cuda", composed: bool = False,
                 protocol: Protocol = GATE_PROTOCOL, overrides: Optional[dict] = None,
                 verbose: bool = True, extra: int = 0, scoring: Scoring = BINARY_SCORING,
                 pinned: Optional[Dict[str, str]] = None, seeds: Optional[Tuple[int, ...]] = None,
-                out_name: Optional[str] = None) -> dict:
+                out_name: Optional[str] = None, products: str = "fp32") -> dict:
     """Every seed of the protocol (or ``seeds``) through ``fit`` on the
-    device; writes the results to ``out_name`` (default :data:`RESULTS`'s
-    file of the leg) and returns them. ``extra`` > 0 then runs
-    :func:`extra_seeds` into :data:`RESULTS_EXTRA`."""
+    device; writes the results to ``out_name`` (default
+    :func:`results_name` of the leg) and returns them. ``extra`` > 0 then
+    runs :func:`extra_seeds` into the leg's extra file. ``products`` other
+    than ``fp32`` (:mod:`.products`) runs only with ``composed``."""
     import torch
 
     from unet_image_segmentation_tpu_torch.models.unet import resolve_device
+    from unet_image_segmentation_tpu_torch.troubleshoot.products import product_precision
 
+    if products != "fp32" and not composed:
+        raise ValueError(f"--products {products} runs on the composed leg only (--composed): "
+                         "the kernels' fp32 bodies have no reduced-precision mode")
     device = resolve_device(device)
     stamp = check_inputs(workdir, protocol, pinned)
     card = None
@@ -472,15 +501,19 @@ def stage_torch(workdir: str, device="cuda", composed: bool = False,
     xva, yva = split_arrays(workdir, "val")
     leg = "composed" if composed else "kernels"
     results = None
-    runs = [(seeds or protocol.seeds, out_name or RESULTS[composed])]
+    runs = [(seeds or protocol.seeds, out_name or results_name(composed, products))]
     if extra:
-        runs.append((extra_seeds(extra), RESULTS_EXTRA))
+        runs.append((extra_seeds(extra), results_name(composed, products, extra=True)))
+    precision = {"fp32": ", fp32, TF32 off", "tf32": ", fp32 with TF32 products",
+                 "bf16x1": ", fp32 with one bf16 pass a product (operands rounded to bf16, "
+                           "the depthwise fp32)"}[products]
+    tag = leg if products == "fp32" else f"{leg} {products}"
     for run_seeds, name in runs:
         res = {
             "leg": leg,
             "path": ("use_pallas=False (composed PyTorch ops)" if composed else
-                     "use_pallas=True (fused training chains K1-K6, K8 forwards)")
-            + ", fp32, TF32 off",
+                     "use_pallas=True (fused training chains K1-K6, K8 forwards)") + precision,
+            "products": products,
             "protocol": stamp["protocol"],
             "style": stamp["style"],
             "sha256": stamp["sha256"],
@@ -495,10 +528,11 @@ def stage_torch(workdir: str, device="cuda", composed: bool = False,
             cfg = gate_config(protocol, seed, os.path.join(workdir, leg),
                               use_pallas=not composed, overrides=overrides)
             res["fused_head"] = cfg.model.fused_head
-            rec = run_seed(cfg, workdir, device, xva, yva, verbose=verbose, scoring=scoring)
+            with product_precision(products):
+                rec = run_seed(cfg, workdir, device, xva, yva, verbose=verbose, scoring=scoring)
             res["seeds"][str(seed)] = rec
             key = scoring.key
-            print(f"torch {leg} seed {seed}: {key} {rec[key]:.4f} (BatchNorm statistics "
+            print(f"torch {tag} seed {seed}: {key} {rec[key]:.4f} (BatchNorm statistics "
                   f"recalibrated on the train images: {rec[key + '_bn_recalibrated']:.4f}; "
                   f"stale gap {rec['stale_gap']:+.4f}, {rec['late_drops']} late drops), best "
                   f"epoch {rec['best_epoch']}, {rec['steps']} steps in {rec['seconds']:.1f} s, "
@@ -662,16 +696,139 @@ def seeds_report(gate: dict, extra: dict, reference: dict, out: str) -> dict:
     return art
 
 
+REPRODUCES = 0.05   # a leg reproduces the records' 4 of 4 good endings when p^4 >= this
+
+
+def _leg_spread(per: Dict[str, list], bar: float) -> dict:
+    """One leg over its seeds, from per-seed lists: the final and
+    recalibrated IoU, the stale gap, late drops and seconds, with their
+    means; the share of seeds at ``bar``, ``p``, and whether ``p**4`` reaches
+    :data:`REPRODUCES`."""
+    n_at = int(sum(v >= bar for v in per["val_iou"]))
+    share = n_at / len(per["val_iou"])
+    return {
+        **{f"{k}_per_seed": v for k, v in per.items()},
+        **{k: _mean_sem(v) for k, v in per.items()},
+        "seeds_at_bar": n_at,
+        "share_at_bar": share,
+        "share_at_bar_pow4": share ** 4,
+        "reproduces_records": bool(share ** 4 >= REPRODUCES),
+    }
+
+
+def products_verdict(reproduces: Dict[str, bool]) -> str:
+    """The rule, written before the legs ran: which leg reproduces the
+    records' endings tells where the gap comes from."""
+    reduced = [leg for leg in ("composed_bf16x1", "composed_tf32") if reproduces.get(leg)]
+    if reproduces.get("composed_fp32") and not reproduces.get("kernels"):
+        return ("kernels at fault: the composed fp32 leg reproduces the records' endings and "
+                "the kernel leg does not")
+    if reduced and not reproduces.get("composed_fp32"):
+        return (f"reference property: {' and '.join(reduced)} reproduce the records' endings "
+                "and composed fp32 does not; the records' 4 of 4 follow the TPU's product "
+                "precision, and the port's gates stay fp32")
+    if not any(reproduces.values()):
+        return "open: no leg reproduces the records' endings"
+    return "other: " + ", ".join(f"{k} {'reproduces' if v else 'does not'}"
+                                 for k, v in reproduces.items())
+
+
+def _seed_lists(runs: Dict[str, dict]) -> Dict[str, list]:
+    keys = ("val_iou", "val_iou_bn_recalibrated", "stale_gap", "late_drops", "seconds")
+    return {k: [rec[k] for rec in runs.values()] for k in keys}
+
+
+def leg_runs(workdir: str, composed: bool, products: str, stamp: dict) -> Optional[dict]:
+    """A leg's protocol and extra seeds from the workdir (None when neither
+    file is there): ``{"seeds": {seed: record}, "card": ..., ...}``."""
+    out = None
+    for extra in (False, True):
+        path = os.path.join(workdir, results_name(composed, products, extra))
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            res = json.load(f)
+        if res["sha256"] != stamp["sha256"] or res["protocol"] != stamp["protocol"]:
+            raise ValueError(f"{path} was run on other packs or another protocol than "
+                             f"{STAMP} records")
+        if out is None:
+            out = {**res, "seeds": {}}
+        out["seeds"].update(res["seeds"])
+    return out
+
+
+def products_report(workdir: str, out: str, reference_path: str = REFERENCE,
+                    seeds_path: str = SEEDS_REPORT) -> dict:
+    """``out``: the kernel leg's seeds (``seeds_path``) beside the composed
+    legs at each product precision found in the workdir, each leg's share of
+    seeds at the bar and :func:`products_verdict`. With the kernel leg's
+    ``torch_results.json`` in the workdir, also whether its protocol seeds
+    reproduce the gate's bits (:data:`GATE_REPORT`)."""
+    from unet_image_segmentation_tpu_torch.troubleshoot.products import PRODUCTS
+
+    with open(os.path.join(workdir, STAMP)) as f:
+        stamp = json.load(f)
+    with open(reference_path) as f:
+        reference = json.load(f)
+    with open(seeds_path) as f:
+        kernels = json.load(f)
+    bar = reference["val_iou_jax_mean"] - GATE
+    per = {k: kernels[f"{k}_per_seed"] for k in
+           ("val_iou", "val_iou_bn_recalibrated", "stale_gap", "late_drops", "seconds")}
+    legs = {"kernels": {"path": kernels["path"], "card": kernels["card"], "source":
+                        os.path.basename(seeds_path), "seeds": kernels["seeds"],
+                        **_leg_spread(per, bar)}}
+    for products in PRODUCTS:
+        runs = leg_runs(workdir, True, products, stamp)
+        if runs is None:
+            continue
+        legs[f"composed_{products}"] = {"path": runs["path"], "card": runs["card"],
+                                        "seeds": [int(s) for s in runs["seeds"]],
+                                        **_leg_spread(_seed_lists(runs["seeds"]), bar)}
+    art = {
+        "what": "the binary 256 px gate's protocol over 16 seeds a leg: the kernel leg and the "
+                "composed leg at each product precision (fp32; TF32; bf16x1, one bf16 pass a "
+                "product as XLA computes fp32 on a TPU). A diagnostic, not a gate: "
+                "QUALITY_256_TORCH.json holds the gate",
+        "protocol": stamp["protocol"], "sha256": stamp["sha256"],
+        "bar": bar, "val_iou_jax_mean": reference["val_iou_jax_mean"],
+        "val_iou_jax_per_seed": reference["val_iou_jax_per_seed"],
+        "rule": f"a leg reproduces the records' endings when its share p of seeds at the bar "
+                f"has p^4 >= {REPRODUCES} (8 or more of 16)",
+        "legs": legs,
+        "verdict": products_verdict({k: v["reproduces_records"] for k, v in legs.items()}),
+    }
+    fresh = leg_runs(workdir, False, "fp32", stamp)
+    if fresh is not None:
+        with open(GATE_REPORT) as f:
+            gate = json.load(f)
+        want = dict(zip(gate["seeds"], gate["val_iou_torch_per_seed"]))
+        got = {int(s): r["val_iou"] for s, r in fresh["seeds"].items() if int(s) in want}
+        art["kernel_protocol_seeds"] = {
+            "card": fresh["card"], "val_iou": got,
+            "same_bits_as_gate": all(got[s] == want[s] for s in got) and len(got) == len(want),
+        }
+    with open(out, "w") as f:
+        json.dump(art, f, indent=2)
+    for name, leg in legs.items():
+        print(f"{name}: val IoU {leg['val_iou']}, {leg['seeds_at_bar']} of "
+              f"{len(leg['seeds'])} at {bar:.4f} (p^4 {leg['share_at_bar_pow4']:.4g}), "
+              f"recalibrated {leg['val_iou_bn_recalibrated']['mean']:.4f}")
+    print(f"verdict: {art['verdict']} -> {out}")
+    return art
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workdir", required=True)
-    p.add_argument("--stage", required=True, choices=["data", "torch", "report", "all"])
+    p.add_argument("--stage", required=True,
+                   choices=["data", "torch", "report", "all", "products"])
     p.add_argument(
         "--style", default="hard", choices=["easy", "hard"],
         help="scene difficulty of the data stage; 'hard' is the gate's (both stacks land "
         "well below IoU 1.0 so the 0.5%% gate can discriminate)",
     )
-    p.add_argument("--out", default=os.path.join(ROOT, "QUALITY_256_TORCH.json"))
+    p.add_argument("--out", default=GATE_REPORT)
     p.add_argument("--device", default="cuda",
                    help="the torch stage's device (the card; 'cpu' only for tests)")
     p.add_argument("--composed", action="store_true",
@@ -679,7 +836,13 @@ def main(argv=None) -> int:
     p.add_argument("--extra-seeds", type=int, default=0, metavar="N",
                    help=f"the torch stage then runs N more seeds into {RESULTS_EXTRA} (the "
                    "final IoU's spread; never the gate's results)")
+    p.add_argument("--products", default="fp32", choices=["fp32", "tf32", "bf16x1"],
+                   help="the composed leg's product precision: fp32 (the gate's), tf32, or "
+                   "bf16x1 (one bf16 pass a product, as XLA computes fp32 on a TPU); a "
+                   "diagnostic into files of its own, with --composed only")
     args = p.parse_args(argv)
+    if args.products != "fp32" and not args.composed:
+        p.error(f"--products {args.products} runs on the composed leg only: add --composed")
     os.makedirs(args.workdir, exist_ok=True)
     stages = ["data", "torch", "report"] if args.stage == "all" else [args.stage]
     for stage in stages:
@@ -687,7 +850,9 @@ def main(argv=None) -> int:
             stage_data(args.workdir, style=args.style)
         elif stage == "torch":
             stage_torch(args.workdir, device=args.device, composed=args.composed,
-                        extra=args.extra_seeds)
+                        extra=args.extra_seeds, products=args.products)
+        elif stage == "products":
+            products_report(args.workdir, os.path.join(ROOT, "QUALITY_256_TORCH_PRODUCTS.json"))
         else:
             stage_report(args.workdir, args.out)
     return 0

@@ -27,9 +27,16 @@ The stages are :mod:`.quality_gate_256`'s, with this protocol and scoring:
   ``torch_results_composed.json``, ``--fused-head-all`` (the softmax head
   K11 in every step; seed 2301 only) into
   ``torch_results_fused_head_all.json``. It refuses changed packs, stamps
-  or protocols.
+  or protocols. ``--extra-seeds N`` then runs seeds 101..100+N of the same
+  leg into a file of their own, never the gate's; ``--composed --products
+  tf32|bf16x1`` runs the composed leg at another product precision
+  (:mod:`.products`), also into files of its own.
 * ``report`` (anywhere): ``QUALITY_<hw>_MC_TORCH.json`` beside the JAX
   record, which it only reads.
+* ``seeds`` (anywhere): ``QUALITY_<hw>_MC_TORCH_SEEDS.json``, every seed of
+  the kernel leg and of each composed leg at each product precision in the
+  workdir, per class, final and recalibrated, and the seeds whose MeanIoU
+  reaches JAX's minus 0.005.
 
 Usage::
 
@@ -37,6 +44,8 @@ Usage::
         --workdir build/q512mc --stage data            # where cv2 is
     python -m ... --workdir build/q512mc --stage torch [--composed | --fused-head-all]
     python -m ... --workdir build/q512mc --stage report  # QUALITY_512_MC_TORCH.json
+    python -m ... --workdir build/q512mc --stage torch --extra-seeds 6  # 2301, 7, 101-106
+    python -m ... --workdir build/q512mc --stage seeds   # QUALITY_512_MC_TORCH_SEEDS.json
     python -m ... --workdir build/q256mc --hw 256 --stage data   # the 256 px protocol
 """
 
@@ -123,12 +132,16 @@ def stage_data(workdir: str, proto: q.Protocol) -> dict:
 
 def stage_torch(workdir: str, proto: q.Protocol, device="cuda", composed: bool = False,
                 fused_head_all: bool = False, overrides: Optional[dict] = None,
-                verbose: bool = True) -> dict:
+                verbose: bool = True, extra: int = 0, products: str = "fp32") -> dict:
     """The seeds of the protocol through ``fit`` on the device, one leg: the
-    kernel leg, ``composed`` (``use_pallas=False``) or ``fused_head_all``
-    (the kernel leg with the softmax head fused, :data:`ALL_LEG_SEEDS`)."""
+    kernel leg, ``composed`` (``use_pallas=False``, at ``products``) or
+    ``fused_head_all`` (the kernel leg with the softmax head fused,
+    :data:`ALL_LEG_SEEDS`); ``extra`` more seeds after them (not on the
+    'all' leg)."""
     if composed and fused_head_all:
         raise ValueError("the fused-head 'all' leg is a kernel leg: not with composed")
+    if fused_head_all and extra:
+        raise ValueError("the fused-head 'all' leg runs seed 2301 only: no extra seeds")
     if fused_head_all:
         overrides = {**(overrides or {}), "model__fused_head": "all"}
         return q.stage_torch(workdir, device=device, protocol=proto, overrides=overrides,
@@ -137,7 +150,7 @@ def stage_torch(workdir: str, proto: q.Protocol, device="cuda", composed: bool =
                              out_name=RESULTS_ALL)
     return q.stage_torch(workdir, device=device, composed=composed, protocol=proto,
                          overrides=overrides, verbose=verbose, scoring=SCORING,
-                         pinned=pinned(proto))
+                         pinned=pinned(proto), extra=extra, products=products)
 
 
 def _leg_summary(res: dict, jax_seeds) -> dict:
@@ -245,10 +258,82 @@ def stage_report(workdir: str, out: str, ref_path: str) -> dict:
     return artifact
 
 
+def seeds_report(workdir: str, out: str, ref_path: str,
+                 gate_path: Optional[str] = None) -> dict:
+    """``out``: every seed of the kernel leg and of each composed leg at each
+    product precision found in the workdir (protocol and extra seeds), per
+    class, final and recalibrated, and the seeds whose MeanIoU reaches JAX's
+    minus :data:`GATE`; whether the kernel leg's protocol seeds have the
+    gate's bits (``gate_path``, default ``QUALITY_<hw>_MC_TORCH.json``). Not
+    a gate: the gate's fields stay in the gate's artifact."""
+    from unet_image_segmentation_tpu_torch.troubleshoot.products import PRODUCTS
+
+    with open(os.path.join(workdir, q.STAMP)) as f:
+        stamp = json.load(f)
+    with open(ref_path) as f:
+        reference = json.load(f)
+    bar = reference["mean_iou_jax"] - GATE
+    hw = stamp["protocol"]["image_size"]
+    legs = {}
+    for name, composed, products in ([("kernels", False, "fp32")]
+                                     + [(f"composed_{p}", True, p) for p in PRODUCTS]):
+        runs = q.leg_runs(workdir, composed, products, stamp)
+        if runs is None:
+            continue
+        seeds = list(runs["seeds"])
+        recs = [runs["seeds"][s] for s in seeds]
+        final = [r["mean_iou"] for r in recs]
+        recal = [r["mean_iou_bn_recalibrated"] for r in recs]
+        legs[name] = {
+            "path": runs["path"], "card": runs["card"], "seeds": [int(s) for s in seeds],
+            "per_class_iou_per_seed": {s: r["per_class_iou"] for s, r in zip(seeds, recs)},
+            "per_class_iou_bn_recalibrated_per_seed": {
+                s: r["per_class_iou_bn_recalibrated"] for s, r in zip(seeds, recs)},
+            "mean_iou_per_seed": final,
+            "mean_iou_bn_recalibrated_per_seed": recal,
+            "mean_iou": q._mean_sem(final),
+            "mean_iou_bn_recalibrated": q._mean_sem(recal),
+            "per_class_iou_bn_recalibrated_mean": np.mean(
+                [r["per_class_iou_bn_recalibrated"] for r in recs], 0).tolist(),
+            "stale_gap": q._mean_sem([r["stale_gap"] for r in recs]),
+            "late_drops_per_seed": [r["late_drops"] for r in recs],
+            "seconds_per_seed": [r["seconds"] for r in recs],
+            "seeds_at_bar": int(sum(v >= bar for v in final)),
+            "seeds_at_bar_bn_recalibrated": int(sum(v >= bar for v in recal)),
+        }
+    if "kernels" not in legs:
+        raise ValueError(f"no {q.RESULTS[False]} under {workdir}: run the torch stage first")
+    with open(gate_path or os.path.join(q.ROOT, f"QUALITY_{hw}_MC_TORCH.json")) as f:
+        gate = json.load(f)
+    kern = legs["kernels"]["per_class_iou_per_seed"]
+    art = {
+        "what": f"the 3-class {hw} px gate's protocol over more seeds (101.. after the "
+                "protocol's): per seed and class, final and with recalibrated BatchNorm "
+                f"statistics. A diagnostic, not a gate: QUALITY_{hw}_MC_TORCH.json holds the "
+                "gate",
+        "protocol": stamp["protocol"], "sha256": stamp["sha256"],
+        "mean_iou_jax": reference["mean_iou_jax"],
+        "per_class_iou_jax": reference["per_class_iou_jax"], "bar": bar,
+        "legs": legs,
+        "kernel_protocol_seeds_same_bits_as_gate": all(
+            kern[s] == gate["per_seed_torch"][s] for s in gate["per_seed_torch"] if s in kern),
+    }
+    with open(out, "w") as f:
+        json.dump(art, f, indent=2)
+    for name, leg in legs.items():
+        print(f"{name}: MeanIoU {leg['mean_iou']}, recalibrated "
+              f"{leg['mean_iou_bn_recalibrated']}, {leg['seeds_at_bar']} / "
+              f"{leg['seeds_at_bar_bn_recalibrated']} recalibrated of {len(leg['seeds'])} at "
+              f"{bar:.4f}")
+    print(f"kernel protocol seeds same bits as the gate: "
+          f"{art['kernel_protocol_seeds_same_bits_as_gate']} -> {out}")
+    return art
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workdir", required=True)
-    p.add_argument("--stage", required=True, choices=["data", "torch", "report"])
+    p.add_argument("--stage", required=True, choices=["data", "torch", "report", "seeds"])
     p.add_argument("--hw", type=int, default=HW,
                    help="image side; 256 runs the same 3-class protocol at the JAX record "
                    "QUALITY_256_MC.json's size")
@@ -265,15 +350,28 @@ def main(argv=None) -> int:
     leg.add_argument("--fused-head-all", action="store_true",
                      help="the torch stage with fused_head='all' (K11 each step), seed "
                      f"{ALL_LEG_SEEDS[0]} only, into {RESULTS_ALL}")
-    p.add_argument("--out", default=None, help="default QUALITY_<hw>_MC_TORCH.json at the root")
+    p.add_argument("--extra-seeds", type=int, default=0, metavar="N",
+                   help="the torch stage then runs seeds 101..100+N of the leg into a file of "
+                   "their own (never the gate's results)")
+    p.add_argument("--products", default="fp32", choices=["fp32", "tf32", "bf16x1"],
+                   help="the composed leg's product precision (see quality_gate_256); with "
+                   "--composed only")
+    p.add_argument("--out", default=None, help="default QUALITY_<hw>_MC_TORCH.json at the root "
+                   "(the seeds stage: QUALITY_<hw>_MC_TORCH_SEEDS.json)")
     args = p.parse_args(argv)
+    if args.products != "fp32" and not args.composed:
+        p.error(f"--products {args.products} runs on the composed leg only: add --composed")
     proto = protocol(args.hw, SEEDS[:args.seeds], args.epochs)
     os.makedirs(args.workdir, exist_ok=True)
     if args.stage == "data":
         stage_data(args.workdir, proto)
     elif args.stage == "torch":
         stage_torch(args.workdir, proto, device=args.device, composed=args.composed,
-                    fused_head_all=args.fused_head_all)
+                    fused_head_all=args.fused_head_all, extra=args.extra_seeds,
+                    products=args.products)
+    elif args.stage == "seeds":
+        out = args.out or os.path.join(q.ROOT, f"QUALITY_{args.hw}_MC_TORCH_SEEDS.json")
+        seeds_report(args.workdir, out, reference_path(args.hw))
     else:
         out = args.out or os.path.join(q.ROOT, f"QUALITY_{args.hw}_MC_TORCH.json")
         stage_report(args.workdir, out, reference_path(args.hw))
