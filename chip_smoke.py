@@ -85,7 +85,10 @@ exit code and no result line:
    batches), whose launch plans differ from batch 2's: each output held
    against its plain version under phase 7's bars (K4, K5 and K11 with
    phase 7's bit checks), then both timed, K3-K6 and K9 with their bounds and
-   the share of the bound reached;
+   the share of the bound reached; beside them, K6's fp32 d_kernel and its
+   plain version's distance from an fp64 product on the card at the four
+   feeds (a print, no bar; ``troubleshoot/upconcat_digits.py`` takes it
+   apart);
 10. multiclass training at full width (``configs/multiclass_512.json`` with
    ``fused_head`` all: 3 classes, 512 px, batch 8, cce, numpy class-id
    scenes): 3 steps with the kernels against 3 of the composed path in fp32
@@ -634,6 +637,22 @@ def judge_feed(fu, tjudge, k, label, dname):
     tjudge("upconcat_bwd", label + " dx/d_skip", dname, [(got[0], want[0]), (got[3], want[3])])
     tjudge("upconcat_bwd", label + " d_kernel/d_bias", dname,
            [(got[1], want[1]), (got[2], want[2])], sums=True)
+
+
+def k6_d_kernel_digits(fu, k):
+    """K6's fp32 d_kernel and its plain version's, each max |err| over
+    max|fp64| against an fp64 product on the card
+    (``troubleshoot/upconcat_digits.d_kernel_fp64``): a print, no bar."""
+    from unet_image_segmentation_tpu_torch.troubleshoot.upconcat_digits import d_kernel_fp64
+
+    c, f = k["x"].shape[-1], k["kernel"].shape[2]
+    ref = d_kernel_fp64(k["x"], k["g"])
+    scale = ref.abs().max()
+    bwd = (k["x"], k["kernel"], k["g"])
+    return {name: ((got[1].permute(3, 0, 1, 2).reshape(c, 4 * f).double() - ref).abs().max()
+                   / scale).item()
+            for name, got in (("kernel", fu.upconcat_bwd(*bwd)),
+                              ("plain", fu.upconcat_bwd_reference(*bwd)))}
 
 
 def judge_head(torch, fh, tjudge, k, label, dname):
@@ -3641,10 +3660,13 @@ def main() -> int:
                                   lambda: ft.tail_pool_bwd_reference(*bwd)),
             })))
             del k, bwd
+        k6_digits = {}
         for name, c, f, h in FEEDS:
             k = upconcat_case(torch, rnd, dev, dtype, BATCH_SERVE, c, f, h)
             label = f"{name} feed {c}@{h}->{2 * f}@{2 * h}"
             judge_feed(fu, tjudge, k, label, dname)
+            if dtype == torch.float32:
+                k6_digits[name] = k6_d_kernel_digits(fu, k)
             fwd, bwd = (k["x"], k["kernel"], k["bias"], k["skip"]), (k["x"], k["kernel"], k["g"])
             cases.append((label, "K6", "K6 bwd", (name, c, f, h), timed({
                 "upconcat": (lambda: fu.upconcat(*fwd), lambda: fu.upconcat_reference(*fwd)),
@@ -3700,6 +3722,12 @@ def main() -> int:
                     text[-1] += f", bound {bound:.4f} ({by}, {100 * bound / t_k:.1f}%)"
             print(f"  {label} {dtype_label(dname)}: " + ", ".join(text))
             report["train_kernels"][f"{label} {dname}"] = times
+        if k6_digits:
+            report["k6_d_kernel_digits"] = k6_digits
+            print(f"  K6 fp32 d_kernel at batch {BATCH_SERVE}, max err / max|fp64| (an fp64 "
+                  "product on the card), kernel (plain): " + ", ".join(
+                      f"{name} {e['kernel']:.2e} ({e['plain']:.2e})"
+                      for name, e in k6_digits.items()) + f" [{smi}]")
         totals[dname].update(tot)
         print(f"  {dname} totals over the path: " + ", ".join(
             f"{kname} {t[0]:.3f} / {t[1]:.3f}" + (

@@ -25,11 +25,13 @@ so that shards can run side by side on one data stage;
 ``--summarize`` reads the ``paired.json`` and ``paired_<i>.json`` of the
 workdir (and of ``--more`` workdirs: other seeds on the same scenes) and
 prints the verdict: the port's mean ``g`` against JAX's, the mean paired
-difference with its standard error; each BatchNorm's mean log ratio in
-both; and each seed's log ratio averaged over the BatchNorms, port minus
-JAX, with its mean, standard error, median and a two-sided sign test. A
-fault: the port's gap beyond JAX's by more than two standard errors, or
-the ratios apart by two standard errors with a sign test below 5%.
+difference with its standard error; each package's seeds that end on a
+good epoch (final within ``GOOD_ENDING`` of recalibrated); each
+BatchNorm's mean log ratio in both; and each seed's log ratio averaged
+over the BatchNorms, port minus JAX, with its mean, standard error,
+median and a two-sided sign test. A fault: the port's gap beyond JAX's by
+more than two standard errors, or the ratios apart by two standard errors
+with a sign test below 5%.
 
 Usage (from the repository root)::
 
@@ -46,6 +48,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOOD_ENDING = 0.01   # final val IoU within this of the recalibrated one
 
 
 def summarize(wd: str, more=()) -> dict:
@@ -68,6 +71,12 @@ def summarize(wd: str, more=()) -> dict:
             v = np.array([seeds[s][pkg][key] for s in names], np.float64)
             out[f"{pkg}_{key}"] = {"mean": float(v.mean()), "std": float(v.std(ddof=1)),
                                    "per_seed": v.tolist()}
+    # a seed ends on a good epoch when its final score is within GOOD_ENDING
+    # of its recalibrated one
+    for pkg in pkgs:
+        good = [int(s) for s in names if abs(seeds[s][pkg]["stale_gap"]) <= GOOD_ENDING]
+        out[f"{pkg}_good_endings"] = {"within": GOOD_ENDING, "count": len(good),
+                                      "of": len(names), "seeds": good}
     d = np.array([seeds[s]["torch"]["stale_gap"] - seeds[s]["jax"]["stale_gap"] for s in names])
     se = float(d.std(ddof=1) / np.sqrt(len(d)))
     out["stale_gap_difference"] = {"mean": float(d.mean()), "se": se,
@@ -113,6 +122,8 @@ def summarize(wd: str, more=()) -> dict:
     for pkg in pkgs:
         print(pkg, {k: round(out[f"{pkg}_{k}"]["mean"], 4)
                     for k in ("val_iou", "val_iou_bn_recalibrated", "stale_gap", "late_drops")})
+    print("seeds ending on a good epoch (final within", GOOD_ENDING, "of recalibrated):",
+          {pkg: f"{out[f'{pkg}_good_endings']['count']} of {len(names)}" for pkg in pkgs})
     print("stale gap, port minus JAX:", out["stale_gap_difference"])
     print("mean log(running var / recalibrated var):", out["mean_log_var_ratio"])
     print("layers apart by > 2 se:", out["layers_apart_by_2se"])

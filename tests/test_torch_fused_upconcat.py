@@ -199,3 +199,71 @@ def test_upconcat_plan_refuses_what_the_kernels_cannot_launch():
         tfu.upconcat_plan(1, 4, 4, 8, 8, torch.float16, 132)
     with pytest.raises(ValueError, match="output pixels"):
         tfu.upconcat_plan(2 ** 13, 256, 256, 8, 8, torch.bfloat16, 132)
+
+
+# K6's fp32 d_kernel in its split-K order and in JAX's tile order
+# (troubleshoot/upconcat_digits.py), of max |plain d_kernel| at 2 x 32 x 32
+# pixels (C = 24, 4F = 80): (ii), (iii) and JAX's order in 4 runs of 512
+# pixels, (iv) serial over all 2048 (measured 3.9e-7 (the plain d_kernel's
+# own distance from fp64), 3.0e-7, 7.1e-7, 1.0e-6, 3.0e-7)
+UPCONCAT_ORDER_TOL = {"fp64": 1e-6, "fp32": 2e-6, "3xtf32": 2e-6, "fp32_one_split": 1e-5,
+                      "jax_tiles": 2e-6}
+
+
+def test_upconcat_digit_orders_match_the_plain_d_kernel():
+    """(i)-(iv) and (vi) of ``upconcat_digits`` on the tool's seeded inputs
+    (x a ReLU'd feed, so non-negative) equal the plain K6 backward's
+    d_kernel within UPCONCAT_ORDER_TOL, on the split plan ``upconcat_plan``
+    gives and on JAX's row tiles; ``d_kernel_fp64`` is the plain d_kernel
+    in fp64."""
+    from unet_image_segmentation_tpu_torch.troubleshoot import upconcat_digits as ud
+
+    b, h, c, f = 2, 32, 24, 20
+    d = ud.inputs(b, c, f, h)
+    assert d["x"].min() == 0 and d["x"].max() > 0 and d["g"].shape == (b, 2 * h, 2 * h, 2 * f)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    want = tfu.upconcat_bwd_reference(t["x"], t["kernel"], t["g"])[1]
+    want = want.permute(3, 0, 1, 2).reshape(c, 4 * f).double()
+    exact = ud.d_kernel_fp64(t["x"], t["g"])
+    assert exact.dtype == torch.float64 and exact.shape == (c, 4 * f)
+    scale = want.abs().max().item()
+    assert (exact - want).abs().max().item() <= 1e-6 * scale
+    plan = tfu.upconcat_plan(b, h, h, c, f, torch.float32, 132)
+    assert (plan.splits, plan.per) == (4, 512)
+    rows = ud.jax_tile_rows(2 * h, h, c, f) // 2 * h
+    assert rows == 512
+    got = ud.orders(t["x"].reshape(-1, c).numpy(), ud.dup_of(t["g"], f).contiguous().numpy(),
+                    plan.per, plan.splits, rows)
+    assert set(got) == set(UPCONCAT_ORDER_TOL)
+    for name, v in got.items():
+        err = (torch.from_numpy(np.asarray(v)).double() - want).abs().max().item()
+        assert err <= UPCONCAT_ORDER_TOL[name] * scale, (name, err)
+
+
+@pytest.mark.parametrize("batch,per,splits", [(32, (4096, 4096, 4000, 4000), (2, 8, 33, 132)),
+                                              (2, (512,) * 4, (1, 4, 16, 64))])
+def test_upconcat_digits_take_the_kernels_split_plan(batch, per, splits):
+    """The tool's emulations take ``upconcat_plan``'s fp32 d_kernel splits at
+    the four 256 px feeds (dec4 -> dec1) on a card of 132 SMs: ~4000 pixels a
+    split at batch 32, 512 at the gates' batch of 2."""
+    from unet_image_segmentation_tpu_torch.troubleshoot import upconcat_digits as ud
+
+    assert list(ud.FEEDS) == ["dec4", "dec3", "dec2", "dec1"]
+    for name, p, s in zip(ud.FEEDS, per, splits):
+        c, f, h = ud.FEEDS[name]
+        plan = ud.plan(name, batch, 132)
+        assert plan == tfu.upconcat_plan(batch, h, h, c, f, torch.float32, 132)
+        assert (plan.per, plan.splits) == (p, s), name
+
+
+@pytest.mark.parametrize("feed", ["dec4", "dec3", "dec2", "dec1"])
+def test_upconcat_digits_take_the_jax_kernels_row_tile(feed):
+    """The tool's copy of the JAX kernel's row-tile rule gives its tile at
+    each 256 px feed (the JAX kernel takes the feed at p = 2)."""
+    from unet_image_segmentation_tpu_torch.troubleshoot import upconcat_digits as ud
+
+    c, f, h = ud.FEEDS[feed]
+    x = jnp.zeros((2, h, h, c), jnp.float32)
+    meta = jfu._supported(x, jnp.zeros((2, 2, f, c)), jnp.zeros((2, 2 * h, h, 2 * f)), 2)
+    assert meta is not None and meta[0] == ud.jax_tile_rows(2 * h, h, c, f) == \
+        jfu._pick_tile(2 * h, h, c, f, 2 * f)

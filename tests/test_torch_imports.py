@@ -40,7 +40,8 @@ def test_port_modules_import_no_jax():
                  "export.tflite_metadata", "cli.export", "data.synthetic",
                  "troubleshoot.quality_gate_256", "troubleshoot.quality_gate_512mc",
                  "data.midv", "data.prepare", "troubleshoot.products",
-                 "troubleshoot.dpw_digits", "troubleshoot.probe_sass"):
+                 "troubleshoot.dpw_digits", "troubleshoot.probe_sass",
+                 "troubleshoot.upconcat_digits"):
         assert f"unet_image_segmentation_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

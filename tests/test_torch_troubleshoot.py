@@ -40,6 +40,7 @@ from unet_image_segmentation_tpu_torch.troubleshoot import (
     profile_summary,
     roofline,
     step_attribution,
+    upconcat_digits,
 )
 from unet_image_segmentation_tpu_torch.utils import profiling
 
@@ -299,6 +300,16 @@ def test_fp32_split_ab_variants_build_from_the_sources():
         assert f"sizeof(T) == 4 ? {stages} : kStages" in src
         assert src.count("ab_gemm_presplit<2, 8, LDK, LDN>(") == 1
     assert all(src.count("ab_gemm_afirst<") == 1 for src in variants["afirst"].values())
+    # one_acc: K6's d_kernel and K2/K10's pass (b) back on one accumulator a
+    # split, where the sources put fp32's mma depths into fresh fragments
+    assert set(variants["one_acc"]) == {"upconcat.cu", "chain_bwd.cu"}
+    fresh = "dw_gemm_fp32<2, 8, LD, LD, KC / KS>("
+    assert (build.CSRC / "upconcat.cu").read_text().count(fresh) == 1
+    k6 = variants["one_acc"]["upconcat.cu"]
+    assert fresh not in k6 and k6.count("gemm_cols<2, 8, LD, LD>(") == 2
+    assert "gemm_cols<MT, NT, LDA, LDB, true>(" not in variants["one_acc"]["chain_bwd.cu"]
+    assert {v for v, files in variants.items() if "upconcat.cu" in files} == \
+        set(fp32_split_ab.FEED_VARIANTS) - {"tree"}
     with pytest.raises(ValueError, match="update the variant"):
         fp32_split_ab._upconcat_split("namespace unet {\nnamespace {\n", 2)
 
@@ -680,7 +691,8 @@ def test_check_install_on_the_cpu_passes():
 
 
 @pytest.mark.parametrize("tool", [check_install, check_gpu_benchmark, link_floors,
-                                  step_attribution, dpw_digits, probe_sass],
+                                  step_attribution, dpw_digits, upconcat_digits,
+                                  probe_sass],
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_tools_refuse_to_run_without_a_card(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -26,19 +26,20 @@
 // refuse a plan whose shared-memory bytes differ from FeedSmem / DwSmem):
 //  - One tensor-core body for both dtypes and every shape: mma.sync bf16
 //    m16n8k16 from ldmatrix, fp32 3xTF32 on m16n8k8 (gemm_3xtf32 for the
-//    forward and dx, gemm_cols for d_kernel as in K2/K10's pass (b)), each
-//    warp splitting its fp32 fragments into TF32 hi and lo as it loads
-//    them. Measured on the H100 (troubleshoot/fp32_split_ab.py, fp32,
-//    batch 32, dec4..dec1): splitting A once where its stage lands, as K8
-//    and K1 do, takes the forward from 0.721-0.854 ms to 0.730-0.904 with
-//    the lo buffer in a third stage's place and to 0.883-1.360 with three
-//    stages and the buffer (one CTA an SM): the split pass costs a barrier
-//    a chunk, and its buffer a stage or the second CTA, more than the
-//    warps' repeated splits. gemm_3xtf32's order in d_kernel would take 2%
-//    off the fp32 backward but adds 3% to K2, which shares gemm_cols.
-//    Chunk tails and ragged widths are zero-filled where they are staged,
-//    so odd C and F take the same products; only the 16-byte vectors fall
-//    back to element copies there.
+//    forward and dx; for d_kernel gemm_cols in bf16, as in K2/K10's pass (b),
+//    and dw_gemm_fp32 in fp32), each warp splitting its fp32 fragments into
+//    TF32 hi and lo as it loads them. Measured on the H100
+//    (troubleshoot/fp32_split_ab.py, fp32, batch 32, dec4..dec1): splitting A
+//    once where its stage lands, as K8 and K1 do, takes the forward from
+//    0.721-0.854 ms to 0.730-0.904 with the lo buffer in a third stage's
+//    place and to 0.883-1.360 with three stages and the buffer (one CTA an
+//    SM): the split pass costs a barrier a chunk, and its buffer a stage or
+//    the second CTA, more than the warps' repeated splits. In fp32 d_kernel
+//    holds A's fragments and splits B's one at a time (gemm_3xtf32's order;
+//    2% off the fp32 backward against gemm_cols', which K2 keeps: the other
+//    order adds 3% there). Chunk tails and ragged widths are zero-filled
+//    where they are staged, so odd C and F take the same products; only the
+//    16-byte vectors fall back to element copies there.
 //  - Forward and dx (feed_gemm): a CTA of 8 warps takes 128 pixels of x by
 //    128 GEMM columns ((di,dj,f) forward, C for dx) and walks the depth (C
 //    forward, 4F for dx) through a 3-stage cp.async ring, one barrier a
@@ -59,7 +60,9 @@
 //    d_skip for their rows.
 //  - d_kernel (upconcat_dw_kernel): a split-K GEMM over pixels of 128x128
 //    (C, 4F) tiles, x and dup pixel-major through a 3-stage cp.async ring
-//    (bf16 read with ldmatrix.trans); one fp32 partial per split, the splits
+//    (bf16 read with ldmatrix.trans); one fp32 partial per split (in fp32
+//    each pair of mma depths into a fresh fragment, then a rounding add,
+//    dw_gemm_fp32), the splits
 //    chosen so the grid fills whole waves of two CTAs an SM. The CTAs of
 //    the first C tile also sum d_bias: every thread a 16-byte column group
 //    over a fixed set of rows of each staged chunk, the row groups added
@@ -67,6 +70,8 @@
 //    fixed order: no atomics, bit-reproducible runs. The CTAs of one pixel
 //    split are neighbours in the grid, so x and g come from device memory
 //    once and the other output tiles read them from L2.
+#include <type_traits>
+
 #include "mma_common.cuh"
 #include "train_common.cuh"
 
@@ -347,6 +352,58 @@ __global__ void __launch_bounds__(kThreads, 2) upconcat_dx_kernel(const FeedArgs
   feed_gemm<T, true>(a);
 }
 
+// K6's fp32 d_kernel product on gemm_cols' operands: acc[mi][ni] +=
+// A[:, m-tile mt0 + mi]^T . B[:, n0 + 8ni ..] over a chunk's KSTEPS k8
+// depths as 3xTF32, A [k][LDA] and B [k][LDB] pixel-major fp32 in shared
+// memory. Each pair of depths goes into a fresh fragment that one rounding
+// fp32 add puts into acc: an mma aligns its terms to the largest and
+// truncates, so into a split's one accumulator over ~500 depths it lost
+// about a bit a time (d_kernel 2.9e-5 of max|fp64| at batch 32, where JAX's
+// order is 1.0e-6; troubleshoot/upconcat_digits.py). It holds A's
+// fragments of the pair and splits B's an n-tile at a time, and takes every
+// depth and m-tile of the chunk unrolled, with no test: rows past the split
+// and channels past C are zero-filled where staged, so they add nothing
+// (and those outputs are not stored). A fresh fragment a depth, or pairs
+// in a loop with those tests, cost the fp32 backward more
+// (troubleshoot/fp32_split_ab.py, one_acc against the tree).
+template <int MT, int NT, int LDA, int LDB, int KSTEPS>
+__device__ __forceinline__ void dw_gemm_fp32(float (&acc)[MT][NT][4], const float* A,
+                                             const float* B, int mt0, int n0, int lane) {
+  static_assert(KSTEPS % 2 == 0, "depths go in pairs");
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ks += 2) {
+    uint32_t ah[2][MT][4], al[2][MT][4];
+#pragma unroll
+    for (int d = 0; d < 2; ++d)
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const float* p = A + ((ks + d) * 8 + t) * LDA + (mt0 + mi) * 16 + g;
+        split_tf32(p[0], ah[d][mi][0], al[d][mi][0]);
+        split_tf32(p[8], ah[d][mi][1], al[d][mi][1]);
+        split_tf32(p[4 * LDA], ah[d][mi][2], al[d][mi][2]);
+        split_tf32(p[4 * LDA + 8], ah[d][mi][3], al[d][mi][3]);
+      }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      float f[MT][4] = {};
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split_tf32(B[((ks + d) * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[h], bl[h]);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) mma_3xtf32(f[mi], ah[d][mi], al[d][mi], bh, bl);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += f[mi][r];
+    }
+  }
+}
+
 // part[split][c * 4F + n] = Σ over the split's pixels of x[p][c] dup[p][n];
 // the CTAs of the first C tile also write part[split][C * 4F + n] = Σ
 // dup[p][n]. grid (4F tiles, C tiles, splits); warp (wm, wn) = (warp % 4,
@@ -400,9 +457,15 @@ __global__ void __launch_bounds__(kThreads, 2) upconcat_dw_kernel(const DwArgs<T
 #pragma unroll
         for (int j = 0; j < V; ++j) bsum[j] += v[j];
       }
-    if (active)
-      gemm_cols<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, nm, wn * 64,
-                              (min(KC, p_end - p0) + KS - 1) / KS, lane);
+    if (active) {
+      // fp32: a fresh fragment a pair of depths (dw_gemm_fp32); bf16 keeps
+      // one accumulator a split: its operands' own rounding is far larger
+      if constexpr (std::is_same<T, float>::value)
+        dw_gemm_fp32<2, 8, LD, LD, KC / KS>(acc, xs(st), gb, wm * 2, wn * 64, lane);
+      else
+        gemm_cols<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, nm, wn * 64,
+                                (min(KC, p_end - p0) + KS - 1) / KS, lane);
+    }
   }
   cp_async_wait_all();
   float* out = a.part + (size_t)blockIdx.z * a.cols;

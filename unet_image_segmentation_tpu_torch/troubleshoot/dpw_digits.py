@@ -64,39 +64,44 @@ def tf32(v: np.ndarray) -> np.ndarray:
     return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _fma(acc: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    return (acc + a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
-
-
 def split_partials(m: np.ndarray, g: np.ndarray, per: int, splits: int,
-                   products: str = "fp32") -> np.ndarray:
+                   products: str = "fp32", device=None) -> np.ndarray:
     """(splits, C, F) fp32: split s sums pixels [s*per, (s+1)*per) of m (P, C)
     and g (P, F) serially, one fused multiply-add a product (``products``
-    'fp32'), or three in 3xTF32's order ('3xtf32')."""
+    'fp32'), or three in 3xTF32's order ('3xtf32'). With a ``device`` the
+    serial sums run there in torch (the same IEEE operations, so the same
+    bits as in numpy); the result comes back as numpy."""
     p, c = m.shape
     f = g.shape[1]
     if splits * per < p:
         raise ValueError(f"{splits} splits of {per} pixels do not cover {p}")
+    if products not in ("fp32", "3xtf32"):
+        raise ValueError(f"products must be 'fp32' or '3xtf32', got {products!r}")
     pad = splits * per - p   # zero pixels: a fused add of 0 * 0 leaves acc as it is
     mm = np.concatenate([m, np.zeros((pad, c), np.float32)]).reshape(splits, per, c)
     gg = np.concatenate([g, np.zeros((pad, f), np.float32)]).reshape(splits, per, f)
-    acc = np.zeros((splits, c, f), np.float32)
+    # each product's (m, g) operands in the order they are added, in fp64
+    # (exact), so every step is a fused multiply-add rounded once to fp32
     if products == "fp32":
-        m64, g64 = mm.astype(np.float64), gg.astype(np.float64)
-        for k in range(per):
-            acc = (acc + m64[:, k, :, None] * g64[:, k, None, :]).astype(np.float32)
-        return acc
-    if products != "3xtf32":
-        raise ValueError(f"products must be 'fp32' or '3xtf32', got {products!r}")
-    mh = tf32(mm)
-    ml = tf32(mm - mh)
-    gh = tf32(gg)
-    gl = tf32(gg - gh)
+        terms = [(mm, gg)]
+    else:
+        mh, gh = tf32(mm), tf32(gg)
+        terms = [(tf32(mm - mh), gh), (mh, tf32(gg - gh)), (mh, gh)]
+    acc = np.zeros((splits, c, f), np.float32)
+    if device is None:
+        terms = [(a.astype(np.float64), b.astype(np.float64)) for a, b in terms]
+        f32 = lambda v: v.astype(np.float32)   # noqa: E731
+    else:
+        import torch
+
+        terms = [tuple(torch.from_numpy(v).to(device, torch.float64) for v in t)
+                 for t in terms]
+        acc = torch.from_numpy(acc).to(device)
+        f32 = lambda v: v.float()   # noqa: E731
     for k in range(per):
-        a_h, a_l = mh[:, k, :, None], ml[:, k, :, None]
-        b_h, b_l = gh[:, k, None, :], gl[:, k, None, :]
-        acc = _fma(_fma(_fma(acc, a_l, b_h), a_h, b_l), a_h, b_h)
-    return acc
+        for a, b in terms:
+            acc = f32(acc + a[:, k, :, None] * b[:, k, None, :])
+    return acc if device is None else acc.cpu().numpy()
 
 
 def reduce_rows(part: np.ndarray) -> np.ndarray:
@@ -122,10 +127,10 @@ def reduce_rows(part: np.ndarray) -> np.ndarray:
 
 
 def pass_b_order(m: np.ndarray, g: np.ndarray, per: int, splits: int,
-                 products: str = "fp32") -> np.ndarray:
+                 products: str = "fp32", device=None) -> np.ndarray:
     """(C, F) fp32: ``dpw`` in pass (b)'s order (:func:`split_partials`, then
     :func:`reduce_rows`)."""
-    return reduce_rows(split_partials(m, g, per, splits, products))
+    return reduce_rows(split_partials(m, g, per, splits, products, device))
 
 
 def rel_err(got: np.ndarray, ref: np.ndarray) -> float:
@@ -137,21 +142,23 @@ def exact(m: np.ndarray, g: np.ndarray) -> np.ndarray:
     return m.astype(np.float64).T @ g.astype(np.float64)
 
 
-def orders(m: np.ndarray, g: np.ndarray, per: int, splits: int) -> Dict[str, np.ndarray]:
-    """(i)-(iv) of the module docstring from fp32 m (P, C) and gy (P, F)."""
+def orders(m: np.ndarray, g: np.ndarray, per: int, splits: int,
+           device=None) -> Dict[str, np.ndarray]:
+    """(i)-(iv) of the module docstring from fp32 m (P, C) and gy (P, F),
+    the serial sums on ``device`` (numpy when None)."""
     return {
         "fp64": exact(m, g),
-        "fp32": pass_b_order(m, g, per, splits),
-        "3xtf32": pass_b_order(m, g, per, splits, "3xtf32"),
-        "fp32_one_split": pass_b_order(m, g, -(-m.shape[0] // 8) * 8, 1),
+        "fp32": pass_b_order(m, g, per, splits, device=device),
+        "3xtf32": pass_b_order(m, g, per, splits, "3xtf32", device),
+        "fp32_one_split": pass_b_order(m, g, -(-m.shape[0] // 8) * 8, 1, device=device),
     }
 
 
 def decompose(m: np.ndarray, g: np.ndarray, per: int, splits: int,
-              kernel: Optional[np.ndarray] = None) -> Dict[str, float]:
+              kernel: Optional[np.ndarray] = None, device=None) -> Dict[str, float]:
     """Each way's max |error| over max|fp64| (:func:`orders`, and the
     kernel's ``dpw`` when given)."""
-    got = orders(m, g, per, splits)
+    got = orders(m, g, per, splits, device)
     ref = got.pop("fp64")
     if kernel is not None:
         got["kernel"] = kernel

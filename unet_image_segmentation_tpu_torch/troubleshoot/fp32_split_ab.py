@@ -6,18 +6,20 @@ split into a TF32 hi and lo part. This tool builds variants of
 checkout's sources beside the library proper and times them against the
 sources as they are, in fp32 at the 256 px U-Net's shapes at batch 32:
 
-* ``tree``: the sources; each warp splits the fragments it loads, and
-  K6's d_kernel and K2/K10's pass (b) hold the B fragments of a depth
-  (``gemm_cols``);
+* ``tree``: the sources; each warp splits the fragments it loads; K2/K10's
+  pass (b) holds the B fragments of a depth (``gemm_cols``), K6's fp32
+  d_kernel the A fragments of a pair of depths (``dw_gemm_fp32``);
 * ``split2`` / ``split3``: K6's forward and dx split A once where its
   stage lands, as K8 and K1 do, the lo parts in a buffer of their own, on
   a 2-stage ring (two CTAs an SM) or the 3-stage ring (one CTA an SM);
-* ``afirst``: K6's d_kernel and K2/K10's pass (b) hold the A fragments of
-  a depth and split B one fragment at a time (``gemm_3xtf32``'s order);
-* ``one_acc``: K2/K10's pass (b) sums every mma depth of a split into one
-  accumulator, as before the fresh fragments of ``gemm_cols``' kFresh;
-  beside the times, K10's dpw at enc1.1 against fp64 at batch 32 and 2
-  (``dpw_digits``' inputs) for it and the tree.
+* ``afirst``: K2/K10's pass (b) holds the A fragments of a depth and
+  splits B one fragment at a time (``gemm_3xtf32``'s order);
+* ``one_acc``: K6's d_kernel and K2/K10's pass (b) sum every mma depth of
+  a split into one accumulator in ``gemm_cols``' order, as before their
+  fresh fragments; beside the times, K10's dpw at enc1.1 against
+  fp64 at batch 32 and 2 (``dpw_digits``' inputs) and K6's d_kernel on
+  ``upconcat_digits``' output tile at the four feeds at batch 32 and dec1
+  at batch 2 (its inputs), for it and the tree.
 
 Each variant is held to the plain versions (fp32 bars) before it is
 timed; ``afirst`` must match the tree bit for bit. Writes
@@ -41,7 +43,7 @@ from unet_image_segmentation_tpu_torch.ops import fused_sepconv as fs
 from unet_image_segmentation_tpu_torch.ops import fused_train as ft
 from unet_image_segmentation_tpu_torch.ops import fused_upconcat as fu
 from unet_image_segmentation_tpu_torch.ops.kernels import build
-from unet_image_segmentation_tpu_torch.troubleshoot import dpw_digits, roofline
+from unet_image_segmentation_tpu_torch.troubleshoot import dpw_digits, roofline, upconcat_digits
 from unet_image_segmentation_tpu_torch.troubleshoot.link_floors import link_inputs
 
 HW = 256
@@ -51,7 +53,9 @@ SEED = 2301
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT = os.path.join(ROOT, "build", "fp32_split_ab.json")
 VARIANTS = ("tree", "split2", "split3", "afirst", "one_acc")
+FEED_VARIANTS = ("tree", "split2", "split3", "one_acc")   # the variants of upconcat.cu
 LINK_VARIANTS = ("tree", "afirst", "one_acc")   # the variants of chain_bwd.cu
+DIGIT_VARIANTS = ("tree", "one_acc")
 
 # 3xTF32 products with A split where it was staged (Ah, Al row-major, read
 # with ldmatrix), each B fragment split just before its products
@@ -82,10 +86,10 @@ __device__ __forceinline__ void ab_gemm_presplit(float (&acc)[MT][NT][4], const 
 }
 """
 
-# gemm_cols<float>'s product (A [k][LDA] pixel-major) in gemm_3xtf32's order,
-# kFresh as gemm_cols' (each depth into a fresh fragment, then added)
+# gemm_cols<float, kFresh>'s product (A [k][LDA] pixel-major, each depth into
+# a fresh fragment, then added) in gemm_3xtf32's order
 _A_FIRST = r"""
-template <int MT, int NT, int LDA, int LDB, bool kFresh = false>
+template <int MT, int NT, int LDA, int LDB>
 __device__ __forceinline__ void ab_gemm_afirst(float (&acc)[MT][NT][4], const float* A,
                                                const float* B, int mt0, int n0, int ksteps,
                                                int lane) {
@@ -108,14 +112,10 @@ __device__ __forceinline__ void ab_gemm_afirst(float (&acc)[MT][NT][4], const fl
         split_tf32(B[(ks * 8 + t + 4 * h) * LDB + n0 + ni * 8 + g], bh[h], bl[h]);
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
-        if (kFresh) {
-          float d[4] = {};
-          mma_3xtf32(d, ah[mi], al[mi], bh, bl);
+        float d[4] = {};
+        mma_3xtf32(d, ah[mi], al[mi], bh, bl);
 #pragma unroll
-          for (int r = 0; r < 4; ++r) acc[mi][ni][r] += d[r];
-        } else {
-          mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh, bl);
-        }
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += d[r];
       }
     }
   }
@@ -187,27 +187,20 @@ def variant_sources(csrc=build.CSRC) -> Dict[str, Dict[str, str]]:
     ``{variant: {file name: source}}``, only the files the variant changes."""
     up = (csrc / "upconcat.cu").read_text()
     cb = (csrc / "chain_bwd.cu").read_text()
-    dw = """      gemm_cols<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, nm, wn * 64,
-                              (min(KC, p_end - p0) + KS - 1) / KS, lane);"""
+    dw = "dw_gemm_fp32<2, 8, LD, LD, KC / KS>(acc, xs(st), gb, wm * 2, wn * 64, lane);"
+    dw_one = ("gemm_cols<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, nm, wn * 64, "
+              "(min(KC, p_end - p0) + KS - 1) / KS, lane);")
     dpw = """        gemm_cols<MT, NT, LDA, LDB, true>(acc, ms(st), gb, wm * MT, nm, wn * (TN / 4), ksteps,
                                           lane);"""
-
-    k6_afirst = _sub(_inject(up, _A_FIRST), dw, f"""    {{
-      if constexpr (sizeof(T) == 4)
-        ab_gemm_afirst<2, 8, LD, LD>(acc, xs(st), gb, wm * 2, wn * 64,
-                                     (min(KC, p_end - p0) + KS - 1) / KS, lane);
-      else
-{dw}
-    }}""")
 
     return {
         "split2": {"upconcat.cu": _upconcat_split(up, 2)},
         "split3": {"upconcat.cu": _upconcat_split(up, 3)},
-        "afirst": {"upconcat.cu": k6_afirst,
-                   "chain_bwd.cu": _sub(_inject(cb, _A_FIRST), dpw,
-                                        "        ab_gemm_afirst<MT, NT, LDA, LDB, true>(acc, "
+        "afirst": {"chain_bwd.cu": _sub(_inject(cb, _A_FIRST), dpw,
+                                        "        ab_gemm_afirst<MT, NT, LDA, LDB>(acc, "
                                         "ms(st), gb, wm * MT, wn * (TN / 4), ksteps, lane);")},
-        "one_acc": {"chain_bwd.cu": _sub(cb, "gemm_cols<MT, NT, LDA, LDB, true>(",
+        "one_acc": {"upconcat.cu": _sub(up, dw, dw_one),
+                    "chain_bwd.cu": _sub(cb, "gemm_cols<MT, NT, LDA, LDB, true>(",
                                          "gemm_cols<MT, NT, LDA, LDB>(")},
     }
 
@@ -290,17 +283,17 @@ def main(argv=None) -> int:
 
     rnd.gen = gen
     report = {"card": card, "feeds": {}, "links": {}}
-    print(f"fp32 K6 at batch {BATCH}, ms forward / backward by variant [{card}]:")
+    print(f"fp32 K6 at batch {BATCH}, ms forward / backward by variant (one_acc's bf16 "
+          f"backward bit for bit the tree's) [{card}]:")
     for name, c, f, h in roofline.upconcat_shapes(HW, FILTERS):
         x, g = rnd(BATCH, h, h, c).to(dev), rnd(BATCH, 2 * h, 2 * h, 2 * f).to(dev)
         kern = rnd(2, 2, f, c, scale=(6 / (4 * (c + f))) ** 0.5).to(dev)
         bias, skip = (0.1 * rnd(f)).to(dev), rnd(BATCH, 2 * h, 2 * h, f).to(dev)
         fwd, bwd = (x, kern, bias, skip), (x, kern, g)
         want_cat, want = fu.upconcat_reference(*fwd), fu.upconcat_bwd_reference(*bwd)
-        feed_variants = [v for v in VARIANTS if v != "one_acc"]
-        times = {v: [0.0, 0.0] for v in feed_variants}
+        times = {v: [0.0, 0.0] for v in FEED_VARIANTS}
         for rnd_i in range(2):   # two rounds, the second in reverse order
-            for v in feed_variants if rnd_i == 0 else feed_variants[::-1]:
+            for v in FEED_VARIANTS if rnd_i == 0 else FEED_VARIANTS[::-1]:
                 build._lib = libs[v]
                 if rnd_i == 0:
                     got = fu.upconcat_bwd(*bwd)
@@ -311,7 +304,15 @@ def main(argv=None) -> int:
                         raise AssertionError(f"{v} at {name}: errors {errs}")
                 times[v][0] += _ms(lambda: fu.upconcat(*fwd), args.iters) / 2
                 times[v][1] += _ms(lambda: fu.upconcat_bwd(*bwd), args.iters) / 2
+        # one_acc differs from the tree in fp32 only: bf16 bit for bit
+        bf16 = (x.bfloat16(), kern, g.bfloat16())
+        outs = []
+        for v in DIGIT_VARIANTS:
+            build._lib = libs[v]
+            outs.append(fu.upconcat_bwd(*bf16))
         build._lib = base
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"one_acc at {name}: K6's bf16 backward is not the tree's")
         report["feeds"][name] = times
         print(f"  {name} {c}->{f}@{h}: " + ", ".join(
             f"{v} {t[0]:.3f} / {t[1]:.3f}" for v, t in times.items()))
@@ -361,6 +362,20 @@ def main(argv=None) -> int:
         build._lib = base
         report["dpw_digits"][batch] = errs
         print(f"  K10 fp32 dpw at {dpw_digits.BLOCK[0]}, batch {batch}, max err / max|fp64|: "
+              + ", ".join(f"{v} {e:.2e}" for v, e in errs.items()))
+    report["upconcat_digits"] = {}
+    for spec in upconcat_digits.RUNS:
+        name, batch = spec.split(":")
+        data = upconcat_digits.inputs(int(batch), *upconcat_digits.FEEDS[name])
+        errs = {}
+        for v in DIGIT_VARIANTS:
+            build._lib = libs[v]
+            kernel, m, g, _ = upconcat_digits.kernel_tile(name, int(batch), dev, data)
+            errs[v] = dpw_digits.rel_err(kernel, dpw_digits.exact(m, g))
+        build._lib = base
+        report["upconcat_digits"][spec] = errs
+        print(f"  K6 fp32 d_kernel at {name}, batch {batch}, one "
+              f"{upconcat_digits.TILE}x{upconcat_digits.TILE} tile, max err / max|fp64|: "
               + ", ".join(f"{v} {e:.2e}" for v, e in errs.items()))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:
