@@ -221,9 +221,29 @@ exit code and no result line:
    a validation forward and in the first predict forward; then the same
    epoch with 'all' (the gate's K11 leg): 1/1 K11 a step beside the same
    K1-K4 and K6; per-class IoUs in [0, 1] and finite losses; then the stage
-   refuses the pack with one byte changed; the stage's seconds; then the
-   twenty kernels' JSON line (with each kernel's bound, and K12a's library
-   time) and the result line.
+   refuses the pack with one byte changed; the stage's seconds;
+19. the row-sharded module path (the JAX package's GSPMD-XLA step, for the
+   configurations the fused chains cannot train on row shards):
+   ``configs/fullconv_bce_256.json`` (a) and ``configs/binary_256.json``
+   (b) as they are, through ``fit``'s path selection, model, state and
+   step, unsharded on the card and then over a (data=1, spatial=2) mesh of
+   two processes of this script (``--module-rank``) on the one card, gloo,
+   from the same seeded weights and batches, TF32 off in both: step 1 with
+   dropout off held to the unsharded step under the JAX package's bars for
+   its GSPMD step (loss and dice 2e-5 relative, confusion matrices within
+   0.5 plus the pixels the two runs' probabilities put in different
+   classes, the probabilities within phase 5's fp32 bar of 1e-3, each
+   gradient element within 1e-4 + 1e-4 x
+   |unsharded|, running statistics within 1e-5 + 1e-5 x |unsharded|),
+   then 3 steps with the
+   config's dropout (finite losses) and their images/s; (c) the 1024 px
+   model of ``configs/highres_1024.json`` with ``use_pallas`` off streamed
+   from phase 14's 8 frames over the mesh against the unsharded module-path
+   stream in bf16 and fp32 (phase 5's bars), frames/s; and
+   ``configs/tpu_train_256_bf16.json`` with the ``iou`` loss, 3 steps on the
+   kernels against the composed path under phase 8's bars and launches; the
+   phase's seconds; then the twenty kernels' JSON line (with each kernel's
+   bound, and K12a's library time) and the result line.
 
 A profile whose trace lost device activity (no device time, or kernels the
 host launched missing) is taken again, at most four times (``traced``); the
@@ -234,6 +254,7 @@ kernels. Relative errors are ``max|kernel - plain| / max|plain|``.
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import sys
@@ -437,6 +458,34 @@ GATE_SECONDS = 30                # the phase's budget on the host clock
 # phase 18: the 3-class quality gate's torch stage on packed class-id scenes
 GATE_MC_SCENES = (8, 4)          # train, val records at 512 px: 4 steps at batch 2
 GATE_MC_SECONDS = 30             # the phase's budget on the host clock
+# phase 19: the row-sharded module path (the JAX package's GSPMD-XLA step):
+# two configs as they are, trained over a (1, 2) mesh of two ranks on the
+# one card (gloo) and unsharded, from the same seeded weights and batches;
+# the 1024 px module-path stream over the mesh; an iou step on the kernels
+MODULE_CONFIGS = {"a": "configs/fullconv_bce_256.json", "b": "configs/binary_256.json"}
+MODULE_MESH = (1, 2)             # (data, spatial)
+MODULE_RANKS = 2
+MODULE_STEPS = 3                 # with the config's dropout, after the held step 1
+# step 1 (dropout off) of the row-sharded step against the unsharded step,
+# under the JAX package's bars for its GSPMD step (tests/test_spatial_train.py):
+# loss and dice relative, the confusion matrices' counts, each raw gradient
+# element (atol + rtol x |unsharded|), the running statistics likewise. The
+# counts' bar of 0.5 was set on 4096 pixels; of the 2.1M pixels of leg (a)'s
+# step, a pixel whose probability lies within the two runs' difference of
+# a class boundary may round to either class (H100 runs: 1 and 5 pixels
+# changed class, one count moved by 1), so each pixel the two runs put in
+# different classes is added to the count bar, at most MODULE_NEAR_FRAC of
+# the step's pixels, and the probabilities are held to MODULE_PROB_ATOL,
+# ten times the larger H100 reading (5.0e-6 leg (a), 2.3e-6 leg (b))
+MODULE_LOSS_RTOL = 2e-5
+MODULE_CM_ATOL = 0.5
+MODULE_NEAR_FRAC = 1e-5
+MODULE_PROB_ATOL = 5e-5
+MODULE_GRAD_TOL = (1e-4, 1e-4)   # (atol, rtol)
+MODULE_STATS_TOL = (1e-5, 1e-5)
+MODULE_STREAM_DTYPES = ("bfloat16", "float32")   # the config's dtype first
+MODULE_RANK_TIMEOUT = 480
+IOU_CONFIG = TRAIN_CONFIG        # run with loss 'iou', on the kernels
 
 
 def slab_shapes(stages, n):
@@ -3313,6 +3362,283 @@ def quality_gate_mc_path(torch, dev, smi, report):
     report["quality_gate_mc"] = {"seconds": seconds, **legs}
 
 
+# phase 19: the row-sharded module path
+
+
+def module_config(leg):
+    """Leg ``leg``'s config as it is (``MODULE_CONFIGS``)."""
+    from unet_image_segmentation_tpu_torch.train.state import Config
+
+    with open(os.path.join(ROOT, MODULE_CONFIGS[leg])) as f:
+        return Config.from_dict(json.load(f))
+
+
+def module_batches(leg):
+    """The leg's seeded batches (images, masks): ``1 + MODULE_STEPS`` global
+    batches of the config's batch size and image size."""
+    cfg = module_config(leg)
+    n, size = cfg.train.batch_size, cfg.model.image_height
+    images, masks = synthetic_scenes(n * (1 + MODULE_STEPS), size, SEED + 19 + ord(leg),
+                                     with_masks=True)
+    shape = (1 + MODULE_STEPS, n) + images.shape[1:]
+    return images.reshape(shape), masks.reshape(shape[:-1] + (1,))
+
+
+def module_run(torch, dev, leg, mesh, images, masks):
+    """``fit``'s model, state and step for leg ``leg`` on ``mesh`` (a
+    (1, 1) mesh: unsharded), from the config's seeded weights: step 1 with
+    dropout off (its metrics, the gradients the optimizer took and the
+    running statistics after it kept), then ``MODULE_STEPS`` steps with the
+    config's dropout (losses, and the global batch's images/s on the host
+    clock). Step 1's probabilities (the head's sigmoid, gathered) are kept
+    too."""
+    from unet_image_segmentation_tpu_torch.models.unet import build_unet
+    from unet_image_segmentation_tpu_torch.train.loop import _model_config
+    from unet_image_segmentation_tpu_torch.train.state import create_train_state
+    from unet_image_segmentation_tpu_torch.train.steps import make_train_step
+
+    cfg = module_config(leg)
+    mcfg = _model_config(cfg, mesh)
+    model = build_unet(mcfg, device=dev, generator=torch.Generator().manual_seed(cfg.train.seed))
+    model.set_groups(mesh.group, mesh.spatial_group)
+    state = create_train_state(cfg, model=model, device=dev)
+    step = make_train_step(model, cfg.train.loss, mesh)
+
+    def put(a):
+        return mesh.shard(torch.from_numpy(a)).to(dev)
+
+    rate, model.dropout_rate = model.dropout_rate, 0.0
+    logits = []
+    hook = model.output_mask.register_forward_hook(
+        lambda mod, args, y: logits.append(y.detach().float()))
+    met = step(state, put(images[0]), put(masks[0]))
+    hook.remove()
+    torch.cuda.synchronize()
+    out = {"metrics": {k: v.detach().double().cpu() for k, v in met.items()},
+           "probs": mesh.gather(torch.sigmoid(logits[0])).cpu(),
+           "grads": {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()},
+           "stats": {n: b.detach().cpu().clone() for n, b in model.named_buffers()},
+           "use_pallas": mcfg.use_pallas}
+    model.dropout_rate = rate
+    t0 = time.perf_counter()
+    out["losses"] = [float(step(state, put(x), put(m))["loss"])
+                     for x, m in zip(images[1:], masks[1:])]
+    torch.cuda.synchronize()
+    out["images_per_s"] = MODULE_STEPS * images.shape[1] / (time.perf_counter() - t0)
+    return out
+
+
+def module_stream(torch, dev, ckpt, frames, mesh):
+    """The 1024 px module-path ``StreamingPredictor`` (``use_pallas`` off)
+    on ``mesh`` (None: unsharded) in each dtype of ``MODULE_STREAM_DTYPES``:
+    the probabilities of the frames and the frames/s on the host clock."""
+    from unet_image_segmentation_tpu_torch.inference import Predictor
+    from unet_image_segmentation_tpu_torch.streaming import StreamingPredictor
+
+    out = {}
+    for dname in MODULE_STREAM_DTYPES:
+        pred = Predictor(ckpt, (STREAM_IMAGE, STREAM_IMAGE), compute_dtype=dname,
+                         use_pallas=False, device=dev)
+        stream = StreamingPredictor(pred, STREAM_FRAME, STREAM_BATCH, threshold=None, mesh=mesh)
+        probs = stream(frames)
+        t0 = time.perf_counter()
+        for _ in range(STREAM_REPS):
+            stream(frames)
+        out[dname] = (probs, STREAM_REPS * len(frames) / (time.perf_counter() - t0))
+        del pred, stream
+        torch.cuda.empty_cache()
+    return out
+
+
+def module_rank_main(rank, work):
+    """One rank of phase 19 (``chip_smoke.py --module-rank R DIR``): on
+    cuda:0 with gloo, over a ``MODULE_MESH`` mesh, each leg's
+    :func:`module_run` and the module-path stream; rank 0 writes the
+    results."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+
+    from unet_image_segmentation_tpu_torch.parallel import distributed
+    from unet_image_segmentation_tpu_torch.parallel.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.initialize("file://" + os.path.join(work, "store"), MODULE_RANKS, rank,
+                           backend="gloo")
+    mesh = create_mesh(*MODULE_MESH)
+    out = {}
+    for leg in MODULE_CONFIGS:
+        images = np.load(os.path.join(work, f"{leg}_x.npy"))
+        masks = np.load(os.path.join(work, f"{leg}_m.npy"))
+        t0 = time.perf_counter()
+        run = module_run(torch, dev, leg, mesh, images, masks)
+        print(f"leg ({leg}): step 1 loss {float(run['metrics']['loss']):.7f}, then losses "
+              f"{run['losses']}, use_pallas {run['use_pallas']} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        out.update({f"{leg} metric {k}": v.numpy() for k, v in run["metrics"].items()})
+        out[f"{leg} probs"] = run["probs"].numpy()
+        out.update({f"{leg} grad {n}": g.numpy() for n, g in run["grads"].items()})
+        out.update({f"{leg} stat {n}": b.numpy() for n, b in run["stats"].items()})
+        out[f"{leg} losses"] = np.array(run["losses"])
+        out[f"{leg} images_per_s"] = np.array(run["images_per_s"])
+        del run
+        torch.cuda.empty_cache()
+    frames = np.load(os.path.join(ROOT, "build", "phase14", "frames.npy"))
+    for dname, (probs, fps) in module_stream(torch, dev, os.path.join(ROOT, "build", "phase14",
+                                                                       "ckpt"),
+                                             frames, mesh).items():
+        out[f"stream {dname}"] = probs
+        out[f"stream {dname} fps"] = np.array(fps)
+    if rank == 0:
+        np.savez(os.path.join(work, "out.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"RANK_OK {rank}", flush=True)
+    return 0
+
+
+def hold_module_step(torch, label, got, ref):
+    """Step 1 of a row-sharded leg against the unsharded one under
+    ``MODULE_*``'s bars; returns (ok, the worst numbers)."""
+    rec, ok = {}, True
+    for key in ("loss", "dice"):
+        a, b = float(got["metrics"][key]), float(ref["metrics"][key])
+        rec[f"{key}_rel"] = abs(a - b) / abs(b)
+        ok = ok and rec[f"{key}_rel"] <= MODULE_LOSS_RTOL
+    p, q = ref["probs"].double(), got["probs"].double()
+    delta = float((q - p).abs().max())
+    ok = ok and delta <= MODULE_PROB_ATOL
+    # the pixels the two runs put in different classes (> 0.5; cm_raw casts
+    # the probability to int): each lies within delta of the boundary
+    near = {"cm_thresh": int(((q > 0.5) != (p > 0.5)).sum()),
+            "cm_raw": int(((q >= 1.0) != (p >= 1.0)).sum())}
+    near_cap = math.ceil(MODULE_NEAR_FRAC * p.numel())
+    rec.update(prob_max_abs_err=delta, near=near, near_cap=near_cap)
+    for key in ("cm_raw", "cm_thresh"):
+        rec[f"{key}_diff"] = float((got["metrics"][key] - ref["metrics"][key]).abs().max())
+        ok = (ok and near[key] <= near_cap
+              and rec[f"{key}_diff"] <= MODULE_CM_ATOL + near[key])
+    for part, (atol, rtol) in (("grads", MODULE_GRAD_TOL), ("stats", MODULE_STATS_TOL)):
+        excess = {n: float(((got[part][n].double() - r.double()).abs()
+                            - rtol * r.double().abs()).max()) for n, r in ref[part].items()}
+        w = max(excess, key=excess.get)
+        rec[f"{part}_worst"] = {"name": w, "excess": excess[w], "atol": atol}
+        ok = ok and excess[w] <= atol
+    print(f"  {label} step 1 (dropout off): loss {float(got['metrics']['loss']):.7f} vs "
+          f"{float(ref['metrics']['loss']):.7f} (rel {rec['loss_rel']:.2e}), dice rel "
+          f"{rec['dice_rel']:.2e} (bar {MODULE_LOSS_RTOL:g}); probabilities max_abs_err "
+          f"{delta:.3e} (bar {MODULE_PROB_ATOL:g}); confusion matrices max |diff| raw "
+          f"{rec['cm_raw_diff']:g} (bar {MODULE_CM_ATOL} + {near['cm_raw']} pixels in another "
+          f"class), > 0.5 {rec['cm_thresh_diff']:g} (bar {MODULE_CM_ATOL} + {near['cm_thresh']} "
+          f"pixels in another class; at most {near_cap} may be); "
+          f"gradients max(|diff| - {MODULE_GRAD_TOL[1]:g}|g|) {rec['grads_worst']['excess']:.2e} "
+          f"at {rec['grads_worst']['name']} (bar {MODULE_GRAD_TOL[0]:g}); running statistics "
+          f"{rec['stats_worst']['excess']:.2e} at {rec['stats_worst']['name']} (bar "
+          f"{MODULE_STATS_TOL[0]:g}) {'ok' if ok else 'FAIL'}")
+    return ok, rec
+
+
+def module_path(torch, dev, smi, report, launches, phase_dir):
+    """Phase 19: the row-sharded module path. The unsharded legs (a) and
+    (b) and the unsharded module-path stream on the card, the iou step on
+    the kernels against the composed path (phase 8's bars), then two ranks
+    of this script (``--module-rank``) on the one card, gloo, running the
+    legs and the stream over a (1, 2) mesh; each held to its unsharded run.
+    A rank that fails or hangs fails the run."""
+    import subprocess
+
+    from unet_image_segmentation_tpu_torch.parallel.mesh import create_mesh
+
+    os.makedirs(phase_dir)
+    rec = report["module_path"] = {"tf32": False}
+    one = create_mesh()   # one process: (1, 1)
+    refs = {}
+    for leg, path in MODULE_CONFIGS.items():
+        images, masks = module_batches(leg)
+        np.save(os.path.join(phase_dir, f"{leg}_x.npy"), images)
+        np.save(os.path.join(phase_dir, f"{leg}_m.npy"), masks)
+        cfg = module_config(leg)
+        print(f"row-sharded module path, leg ({leg}): {path} as it is ({cfg.model.conv_type} "
+              f"convs, filters {cfg.model.filters}, {cfg.model.compute_dtype}, "
+              f"{cfg.train.loss}, batch {cfg.train.batch_size}, dropout "
+              f"{cfg.model.dropout_rate}, use_pallas {cfg.model.use_pallas}); TF32 off in both "
+              "legs (matmul and cuDNN); unsharded on the card:")
+        refs[leg] = module_run(torch, dev, leg, one, images, masks)
+        print(f"  unsharded: step 1 loss {float(refs[leg]['metrics']['loss']):.7f}, then losses "
+              f"{refs[leg]['losses']}, {refs[leg]['images_per_s']:.1f} images/s on the host "
+              f"clock over {MODULE_STEPS} steps (a smoke reading, not a speed) [{smi}]")
+        torch.cuda.empty_cache()
+
+    with open(os.path.join(ROOT, IOU_CONFIG)) as f:
+        base = json.load(f)
+    base["train"]["loss"] = "iou"
+    images, masks = synthetic_scenes(base["train"]["batch_size"], IMAGE, SEED + 191,
+                                     with_masks=True)
+    print(f"iou step: {IOU_CONFIG} with loss 'iou', kernels on vs the composed path, "
+          f"{TRAIN_STEPS} steps each, phase 8's bars:")
+    rec["iou"] = train_ab(torch, dev, smi, base, torch.from_numpy(images).to(dev),
+                          torch.from_numpy(masks).to(dev), launches, STEP_LAUNCHES,
+                          profile=False)
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(ROOT, "build", "phase14", "ckpt")
+    frames = np.load(os.path.join(ROOT, "build", "phase14", "frames.npy"))
+    stream_ref = module_stream(torch, dev, ckpt, frames, None)
+    torch.cuda.empty_cache()
+
+    logs = [open(os.path.join(phase_dir, f"rank{r}.log"), "w+") for r in range(MODULE_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--module-rank",
+                               str(r), phase_dir], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    join_ranks(procs, logs, MODULE_RANK_TIMEOUT, "module path")
+    out = dict(np.load(os.path.join(phase_dir, "out.npz")))
+    failed = []
+    for leg, ref in refs.items():
+        got = {"metrics": {k: torch.from_numpy(out[f"{leg} metric {k}"]) for k in ref["metrics"]},
+               "probs": torch.from_numpy(out[f"{leg} probs"]),
+               "grads": {n: torch.from_numpy(out[f"{leg} grad {n}"]) for n in ref["grads"]},
+               "stats": {n: torch.from_numpy(out[f"{leg} stat {n}"]) for n in ref["stats"]}}
+        label = f"leg ({leg}) {MODULE_CONFIGS[leg]} over mesh {MODULE_MESH}"
+        ok, rec[leg] = hold_module_step(torch, label, got, ref)
+        losses = out[f"{leg} losses"].tolist()
+        finite = bool(np.isfinite(losses).all())
+        ips = float(out[f"{leg} images_per_s"])
+        print(f"  {label}: {MODULE_STEPS} steps with dropout {module_config(leg).model.dropout_rate}"
+              f": losses {losses} (unsharded {ref['losses']}; each shard draws its own masks, "
+              f"so no bar but finite: {finite}); {ips:.1f} images/s vs {ref['images_per_s']:.1f} "
+              f"unsharded on the host clock over {MODULE_STEPS} steps (a smoke reading, not a "
+              f"speed; two ranks sharing one card over gloo: not a multi-card speed) [{smi}]")
+        rec[leg].update(losses=losses, losses_unsharded=ref["losses"], images_per_s=ips,
+                        images_per_s_unsharded=ref["images_per_s"])
+        if not (ok and finite):
+            failed.append(label)
+    for dname, (want, fps_ref) in stream_ref.items():
+        got = out[f"stream {dname}"]
+        fps = float(out[f"stream {dname} fps"])
+        shape_ok = got.shape == want.shape and np.isfinite(got).all()
+        err = float(np.abs(got - want).max()) if shape_ok else float("inf")
+        agree = float(((got > 0.5) == (want > 0.5)).mean()) if shape_ok else 0.0
+        ok = err <= PROB_TOL[dname] and agree >= MASK_MIN_AGREE[dname]
+        print(f"  leg (c) {HIGHRES_CONFIG}'s model, use_pallas off, {dname}: the module-path "
+              f"stream of {len(want)} {STREAM_FRAME[0]}x{STREAM_FRAME[1]} frames over mesh "
+              f"{MODULE_MESH} vs unsharded: prob max_abs_err {err:.3e} (tol {PROB_TOL[dname]:g}), "
+              f"mask agreement {agree:.6f} (min {MASK_MIN_AGREE[dname]}); {fps:.2f} frames/s vs "
+              f"{fps_ref:.2f} unsharded on the host clock over {STREAM_REPS} batches (a smoke "
+              f"reading, not a speed; two ranks on one card) "
+              f"{'ok' if ok else 'FAIL'} [{smi}]")
+        rec[f"c {dname}"] = {"max_abs_err": err, "mask_agree": agree, "frames_per_s": fps,
+                             "frames_per_s_unsharded": fps_ref}
+        if not ok:
+            failed.append(f"leg (c) {dname}")
+    if failed:
+        raise AssertionError(f"the row-sharded module path disagrees with the unsharded: {failed}")
+
+
 def reset_train_counts():
     from unet_image_segmentation_tpu_torch.ops import fused_head, fused_train, fused_upconcat
 
@@ -3788,6 +4114,14 @@ def main() -> int:
     # ---- 18. the 3-class quality gate's torch stage on class-id packs -----
     quality_gate_mc_path(torch, dev, smi, report)
 
+    # ---- 19. the row-sharded module path, the iou step on the kernels -----
+    phase_dir = os.path.join(ROOT, "build", "phase19")
+    shutil.rmtree(phase_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    module_path(torch, dev, smi, report, launches, phase_dir)
+    report["module_path"]["seconds"] = time.perf_counter() - t0
+    print(f"phase 19 on the host clock: {report['module_path']['seconds']:.1f} s")
+
     kernels, report["bounds"] = [], {}
     shapes = kernel_shapes()
     for name, (label, src, replaces) in roofline.KERNELS.items():
@@ -3831,7 +4165,7 @@ def main() -> int:
           "decoder feeds; the head; 18 per-block sepconvs); K12a: fp32 (8, 128), ms a launch; "
           f"K12b: bf16 {FMA_PROBE_SHAPE} at K = {FMA_PROBE_K}; launches: K7/K8 over phase 5's "
           "forwards (K8 also phase 8's eval steps), K7 int8 over phase 13's int8 Predictor "
-          f"forwards, K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8 and 10 (and the "
+          f"forwards, K1-K6 over the {TRAIN_STEPS} kernels-on steps of phases 8, 10 and 19 (and the "
           "A/B step) in each dtype, K11 over phase 10's, K9/K10 over phase 11's 18 blocks in each "
           "dtype, K12 over phase 12's link_floors run; K7 edge flags (bf16, the first shard's "
           f"flags) over the nine slabs of {STREAM_IMAGE} px over {DRY_RANKS} row shards and K7 "
@@ -3981,4 +4315,6 @@ if __name__ == "__main__":
         sys.exit(train_rank_main(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--profile-train"]:   # phase 15's profiled step
         sys.exit(profile_train_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--module-rank"]:   # one rank of phase 19
+        sys.exit(module_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

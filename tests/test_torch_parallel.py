@@ -264,9 +264,10 @@ def test_initialize_picks_the_backend_from_the_device(monkeypatch, device, local
 
 
 def test_sharded_stream_refuses_what_would_change_its_graph(tmp_path):
-    """A mesh serves the float kernel graph: a pending int8 Predictor and a
-    module-path Predictor are refused (JAX serves the float graph, and
-    partitions the module path with GSPMD)."""
+    """A mesh serves the float kernel graph: a pending int8 Predictor is
+    refused (JAX serves the float graph). A module-path Predictor streams on
+    the mesh through the composed row-sharded forward (JAX partitions the
+    module path with GSPMD); on one rank its answer is the unsharded one."""
     from test_torch_streaming import seeded_model
     from unet_image_segmentation_tpu_torch.inference import Predictor
     from unet_image_segmentation_tpu_torch.streaming import StreamingPredictor
@@ -276,10 +277,11 @@ def test_sharded_stream_refuses_what_would_change_its_graph(tmp_path):
     int8 = Predictor(ckpt, image_size=(HW, HW), use_pallas=True, quantize="int8", device="cpu")
     with pytest.raises(ValueError, match="float graph"):
         StreamingPredictor(int8, FRAME, batch_size=2, mesh=mesh)
-    with pytest.raises(ValueError, match="use_pallas"):
-        StreamingPredictor(Predictor(ckpt, image_size=(HW, HW), device="cpu"), FRAME,
-                           batch_size=2, mesh=mesh)
     frames = (np.random.RandomState(6).rand(2, *FRAME, 3) * 255).astype(np.uint8)
+    module = Predictor(ckpt, image_size=(HW, HW), device="cpu")
+    np.testing.assert_array_equal(
+        StreamingPredictor(module, FRAME, batch_size=2, mesh=mesh)(frames),
+        StreamingPredictor(module, FRAME, batch_size=2)(frames))
     pred = Predictor(ckpt, image_size=(HW, HW), use_pallas=True, device="cpu")
     np.testing.assert_array_equal(StreamingPredictor(pred, FRAME, batch_size=2, mesh=mesh)(frames),
                                   StreamingPredictor(pred, FRAME, batch_size=2)(frames))
@@ -346,6 +348,9 @@ else:
     frames = np.load(tmp + "/frames.npy")
     out["probs"] = StreamingPredictor(pred, frames.shape[1:3], batch_size=len(frames),
                                       threshold=None, mesh=mesh)(frames)
+    module = Predictor(tmp + "/ckpt", image_size=({hw}, {hw}), device="cpu")
+    out["module probs"] = StreamingPredictor(module, frames.shape[1:3], batch_size=len(frames),
+                                             threshold=None, mesh=mesh)(frames)
     assert sum(tfs.LAUNCHES.values()) == 0   # the CPU runs K7's plain versions
 torch.distributed.barrier()
 np.savez(tmp + f"/out{{rank}}.npz", **out)
@@ -412,8 +417,9 @@ def test_sharded_serving_and_stream_match_jax(tmp_path):
     (tests/test_quant_serving.py's, on its model), and the sharded
     StreamingPredictor's probabilities within 1e-4 of JAX's (its module
     path, which GSPMD partitions over the mesh; the masks are these
-    probabilities thresholded, as tests/test_torch_streaming.py holds);
-    every rank returns the whole answer."""
+    probabilities thresholded, as tests/test_torch_streaming.py holds),
+    served by the kernel graph and by a module-path Predictor (the composed
+    modules' row-sharded forward); every rank returns the whole answer."""
     # the JAX tests' model, JAX-initialised from PRNGKey(2); the variables
     # do not depend on the init input's size, and init under jit gives the
     # same bits as init_unet's eager run, in a third of its time
@@ -448,3 +454,4 @@ def test_sharded_serving_and_stream_match_jax(tmp_path):
         diff = np.abs(out["quant"] - want_quant)
         assert float((diff > 1e-5).mean()) <= 1e-3 and diff.max() < 5e-3, diff.max()
         np.testing.assert_allclose(out["probs"], want_probs, atol=1e-4)
+        np.testing.assert_allclose(out["module probs"], want_probs, atol=1e-4)

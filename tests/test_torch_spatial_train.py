@@ -28,11 +28,11 @@
   1e-4. In the same jobs: the composed step (BatchNorm moments over the
   group) on a (2, 1) mesh, its gradients against the one-process composed
   step's and JAX's (3e-4 of max|g|); ``fit`` on two row shards (its
-  config's mesh) against ``fit`` in one process, and raising there for
-  the bce loss.
-* ``fit`` refuses a row-sharded configuration the port has no path for,
-  and in one process clamps the 1024 px config's spatial degree to 1 with
-  the JAX package's Note. The launch plans at the 1024 px shard shapes,
+  config's mesh) against ``fit`` in one process, with the dice loss through
+  the chains and with bce, which drops to the composed row-sharded path.
+* ``fit`` refuses a batch the data degree does not divide, and in one
+  process clamps the 1024 px config's spatial degree to 1 with the JAX
+  package's Note. The launch plans at the 1024 px shard shapes,
   and K1's halo-mode bound by hand.
 
 About 35 s alone on the CPU: the JAX sharded chains (~21 s) are most of
@@ -254,20 +254,17 @@ def _port_cfg(**over):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"train__loss": "bce"}, "row-sharded training"),
-    ({"model__use_pallas": False}, "row-sharded training"),
-    ({"model__image_height": 36, "model__image_width": 36}, "image_height % 8"),
     ({"train__batch_size": 3}, "not divisible by data-parallel"),
 ])
 def test_fit_raises_where_the_port_has_no_sharded_path(over, match):
-    """``fit``'s check of its config against its mesh, on a mesh of 2 row
-    shards laid out by hand (the check runs before anything crosses ranks;
-    ``test_fit_raises_on_two_row_shards_with_bce`` runs ``fit`` itself on
-    two ranks); the JAX package trains the first three on its GSPMD-XLA
-    step, which the port does not have."""
-    data = 2 if "train__batch_size" in over else 1
+    """``fit``'s check of its config against its mesh, on a (2, 1) mesh
+    laid out by hand (the check runs before anything crosses ranks): a
+    batch the data degree does not divide has no layout, as in JAX. Every
+    row-sharded configuration trains (``tests/test_torch_spatial_module.py``
+    holds the composed row-sharded path, where the chains cannot go, to JAX's
+    GSPMD step)."""
     with pytest.raises(ValueError, match=match):
-        loop._model_config(_port_cfg(**over), Mesh(data, 2 if data == 1 else 1))
+        loop._model_config(_port_cfg(**over), Mesh(2, 1))
 
 
 class _Memory:
@@ -419,12 +416,15 @@ if world == 2:   # fit on the config's mesh: (1, 2) over the two ranks
     out["fit val_loss"] = np.array(res.history["val_loss"])
     import os
     out["fit files"] = np.array(sorted(os.listdir(fcfg.train.model_out)))
-    try:   # bce has no sums form: no row-sharded path
-        fit(fcfg.override(train__loss="bce"), Memory(fx[:8], fm[:8]), Memory(fx[8:], fm[8:]),
-            device="cpu")
-        out["fit bce"] = np.array("trained")
-    except ValueError as e:
-        out["fit bce"] = np.array(str(e))
+    # bce has no sums form: fit drops use_pallas and trains the composed rows
+    import contextlib, io
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        res = fit(fcfg.override(train__loss="bce", train__model_out=fcfg.train.model_out + "_bce"),
+                  Memory(fx[:8], fm[:8]), Memory(fx[8:], fm[8:]), device="cpu")
+    out["fit bce loss"] = np.array(res.history["loss"])
+    out["fit bce val_loss"] = np.array(res.history["val_loss"])
+    out["fit bce printed"] = np.array(printed.getvalue())
 if rank == 0:
     np.savez(tmp + "/out{world}.npz", **out)
 torch.distributed.barrier()
@@ -656,9 +656,13 @@ def sharded(tmp_path_factory):
     fx, fm = inp["fit x"], inp["fit m"]
     one = loop.fit(_fit_cfg(tmp / "one"), _Memory(fx[:8], fm[:8]), _Memory(fx[8:], fm[8:]),
                    device="cpu", verbose=False).history
+    one_bce = loop.fit(_fit_cfg(tmp / "one_bce").override(train__loss="bce",
+                                                          model__use_pallas=False),
+                       _Memory(fx[:8], fm[:8]), _Memory(fx[8:], fm[8:]), device="cpu",
+                       verbose=False).history
     composed = _composed_step(inp, sd)
     port = {world: _join(p, tmp, world) for world, p in procs.items()}
-    return port, jax_chains, jax_step, (one, composed)
+    return port, jax_chains, jax_step, (one, composed, one_bce)
 
 
 def _check_chain(out, want, tag, flat_len, extra=()):
@@ -718,7 +722,7 @@ def test_fit_trains_on_two_row_shards(sharded):
     """``fit`` over two ranks, its config asking for 2 row shards: the
     epochs' train and validation losses are the one-process run's (1e-4
     relative), and rank 0 wrote the checkpoints."""
-    port, _, _, (one, _) = sharded
+    port, _, _, (one, _, _) = sharded
     out = port[2]
     np.testing.assert_allclose(out["fit loss"], one["loss"], rtol=1e-4)
     np.testing.assert_allclose(out["fit val_loss"], one["val_loss"], rtol=1e-4)
@@ -733,7 +737,7 @@ def test_composed_data_parallel_step_matches_unsharded(sharded):
     gradient; loss and weights after the step as the one-process step's
     (loss 2e-5 relative; weights within 4.5e-3, Adam's first step;
     statistics 1e-4)."""
-    port, _, (_, _, jgrads), (_, (loss, sd, grads)) = sharded
+    port, _, (_, _, jgrads), (_, (loss, sd, grads), _) = sharded
     out = port[2]
     got = {n: out[f"composed grad {n}"] for n in grads}
     _close_grads(got, grads, "composed (2, 1) against one process")
@@ -745,8 +749,14 @@ def test_composed_data_parallel_step_matches_unsharded(sharded):
         np.testing.assert_allclose(out[f"composed sd {key}"], want, err_msg=key, **tol)
 
 
-def test_fit_raises_on_two_row_shards_with_bce(sharded):
-    """``fit`` over two ranks, its config asking for 2 row shards and the
-    bce loss (no sums form): every rank raises, before any step."""
-    msg = str(sharded[0][2]["fit bce"])
-    assert "has no row-sharded path in the port" in msg and "loss='bce'" in msg, msg
+def test_fit_trains_on_two_row_shards_with_bce(sharded):
+    """``fit`` over two ranks, its config asking for 2 row shards, with
+    ``use_pallas`` and the bce loss (no sums form): it prints the JAX
+    package's warning, drops ``use_pallas`` and trains the composed modules
+    on the row shards; the epochs' train and validation losses are those of
+    the composed path's ``fit`` in one process (1e-4 relative)."""
+    port, _, _, (_, _, one_bce) = sharded
+    out = port[2]
+    assert "trains on the composed row-sharded path" in str(out["fit bce printed"])
+    np.testing.assert_allclose(out["fit bce loss"], one_bce["loss"], rtol=1e-4)
+    np.testing.assert_allclose(out["fit bce val_loss"], one_bce["val_loss"], rtol=1e-4)

@@ -11,6 +11,12 @@ the Keras layouts and names of the JAX package, so the
   (Keras epsilon 1e-3, momentum 0.99)
 * ``TransposeUp``: ``kernel (2,2,F,C)``, ``bias (F,)``
 
+On row shards (a ``spatial_group``, the ranks holding an image's rows),
+the composed ``SeparableConv`` and ``Conv`` pad their input with the
+neighbour shards' halo rows (:func:`..parallel.halo.halo_exchange_grad`)
+and convolve rows 'VALID', columns 'SAME'; a composed ``ConvBlock``'s
+BatchNorm sums its moments over its ``group``.
+
 Initialisation is glorot-uniform with fan_avg over the Keras-shaped kernel
 (the JAX package's ``variance_scaling(1.0, "fan_avg", "uniform")``), drawn
 from an explicit ``torch.Generator``. Modules are built on the CPU; move
@@ -30,6 +36,7 @@ from unet_image_segmentation_tpu_torch.ops.fused_sepconv import (
     fused_sepconv_bn_relu,
     sepconv_apply_stats,
 )
+from unet_image_segmentation_tpu_torch.parallel.halo import halo_exchange_grad
 from unet_image_segmentation_tpu_torch.parallel.reduce import all_sum_grad
 
 
@@ -54,12 +61,21 @@ class SeparableConv(nn.Module):
         )
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None,
+                spatial_group=None) -> torch.Tensor:
+        """``spatial_group``: ``x`` (and ``x2``) are row shards over it."""
+        pad = "SAME"
+        if spatial_group is not None:
+            k = self.depthwise_kernel.shape[0] // 2
+            x, pad = halo_exchange_grad(x, spatial_group, k), "ROWS_PADDED"
+            if x2 is not None:
+                x2 = halo_exchange_grad(x2, spatial_group, k)
         if x2 is not None:
             return conv_ops.separable_conv2d_pair(
-                x, x2, self.depthwise_kernel, self.pointwise_kernel, self.bias
+                x, x2, self.depthwise_kernel, self.pointwise_kernel, self.bias, padding=pad
             )
-        return conv_ops.separable_conv2d(x, self.depthwise_kernel, self.pointwise_kernel, self.bias)
+        return conv_ops.separable_conv2d(x, self.depthwise_kernel, self.pointwise_kernel,
+                                         self.bias, padding=pad)
 
 
 class Conv(nn.Module):
@@ -72,10 +88,14 @@ class Conv(nn.Module):
         self.kernel = nn.Parameter(glorot_uniform((k, k, in_features, features), generator))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, spatial_group=None) -> torch.Tensor:
+        """``spatial_group``: ``x`` is a row shard over it."""
         if self.kernel.shape[0] == 1:
             return conv_ops.pointwise_conv2d(x, self.kernel, self.bias)
-        return conv_ops.conv2d(x, self.kernel, self.bias)
+        if spatial_group is None:
+            return conv_ops.conv2d(x, self.kernel, self.bias)
+        x = halo_exchange_grad(x, spatial_group, self.kernel.shape[0] // 2)
+        return conv_ops.conv2d(x, self.kernel, self.bias, padding="ROWS_PADDED")
 
 
 class BatchNorm(nn.Module):
@@ -145,7 +165,9 @@ class ConvBlock(nn.Module):
     The U-Net's own training forward runs BN blocks in pairs through the
     fused chains (:mod:`..ops.fused_train`), reading their raw parameters
     from :meth:`chain_params`; the per-block path serves a ``ConvBlock``
-    trained on its own.
+    trained on its own. On row shards (``spatial_group``) a composed block
+    exchanges halo rows before its conv; a ``use_pallas`` block raises
+    there, since K8 and K9 take whole images only.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
@@ -175,9 +197,13 @@ class ConvBlock(nn.Module):
         return sep.depthwise_kernel, sep.pointwise_kernel, self.bn.scale, self.bn.bias
 
     def forward(
-        self, x: torch.Tensor, x2: Optional[torch.Tensor] = None, train: bool = False
+        self, x: torch.Tensor, x2: Optional[torch.Tensor] = None, train: bool = False,
+        spatial_group=None,
     ) -> torch.Tensor:
         fused = self.use_pallas and self.conv_type == "separable" and self.kernel_size == 3
+        if fused and spatial_group is not None:
+            raise ValueError("K8/K9 take whole images: a use_pallas block runs no row shard "
+                             "(gather the row's images, or build the model without use_pallas)")
         if fused:
             if x2 is not None:
                 x = torch.cat([x, x2], dim=-1)
@@ -203,11 +229,11 @@ class ConvBlock(nn.Module):
             out = (y.float() - mean) * (torch.rsqrt(var + bn.eps) * bn.scale) + bn.bias
             return torch.relu(out).to(x.dtype)
         if self.conv_type == "separable":
-            x = self.sepconv(x, x2)
+            x = self.sepconv(x, x2, spatial_group)
         else:
             if x2 is not None:
                 x = torch.cat([x, x2], dim=-1)
-            x = self.conv(x)
+            x = self.conv(x, spatial_group)
         if self.bn is not None:
             x = self.bn(x, train)
         return torch.relu(x)

@@ -33,11 +33,26 @@ On a mesh (JAX ``bn_axis_name`` / ``spatial_axis_name``),
 :meth:`UNet.set_groups` gives the model ``bn_group``, the
 group whose batch every BatchNorm normalizes (the chains all-reduce their
 sums over it, the composed BatchNorm its moments), and ``spatial_group``,
-the ranks holding an image's row shards. A row-sharded training forward
-runs only through the fused chains: each link exchanges its halo rows
-(K1's halo mode), the decoder's dropout runs before its chain on the
-shard, and with ``head_targets`` the sums are this rank's rows' (the
-train step sums them over the group).
+the ranks holding an image's row shards, which the train step checks.
+A forward takes whole images unless its caller passes ``spatial_group``
+(the train step and :func:`..parallel.halo.spatial_sharded_forward` do).
+A row-sharded forward runs in training and in eval where
+:meth:`UNet.runs_on_row_shards` says so:
+
+* through the fused chains where they train the model: each link
+  exchanges its halo rows (K1's halo mode);
+* otherwise through the composed modules, the JAX package's GSPMD-XLA
+  path written out: each 3x3 conv pads its shard with a halo row from
+  each neighbour (:func:`..parallel.halo.halo_exchange_grad`, whose
+  backward returns the halo rows' cotangents), while the pool, the
+  transpose-up, the concat and the head are row-local. K8 and K9 take
+  whole images only: a ``use_pallas`` block raises on a row shard, and
+  the callers run such a model on the row's gathered images.
+
+On row shards the dropout drops each shard with its own folded seeds
+before any halo is exchanged (so halo rows hold dropped values), and with
+``head_targets`` the sums are this rank's rows' (the train step sums them
+over the group).
 
 Submodule names follow the JAX package (``enc{s}_block{n}``,
 ``bneck_block{n}``, ``dec{s}_upsample``, ``dec{s}_block{n}``,
@@ -128,13 +143,23 @@ class UNet(nn.Module):
             self.to(device)
 
     def set_groups(self, bn_group=None, spatial_group=None) -> None:
-        """The mesh groups the training forward runs over (None: one rank):
-        the chains' and every composed BatchNorm's ``bn_group``, the chains'
-        ``spatial_group``."""
+        """The mesh groups (None: one rank): the chains' and every composed
+        BatchNorm's ``bn_group``, and the ``spatial_group`` the train step
+        holds its mesh to (a forward is given its row group)."""
         self.groups = Groups(bn_group, spatial_group)
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.group = bn_group
+
+    def runs_on_row_shards(self, height: int, train: bool = False) -> bool:
+        """Whether a forward can take row shards of local ``height``: every
+        pool keeps the shard's rows whole, and no block would run K8 or K9,
+        which take whole images (a ``use_pallas`` separable model does so
+        outside the training chains, which need BatchNorm)."""
+        if height % 2 ** len(self.filters):
+            return False
+        kernel_blocks = self.use_pallas and self.conv_type == "separable"
+        return not kernel_blocks or (train and self.use_batch_norm)
 
     def forward(
         self,
@@ -142,6 +167,7 @@ class UNet(nn.Module):
         train: bool = False,
         head_targets: Optional[torch.Tensor] = None,
         dropout_seeds: Optional[Sequence[int]] = None,
+        spatial_group=None,
     ):
         """(B, H, W, C) -> probabilities (B, H, W, num_classes), fp32, or with
         ``head_targets`` the head-sums dict.
@@ -149,24 +175,24 @@ class UNet(nn.Module):
         ``train=True`` normalizes with batch moments and updates the
         BatchNorm running statistics; with ``dropout_rate > 0`` it needs
         ``dropout_seeds``, int32 seeds indexed by dropout site (0 for the
-        bottleneck, ``s`` for decoder stage ``s``).
+        bottleneck, ``s`` for decoder stage ``s``). ``spatial_group``: the
+        group whose ranks hold ``x``'s rows (None: ``x`` holds whole images).
         """
         if x.dim() != 4:
             raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
         depth = len(self.filters)
         h, w = x.shape[1], x.shape[2]
         if h % (2**depth) or w % (2**depth):
-            raise ValueError(f"spatial dims {h}x{w} must be divisible by {2**depth}")
+            what = "a row shard's" if spatial_group is not None else "spatial"
+            raise ValueError(f"{what} dims {h}x{w} must be divisible by {2**depth}")
         use_chain = (
             train and self.use_pallas and self.use_batch_norm and self.conv_type == "separable"
         )
         drop = train and self.dropout_rate > 0.0
         if drop and dropout_seeds is None:
             raise ValueError("a training forward with dropout needs dropout_seeds")
-        rows = self.groups.spatial is not None
-        if train and rows and not use_chain:
-            raise ValueError("row-sharded training runs through the fused chains: use_pallas, "
-                             "BatchNorm and separable blocks")
+        groups = Groups(self.groups.bn, spatial_group)
+        rows = spatial_group is not None
         # as the JAX package: 'auto' fuses the sigmoid head only, and a head
         # no kernel takes (over 4 classes, a width K5/K11 cannot read) keeps
         # the composed sums
@@ -194,12 +220,13 @@ class UNet(nn.Module):
                     # shard drops out before its chain (JAX hoists it too)
                     x, rate, seed = hash_dropout(x, seed, rate), 0.0, None
                 z, stats = fused_chain_train(x, chain_blocks(b1, b2), drop_rate=rate,
-                                             drop_seed=seed, groups=self.groups)
+                                             drop_seed=seed, groups=groups)
                 update_bn(stats, b1, b2)
                 return z
             if rate > 0.0:
                 x = hash_dropout(x, seed, rate)
-            return b2(b1(x, train=train), train=train)
+            return b2(b1(x, train=train, spatial_group=spatial_group), train=train,
+                      spatial_group=spatial_group)
 
         x = x.to(self.dtype)
         skips = []
@@ -207,7 +234,7 @@ class UNet(nn.Module):
             if use_chain:
                 b1, b2 = pair(f"enc{stage}")
                 skip, x, stats = fused_chain_train_pool(x, chain_blocks(b1, b2),
-                                                        groups=self.groups)
+                                                        groups=groups)
                 update_bn(stats, b1, b2)
             else:
                 skip = run_pair(x, f"enc{stage}")
@@ -225,12 +252,13 @@ class UNet(nn.Module):
                 # training stores the concat: one dropout mask spans both halves
                 cat = torch.cat([upsample(x), skips[stage - 1]], dim=-1)
             else:
-                x = b2(b1(upsample(x), skips[stage - 1]))
+                x = b2(b1(upsample(x), skips[stage - 1], spatial_group=spatial_group),
+                       spatial_group=spatial_group)
                 continue
             if stage == 1 and fuse_head:
                 out = self.output_mask
                 sums, stats = fused_head_train(cat, chain_blocks(b1, b2), out.kernel, out.bias,
-                                               head_targets, groups=self.groups)
+                                               head_targets, groups=groups)
                 update_bn(stats, b1, b2)
                 return sums
             x = run_pair(cat, f"dec{stage}", stage if drop and stage > 1 else None)

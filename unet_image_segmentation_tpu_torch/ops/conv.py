@@ -9,6 +9,11 @@ semantics are the same:
 * transpose kernel  ``(2, 2, F, C)``
 
 Kernels are cast to the activation dtype before use, as the JAX ops do.
+
+Besides 'SAME' and 'VALID', the 3x3 convs take ``padding='ROWS_PADDED'``:
+the input's rows already hold the halo rows (a row shard padded by
+:func:`..parallel.halo.halo_exchange_grad`), so rows are 'VALID' and
+columns 'SAME'.
 """
 
 from __future__ import annotations
@@ -27,12 +32,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def _padding(padding: str):
+def _padding(padding: str, kw: int):
     if padding.upper() == "SAME":
         return "same"
     if padding.upper() == "VALID":
         return 0
-    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    if padding.upper() == "ROWS_PADDED":
+        if kw % 2 == 0:
+            raise ValueError(f"'ROWS_PADDED' needs an odd kernel width, got {kw}")
+        return (0, kw // 2)
+    raise ValueError(f"padding must be 'SAME', 'VALID' or 'ROWS_PADDED', got {padding!r}")
 
 
 def depthwise_conv2d(
@@ -43,7 +52,7 @@ def depthwise_conv2d(
     if mult != 1:
         raise ValueError("depth multiplier != 1 not supported")
     w = kernel[..., 0].permute(2, 0, 1).unsqueeze(1).to(x.dtype)  # (C,1,kh,kw)
-    return _nhwc(F.conv2d(_nchw(x), w, padding=_padding(padding), groups=c))
+    return _nhwc(F.conv2d(_nchw(x), w, padding=_padding(padding, kw), groups=c))
 
 
 def pointwise_conv2d(
@@ -77,6 +86,8 @@ def separable_conv2d_pair(
     depthwise_kernel: torch.Tensor,
     pointwise_kernel: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
+    *,
+    padding: str = "SAME",
 ) -> torch.Tensor:
     """``separable_conv2d(cat([a, b], -1), ...)`` as two half-convs summed.
 
@@ -85,8 +96,8 @@ def separable_conv2d_pair(
     """
     ca = a.shape[-1]
     pw = pointwise_kernel.reshape(pointwise_kernel.shape[-2], pointwise_kernel.shape[-1])
-    ya = depthwise_conv2d(a, depthwise_kernel[:, :, :ca])
-    yb = depthwise_conv2d(b, depthwise_kernel[:, :, ca:])
+    ya = depthwise_conv2d(a, depthwise_kernel[:, :, :ca], padding=padding)
+    yb = depthwise_conv2d(b, depthwise_kernel[:, :, ca:], padding=padding)
     y = torch.matmul(ya, pw[:ca].to(ya.dtype)) + torch.matmul(yb, pw[ca:].to(yb.dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)
@@ -102,7 +113,7 @@ def conv2d(
 ) -> torch.Tensor:
     """Plain 2-D conv; kernel (kh, kw, C, F)."""
     w = kernel.permute(3, 2, 0, 1).to(x.dtype)  # (F, C, kh, kw)
-    y = _nhwc(F.conv2d(_nchw(x), w, padding=_padding(padding)))
+    y = _nhwc(F.conv2d(_nchw(x), w, padding=_padding(padding, kernel.shape[1])))
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

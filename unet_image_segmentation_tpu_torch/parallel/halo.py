@@ -25,11 +25,20 @@ the JAX package's ``ppermute``, would not run on one card shared by two
 ranks. The price: the reduced buffer is ``n`` times the rows each rank
 sends.
 
-:func:`sharded_conv3x3_rows` wraps a row-local op that needs 1-row halos.
-The JAX module's ``spatial_sharded_forward`` (GSPMD partitioning the
-module path) has no PyTorch counterpart; the explicit sharded serving
-graphs (``serving.build_serving_forward_sharded`` and its int8 twin) take
-its place.
+The composed modules' row-sharded path (the JAX package leaves it to
+GSPMD, which inserts the same exchanges) is written here by hand:
+
+* :func:`halo_exchange_grad` is :func:`halo_exchange` under autograd: its
+  backward keeps the cotangent of the shard's own rows and sends the halo
+  rows' cotangents back to the ranks that own those rows, through the same
+  single ``all_reduce``, where they are added into the first and last rows;
+* :func:`sharded_conv3x3_rows` wraps a row-local op that needs 1-row halos;
+* :func:`spatial_sharded_forward` is the module path's eval forward on this
+  rank's batch and row shard (JAX ``spatial_sharded_forward``): the composed
+  modules exchange a halo before every 3x3 conv; where the model cannot
+  take row shards (a height whose shards do not survive every pool, or
+  ``use_pallas`` blocks, whose K8 takes whole images) each rank runs its
+  row's gathered images whole.
 """
 
 from __future__ import annotations
@@ -76,6 +85,34 @@ def edge_halo_exchange(top: torch.Tensor, bot: torch.Tensor,
     return halo_exchange(torch.cat([top, bot], dim=1), group, halo=1)[:, [0, 3]]
 
 
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, halo):
+        ctx.group, ctx.halo = group, halo
+        return halo_exchange(x, group, halo)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = ctx.halo
+        # the halo rows' cotangents go back to their owners: the rows above
+        # the shard were the previous rank's last rows, those below the
+        # next rank's first; the exchange of [top | bottom] hands each rank
+        # the previous rank's bottom and the next rank's top
+        recv = halo_exchange(torch.cat([g[:, :k], g[:, -k:]], dim=1), ctx.group, k)
+        dx = g[:, k:-k].clone()
+        dx[:, :k] += recv[:, :k]
+        dx[:, -k:] += recv[:, -k:]
+        return dx, None, None
+
+
+def halo_exchange_grad(x: torch.Tensor, group: Optional[dist.ProcessGroup],
+                       halo: int = 1) -> torch.Tensor:
+    """:func:`halo_exchange` whose backward returns each halo row's
+    cotangent to the rank that owns the row (added into its first or last
+    rows); the image edges' zero rows take none."""
+    return _HaloExchange.apply(x, group, halo)
+
+
 def sharded_conv3x3_rows(
     kernel_apply: Callable[[torch.Tensor], torch.Tensor],
     group: Optional[dist.ProcessGroup],
@@ -88,3 +125,23 @@ def sharded_conv3x3_rows(
         return kernel_apply(halo_exchange(x_local, group, halo=1))[:, 1:-1]
 
     return local_fn
+
+
+def spatial_sharded_forward(model, mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The module path's eval forward on row shards, the counterpart of the
+    JAX package's GSPMD-partitioned ``spatial_sharded_forward``: this rank's
+    shard (:meth:`..mesh.Mesh.shard`: its samples, its rows) -> the
+    probabilities of its rows. Each 3x3 conv of the composed modules takes
+    a 1-row halo from the neighbour shards; pool, transpose-up, concat and
+    the head are row-local. Where the model cannot take the shards
+    (:meth:`..models.unet.UNet.runs_on_row_shards`: a height that does not
+    survive every pool, or K8 blocks) the rank runs the whole images of its
+    samples, gathered from the row's ranks, and keeps its rows."""
+
+    def forward(x_local: torch.Tensor) -> torch.Tensor:
+        if model.runs_on_row_shards(x_local.shape[1]):
+            return model(x_local, spatial_group=mesh.spatial_group)
+        whole = model(mesh.gather_rows(x_local))
+        return whole[:, mesh.row_slice(whole.shape[1])]
+
+    return forward

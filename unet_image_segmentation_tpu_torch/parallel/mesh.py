@@ -16,7 +16,8 @@ ranks and the groups the collectives run over:
   ``data_group``, over which that step's metrics are reduced; ``group``
   names the whole mesh (the BatchNorm sums and the gradients);
 * :meth:`Mesh.gather` puts every rank's shard back together on every rank,
-  :meth:`Mesh.gather_rows` the rows of a data row's ranks.
+  :meth:`Mesh.gather_rows` the rows of a data row's ranks (under autograd,
+  each rank's rows taking their slice of the cotangent).
 
 In one process (no process group) the mesh is (1, 1) and has no groups; a
 group of one rank is None too.
@@ -87,14 +88,29 @@ class Mesh:
     def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
         """The rows of this rank's data row put back together: the whole
         images of its samples, on each of the row's ranks (one
-        ``all_reduce`` of a zeroed tensor over the spatial group)."""
+        ``all_reduce`` of a zeroed tensor over the spatial group).
+
+        Differentiable: every rank of the row computes the same loss from
+        the gathered rows, so a rank's rows take the cotangent of their own
+        slice, and no cotangent crosses ranks."""
         if self.spatial_group is None:
             return local
-        h = local.shape[1] * self.shape["spatial"]
+        return _GatherRows.apply(local, self)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh):
+        h = local.shape[1] * mesh.shape["spatial"]
+        ctx.rows = mesh.row_slice(h)
         out = local.new_zeros((local.shape[0], h, *local.shape[2:]))
-        out[:, self.row_slice(h)] = local
-        dist.all_reduce(out, group=self.spatial_group)
+        out[:, ctx.rows] = local
+        dist.all_reduce(out, group=mesh.spatial_group)
         return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.rows], None
 
 
 def create_mesh(data: int = -1, spatial: int = 1) -> Mesh:

@@ -11,15 +11,17 @@ With a mesh (:func:`.parallel.mesh.create_mesh`, one process a rank)
 every rank passes the whole batch and gets the whole answer back, as the
 JAX ``StreamingPredictor(mesh=...)`` is called: each rank preprocesses its
 samples, runs its rows of the resized input through the row-sharded
-serving graph (:func:`.serving.build_serving_forward_sharded`), and the
-probability rows are gathered over the mesh before they are resized back.
+serving graph (:func:`.serving.build_serving_forward_sharded`) or, for a
+module-path ``Predictor`` (no serving graph), through the composed
+modules' row-sharded eval forward
+(:func:`.parallel.halo.spatial_sharded_forward`, the counterpart of GSPMD
+partitioning the JAX pipeline), and the probability rows are gathered over
+the mesh before they are resized back.
 
 Departures from the JAX package, none of them a quiet change of graph: a
 pending ``quantize='int8'`` that fails to build raises (JAX warns and keeps
 the float graph); a mesh with a pending int8 ``Predictor`` raises (JAX
-serves the float graph); a mesh needs the serving graph
-(``use_pallas=True``), as PyTorch has no counterpart of GSPMD
-partitioning the module path.
+serves the float graph).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.profiler import record_function
 
 from unet_image_segmentation_tpu_torch.inference import Predictor
 from unet_image_segmentation_tpu_torch.ops.preprocess import postprocess_probs, preprocess_frames
+from unet_image_segmentation_tpu_torch.parallel.halo import spatial_sharded_forward
 from unet_image_segmentation_tpu_torch.parallel.mesh import Mesh
 from unet_image_segmentation_tpu_torch.serving import build_serving_forward_sharded
 from unet_image_segmentation_tpu_torch.serving_quant import (
@@ -80,12 +83,12 @@ class StreamingPredictor:
             if self._quant_pending:
                 raise ValueError("a mesh serves the float graph: build the Predictor without "
                                  "quantize='int8'")
-            if predictor.serving_kwargs is None:
-                raise ValueError("a mesh needs the serving graph: build the Predictor with "
-                                 "use_pallas=True")
             mesh.batch_slice(batch_size)   # the batch must split over 'data'
-            forward = build_serving_forward_sharded(
-                predictor.variables, mesh, **predictor.serving_kwargs, device=self.device)
+            if predictor.serving_kwargs is None:
+                forward = torch.no_grad()(spatial_sharded_forward(predictor.model, mesh))
+            else:
+                forward = build_serving_forward_sharded(
+                    predictor.variables, mesh, **predictor.serving_kwargs, device=self.device)
         self._forward: Optional[Callable] = forward
 
     def _model_input(self, frames_u8: torch.Tensor) -> torch.Tensor:

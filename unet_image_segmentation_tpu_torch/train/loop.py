@@ -18,8 +18,11 @@ rank loads the same global batch and takes its shard; the steps reduce
 what crosses ranks (:mod:`.steps`), so every rank holds the same weights
 and metrics, and only rank 0 writes checkpoints, logs and ``meta.json``
 (and packs the dataset; the others read the same samples from the
-directory). Where the JAX package drops a row-sharded configuration to its
-GSPMD-XLA step, the port has no such path and raises.
+directory). A row-sharded configuration that the fused chains cannot train
+(the JAX package's GSPMD-XLA path) prints the JAX package's warning, drops
+``use_pallas`` and trains on the composed modules' row-sharded step
+(halo rows exchanged at every 3x3 conv, :mod:`.steps`); validation gathers
+each data row's rows and evaluates the whole images, as GSPMD's numbers are.
 
 Metric names mirror Keras logs: ``loss``, ``dice_coef``, ``mean_io_u``
 (Keras int-cast semantics), ``mean_io_u_thresh`` (> 0.5), and ``val_*``.
@@ -117,27 +120,31 @@ def config_mesh(cfg: Config, verbose: bool = True) -> Mesh:
 
 
 def _model_config(cfg: Config, mesh: Mesh):
-    """The model config the run trains, checked against the mesh: raises
-    where no path of the port trains it."""
+    """The model config the run trains on ``mesh`` (JAX ``fit``'s path
+    selection): ``use_pallas`` is dropped, with a warning, where the fused
+    chains cannot train the configuration on it."""
     mcfg, tcfg = cfg.model, cfg.train
     n_data, n_spatial = mesh.shape["data"], mesh.shape["spatial"]
     if tcfg.batch_size % n_data:
         raise ValueError(f"batch_size {tcfg.batch_size} not divisible by data-parallel degree "
                          f"{n_data}")
+    if mcfg.image_height % n_spatial:
+        raise ValueError(f"image_height {mcfg.image_height} not divisible by spatial degree "
+                         f"{n_spatial}")
     chain = mcfg.conv_type == "separable" and mcfg.use_batch_norm
-    if n_spatial > 1:
+    if mcfg.use_pallas and n_spatial > 1:
         depth = len(mcfg.filters)
-        ok = (mcfg.use_pallas and chain and sums_loss_supported(tcfg.loss, mcfg.num_classes)
-              and mcfg.image_height % (n_spatial * 2 ** depth) == 0)
-        if not ok:
-            raise ValueError(
-                f"row-sharded training (mesh spatial={n_spatial}) runs only through the fused "
-                "chains: it needs use_pallas, conv_type='separable', use_batch_norm, a "
-                "sums-form loss (dice family; + cce for a softmax head) and image_height % "
-                f"{n_spatial * 2 ** depth} == 0; this configuration (use_pallas="
-                f"{mcfg.use_pallas}, conv_type={mcfg.conv_type!r}, use_batch_norm="
-                f"{mcfg.use_batch_norm}, num_classes={mcfg.num_classes}, loss={tcfg.loss!r}, "
-                f"H={mcfg.image_height}) has no row-sharded path in the port")
+        if not (chain and sums_loss_supported(tcfg.loss, mcfg.num_classes)
+                and mcfg.image_height % (n_spatial * 2 ** depth) == 0):
+            print(
+                "WARNING: the row-sharded fused train step needs conv_type='separable', "
+                "use_batch_norm, a sums-form loss (dice family; + cce for a softmax head) and "
+                f"image_height % {n_spatial * 2 ** depth} == 0; this configuration (conv_type="
+                f"{mcfg.conv_type!r}, num_classes={mcfg.num_classes}, loss={tcfg.loss!r}, "
+                f"H={mcfg.image_height}) trains on the composed row-sharded path (the JAX "
+                "package's GSPMD-XLA path)."
+            )
+            return dataclasses.replace(mcfg, use_pallas=False)
     if mcfg.use_pallas and not chain:
         print(
             "WARNING: the fused training chains need conv_type='separable' and "

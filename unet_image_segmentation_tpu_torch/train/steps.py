@@ -22,10 +22,27 @@ On a mesh the model must carry the mesh's groups
 moments are the mesh batch's. The gradients are summed over the mesh and
 divided by the data degree (row shards' partials add up to their batch
 shard's gradient, equal batch shards average to the global batch's); the
-loss is averaged. Row-sharded (spatial > 1) steps need the sums contract:
-the per-sample head sums are summed over the spatial group with the
-identity cotangent before the loss, and the metrics are reduced over the
-data group only.
+loss is averaged. A row-sharded (spatial > 1) step computes what the
+unsharded step computes, as the JAX package's GSPMD-partitioned step does:
+
+* a loss with a sums form (the dice family; + cce for a softmax head)
+  takes the per-sample head sums of this rank's rows (the fused chains'
+  or the composed head's), summed over the spatial group with the
+  identity cotangent;
+* any other loss (bce) takes its value and the metrics from the
+  probabilities gathered over the spatial group
+  (:meth:`..parallel.mesh.Mesh.gather_rows`, whose backward keeps this
+  rank's rows);
+* where the model cannot take the row shards
+  (:meth:`..models.unet.UNet.runs_on_row_shards`: a local height that
+  does not survive every pool, or a ``use_pallas`` model outside the
+  fused chains, whose K8 takes whole images) each data row's images are
+  gathered first and run whole on every rank of the row, the dropout
+  seeds folded with the data index only; the gradient sum is then divided
+  by the whole mesh's size.
+
+The metrics of a row-sharded step are the data row's already and are
+reduced over the data group only.
 """
 
 from __future__ import annotations
@@ -102,11 +119,13 @@ def uses_head_sums(model: UNet, loss_name: str) -> bool:
     )
 
 
-def draw_dropout_seeds(model: UNet, generator: torch.Generator, mesh: Optional[Mesh] = None):
+def draw_dropout_seeds(model: UNet, generator: torch.Generator, mesh: Optional[Mesh] = None,
+                       fold_rows: bool = True):
     """One int32 seed per dropout site (index = site), or None without
     dropout. On a mesh every rank draws the same seeds, then folds in its
     data index, and on row shards its spatial index (JAX ``fold_in`` of the
-    axis indices), so each shard's masks differ."""
+    axis indices), so each shard's masks differ. ``fold_rows=False``: the
+    row's ranks run the same whole images and keep the same seeds."""
     if model.dropout_rate <= 0.0:
         return None
     depth = len(model.filters)
@@ -114,13 +133,13 @@ def draw_dropout_seeds(model: UNet, generator: torch.Generator, mesh: Optional[M
                           dtype=torch.int64).tolist()
     if mesh is not None and mesh.size > 1:
         seeds = [fold_seed(s, mesh.data_index) for s in seeds]
-        if mesh.shape["spatial"] > 1:
+        if mesh.shape["spatial"] > 1 and fold_rows:
             seeds = [fold_seed(s, mesh.spatial_index) for s in seeds]
     return seeds
 
 
-def _check_mesh_model(model: UNet, mesh: Optional[Mesh], loss_name: str) -> bool:
-    """Raise where ``model`` cannot take a step on ``mesh``; True on row
+def _check_mesh_model(model: UNet, mesh: Optional[Mesh]) -> bool:
+    """Raise where ``model`` does not carry ``mesh``'s groups; True on row
     shards."""
     if mesh is None or mesh.size == 1:
         return False
@@ -131,14 +150,9 @@ def _check_mesh_model(model: UNet, mesh: Optional[Mesh], loss_name: str) -> bool
         if model.groups.spatial is not None:
             raise ValueError("the model has a spatial group but the mesh no row shards")
         return False
-    # row shards: per-sample loss and metric sums are partial per shard and
-    # are summed before any nonlinear use, so the step needs the sums contract
-    if not sums_loss_supported(loss_name, model.num_classes):
-        raise ValueError("the row-sharded train step needs a sums-form loss for this head (got "
-                         f"num_classes={model.num_classes}, loss={loss_name!r})")
-    if not uses_head_sums(model, loss_name) or model.groups.spatial is not mesh.spatial_group:
-        raise ValueError("the row-sharded train step needs use_pallas, BatchNorm, separable "
-                         "blocks and model.set_groups(mesh.group, mesh.spatial_group)")
+    if model.groups.spatial is not mesh.spatial_group:
+        raise ValueError("the row-sharded train step needs "
+                         "model.set_groups(mesh.group, mesh.spatial_group)")
     return True
 
 
@@ -151,12 +165,13 @@ def _reduce_metrics(metrics: Metrics, group, ranks: int) -> Metrics:
             for k, v in metrics.items()}
 
 
-def _sum_gradients(params, mesh: Mesh) -> None:
+def _sum_gradients(params, mesh: Mesh, ranks: int) -> None:
     """Every gradient summed over the mesh in one collective, divided by
-    the data degree."""
+    ``ranks``: the data degree, or the mesh's size where every rank of a
+    data row computed the same whole images' gradient."""
     grads = [p.grad for p in params if p.grad is not None]
     flat = all_sum(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
-    flat /= mesh.shape["data"]
+    flat /= ranks
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -170,25 +185,34 @@ def make_train_step(
     On a mesh ``images`` and ``masks`` are this rank's shard
     (:meth:`..parallel.mesh.Mesh.shard`) and the metrics the global batch's."""
     loss_core = get_loss(loss_name)
-    rows = _check_mesh_model(model, mesh, loss_name)
+    rows = _check_mesh_model(model, mesh)
     sharded = mesh is not None and mesh.size > 1
-    head_sums = rows or uses_head_sums(model, loss_name)
-    n_spatial = mesh.shape["spatial"] if rows else 1
+    sums_form = sums_loss_supported(loss_name, model.num_classes)
 
     def step(state: TrainState, images: torch.Tensor, masks: torch.Tensor) -> Metrics:
-        seeds = draw_dropout_seeds(model, state.generator, mesh)
+        # a shard the model cannot take on rows: the row's whole images
+        whole = rows and not model.runs_on_row_shards(images.shape[1], train=True)
+        if whole:
+            images, masks = mesh.gather_rows(images), mesh.gather_rows(masks)
+        on_rows = rows and not whole
+        head_sums = sums_form if on_rows else uses_head_sums(model, loss_name)
+        seeds = draw_dropout_seeds(model, state.generator, mesh, fold_rows=not whole)
+        kw = dict(train=True, dropout_seeds=seeds,
+                  spatial_group=mesh.spatial_group if on_rows else None)
         state.optimizer.zero_grad(set_to_none=True)
         if head_sums:
-            out = model(images, train=True, head_targets=masks, dropout_seeds=seeds)
-            if rows:
+            out = model(images, head_targets=masks, **kw)
+            if on_rows:
                 out = {k: replicated_sum(v, mesh.spatial_group) for k, v in out.items()}
             loss = loss_from_sums(loss_name, out)
         else:
-            out = model(images, train=True, dropout_seeds=seeds)
+            out = model(images, **kw)
+            if on_rows:   # no sums form: the loss of the gathered rows
+                out, masks = mesh.gather_rows(out), mesh.gather_rows(masks)
             loss = loss_core(prep_masks(masks, model.num_classes), out)
         loss.backward()
         if sharded:
-            _sum_gradients(model.parameters(), mesh)
+            _sum_gradients(model.parameters(), mesh, mesh.size if whole else mesh.shape["data"])
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -198,9 +222,9 @@ def make_train_step(
                 bundle = metric_bundle_sums_mc({k: v.detach() for k, v in out.items()})
             else:
                 bundle = metric_bundle_sums({k: v.detach() for k, v in out.items()}, masks,
-                                            n_spatial)
+                                            mesh.shape["spatial"] if on_rows else 1)
             metrics = {"loss": loss.detach(), **bundle}
-            if rows:   # the sums are the row's already: reduce over the data group
+            if rows:   # the row's ranks hold the same numbers: reduce over the data group
                 metrics = _reduce_metrics(metrics, mesh.data_group, mesh.shape["data"])
             elif sharded:
                 metrics = _reduce_metrics(metrics, mesh.group, mesh.size)
@@ -218,8 +242,9 @@ def make_eval_step(
     On a mesh ``images`` and ``masks`` are this rank's shard and the metrics
     are reduced over the data group. On row shards each rank first gathers
     its data row's rows and evaluates the whole images of its batch shard
-    through the module path (K8 per block): the JAX package evaluates there
-    through the XLA module under GSPMD, which PyTorch does not have."""
+    through the module path (K8 per block, which takes whole images only);
+    the JAX package evaluates there through the XLA module under GSPMD,
+    whose numbers are the whole images'."""
     loss_core = get_loss(loss_name)
     sharded = mesh is not None and mesh.size > 1
 
